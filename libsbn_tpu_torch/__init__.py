@@ -1,8 +1,9 @@
 """libsbn_tpu_torch: libsbn_tpu ported to PyTorch and CUDA.
 
 The second package beside ``libsbn_tpu`` (the JAX reference, which it never
-imports): the same host layer (parsing, site patterns, schedules) and the
-same JC69 likelihood and branch-gradient path, with hand-written CUDA
+imports): the same host layer (parsing, site patterns, schedules, the SBN
+support and sampler), the same JC69 likelihood, branch- and shape-gradient
+path, and the VBPI trainer (``vi.JitVBPI``), with hand-written CUDA
 kernels for NVIDIA Hopper (``csrc/``, built with nvcc at first use) and
 plain PyTorch twins of those kernels that run on the CPU.
 

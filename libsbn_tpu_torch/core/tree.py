@@ -12,7 +12,7 @@ from typing import List, Sequence
 
 import numpy as np
 
-from .topology import Topology
+from .topology import Topology, topology_counter
 
 
 class Tree:
@@ -60,6 +60,9 @@ class TreeCollection:
         return [
             self.tag_taxon_map[(i, 1)] for i in range(len(self.tag_taxon_map))
         ]
+
+    def topology_counter(self):
+        return topology_counter([t.topology for t in self.trees])
 
     def branch_length_matrix(self) -> np.ndarray:
         """(trees, nodes) matrix of branch lengths — the dense runtime form."""

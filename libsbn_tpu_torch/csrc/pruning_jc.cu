@@ -1,5 +1,6 @@
-// JC69 pruning kernels for NVIDIA Hopper (sm_90a): log-likelihood and the
-// linear-time branch gradient over a batch of trees.
+// JC69 pruning kernels for NVIDIA Hopper (sm_90a): log-likelihood, the
+// linear-time branch gradient, and the likelihood's derivative with respect
+// to the exp factors, over a batch of trees.
 //
 // Built by libsbn_tpu_torch/ops/_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -19,8 +20,12 @@
 //   weights       (P,)              pattern multiplicities
 //   E, U          (B, N1, 4K, P)    scratch: evolved and upper partials
 //   ES            (B, N1, K, P)     scratch: per-category row sums of E
+//   M             (B, S, 4K, P)     scratch (K3): pre-apply partials of the
+//                                   internal nodes, at E's scale
 //   ll_part       (B, T)            per (tree, pattern tile) LL partials
 //   grad_part     (B, T, N1)        per (tree, pattern tile) edge gradients
+//   dprops_part   (B, T, K)         per (tree, pattern tile) d ll / d props
+//   dea_part      (B, T, N1 * K)    per (tree, pattern tile) d ll / d ea
 // with T = ceil(P / kThreads); the caller sums the partials over T.
 //
 // The arithmetic follows libsbn_tpu/ops/pruning_pallas_jc.py step for step:
@@ -53,35 +58,38 @@ __device__ __forceinline__ T warp_sum(T v) {
 }
 
 // Shared memory: the tree's schedule row and exp factors, the category
-// tables, and per-warp partial sums (LL and one per node for gradients).
+// tables, and per-warp partial sums: up to K values at the root (the LL, or
+// d ll / d props) and G values per node (the branch gradient, G = 1, or
+// d ll / d e per category, G = K).
 template <typename T>
 struct Shared {
   T* ea;     // N1 * K
   T* rates;  // K
   T* props;  // K
-  T* gsum;   // kWarps * N1
-  T* lsum;   // kWarps
+  T* gsum;   // kWarps * N1 * G
+  T* lsum;   // kWarps * K
   int* pc;   // 3 * S
 };
 
 template <typename T>
-__host__ __device__ size_t shared_bytes(int S, int N1, int K) {
-  return sizeof(T) * (size_t(N1) * K + 2 * K + size_t(kWarps) * N1 + kWarps) +
+__host__ __device__ size_t shared_bytes(int S, int N1, int K, int G) {
+  return sizeof(T) * (size_t(N1) * K + 2 * K + size_t(kWarps) * N1 * G +
+                      size_t(kWarps) * K) +
          sizeof(int) * 3 * size_t(S);
 }
 
 template <typename T>
 __device__ Shared<T> load_shared(unsigned char* raw, const int* post_children,
                                  const T* ea, const T* rates, const T* props,
-                                 int b, int S, int N1, int K) {
+                                 int b, int S, int N1, int K, int G) {
   Shared<T> sh;
   T* f = reinterpret_cast<T*>(raw);
   sh.ea = f;
   sh.rates = sh.ea + N1 * K;
   sh.props = sh.rates + K;
   sh.gsum = sh.props + K;
-  sh.lsum = sh.gsum + kWarps * N1;
-  sh.pc = reinterpret_cast<int*>(sh.lsum + kWarps);
+  sh.lsum = sh.gsum + kWarps * N1 * G;
+  sh.pc = reinterpret_cast<int*>(sh.lsum + kWarps * K);
   const int tid = threadIdx.x;
   for (int i = tid; i < 3 * S; i += kThreads) {
     sh.pc[i] = post_children[size_t(b) * 3 * S + i];
@@ -93,17 +101,20 @@ __device__ Shared<T> load_shared(unsigned char* raw, const int* post_children,
     sh.rates[i] = rates == nullptr ? T(0) : rates[i];
     sh.props[i] = props[i];
   }
-  for (int i = tid; i < kWarps * N1; i += kThreads) sh.gsum[i] = T(0);
+  for (int i = tid; i < kWarps * N1 * G; i += kThreads) sh.gsum[i] = T(0);
   __syncthreads();
   return sh;
 }
 
 // The forward pass for one pattern column: ones slot, leaves, then the S
-// combine steps with alternate-step rescaling. Eb/ESb/tips point at this
-// thread's pattern; consecutive rows are P apart. Returns the log scale.
-template <typename T, int K>
+// combine steps with alternate-step rescaling. Eb/ESb/Mb/tips point at this
+// thread's pattern; consecutive rows are P apart. With kWriteM it also
+// stores each internal node's pre-apply product M at E's scale (prod * inv
+// on rescaled steps, prod otherwise); the leaves' M is their tip partial,
+// which the upper pass reads from tips. Returns the log scale.
+template <typename T, int K, bool kWriteM>
 __device__ T forward_pass(const Shared<T>& sh, const T* tips, T* Eb, T* ESb,
-                          int L, int S, int N1, int P) {
+                          T* Mb, int L, int S, int N1, int P) {
   constexpr int R = 4 * K;
   const T quarter = T(0.25);
   const size_t sP = size_t(P);
@@ -155,6 +166,11 @@ __device__ T forward_pass(const Shared<T>& sh, const T* tips, T* Eb, T* ESb,
       }
       ES_AT(node, k) = do_scale ? rs[k] * inv : rs[k];
     }
+    if constexpr (kWriteM) {
+      for (int r = 0; r < R; ++r) {
+        Mb[(size_t(s) * R + r) * sP] = do_scale ? prod[r] * inv : prod[r];
+      }
+    }
   }
   return logscale;
 #undef E_AT
@@ -205,12 +221,13 @@ jc69_ll_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
   const int b = blockIdx.y;
   const int p = blockIdx.x * kThreads + threadIdx.x;
   Shared<T> sh = load_shared<T>(smem, post_children, ea, nullptr, props, b, S,
-                                N1, K);
+                                N1, K, 1);
   T ll = T(0);
   if (p < P) {
     T* Eb = E + size_t(b) * N1 * 4 * K * size_t(P) + p;
     T* ESb = ES + size_t(b) * N1 * K * size_t(P) + p;
-    const T logscale = forward_pass<T, K>(sh, tips + p, Eb, ESb, L, S, N1, P);
+    const T logscale =
+        forward_pass<T, K, false>(sh, tips + p, Eb, ESb, nullptr, L, S, N1, P);
     const T site = root_site<T, K>(sh, ESb, L + S - 1, P);
     ll = weights[p] * (log_t(site) + logscale);
   }
@@ -218,64 +235,87 @@ jc69_ll_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
 }
 
 // ---------------------------------------------------------------------------
-// K1: LL and the branch gradient d LL / d b_e for every edge, in one pass.
-// Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas_jc.py::_kernel.
-// Bound on this card: device-memory traffic of E, ES and U (the forward
-// pass as in K2, then each upward step reads U of the node, three child
-// slabs of E and their ES, and writes three U slabs), and the dependent
-// loads along both node loops. The design does nothing about either yet:
-// one thread per (tree, pattern), scratch in device memory; per-edge sums
-// over the block's patterns go warp shuffle -> shared memory, so the
+// The forward pass, then the upper pass: the body of K1 (kDea = false) and
+// K3 (kDea = true). Both run the forward pass, set U[root] = props / 4 and
+// walk the internal nodes from the root down, evolving U[node] up through
+// the node's edge and forming each child's upper partial u from it and the
+// two siblings' E (one shared denominator d = u . E per node). They differ
+// in what they emit:
+//   K1: at the root the LL; per child edge the branch gradient
+//       w r_k [(1/3) S_u,k S_E,k - (4/3) d_k] / denom (G = 1 value);
+//   K3: at the root d ll / d props_k = sum_p (w / site) (1/4) S_E,k[root];
+//       per child edge d ll / d e_k = rowsum4(uw M)_k - (1/4) rowsum4(uw)_k
+//       S_E,k with uw = u w / denom and M the child's pre-apply partial
+//       (G = K values); the root and ones-slot rows are zero.
+// Per-edge sums over the block's patterns go warp shuffle -> shared memory
+// (each non-root node is a child exactly once, so each warp writes its slot
+// once; the ones slot's is overwritten and zeroed at the end), so the
 // partials are deterministic (no atomics).
 // ---------------------------------------------------------------------------
-template <typename T, int K>
-__global__ void __launch_bounds__(kThreads)
-jc69_ll_grad_kernel(const int* __restrict__ post_children,
-                    const T* __restrict__ ea, const T* __restrict__ rates,
-                    const T* __restrict__ props, const T* __restrict__ tips,
-                    const T* __restrict__ weights, T* __restrict__ E,
-                    T* __restrict__ ES, T* __restrict__ U,
-                    T* __restrict__ ll_part, T* __restrict__ grad_part, int L,
-                    int S, int N1, int P) {
+template <typename T, int K, bool kDea>
+__device__ __forceinline__ void forward_and_upper(
+    unsigned char* smem, const int* __restrict__ post_children, const T* __restrict__ ea,
+    const T* __restrict__ rates, const T* __restrict__ props,
+    const T* __restrict__ tips, const T* __restrict__ weights, T* __restrict__ E,
+    T* __restrict__ ES, T* __restrict__ M, T* __restrict__ U,
+    T* __restrict__ root_part, T* __restrict__ edge_part, int L, int S, int N1,
+    int P) {
   constexpr int R = 4 * K;
-  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int G = kDea ? K : 1;  // values per edge
+  constexpr int H = kDea ? K : 1;  // values at the root
   const int b = blockIdx.y;
   const int p = blockIdx.x * kThreads + threadIdx.x;
   const bool active = p < P;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int root = L + S - 1;
+  const int ones = N1 - 1;
   const size_t sP = size_t(P);
   const T quarter = T(0.25);
   const T tiny = T(1e-30);
   const T third = T(1.0 / 3.0);
   const T four_thirds = T(4.0 / 3.0);
   Shared<T> sh = load_shared<T>(smem, post_children, ea, rates, props, b, S,
-                                N1, K);
+                                N1, K, G);
 
   T* Eb = E + size_t(b) * N1 * R * sP + p;
   T* ESb = ES + size_t(b) * N1 * K * sP + p;
   T* Ub = U + size_t(b) * N1 * R * sP + p;
+  T* Mb = kDea ? M + size_t(b) * S * R * sP + p : nullptr;
+  const T* tp = tips + p;
 #define E_AT(n, r) Eb[(size_t(n) * R + (r)) * sP]
 #define ES_AT(n, k) ESb[(size_t(n) * K + (k)) * sP]
 #define U_AT(n, r) Ub[(size_t(n) * R + (r)) * sP]
 
-  T ll = T(0);
+  T hv[H];
+  for (int h = 0; h < H; ++h) hv[h] = T(0);
   const T w = active ? weights[p] : T(0);
   if (active) {
-    const T logscale = forward_pass<T, K>(sh, tips + p, Eb, ESb, L, S, N1, P);
+    const T logscale = forward_pass<T, K, kDea>(sh, tp, Eb, ESb, Mb, L, S, N1, P);
     const T site = root_site<T, K>(sh, ESb, root, P);
-    ll = w * (log_t(site) + logscale);
+    if constexpr (kDea) {
+      const T w_over_site = w / site;
+      for (int k = 0; k < K; ++k) hv[k] = (quarter * ES_AT(root, k)) * w_over_site;
+    } else {
+      hv[0] = w * (log_t(site) + logscale);
+    }
     // U[root] = props_k / 4 (the root frequencies folded in).
     for (int k = 0; k < K; ++k) {
       for (int i = 0; i < 4; ++i) U_AT(root, 4 * k + i) = sh.props[k] * quarter;
     }
+  }
+  for (int h = 0; h < H; ++h) {
+    const T v = warp_sum(hv[h]);
+    if (lane == 0) sh.lsum[warp * H + h] = v;
   }
 
   for (int t = 0; t < S; ++t) {
     const int node = root - t;
     const int s = node - L;
     const int kid[3] = {sh.pc[3 * s], sh.pc[3 * s + 1], sh.pc[3 * s + 2]};
-    T g[3] = {T(0), T(0), T(0)};
+    T g[3][G];
+    for (int j = 0; j < 3; ++j) {
+      for (int i = 0; i < G; ++i) g[j][i] = T(0);
+    }
     if (active) {
       // P^T U[node] = P U[node] (JC69 is symmetric). For K = 1 the rows
       // of U sum to exactly 1, so the row-sum operand is the scalar 1.
@@ -313,35 +353,113 @@ jc69_ll_grad_kernel(const int* __restrict__ post_children,
           const T mab = j == 0 ? e1[r] * e2[r] : (j == 1 ? e0[r] * e2[r] : e0[r] * e1[r]);
           u[r] = ev[r] * mab;
         }
-        T num = T(0), su = T(0);
-        for (int k = 0; k < K; ++k) {
-          const T su_k = ((u[4 * k] + u[4 * k + 1]) + u[4 * k + 2]) + u[4 * k + 3];
-          su = k == 0 ? su_k : su + su_k;
-          num += sh.rates[k] * (third * (su_k * ES_AT(kid[j], k)) - four_thirds * d[k]);
+        T su = T(0);
+        if constexpr (kDea) {
+          // The child's M: its tip partial for a leaf (every category),
+          // ones for the ones slot, the stored M for an internal node.
+          const int c = kid[j];
+          for (int k = 0; k < K; ++k) {
+            T uw[4], um[4];
+            for (int i = 0; i < 4; ++i) {
+              const int r = 4 * k + i;
+              const T m = c < L ? tp[(size_t(c) * 4 + i) * sP]
+                                : (c == ones ? T(1) : Mb[(size_t(c - L) * R + r) * sP]);
+              uw[i] = u[r] * winv;
+              um[i] = uw[i] * m;
+            }
+            const T suw = ((uw[0] + uw[1]) + uw[2]) + uw[3];
+            const T su_k = ((u[4 * k] + u[4 * k + 1]) + u[4 * k + 2]) + u[4 * k + 3];
+            su = k == 0 ? su_k : su + su_k;
+            g[j][k] = (((um[0] + um[1]) + um[2]) + um[3]) - quarter * (suw * ES_AT(c, k));
+          }
+        } else {
+          T num = T(0);
+          for (int k = 0; k < K; ++k) {
+            const T su_k = ((u[4 * k] + u[4 * k + 1]) + u[4 * k + 2]) + u[4 * k + 3];
+            su = k == 0 ? su_k : su + su_k;
+            num += sh.rates[k] * (third * (su_k * ES_AT(kid[j], k)) - four_thirds * d[k]);
+          }
+          g[j][0] = winv * num;
         }
-        g[j] = winv * num;
         const T sc = su > T(0) ? su : T(1);
         for (int r = 0; r < R; ++r) U_AT(kid[j], r) = u[r] / sc;
       }
     }
-    // Each non-root node is a child exactly once, so each warp writes its
-    // own slot once (the ones slot is overwritten, and never read).
     for (int j = 0; j < 3; ++j) {
-      const T v = warp_sum(g[j]);
-      if (lane == 0) sh.gsum[warp * N1 + kid[j]] = v;
+      for (int i = 0; i < G; ++i) {
+        const T v = warp_sum(g[j][i]);
+        if (lane == 0) sh.gsum[(warp * N1 + kid[j]) * G + i] = v;
+      }
     }
   }
 #undef E_AT
 #undef ES_AT
 #undef U_AT
 
-  write_ll_partial(sh, ll, ll_part, b);  // ends in __syncthreads
-  T* out = grad_part + (size_t(b) * gridDim.x + blockIdx.x) * N1;
-  for (int n = threadIdx.x; n < N1; n += kThreads) {
-    T acc = sh.gsum[n];
-    for (int v = 1; v < kWarps; ++v) acc += sh.gsum[v * N1 + n];
-    out[n] = acc;
+  __syncthreads();
+  const size_t blk = size_t(b) * gridDim.x + blockIdx.x;
+  for (int h = threadIdx.x; h < H; h += kThreads) {
+    T acc = sh.lsum[h];
+    for (int v = 1; v < kWarps; ++v) acc += sh.lsum[v * H + h];
+    root_part[blk * H + h] = acc;
   }
+  for (int i = threadIdx.x; i < N1 * G; i += kThreads) {
+    const int n = i / G;
+    T acc = T(0);
+    if (n != root && n != ones) {
+      acc = sh.gsum[i];
+      for (int v = 1; v < kWarps; ++v) acc += sh.gsum[v * N1 * G + i];
+    }
+    edge_part[blk * N1 * G + i] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1: LL and the branch gradient d LL / d b_e for every edge, in one pass.
+// Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas_jc.py::_kernel.
+// Bound on this card: device-memory traffic of E, ES and U (the forward
+// pass as in K2, then each upward step reads U of the node, three child
+// slabs of E and their ES, and writes three U slabs), and the dependent
+// loads along both node loops. The design does nothing about either yet:
+// one thread per (tree, pattern), scratch in device memory.
+// ---------------------------------------------------------------------------
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+jc69_ll_grad_kernel(const int* __restrict__ post_children,
+                    const T* __restrict__ ea, const T* __restrict__ rates,
+                    const T* __restrict__ props, const T* __restrict__ tips,
+                    const T* __restrict__ weights, T* __restrict__ E,
+                    T* __restrict__ ES, T* __restrict__ U,
+                    T* __restrict__ ll_part, T* __restrict__ grad_part, int L,
+                    int S, int N1, int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  forward_and_upper<T, K, false>(smem, post_children, ea, rates, props, tips, weights, E, ES,
+                                 nullptr, U, ll_part, grad_part, L, S, N1, P);
+}
+
+// ---------------------------------------------------------------------------
+// K3: d ll / d e per (node, category) and d ll / d props, the backward half
+// of the LL's custom VJP (its forward half is K2). Replaces the TPU kernel
+// libsbn_tpu/ops/pruning_pallas_jc.py::_bwd_dea_kernel. It recomputes the
+// forward pass, keeping M (remat: the caller saves only the inputs).
+// Bound on this card: device-memory traffic, as K1 plus M (written once in
+// the forward pass and read once in the upper pass, about 1.3x K1's values
+// per (tree, pattern)), and the dependent loads along both node loops. The
+// design does nothing about either yet: one thread per (tree, pattern),
+// scratch in device memory; M is kept for internal nodes only (a leaf's M
+// is read from tips).
+// ---------------------------------------------------------------------------
+template <typename T, int K>
+__global__ void __launch_bounds__(kThreads)
+jc69_dea_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+                const T* __restrict__ props, const T* __restrict__ tips,
+                const T* __restrict__ weights, T* __restrict__ E,
+                T* __restrict__ ES, T* __restrict__ M, T* __restrict__ U,
+                T* __restrict__ dprops_part, T* __restrict__ dea_part, int L,
+                int S, int N1, int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  forward_and_upper<T, K, true>(smem, post_children, ea, nullptr, props, tips, weights, E, ES, M,
+                                U, dprops_part, dea_part, L, S, N1, P);
 }
 
 template <typename Kern>
@@ -356,7 +474,7 @@ cudaError_t prepare(Kern kernel, size_t smem) {
 template <typename T, int K>
 int launch_ll(const int* pc, const T* ea, const T* props, const T* tips, const T* w, T* E,
               T* ES, T* ll_part, int B, int L, int S, int N1, int P, cudaStream_t st) {
-  const size_t smem = shared_bytes<T>(S, N1, K);
+  const size_t smem = shared_bytes<T>(S, N1, K, 1);
   cudaError_t err = prepare(jc69_ll_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
@@ -369,12 +487,25 @@ template <typename T, int K>
 int launch_ll_grad(const int* pc, const T* ea, const T* rates, const T* props, const T* tips,
                    const T* w, T* E, T* ES, T* U, T* ll_part, T* grad_part, int B, int L,
                    int S, int N1, int P, cudaStream_t st) {
-  const size_t smem = shared_bytes<T>(S, N1, K);
+  const size_t smem = shared_bytes<T>(S, N1, K, 1);
   cudaError_t err = prepare(jc69_ll_grad_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
   jc69_ll_grad_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, ea, rates, props, tips, w, E, ES,
                                                           U, ll_part, grad_part, L, S, N1, P);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int K>
+int launch_dea(const int* pc, const T* ea, const T* props, const T* tips, const T* w, T* E,
+               T* ES, T* M, T* U, T* dprops_part, T* dea_part, int B, int L, int S, int N1,
+               int P, cudaStream_t st) {
+  const size_t smem = shared_bytes<T>(S, N1, K, K);
+  cudaError_t err = prepare(jc69_dea_kernel<T, K>, smem);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((P + kThreads - 1) / kThreads, B);
+  jc69_dea_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, ea, props, tips, w, E, ES, M, U,
+                                                      dprops_part, dea_part, L, S, N1, P);
   return int(cudaGetLastError());
 }
 
@@ -422,6 +553,21 @@ int ll_grad_entry(const void* pc, const void* ea, const void* rates, const void*
 #undef LSBN_CALL
 }
 
+template <typename T>
+int dea_entry(const void* pc, const void* ea, const void* props, const void* tips, const void* w,
+              void* E, void* ES, void* M, void* U, void* dprops_part, void* dea_part, int B,
+              int L, int S, int N1, int K, int P, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+#define LSBN_CALL(KK)                                                                       \
+  launch_dea<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),                \
+                    static_cast<const T*>(props), static_cast<const T*>(tips),              \
+                    static_cast<const T*>(w), static_cast<T*>(E), static_cast<T*>(ES),      \
+                    static_cast<T*>(M), static_cast<T*>(U), static_cast<T*>(dprops_part),   \
+                    static_cast<T*>(dea_part), B, L, S, N1, P, st)
+  LSBN_DISPATCH_K(K, LSBN_CALL)
+#undef LSBN_CALL
+}
+
 }  // namespace
 
 extern "C" {
@@ -459,6 +605,20 @@ int lsbn_jc69_ll_grad_f64(const void* pc, const void* ea, const void* rates, con
                           int P, void* stream) {
   return ll_grad_entry<double>(pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part, B,
                                L, S, N1, K, P, stream);
+}
+
+int lsbn_jc69_dea_f32(const void* pc, const void* ea, const void* props, const void* tips,
+                      const void* w, void* E, void* ES, void* M, void* U, void* dprops_part,
+                      void* dea_part, int B, int L, int S, int N1, int K, int P, void* stream) {
+  return dea_entry<float>(pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part, B, L, S,
+                          N1, K, P, stream);
+}
+
+int lsbn_jc69_dea_f64(const void* pc, const void* ea, const void* props, const void* tips,
+                      const void* w, void* E, void* ES, void* M, void* U, void* dprops_part,
+                      void* dea_part, int B, int L, int S, int N1, int K, int P, void* stream) {
+  return dea_entry<double>(pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part, B, L, S,
+                           N1, K, P, stream);
 }
 
 }  // extern "C"

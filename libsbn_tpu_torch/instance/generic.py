@@ -1,11 +1,13 @@
 """Generic instance: the user-facing orchestrator.
 
-The part of libsbn_tpu.instance.generic that reaches the likelihood (the
-reference's GenericSBNInstance, generic_sbn_instance.hpp, and its pybind
-bindings): load trees and an alignment, and prepare the likelihood engine
-on the device the caller names. SBN support, training and sampling
-(``process_loaded_trees``, ``train_simple_average``) are ROADMAP queue 1,
-items 4-5, and stay off this surface until then.
+The counterpart of libsbn_tpu.instance.generic (the reference's
+GenericSBNInstance, generic_sbn_instance.hpp, and its pybind bindings):
+load trees and an alignment, build the SBN support, train it by simple
+average, sample topologies, and prepare the likelihood engine on the
+device the caller names. ``sbn_parameters`` is a writable numpy array, as
+the reference's mutable view is. EM training, the probabilities of tree
+collections, CSV I/O and the per-tree parameter matrix are ROADMAP queue 1,
+item 5.
 """
 
 from __future__ import annotations
@@ -21,18 +23,31 @@ from ..io.fasta import Alignment
 from ..models.engine import PER_TREE_TODO, LikelihoodEngine
 from ..models.phylo_model import PhyloModelSpec, default_parameters
 from ..ops import schedule as schedule_ops
+from ..sbn import probability as sbn_probability
+from ..sbn import sampling
+from ..sbn.support import PSPIndexer
+
+EM_TODO = "EM training is not ported yet (ROADMAP queue 1, item 5)"
 
 
 class GenericSBNInstance:
-    collection_class = None  # set by subclasses
+    support_class = None  # set by subclasses
+    collection_class = None
+    rooted = True
 
     def __init__(self, name: str = "libsbn_tpu_torch"):
         self.name = name
         self.tree_collection = None
         self.alignment: Optional[Alignment] = None
+        self.topology_counter = {}
+        self.sbn_support = self.support_class()
+        self.sbn_parameters = np.zeros(0)
+        self.psp_indexer = PSPIndexer()
         self.engine: Optional[LikelihoodEngine] = None
         self.phylo_model_spec: Optional[PhyloModelSpec] = None
         self.phylo_model_params: Dict = {}
+        self._sampler: Optional[sampling.SBNSampler] = None
+        self._seed = 0
 
     # -- I/O ----------------------------------------------------------------
     def read_newick_file(self, path: str):
@@ -57,6 +72,51 @@ class GenericSBNInstance:
 
     def taxon_names(self) -> List[str]:
         return self.tree_collection.taxon_names()
+
+    # -- SBN support & training ---------------------------------------------
+    def process_loaded_trees(self):
+        self._check_trees_loaded()
+        self.topology_counter = self.tree_collection.topology_counter()
+        self.sbn_support = self.support_class(
+            self.topology_counter, self.tree_collection.taxon_names()
+        )
+        self.sbn_parameters = np.ones(self.sbn_support.gpcsp_count)
+        self.psp_indexer = self.sbn_support.build_psp_indexer()
+        self._sampler = None
+
+    def train_simple_average(self):
+        self._check_support()
+        tops = list(self.topology_counter.keys())
+        counts = np.asarray(
+            [self.topology_counter[t] for t in tops], dtype=np.float64
+        )
+        reps = self.sbn_support.dense_representations(tops)
+        # A writable numpy array, like the reference's mutable view
+        # (pylibsbn.cpp:28-48) that vip's optimizer writes through.
+        self.sbn_parameters = sbn_probability.simple_average(
+            reps, counts, self.sbn_support.gpcsp_count
+        ).numpy()
+        self._sampler = None
+
+    def train_expectation_maximization(self, *args, **kwargs):
+        raise NotImplementedError(EM_TODO)
+
+    # -- sampling ------------------------------------------------------------
+    def set_seed(self, seed: int):
+        self._seed = seed
+        if self._sampler is not None:
+            self._sampler.set_seed(seed)
+
+    def _get_sampler(self) -> sampling.SBNSampler:
+        if self._sampler is None:
+            self._sampler = sampling.SBNSampler(
+                self.sbn_support, self.sbn_parameters, self._seed
+            )
+        return self._sampler
+
+    def sample_topology(self):
+        self._check_support()
+        return self._get_sampler().sample_topology(self.rooted)
 
     # -- phylogenetic likelihood ---------------------------------------------
     def prepare_for_phylo_likelihood(
@@ -112,3 +172,9 @@ class GenericSBNInstance:
     def _check_trees_loaded(self):
         if self.tree_collection is None or not self.tree_collection.trees:
             raise RuntimeError("Please load some trees into your SBN instance.")
+
+    def _check_support(self):
+        if self.sbn_support.empty():
+            raise RuntimeError(
+                "Please call process_loaded_trees to prepare your SBN support."
+            )

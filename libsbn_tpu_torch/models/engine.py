@@ -3,13 +3,15 @@
 The counterpart of libsbn_tpu/models/engine.py for this slice. A whole tree
 collection evaluates in one kernel launch. On a CUDA device the engine
 launches the hand-written kernels of ops/pruning_jc.py (K1 for
-``branch_gradients``, K2 for ``log_likelihoods``) in float32 or float64; on
-the CPU it runs their plain PyTorch twins. (The JAX f64 engine ran its scan
-engine instead; here f64 on a card runs the f64 kernels.)
+``branch_gradients``, K2 for ``log_likelihoods``, K2 + K3 for the Weibull
+shape gradient) in float32 or float64; on the CPU it runs their plain
+PyTorch twins. (The JAX f64 engine ran its scan engine instead; here f64 on
+a card runs the f64 kernels.)
 
 Gradient conventions (PhyloGradient parity, tree_gradient.hpp):
 ``"branch_lengths"`` is d LL / d b_e over non-root node ids 0..root_id-1,
-the trifurcating layout with 2n-3 real edges.
+the trifurcating layout with 2n-3 real edges; ``"site_model"`` is the (B,)
+column d LL_b / d Weibull shape, the layout of the JAX engine's jacrev.
 
 Paths not on this slice raise NotImplementedError naming their ROADMAP item.
 """
@@ -21,6 +23,7 @@ import torch
 
 from ..models.phylo_model import GTR_TODO, PhyloModelSpec, model_tensors
 from ..ops import pruning_jc
+from ..ops import site_model as site_ops
 from ..ops.schedule import BatchedSchedule
 
 SCAN_ENGINE_TODO = (
@@ -30,10 +33,6 @@ SCAN_ENGINE_TODO = (
 PER_TREE_TODO = (
     "per-tree model parameters are not ported yet (ROADMAP queue 1, item 5: "
     "the per-tree parameter matrix)"
-)
-SHAPE_GRADIENT_TODO = (
-    "the Weibull shape gradient needs the backward kernel K3, not ported yet "
-    "(ROADMAP queue 1, item 4)"
 )
 ROOTED_TODO = "rooted time trees are not ported yet (ROADMAP queue 1, item 7)"
 
@@ -80,19 +79,13 @@ class LikelihoodEngine:
 
     def _post_children(self, sched: BatchedSchedule):
         """The schedule's child table on the device, after checking on the
-        host what the kernels assume: step s combines into node
-        leaf_count + s, and every child id is a node or the ones slot."""
-        L, root_id = sched.leaf_count, sched.root_id
-        post_node = np.asarray(sched.post_node)
-        pc = np.asarray(sched.post_children)
-        if not np.array_equal(
-            post_node,
-            np.broadcast_to(np.arange(L, root_id + 1), post_node.shape),
-        ):
-            raise ValueError("internal node ids must be postorder-linear")
-        if pc.min() < 0 or pc.max() > root_id + 1:
-            raise ValueError("child ids out of range of the schedule")
-        return torch.as_tensor(pc, dtype=torch.int32, device=self.device)
+        host what the kernels assume (pruning_jc.check_schedule)."""
+        pruning_jc.check_schedule(sched.post_node, sched.post_children,
+                                  sched.leaf_count, sched.root_id)
+        return torch.as_tensor(
+            np.asarray(sched.post_children), dtype=torch.int32,
+            device=self.device,
+        )
 
     def _bl_padded(self, branch_lengths):
         """(B, N) branch lengths in the working dtype, plus the ones-slot 0."""
@@ -135,12 +128,38 @@ class LikelihoodEngine:
         self, sched: BatchedSchedule, branch_lengths, params, per_tree=False
     ):
         """Gradient dict in reference conventions (unrooted trees)."""
-        if self.spec.site.startswith("weibull"):
-            raise NotImplementedError(SHAPE_GRADIENT_TODO)
         lls, bgrads = self.branch_gradients(
             sched, branch_lengths, params, per_tree=per_tree
         )
-        return {"log_likelihood": lls, "branch_lengths": bgrads}
+        out = {"log_likelihood": lls, "branch_lengths": bgrads}
+        if self.spec.site.startswith("weibull"):
+            out["site_model"] = self._shape_gradient(
+                sched, branch_lengths, params
+            )
+        return out
+
+    def _shape_gradient(self, sched: BatchedSchedule, branch_lengths, params):
+        """(B,) d LL_b / d Weibull shape in float64, from one K3 launch: the
+        summed LL is differentiated with respect to a per-tree copy of the
+        shape, (B,), so each tree's rates (B, K) and exp factors depend on
+        its own copy and each entry is that tree's row (the JAX engine's
+        per_tree trick, models/engine.py:517-521)."""
+        shape = torch.as_tensor(
+            params["site"]["shape"], dtype=torch.float64, device=self.device
+        )
+        B = np.asarray(sched.post_children).shape[0]
+        shapes = shape.detach().expand(B).clone().requires_grad_(True)
+        rates, props = site_ops.weibull_rates(
+            shapes, self.spec.site_category_count(), device=self.device
+        )
+        with torch.enable_grad():
+            lls = pruning_jc.log_likelihoods_jc69(
+                self._post_children(sched), self._bl_padded(branch_lengths),
+                self.tips, self.weights, root_id=sched.root_id, rates=rates,
+                props=props,
+            )
+            (grad,) = torch.autograd.grad(lls.sum(), shapes)
+        return grad
 
     def rooted_log_likelihoods(self, *args, **kwargs):
         raise NotImplementedError(ROOTED_TODO)

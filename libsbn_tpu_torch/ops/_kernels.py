@@ -91,6 +91,11 @@ def load():
         # pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part;
         # B, L, S, N1, K, P; stream
         fn.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
+        fn = getattr(lib, f"lsbn_jc69_dea_{dt}")
+        fn.restype = i32
+        # pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part;
+        # B, L, S, N1, K, P; stream
+        fn.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
     _lib = lib
     return lib
 

@@ -8,12 +8,21 @@ evolved partials equal the pre-apply sums), and the edge derivative needs
 only row sums and the u.E product:
     num_k = r_k [ (1/3) S_u,k S_E,k - (4/3) d_k ],  d_k = u_k . E_k.
 
-Two kernels, each with a plain PyTorch twin of the same layout, rescaling
+Three kernels, each with a plain PyTorch twin of the same layout, rescaling
 and order of operations:
   * K1 ``ll_grad_jc69_cuda`` / ``ll_grad_jc69_plain``: LL + branch gradient
     (replaces pruning_pallas_jc.py::_kernel);
   * K2 ``ll_jc69_cuda`` / ``ll_jc69_plain``: LL only (replaces
-    pruning_pallas_jc.py::_fwd_ll_kernel).
+    pruning_pallas_jc.py::_fwd_ll_kernel);
+  * K3 ``ll_dea_jc69_cuda`` / ``ll_dea_jc69_plain``: d ll / d e per (node,
+    category) and d ll / d props (replaces
+    pruning_pallas_jc.py::_bwd_dea_kernel). With P = eI + (1-e)/4 J,
+        d ll / d e_{n,k} = sum_p [ (uw . M)_k - (1/4) rowsum4(uw)_k S_E,k ],
+    uw = u w / denom, M the pre-apply partials at E's scale.
+K2 and K3 are the two halves of one ``torch.autograd.Function``
+(``log_likelihoods_jc69``), so branch-length, rate and Weibull-shape
+gradients chain through ``exp_factors`` by autograd, as the JAX package's
+custom VJP ``_ll_jc`` does.
 The public functions take branch lengths, build the exp factors in f64
 (``exp_factors``), and route by device: a CPU tensor goes to the twin, a
 CUDA tensor to the kernel (csrc/pruning_jc.cu), which raises on anything it
@@ -21,21 +30,22 @@ cannot take. Nothing falls back.
 
 The CUDA kernels mask the ragged pattern edge themselves, so patterns are
 not padded (the TPU kernels' pad_patterns is a lane rule of that chip).
-Preconditions the kernels do not check on the device (the engine checks
-them on the host): internal node ids are postorder-linear (step s writes
-node L + s) and every child id lies in [0, N1).
+Preconditions the kernels do not check on the device (``check_schedule``
+checks them on the host): internal node ids are postorder-linear (step s
+writes node L + s) and every child id lies in [0, N1).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _kernels
 
 # Launch counts of the CUDA kernels and call counts of their twins, so a run
 # can show which one it took. reset_counters() sets them all to 0.
-LAUNCHES = {"ll_grad_jc69": 0, "ll_jc69": 0}
-TWIN_CALLS = {"ll_grad_jc69": 0, "ll_jc69": 0}
+LAUNCHES = {"ll_grad_jc69": 0, "ll_jc69": 0, "ll_dea_jc69": 0}
+TWIN_CALLS = {"ll_grad_jc69": 0, "ll_jc69": 0, "ll_dea_jc69": 0}
 
 
 def reset_counters():
@@ -44,11 +54,30 @@ def reset_counters():
             counts[name] = 0
 
 
+def check_schedule(post_node, post_children, leaf_count, root_id):
+    """Check on the host what the kernels assume of a (B, S) schedule and
+    do not check on the device: step s combines into node leaf_count + s,
+    and every child id is a node or the ones slot. Raises ValueError."""
+    post_node = np.asarray(post_node)
+    pc = np.asarray(post_children)
+    if not np.array_equal(
+        post_node,
+        np.broadcast_to(np.arange(leaf_count, root_id + 1), post_node.shape),
+    ):
+        raise ValueError("internal node ids must be postorder-linear")
+    if pc.min() < 0 or pc.max() > root_id + 1:
+        raise ValueError("child ids out of range of the schedule")
+
+
 def exp_factors(bl_padded, rates, dtype):
     """e = exp(-4 b r / 3) per (tree, node, category), the exp in f64 (the
-    BASELINE.md precision policy), then cast to ``dtype``.
-    bl_padded: (B, N1); rates: (K,). Returns (B, N1, K)."""
-    t = bl_padded.to(torch.float64)[:, :, None] * rates.to(torch.float64)
+    BASELINE.md precision policy), then cast to ``dtype``; differentiable.
+    bl_padded: (B, N1); rates: (K,), or (B, K) per tree. Returns
+    (B, N1, K)."""
+    r = rates.to(torch.float64)
+    if r.dim() == 2:
+        r = r[:, None, :]
+    t = bl_padded.to(torch.float64)[:, :, None] * r
     return torch.exp(-4.0 / 3.0 * t).to(dtype)
 
 
@@ -56,7 +85,7 @@ def _default_rates_props(rates, props, like):
     if rates is None:
         rates = torch.ones((1,), dtype=like.dtype, device=like.device)
     if props is None:
-        K = rates.shape[0]
+        K = rates.shape[-1]
         props = torch.full((K,), 1.0 / K, dtype=like.dtype, device=like.device)
     return rates.to(like.dtype), props.to(like.dtype)
 
@@ -83,19 +112,42 @@ def log_likelihood_and_branch_gradient_jc69(
     return ll, grad[:, :root_id]
 
 
+class _LogLikelihoodsJC69(torch.autograd.Function):
+    """(B,) LLs from the exp factors ea (B, N1, K) and props (K,): K2
+    forward, K3 backward (their twins for CPU tensors). Like the JAX custom
+    VJP ``_ll_jc``, it saves only its inputs, never E or M: the backward
+    recomputes the forward pass."""
+
+    @staticmethod
+    def forward(ctx, ea, props, post_children, tips, weights, root_id):
+        ctx.save_for_backward(ea, props, post_children, tips, weights)
+        ctx.root_id = root_id
+        fn = ll_jc69_plain if tips.device.type == "cpu" else ll_jc69_cuda
+        return fn(post_children, ea, props, tips, weights, root_id=root_id)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        ea, props, post_children, tips, weights = ctx.saved_tensors
+        fn = ll_dea_jc69_plain if tips.device.type == "cpu" else ll_dea_jc69_cuda
+        dea, dprops = fn(post_children, ea, props, tips, weights,
+                         root_id=ctx.root_id)
+        return (dea * g[:, None, None], (dprops * g[:, None]).sum(dim=0),
+                None, None, None, None)
+
+
 def log_likelihoods_jc69(
     post_children, bl_padded, tips, weights, *, root_id, rates=None,
     props=None,
 ):
-    """(B,) JC69 log likelihoods from branch lengths (K2); arguments as in
-    log_likelihood_and_branch_gradient_jc69."""
+    """(B,) JC69 log likelihoods from branch lengths (K2), differentiable in
+    bl_padded, rates and props by autograd through ``exp_factors`` and the
+    K3 backward. Arguments as in log_likelihood_and_branch_gradient_jc69,
+    except that rates may also be (B, K), one row per tree."""
     rates, props = _default_rates_props(rates, props, tips)
     ea = exp_factors(bl_padded, rates, tips.dtype)
-    if tips.device.type == "cpu":
-        fn = ll_jc69_plain
-    else:
-        fn = ll_jc69_cuda
-    return fn(post_children, ea, props, tips, weights, root_id=root_id)
+    return _LogLikelihoodsJC69.apply(ea, props, post_children, tips, weights,
+                                     root_id)
 
 
 # -- plain PyTorch twins ------------------------------------------------------
@@ -109,10 +161,12 @@ def _apply(e, slab, rsums):
     return e[:, :, None, None] * slab + c[:, :, None, None] * rsums[:, :, None, :]
 
 
-def _forward_plain(post_children, ea, tips, root_id):
+def _forward_plain(post_children, ea, tips, root_id, keep_m=False):
     """Forward pass: ones slot, leaves, then the combine steps with
     row-sum rescaling on odd steps and the last one. Returns (E, ES,
-    logscale (B, P))."""
+    logscale (B, P), M): M (B, N1, K, 4, P) holds the pre-apply partials at
+    E's scale when keep_m (the tip partial for a leaf, ones for the ones
+    slot), else None."""
     B, S, _ = post_children.shape
     L, _, P = tips.shape
     K = ea.shape[2]
@@ -122,6 +176,7 @@ def _forward_plain(post_children, ea, tips, root_id):
     rows = torch.arange(B, device=dev)
     E = torch.empty((B, N1, K, 4, P), dtype=dt, device=dev)
     ES = torch.empty((B, N1, K, P), dtype=dt, device=dev)
+    M = torch.empty_like(E) if keep_m else None
     E[:, N1 - 1] = 1.0
     ES[:, N1 - 1] = 4.0
     rt = ((tips[:, 0] + tips[:, 1]) + tips[:, 2]) + tips[:, 3]  # (L, P)
@@ -130,6 +185,9 @@ def _forward_plain(post_children, ea, tips, root_id):
         rs = rt[leaf].expand(B, K, P)
         E[:, leaf] = _apply(ea[:, leaf], slab, rs)
         ES[:, leaf] = rs
+    if keep_m:
+        M[:, :L] = tips[None, :, None]
+        M[:, N1 - 1] = 1.0
     logscale = torch.zeros((B, P), dtype=dt, device=dev)
     for s in range(S):
         node = L + s
@@ -144,49 +202,51 @@ def _forward_plain(post_children, ea, tips, root_id):
             scale = torch.where(scale > 0, scale, torch.ones_like(scale))
             inv = 1.0 / scale
             out = out * inv[:, None, None, :]
+            if keep_m:
+                prod = prod * inv[:, None, None, :]
             rs = rs * inv[:, None, :]
             logscale = logscale + torch.log(scale)
         E[:, node] = out
         ES[:, node] = rs
-    return E, ES, logscale
+        if keep_m:
+            M[:, node] = prod
+    return E, ES, logscale, M
 
 
-def _ll_plain(ES, props, weights, logscale, root_id):
-    """(B,) LL: sum_p w_p (log((1/4) sum_k props_k S_E,k[root]) + logscale)."""
+def _root_site_plain(ES, props, root_id):
+    """(B, P) scaled site likelihoods (1/4) sum_k props_k S_E,k[root],
+    clamped at 1e-30."""
     es_root = ES[:, root_id]  # (B, K, P)
     site = (props[0] * 0.25) * es_root[:, 0]
     for k in range(1, props.shape[0]):
         site = site + (props[k] * 0.25) * es_root[:, k]
-    site = torch.clamp_min(site, 1e-30)
+    return torch.clamp_min(site, 1e-30)
+
+
+def _ll_plain(ES, props, weights, logscale, root_id):
+    """(B,) LL: sum_p w_p (log((1/4) sum_k props_k S_E,k[root]) + logscale)."""
+    site = _root_site_plain(ES, props, root_id)
     return torch.sum(weights * (torch.log(site) + logscale), dim=1)
 
 
-def ll_jc69_plain(post_children, ea, props, tips, weights, *, root_id):
-    """Plain PyTorch twin of K2. ea: (B, N1, K). Returns ll (B,)."""
-    TWIN_CALLS["ll_jc69"] += 1
-    _, ES, logscale = _forward_plain(post_children, ea, tips, root_id)
-    return _ll_plain(ES, props, weights, logscale, root_id)
+def _rowsum4(x):
+    """(B, K, 4, P) -> (B, K, P), summed left to right."""
+    return ((x[:, :, 0] + x[:, :, 1]) + x[:, :, 2]) + x[:, :, 3]
 
 
-def ll_grad_jc69_plain(post_children, ea, rates, props, tips, weights, *,
-                       root_id):
-    """Plain PyTorch twin of K1. ea: (B, N1, K). Returns (ll (B,),
-    grad (B, N1)); grad[:, :root_id] are the edge derivatives."""
-    TWIN_CALLS["ll_grad_jc69"] += 1
-    E, ES, logscale = _forward_plain(post_children, ea, tips, root_id)
-    ll = _ll_plain(ES, props, weights, logscale, root_id)
+def _upper_plain(post_children, ea, props, E, weights, root_id, L, emit):
+    """The upper pass shared by the K1 and K3 twins: U[root] = props / 4,
+    then, from the root down, U[node] evolved up through its edge, each
+    child's upper partial u from it and the siblings' E, and U[kid] = u
+    over its own row sum. For every child edge it calls
+    ``emit(kid, u, d, winv)`` with kid (B,) child ids, u (B, K, 4, P), d
+    (B, K, P) the per-category denominators and winv (B, P) = w / denom."""
     B, S, _ = post_children.shape
-    L = tips.shape[0]
-    K = rates.shape[0]
-    N1 = root_id + 2
-    dev = tips.device
+    K = ea.shape[2]
+    dev = E.device
     pc = post_children.long()
     rows = torch.arange(B, device=dev)
-    third = 1.0 / 3.0
-    four_thirds = 4.0 / 3.0
-
     U = torch.empty_like(E)
-    G = torch.zeros((B, N1, weights.shape[0]), dtype=tips.dtype, device=dev)
     U[:, root_id] = (props * 0.25)[None, :, None, None]
     for t in range(S):
         node = root_id - t
@@ -197,12 +257,10 @@ def ll_grad_jc69_plain(post_children, ea, rates, props, tips, weights, *,
             # U rows sum to exactly 1 here: the row-sum operand is 1.
             ev = e[:, :, None, None] * un + ((1.0 - e) * 0.25)[:, :, None, None]
         else:
-            rsu = ((un[:, :, 0] + un[:, :, 1]) + un[:, :, 2]) + un[:, :, 3]
-            ev = _apply(e, un, rsu)
+            ev = _apply(e, un, _rowsum4(un))
         e0, e1, e2 = E[rows, c[:, 0]], E[rows, c[:, 1]], E[rows, c[:, 2]]
         m01, m02, m12 = e0 * e1, e0 * e2, e1 * e2
-        T = ev * (m01 * e2)
-        d = ((T[:, :, 0] + T[:, :, 1]) + T[:, :, 2]) + T[:, :, 3]  # (B, K, P)
+        d = _rowsum4(ev * (m01 * e2))  # (B, K, P)
         denom = d[:, 0]
         for k in range(1, K):
             denom = denom + d[:, k]
@@ -210,26 +268,85 @@ def ll_grad_jc69_plain(post_children, ea, rates, props, tips, weights, *,
         for j, mab in ((0, m12), (1, m02), (2, m01)):
             kid = c[:, j]
             u = ev * mab
-            su_k = ((u[:, :, 0] + u[:, :, 1]) + u[:, :, 2]) + u[:, :, 3]
-            se = ES[rows, kid]
-            num = rates[0] * (third * (su_k[:, 0] * se[:, 0]) - four_thirds * d[:, 0])
+            emit(kid, u, d, winv)
+            su_k = _rowsum4(u)
             su = su_k[:, 0]
             for k in range(1, K):
-                num = num + rates[k] * (
-                    third * (su_k[:, k] * se[:, k]) - four_thirds * d[:, k]
-                )
                 su = su + su_k[:, k]
-            G[rows, kid] = winv * num
             sc = torch.where(su > 0, su, torch.ones_like(su))
             U[rows, kid] = u / sc[:, None, None, :]
+
+
+def ll_jc69_plain(post_children, ea, props, tips, weights, *, root_id):
+    """Plain PyTorch twin of K2. ea: (B, N1, K). Returns ll (B,)."""
+    TWIN_CALLS["ll_jc69"] += 1
+    _, ES, logscale, _ = _forward_plain(post_children, ea, tips, root_id)
+    return _ll_plain(ES, props, weights, logscale, root_id)
+
+
+def ll_grad_jc69_plain(post_children, ea, rates, props, tips, weights, *,
+                       root_id):
+    """Plain PyTorch twin of K1. ea: (B, N1, K). Returns (ll (B,),
+    grad (B, N1)); grad[:, :root_id] are the edge derivatives, the root and
+    ones-slot entries are zero."""
+    TWIN_CALLS["ll_grad_jc69"] += 1
+    E, ES, logscale, _ = _forward_plain(post_children, ea, tips, root_id)
+    ll = _ll_plain(ES, props, weights, logscale, root_id)
+    B = post_children.shape[0]
+    K = rates.shape[0]
+    N1 = root_id + 2
+    rows = torch.arange(B, device=tips.device)
+    third = 1.0 / 3.0
+    four_thirds = 4.0 / 3.0
+    G = torch.zeros((B, N1, weights.shape[0]), dtype=tips.dtype,
+                    device=tips.device)
+
+    def emit(kid, u, d, winv):
+        su_k = _rowsum4(u)
+        se = ES[rows, kid]
+        num = rates[0] * (third * (su_k[:, 0] * se[:, 0]) - four_thirds * d[:, 0])
+        for k in range(1, K):
+            num = num + rates[k] * (
+                third * (su_k[:, k] * se[:, k]) - four_thirds * d[:, k]
+            )
+        G[rows, kid] = winv * num
+
+    _upper_plain(post_children, ea, props, E, weights, root_id, tips.shape[0],
+                 emit)
+    G[:, N1 - 1] = 0.0
     return ll, G.sum(dim=2)
+
+
+def ll_dea_jc69_plain(post_children, ea, props, tips, weights, *, root_id):
+    """Plain PyTorch twin of K3. ea: (B, N1, K). Returns (dea (B, N1, K)
+    = d ll / d ea, dprops (B, K) = d ll / d props), per tree; the root and
+    ones-slot rows of dea are zero."""
+    TWIN_CALLS["ll_dea_jc69"] += 1
+    E, ES, _, M = _forward_plain(post_children, ea, tips, root_id, keep_m=True)
+    B, N1, K = ea.shape
+    rows = torch.arange(B, device=tips.device)
+    # dprops_k = sum_p (w / site) (1/4) S_E,k[root].
+    w_over_site = weights / _root_site_plain(ES, props, root_id)
+    dprops = torch.sum((0.25 * ES[:, root_id]) * w_over_site[:, None, :], dim=2)
+    dea = torch.zeros((B, N1, K), dtype=tips.dtype, device=tips.device)
+
+    def emit(kid, u, d, winv):
+        uw = u * winv[:, None, None, :]
+        val = _rowsum4(uw * M[rows, kid]) - 0.25 * (_rowsum4(uw) * ES[rows, kid])
+        dea[rows, kid] = val.sum(dim=2)
+
+    _upper_plain(post_children, ea, props, E, weights, root_id, tips.shape[0],
+                 emit)
+    dea[:, root_id] = 0.0
+    dea[:, N1 - 1] = 0.0
+    return dea, dprops
 
 
 # -- CUDA kernels (csrc/pruning_jc.cu) -----------------------------------------
 
 
 def _check_inputs(post_children, ea, tips, weights, cats, root_id):
-    """Device, dtype, shape and contiguity checks shared by K1 and K2.
+    """Device, dtype, shape and contiguity checks shared by K1, K2 and K3.
     Returns (B, L, S, N1, K, P)."""
     dev = tips.device
     if dev.type != "cuda":
@@ -328,3 +445,31 @@ def ll_grad_jc69_cuda(post_children, ea, rates, props, tips, weights, *,
     _kernels.check(lib, rc, "jc69 LL + gradient kernel")
     LAUNCHES["ll_grad_jc69"] += 1
     return ll_part.sum(dim=1), grad_part.sum(dim=1)
+
+
+def ll_dea_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
+    """K3 on the card: (dea (B, N1, K), dprops (B, K)). ea: (B, N1, K)."""
+    dims = _check_inputs(post_children, ea, tips, weights, [("props", props)],
+                         root_id)
+    B, L, S, N1, K, P = dims
+    dt, dev = tips.dtype, tips.device
+    lib = _kernels.load()
+    _check_k(lib, K)
+    tiles = -(-P // lib.lsbn_jc69_tile())
+    E = torch.empty((B, N1, 4 * K, P), dtype=dt, device=dev)
+    ES = torch.empty((B, N1, K, P), dtype=dt, device=dev)
+    M = torch.empty((B, S, 4 * K, P), dtype=dt, device=dev)
+    U = torch.empty_like(E)
+    dprops_part = torch.empty((B, tiles, K), dtype=dt, device=dev)
+    dea_part = torch.empty((B, tiles, N1 * K), dtype=dt, device=dev)
+    fn = lib.lsbn_jc69_dea_f32 if dt == torch.float32 else lib.lsbn_jc69_dea_f64
+    with torch.cuda.device(dev):
+        rc = fn(
+            post_children.data_ptr(), ea.data_ptr(), props.data_ptr(),
+            tips.data_ptr(), weights.data_ptr(), E.data_ptr(), ES.data_ptr(),
+            M.data_ptr(), U.data_ptr(), dprops_part.data_ptr(),
+            dea_part.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(lib, rc, "jc69 d ll / d ea kernel")
+    LAUNCHES["ll_dea_jc69"] += 1
+    return dea_part.sum(dim=1).reshape(B, N1, K), dprops_part.sum(dim=1)

@@ -21,12 +21,14 @@ def weibull_rates(shape, category_count: int, *, dtype=torch.float64,
     """Discretized Weibull category rates and proportions.
 
     rate_i ∝ (-log(1 - (2i+1)/(2K)))^(1/shape), normalized to mean 1;
-    proportions are uniform (site_model.cpp UpdateRates)."""
+    proportions are uniform (site_model.cpp UpdateRates). A shape tensor
+    with leading dims (e.g. one shape per tree, (B,)) gives rates with the
+    same leading dims, (..., K); the proportions stay (K,)."""
     shape = torch.as_tensor(shape, dtype=dtype, device=device)
     i = torch.arange(category_count, dtype=dtype, device=device)
     quantile = (2.0 * i + 1.0) / (2.0 * category_count)
-    raw = torch.pow(-torch.log1p(-quantile), 1.0 / shape)
-    rates = raw / torch.mean(raw)
+    raw = torch.pow(-torch.log1p(-quantile), 1.0 / shape[..., None])
+    rates = raw / torch.mean(raw, dim=-1, keepdim=True)
     props = torch.full(
         (category_count,), 1.0 / category_count, dtype=dtype, device=device
     )

@@ -226,7 +226,8 @@ def test_exp_factors_match_jax(ds1):
 
 def test_cpu_tensors_route_to_twins_and_never_reach_kernels(ds1):
     """On the CPU the public functions run the twins (their counters move,
-    the kernels' do not); the kernel wrappers refuse CPU tensors."""
+    the kernels' do not), the backward of log_likelihoods_jc69 included;
+    the kernel wrappers refuse CPU tensors."""
     sched, sp = ds1["sched"], ds1["sp"]
     pc = torch.as_tensor(sched.post_children, dtype=torch.int32)
     bl = torch.as_tensor(ds1["bl_p"])
@@ -237,8 +238,15 @@ def test_cpu_tensors_route_to_twins_and_never_reach_kernels(ds1):
     pruning_jc.log_likelihood_and_branch_gradient_jc69(
         pc, bl, tips, w, root_id=sched.root_id
     )
-    assert pruning_jc.TWIN_CALLS == {"ll_grad_jc69": 1, "ll_jc69": 1}
-    assert pruning_jc.LAUNCHES == {"ll_grad_jc69": 0, "ll_jc69": 0}
+    assert pruning_jc.TWIN_CALLS == {"ll_grad_jc69": 1, "ll_jc69": 1,
+                                     "ll_dea_jc69": 0}
+    bl_grad = bl.clone().requires_grad_(True)
+    pruning_jc.log_likelihoods_jc69(
+        pc, bl_grad, tips, w, root_id=sched.root_id).sum().backward()
+    assert pruning_jc.TWIN_CALLS == {"ll_grad_jc69": 1, "ll_jc69": 2,
+                                     "ll_dea_jc69": 1}
+    assert pruning_jc.LAUNCHES == {"ll_grad_jc69": 0, "ll_jc69": 0,
+                                   "ll_dea_jc69": 0}
     one = torch.ones(1)
     ea = pruning_jc.exp_factors(bl, one, torch.float32)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -246,4 +254,8 @@ def test_cpu_tensors_route_to_twins_and_never_reach_kernels(ds1):
     with pytest.raises(ValueError, match="CUDA tensors"):
         pruning_jc.ll_grad_jc69_cuda(pc, ea, one, one, tips, w,
                                      root_id=sched.root_id)
-    assert pruning_jc.LAUNCHES == {"ll_grad_jc69": 0, "ll_jc69": 0}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pruning_jc.ll_dea_jc69_cuda(pc, ea, one, tips, w,
+                                    root_id=sched.root_id)
+    assert pruning_jc.LAUNCHES == {"ll_grad_jc69": 0, "ll_jc69": 0,
+                                   "ll_dea_jc69": 0}

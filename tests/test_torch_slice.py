@@ -21,6 +21,7 @@ from libsbn_tpu.models.phylo_model import default_parameters as jdefaults
 from libsbn_tpu_torch.models.phylo_model import (
     PhyloModelSpec, block_specification, params_from_numpy,
 )
+from libsbn_tpu_torch.vi import JitVBPI
 
 torch.set_num_threads(1)
 
@@ -67,7 +68,7 @@ def test_quick_start_matches_jax(data_dir, trees, fasta, site):
     assert isinstance(lls, np.ndarray) and lls.dtype == np.float64
     np.testing.assert_allclose(lls, ref.log_likelihoods(), rtol=1e-10)
     if site != "constant":
-        return  # phylo_gradients needs the Weibull shape gradient (K3)
+        return  # Weibull phylo_gradients: tests/test_torch_dea.py
     want = ref.phylo_gradients()
     grads = got.phylo_gradients()
     assert set(grads) == set(want)
@@ -110,6 +111,8 @@ def test_import_leaves_jax_out():
         "import libsbn_tpu_torch\n"
         "from libsbn_tpu_torch.instance import generic, unrooted\n"
         "from libsbn_tpu_torch.ops import _kernels, pruning_jc\n"
+        "from libsbn_tpu_torch.sbn import gradients, probability, sampling\n"
+        "from libsbn_tpu_torch.vi import JitVBPI, jit_step\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'libsbn_tpu')]\n"
         "assert not bad, bad\n"
@@ -127,8 +130,8 @@ def _ds1(data_dir, site="constant"):
 
 
 @pytest.mark.parametrize("path", [
-    "gtr", "per_tree", "weibull_shape_gradient", "rescale_false",
-    "tip_states", "rooted", "tree_count_option",
+    "gtr", "per_tree", "rescale_false", "tip_states", "rooted",
+    "tree_count_option", "vbpi_mesh", "vbpi_rescale_false", "em",
 ])
 def test_unported_paths_raise(data_dir, path):
     """Paths not on this slice raise NotImplementedError naming their
@@ -143,8 +146,17 @@ def test_unported_paths_raise(data_dir, path):
             inst.engine.log_likelihoods(
                 inst._batched_schedule(), inst.branch_length_matrix(),
                 inst.phylo_model_params, per_tree=True)
-        elif path == "weibull_shape_gradient":
-            _ds1(data_dir, "weibull+4").phylo_gradients()
+        elif path in ("vbpi_mesh", "vbpi_rescale_false"):
+            inst = _ds1(data_dir)
+            inst.process_loaded_trees()
+            if path == "vbpi_mesh":
+                JitVBPI(inst, particle_count=4, mesh=object())
+            else:
+                JitVBPI(inst, particle_count=4, rescale=False)
+        elif path == "em":
+            inst = _ds1(data_dir)
+            inst.process_loaded_trees()
+            inst.train_expectation_maximization(0.0, 10)
         elif path == "rescale_false":
             _ds1(data_dir).prepare_for_phylo_likelihood(
                 PhyloModelSpec(), rescaling=False)
