@@ -2,10 +2,11 @@
 
 The second package beside ``libsbn_tpu`` (the JAX reference, which it never
 imports): the same host layer (parsing, site patterns, schedules, the SBN
-support and sampler), the same JC69 likelihood, branch- and shape-gradient
-path, and the VBPI trainer (``vi.JitVBPI``), with hand-written CUDA
-kernels for NVIDIA Hopper (``csrc/``, built with nvcc at first use) and
-plain PyTorch twins of those kernels that run on the CPU.
+support and sampler), the same JC69 and GTR likelihood, branch- and
+model-gradient paths for unrooted trees, and the VBPI trainer
+(``vi.JitVBPI``), with hand-written CUDA kernels for NVIDIA Hopper
+(``csrc/``, built with nvcc at first use) and plain PyTorch twins of those
+kernels that run on the CPU.
 
 Nothing here sets global state at import: dtypes and devices are explicit
 on every constructor, and the CPU is the default device.

@@ -21,7 +21,10 @@ from ..core.site_pattern import SitePattern
 from ..io import newick
 from ..io.fasta import Alignment
 from ..models.engine import PER_TREE_TODO, LikelihoodEngine
-from ..models.phylo_model import PhyloModelSpec, default_parameters
+from ..models.phylo_model import (
+    PhyloModelSpec, block_specification, default_parameters,
+    parameters_from_flat,
+)
 from ..ops import schedule as schedule_ops
 from ..sbn import probability as sbn_probability
 from ..sbn import sampling
@@ -152,6 +155,17 @@ class GenericSBNInstance:
         )
         self.engine = engine
         return engine
+
+    def get_phylo_model_block_specification(self):
+        return block_specification(self.phylo_model_spec)
+
+    def set_phylo_model_params_from_flat(self, v):
+        """Set the model parameters from a flat vector in the block
+        specification's layout, as tensors on the engine's device."""
+        self.phylo_model_params = parameters_from_flat(
+            self.phylo_model_spec, v, dtype=torch.float64,
+            device=self._get_engine().device,
+        )
 
     def _get_engine(self) -> LikelihoodEngine:
         if self.engine is None:

@@ -57,9 +57,9 @@ class UnrootedInstance(GenericSBNInstance):
         return lls.cpu().numpy()
 
     def phylo_gradients(self):
-        """Gradient dict (``log_likelihood``, ``branch_lengths``, and
-        ``site_model`` for Weibull models) of tensors on the engine's
-        device."""
+        """Gradient dict (``log_likelihood``, ``branch_lengths``,
+        ``substitution_model`` for GTR and ``site_model`` for Weibull
+        models) of tensors on the engine's device."""
         engine = self._get_engine()
         return engine.phylo_gradients(
             self._batched_schedule(), self.branch_length_matrix(),

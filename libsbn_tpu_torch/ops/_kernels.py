@@ -1,11 +1,13 @@
 """Builds and loads the package's CUDA kernels (csrc/*.cu).
 
-Route: ``nvcc`` compiles each source into a shared library with a plain C
-interface, which is loaded with ctypes; no PyTorch headers are compiled.
-The library is built at first use into ``build/libsbn_tpu_torch_kernels/``
-at the repository root (``build/`` is git-ignored), under a name carrying
-the hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded. Nothing here runs at import time.
+Route: ``nvcc`` compiles each source into its own shared library with a
+plain C interface, which is loaded with ctypes; no PyTorch headers are
+compiled. A library is built at first use into
+``build/libsbn_tpu_torch_kernels/`` at the repository root (``build/`` is
+git-ignored), under a name carrying the hash of its source and the flags,
+so an edited source is rebuilt and a stale library is never loaded.
+``build()`` runs the nvcc of several sources in parallel. Nothing here runs
+at import time.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import subprocess
 import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "pruning_jc.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(_PKG_DIR), "build", "libsbn_tpu_torch_kernels"
 )
@@ -29,10 +31,57 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lib = None
-# What the last build of this process did: library path, seconds spent in
-# nvcc (0.0 when a built library was reused) and nvcc's ptxas report.
-build_info = {"path": None, "seconds": 0.0, "log": ""}
+_libs = {}
+# Per source, what the last build of this process did: library path,
+# seconds spent in nvcc (0.0 when a built library was reused) and nvcc's
+# ptxas report.
+build_info = {}
+
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+
+
+def _bind_jc(lib):
+    lib.lsbn_jc69_tile.restype = _I32
+    lib.lsbn_jc69_tile.argtypes = []
+    lib.lsbn_jc69_max_k.restype = _I32
+    lib.lsbn_jc69_max_k.argtypes = []
+    for dt in ("f32", "f64"):
+        # pc, ea, props, tips, w, E, ES, ll_part; B, L, S, N1, K, P; stream
+        _sig(lib, f"lsbn_jc69_ll_{dt}", 8, 6)
+        # pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part;
+        # B, L, S, N1, K, P; stream
+        _sig(lib, f"lsbn_jc69_ll_grad_{dt}", 11, 6)
+        # pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part;
+        # B, L, S, N1, K, P; stream
+        _sig(lib, f"lsbn_jc69_dea_{dt}", 11, 6)
+
+
+def _bind_generic(lib):
+    lib.lsbn_generic_tile.restype = _I32
+    lib.lsbn_generic_tile.argtypes = []
+    lib.lsbn_generic_max_k.restype = _I32
+    lib.lsbn_generic_max_k.argtypes = []
+    for dt in ("f32", "f64"):
+        # pc, P, tips, freqs, props, w, E, ll_part; fs, ps, B, L, S, N1, K,
+        # P; stream
+        _sig(lib, f"lsbn_generic_ll_{dt}", 8, 8)
+        # pc, P, Q, tips, freqs, props, w, E, U, ll_part, grad_part;
+        # B, L, S, N1, K, P; stream
+        _sig(lib, f"lsbn_generic_ll_grad_{dt}", 11, 6)
+        # pc, P, tips, freqs, props, w, E, M, U, dp_part, root_part;
+        # fs, ps, B, L, S, N1, K, P; stream
+        _sig(lib, f"lsbn_generic_dp_{dt}", 11, 8)
+
+
+# One library per source, csrc/<name>.cu, with its C signatures.
+_BINDERS = {"pruning_jc": _bind_jc, "pruning_generic": _bind_generic}
+SOURCES = tuple(_BINDERS)
+
+
+def _sig(lib, name, pointers, ints):
+    fn = getattr(lib, name)
+    fn.restype = _I32
+    fn.argtypes = [_PTR] * pointers + [_I32] * ints + [_PTR]
 
 
 def _nvcc() -> str:
@@ -46,57 +95,55 @@ def _nvcc() -> str:
     return path
 
 
-def _build() -> str:
-    with open(_SOURCE, "rb") as f:
+def _library_path(name: str):
+    source = os.path.join(_CSRC, f"{name}.cu")
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, f"pruning_jc_{digest.hexdigest()[:16]}.so")
-    build_info["path"] = path
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SOURCE],
-        capture_output=True, text=True,
-    )
-    build_info["seconds"] = time.perf_counter() - t0
-    build_info["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SOURCE}:\n{build_info['log']}")
-    os.replace(tmp, path)  # atomic: a concurrent reader never sees half a file
-    return path
+    return source, os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
 
 
-def load():
-    """The kernel library (built first if needed), with its C signatures."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = ctypes.CDLL(_build())
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.lsbn_jc69_tile.restype = i32
-    lib.lsbn_jc69_tile.argtypes = []
-    lib.lsbn_jc69_max_k.restype = i32
-    lib.lsbn_jc69_max_k.argtypes = []
+def build(names=SOURCES):
+    """Build the named sources' libraries that are not built yet, one nvcc
+    process per source, all started together. Raises if any nvcc fails."""
+    started = []
+    for name in names:
+        source, path = _library_path(name)
+        if os.path.exists(path):
+            if build_info.get(name, {}).get("path") != path:
+                build_info[name] = {"path": path, "seconds": 0.0, "log": ""}
+            continue
+        build_info[name] = {"path": path, "seconds": 0.0, "log": ""}
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        started.append((name, source, path, tmp, proc, time.perf_counter()))
+    failed = []
+    for name, source, path, tmp, proc, t0 in started:
+        log, _ = proc.communicate()
+        build_info[name].update(seconds=time.perf_counter() - t0, log=log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source}:\n{log}")
+        else:
+            os.replace(tmp, path)  # atomic: a reader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load(name: str):
+    """The library of csrc/<name>.cu (built first if needed), with its C
+    signatures."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    lib = ctypes.CDLL(build_info[name]["path"])
     lib.lsbn_cuda_error_string.restype = ctypes.c_char_p
-    lib.lsbn_cuda_error_string.argtypes = [i32]
-    for dt in ("f32", "f64"):
-        fn = getattr(lib, f"lsbn_jc69_ll_{dt}")
-        fn.restype = i32
-        # pc, ea, props, tips, w, E, ES, ll_part; B, L, S, N1, K, P; stream
-        fn.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
-        fn = getattr(lib, f"lsbn_jc69_ll_grad_{dt}")
-        fn.restype = i32
-        # pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part;
-        # B, L, S, N1, K, P; stream
-        fn.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
-        fn = getattr(lib, f"lsbn_jc69_dea_{dt}")
-        fn.restype = i32
-        # pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part;
-        # B, L, S, N1, K, P; stream
-        fn.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
-    _lib = lib
+    lib.lsbn_cuda_error_string.argtypes = [_I32]
+    _BINDERS[name](lib)
+    _libs[name] = lib
     return lib
 
 

@@ -400,7 +400,7 @@ def ll_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
                          root_id)
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
-    lib = _kernels.load()
+    lib = _kernels.load("pruning_jc")
     _check_k(lib, K)
     tiles = -(-P // lib.lsbn_jc69_tile())
     E = torch.empty((B, N1, 4 * K, P), dtype=dt, device=dev)
@@ -425,7 +425,7 @@ def ll_grad_jc69_cuda(post_children, ea, rates, props, tips, weights, *,
                          [("rates", rates), ("props", props)], root_id)
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
-    lib = _kernels.load()
+    lib = _kernels.load("pruning_jc")
     _check_k(lib, K)
     tiles = -(-P // lib.lsbn_jc69_tile())
     E = torch.empty((B, N1, 4 * K, P), dtype=dt, device=dev)
@@ -453,7 +453,7 @@ def ll_dea_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
                          root_id)
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
-    lib = _kernels.load()
+    lib = _kernels.load("pruning_jc")
     _check_k(lib, K)
     tiles = -(-P // lib.lsbn_jc69_tile())
     E = torch.empty((B, N1, 4 * K, P), dtype=dt, device=dev)

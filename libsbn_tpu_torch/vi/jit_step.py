@@ -17,7 +17,7 @@ selected with ``branch_model=``: both run the same step with C = 1 or 3
 component rows in branch_rep.
 
 Not on this slice: a device mesh (``mesh=``, ROADMAP queue 1, item 11) and
-``rescale=False`` (the scan engine, item 6).
+``rescale=False`` (a route through the scan engine, item 4).
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ MESH_TODO = (
     "mesh= is not ported yet (ROADMAP queue 1, item 11: torch.distributed)"
 )
 RESCALE_TODO = (
-    "rescale=False needs the generic scan engine, not ported yet (ROADMAP "
-    "queue 1, item 6)"
+    "rescale=False is not ported for the VBPI step yet (ROADMAP queue 1, "
+    "item 4: the step must route through the scan engine ops/pruning.py)"
 )
 
 

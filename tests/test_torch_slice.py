@@ -82,11 +82,19 @@ def test_quick_start_matches_jax(data_dir, trees, fasta, site):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("site", ["constant", "weibull+4"])
-def test_params_from_numpy_round_trip(site, dtype):
-    """The JAX package's default parameters, as numpy, become the port's
-    dict of tensors with the same nesting and values, and come back."""
-    spec = PhyloModelSpec("JC69", site, "strict")
-    jparams = jdefaults(libsbn_tpu.PhyloModelSpec("JC69", site, "strict"))
+@pytest.mark.parametrize("sub", ["JC69", "GTR"])
+def test_params_from_numpy_round_trip(sub, site, dtype):
+    """The JAX package's parameters, as numpy, become the port's dict of
+    tensors with the same nesting and values (GTR: {"substitution":
+    {"rates", "frequencies"}}, at non-default values), and the block
+    specifications agree."""
+    spec = PhyloModelSpec(sub, site, "strict")
+    jparams = jdefaults(libsbn_tpu.PhyloModelSpec(sub, site, "strict"))
+    if sub == "GTR":
+        jparams["substitution"] = {
+            "rates": jnp.asarray([0.1, 0.2, 0.15, 0.25, 0.2, 0.1]),
+            "frequencies": jnp.asarray([0.3, 0.25, 0.2, 0.25]),
+        }
     as_numpy = {k: {n: np.asarray(x) for n, x in v.items()}
                 for k, v in jparams.items()}
     params = params_from_numpy(as_numpy, "cpu", dtype)
@@ -99,7 +107,7 @@ def test_params_from_numpy_round_trip(site, dtype):
             assert t.device.type == "cpu" and t.shape == x.shape
             np.testing.assert_array_equal(t.numpy(), x.astype(t.numpy().dtype))
     assert block_specification(spec).get_map() == jblock_spec(
-        libsbn_tpu.PhyloModelSpec("JC69", site, "strict")
+        libsbn_tpu.PhyloModelSpec(sub, site, "strict")
     ).get_map()
 
 
@@ -111,6 +119,8 @@ def test_import_leaves_jax_out():
         "import libsbn_tpu_torch\n"
         "from libsbn_tpu_torch.instance import generic, unrooted\n"
         "from libsbn_tpu_torch.ops import _kernels, pruning_jc\n"
+        "from libsbn_tpu_torch.ops import pruning, pruning_generic, pruning_vjp\n"
+        "from libsbn_tpu_torch.ops import substitution, transforms\n"
         "from libsbn_tpu_torch.sbn import gradients, probability, sampling\n"
         "from libsbn_tpu_torch.vi import JitVBPI, jit_step\n"
         "bad = [m for m in sys.modules\n"
@@ -130,18 +140,14 @@ def _ds1(data_dir, site="constant"):
 
 
 @pytest.mark.parametrize("path", [
-    "gtr", "per_tree", "rescale_false", "tip_states", "rooted",
-    "tree_count_option", "vbpi_mesh", "vbpi_rescale_false", "em",
+    "per_tree", "rooted", "tree_count_option", "vbpi_mesh",
+    "vbpi_rescale_false", "em",
 ])
 def test_unported_paths_raise(data_dir, path):
     """Paths not on this slice raise NotImplementedError naming their
     ROADMAP item; none falls back to anything."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if path == "gtr":
-            _instance(libsbn_tpu_torch, data_dir, "hello.nwk", "hello.fasta",
-                      "constant").prepare_for_phylo_likelihood(
-                PhyloModelSpec("GTR", "constant", "strict"))
-        elif path == "per_tree":
+        if path == "per_tree":
             inst = _ds1(data_dir)
             inst.engine.log_likelihoods(
                 inst._batched_schedule(), inst.branch_length_matrix(),
@@ -157,12 +163,6 @@ def test_unported_paths_raise(data_dir, path):
             inst = _ds1(data_dir)
             inst.process_loaded_trees()
             inst.train_expectation_maximization(0.0, 10)
-        elif path == "rescale_false":
-            _ds1(data_dir).prepare_for_phylo_likelihood(
-                PhyloModelSpec(), rescaling=False)
-        elif path == "tip_states":
-            _ds1(data_dir).prepare_for_phylo_likelihood(
-                PhyloModelSpec(), use_tip_states=True)
         elif path == "rooted":
             _ds1(data_dir).engine.rooted_log_likelihoods()
         else:
