@@ -42,7 +42,19 @@ Phases, each of which raises on failure:
      CUDA events; the VBPI step in ms per step (host clock, synchronised);
      K4, K5 and K6 against their twins at the JAX bench's config 2 (GTR +
      Weibull+4 at shape 0.5, B = 256, float32), the K5 + K6 autograd pass
-     and engine.phylo_gradients from host arrays, with peak device memory.
+     and engine.phylo_gradients from host arrays, with peak device memory;
+  7. GP kernels vs twins: K7 (the PLV population) and K8 (the golden-section
+     branch sweep) against their plain PyTorch twins on the card, on hello
+     and fluA, float32 and float64;
+  8. GP path: GPInstance.make_engine(device="cuda"): on the kernel route
+     (K7 + K8) in f64 the hello marginal and gradient goldens and the fluA
+     fit run_branch_ascent(1e-6, 100) against libsbn_tpu's pinned optimum;
+     the same fit on the level route on the card (the f64 oracle); the f32
+     kernel route's fit within 1e-2 of the optimum; the counters show K7 and
+     K8 launched and no twin called;
+  9. GP timing: K7 and K8 against their twins per launch on fluA, float32;
+     the JAX bench's GP config (fluA, f32, run_branch_ascent(1e-2, 10) from
+     the same starting lengths each run) on both routes, in ms per ascent.
 The last lines are the {"kernels": [...]} report, the card's `nvidia-smi`
 name and power limit, and {"ok": true, "device": {...}}. Imports nothing of
 JAX.
@@ -65,6 +77,8 @@ sys.path.insert(0, REPO)
 
 import libsbn_tpu_torch as lt  # noqa: E402
 from libsbn_tpu_torch.core.site_pattern import SitePattern  # noqa: E402
+from libsbn_tpu_torch.gp import GPInstance, engine_kernels  # noqa: E402
+from libsbn_tpu_torch.gp.engine import _jc69_transition  # noqa: E402
 from libsbn_tpu_torch.io import newick  # noqa: E402
 from libsbn_tpu_torch.io.fasta import Alignment  # noqa: E402
 from libsbn_tpu_torch.models.engine import LikelihoodEngine  # noqa: E402
@@ -252,6 +266,7 @@ BENCH_SHAPE = 0.5  # config 2's Weibull shape
 DEV = "cuda"
 JC_SOURCE = "libsbn_tpu_torch/csrc/pruning_jc.cu"
 GENERIC_SOURCE = "libsbn_tpu_torch/csrc/pruning_generic.cu"
+GP_SOURCE = "libsbn_tpu_torch/csrc/gp_engine.cu"
 KERNELS = [
     {"name": "jc69_ll_grad (K1)", "key": "ll_grad_jc69", "source": JC_SOURCE,
      "replaces": "libsbn_tpu/ops/pruning_pallas_jc.py:214"},
@@ -267,10 +282,34 @@ KERNELS = [
     {"name": "generic_dp (K6)", "key": "ll_dp_generic",
      "source": GENERIC_SOURCE,
      "replaces": "libsbn_tpu/ops/pruning_pallas_vjp.py:111"},
+    {"name": "gp_populate (K7)", "key": "populate_plvs", "source": GP_SOURCE,
+     "replaces": "libsbn_tpu/gp/engine_pallas.py:104"},
+    {"name": "gp_golden_sweep (K8)", "key": "golden_sweep",
+     "source": GP_SOURCE, "replaces": "libsbn_tpu/gp/engine_pallas.py:361"},
 ]
 # The modules whose wrappers count kernel launches and twin calls.
-COUNTED = (pruning_jc, pruning_generic, pruning_vjp)
+COUNTED = (pruning_jc, pruning_generic, pruning_vjp, engine_kernels)
 PARTICLES = 10  # the JAX bench's config 5
+# Generalized pruning: the reference's goldens (gp_doctest.cpp, as
+# tests/test_gp.py pins them) and the fluA optimum of run_branch_ascent(1e-6,
+# 100) in f64 (libsbn_tpu: -4337.885058592374 on its level route and
+# -4337.885058592593 on its Pallas route, both in 12 sweeps;
+# tests/test_torch_gp_kernels.py holds the port's CPU routes to it).
+GP_HELLO = -84.77961943
+GP_HELLO_BL = [0.0, 0.22, 0.113, 0.15, 0.1]
+GP_GRADIENT = (-4.806671945, -0.6109379521)
+GP_FLUA = -4337.885058592
+GP_FLUA_TOL = {torch.float64: 1e-7, torch.float32: 1e-2}
+# K7 against its twin, (rtol, atol) of the PLVs and of the log-scales;
+# K8 against its twin, the largest objective gap over |f| + sum(w) and the
+# largest log-branch-length gap on edges that are not flat
+# (engine_kernels.sweep_disagreement).
+GP_TWIN_TOL = {
+    torch.float64: {"plv": (1e-12, 1e-300), "ls": (1e-12, 1e-12),
+                    "obj": 1e-12, "lb": 1e-6},
+    torch.float32: {"plv": (1e-5, 1e-6), "ls": (1e-5, 1e-4),
+                    "obj": 1e-5, "lb": None},
+}
 
 
 def close(name, got, want, tol):
@@ -308,7 +347,8 @@ def phase_build():
     print(f"[2] build: {time.perf_counter() - t0:.1f} s")
     # One line per kernel instance: registers and spills from ptxas -v.
     pattern = (r"Function properties for \S*?((?:jc69|generic)_"
-               r"(?:ll_grad|ll|dea|dp)_kernel)I([fd])Li(\d+)E")
+               r"(?:ll_grad|ll|dea|dp)_kernel|gp_(?:populate|golden_sweep)_kernel)"
+               r"I([fd])(?:Li(\d+)E)?")
     for source, info in _kernels.build_info.items():
         print(f"  {source}: nvcc {info['seconds']:.1f} s -> {info['path']}")
         name = None
@@ -316,7 +356,8 @@ def phase_build():
             m = re.search(pattern, line)
             if m:
                 dt = "float" if m.group(2) == "f" else "double"
-                name = f"{m.group(1)}<{dt}, K={m.group(3)}>"
+                k = f", K={m.group(3)}" if m.group(3) else ""
+                name = f"{m.group(1)}<{dt}{k}>"
             elif name and "spill stores" in line:
                 spills = line.strip()
             elif name and "Used" in line and "registers" in line:
@@ -883,16 +924,174 @@ def time_vbpi(smi, steps=20):
     return out
 
 
+def gp_instance(fasta, newick_file, dtype, use_kernels="auto"):
+    """GPInstance on the card; "auto" is the kernel route there."""
+    inst = GPInstance()
+    inst.read_fasta_file(f"{DATA}/{fasta}")
+    inst.read_newick_file(f"{DATA}/{newick_file}")
+    inst.make_engine(dtype=dtype, device=DEV, use_kernels=use_kernels)
+    return inst
+
+
+def gp_kernel_inputs(eng, seed=0):
+    """K7's inputs on the card at seeded U(0.01, 0.3) branch lengths and
+    the uniform prior: (streams, q, P, tips, bl)."""
+    bl = np.random.default_rng(seed).uniform(0.01, 0.3, eng.branch_lengths.size)
+    blt = eng._tensor(bl)
+    return (eng._edge_streams(), eng._tensor(eng.q),
+            _jc69_transition(blt).contiguous(), eng._tips, blt)
+
+
+def phase_gp_vs_twin():
+    """K7 and K8 against their twins on the card, hello and fluA, float32
+    and float64; returns the errors of the timed case (fluA, float32): K7's
+    largest PLV error and K8's largest objective gap in nats."""
+    print("[7] GP kernels vs twins on the card, hello and fluA")
+    errs = {}
+    for fasta, nwk in (("hello.fasta", "hello_rooted.nwk"),
+                       ("fluA.fa", "fluA.tree")):
+        for dtype in (torch.float32, torch.float64):
+            tol = GP_TWIN_TOL[dtype]
+            tag = f"{fasta.split('.')[0]} {str(dtype)[6:]}"
+            eng = gp_instance(fasta, nwk, dtype).get_engine()
+            streams, q, P, tips, bl = gp_kernel_inputs(eng)
+            got = engine_kernels.populate_plvs_cuda(streams, q, P, tips)
+            want = engine_kernels.populate_plvs_twin(streams, q, P, tips)
+            torch.cuda.synchronize()
+            e7 = {}
+            for k in engine_kernels.PLV_KEYS:
+                kind = "ls" if k.startswith("ls_") else "plv"
+                a, b = got[k].double().cpu().numpy(), want[k].double().cpu().numpy()
+                if a.shape != b.shape or not np.all(np.isfinite(a)):
+                    raise AssertionError(f"K7 {k} {tag}: shape / non-finite")
+                np.testing.assert_allclose(a, b, *tol[kind], err_msg=f"K7 {k} {tag}")
+                e7[kind] = max(e7.get(kind, 0.0), float(np.max(np.abs(a - b))))
+            print(f"  ok  K7 {tag}, 12 arrays: max abs err {e7['plv']:.3e} on "
+                  f"the PLVs (rtol, atol {tol['plv']}), {e7['ls']:.3e} on the "
+                  f"log-scales ({tol['ls']})")
+            e7 = e7["plv"]
+            A, B = engine_kernels.sweep_stats(got, eng._pa, eng._ch, eng._rot)
+            A, B = A.contiguous(), B.contiguous()
+            cur = torch.log(bl[eng._g]).contiguous()
+            k8 = engine_kernels.golden_sweep_cuda(A, B, eng._w, cur)
+            t8 = engine_kernels.golden_sweep_twin(A, B, eng._w, cur)
+            obj_gap, lb_gap, e8 = engine_kernels.sweep_disagreement(
+                A, B, eng._w, k8, t8)
+            ok = obj_gap <= tol["obj"] and (tol["lb"] is None
+                                            or lb_gap <= tol["lb"])
+            if not ok or not torch.isfinite(k8).all():
+                raise AssertionError(f"K8 {tag}: objective gap {obj_gap:.3e}, "
+                                     f"log-length gap {lb_gap:.3e}")
+            print(f"  ok  K8 {tag}: objective gap {e8:.3e} nats, "
+                  f"{obj_gap:.3e} of |f| + sum(w) (<= {tol['obj']}); "
+                  f"log-length gap on edges that are not flat {lb_gap:.3e} "
+                  f"(<= {tol['lb']})")
+            if fasta == "fluA.fa" and dtype == torch.float32:
+                errs = {"populate_plvs": e7, "golden_sweep": e8}
+    return errs
+
+
+def gp_fit(dtype, use_kernels, tol=1e-6, max_iter=100):
+    inst = gp_instance("fluA.fa", "fluA.tree", dtype, use_kernels)
+    eng = inst.get_engine()
+    t0 = time.perf_counter()
+    marginal, sweeps = eng.run_branch_ascent(tol, max_iter)
+    seconds = time.perf_counter() - t0
+    route = "kernel" if use_kernels else "level"
+    if not eng.last_ascent_converged:
+        raise AssertionError(f"fluA {route} route did not converge")
+    close(f"fluA fit run_branch_ascent({tol}, {max_iter}), {route} route, "
+          f"{str(dtype)[6:]} ({sweeps} sweeps, {seconds:.2f} s)", marginal,
+          GP_FLUA, (0.0, GP_FLUA_TOL[dtype]))
+    return marginal
+
+
+def phase_gp_path():
+    """GPInstance on the card: the goldens and the fluA fit on the kernel
+    route, f64 and f32, and the level route's f64 fit as the on-card
+    oracle; returns the launch counts of the kernel-route runs."""
+    print("[8] GP path: GPInstance.make_engine(device='cuda') vs the "
+          "reference's goldens and libsbn_tpu's fluA optimum")
+    reset_counters()
+    inst = gp_instance("hello.fasta", "hello_rooted.nwk", torch.float64)
+    eng = inst.get_engine()
+    if not eng.use_kernels or eng.device.type != torch.device(DEV).type:
+        raise AssertionError("make_engine(device='cuda') is not on the "
+                             "kernel route")
+    eng.branch_lengths = np.array(GP_HELLO_BL)
+    inst.populate_plvs()
+    inst.compute_likelihoods()
+    close("GP hello per-GPCSP LLs, kernel route, f64",
+          eng.get_per_gpcsp_log_likelihoods(), np.full(5, GP_HELLO),
+          (0.0, 1e-6))
+    close("GP hello marginal, kernel route, f64",
+          eng.get_log_marginal_likelihood(), GP_HELLO, (0.0, 1e-6))
+    inst = gp_instance("hello_single_nucleotide.fasta", "hello_rooted.nwk",
+                       torch.float64)
+    inst.get_engine().branch_lengths = np.array(GP_HELLO_BL)
+    inst.populate_plvs()
+    close("GP gradient golden (LL, dLL/db), kernel route, f64",
+          inst.get_engine().log_likelihood_and_derivative(
+              inst.dag.node_count() - 1, 0), GP_GRADIENT, (0.0, 1e-6))
+    gp_fit(torch.float64, use_kernels=True)
+    gp_fit(torch.float32, use_kernels=True)
+    launches = launch_counts("GP path", ["populate_plvs", "golden_sweep"])
+    gp_fit(torch.float64, use_kernels=False)
+    return launches
+
+
+def phase_gp_timing(smi, runs=5):
+    """K7 and K8 against their twins per launch (CUDA events) on fluA,
+    float32; then the JAX bench's GP config on both routes."""
+    print(f"[9] GP timing: fluA, float32 ({smi})")
+    eng = gp_instance("fluA.fa", "fluA.tree", torch.float32).get_engine()
+    streams, q, P, tips, bl = gp_kernel_inputs(eng)
+    plvs = engine_kernels.populate_plvs_cuda(streams, q, P, tips)
+    A, B = engine_kernels.sweep_stats(plvs, eng._pa, eng._ch, eng._rot)
+    A, B = A.contiguous(), B.contiguous()
+    cur = torch.log(bl[eng._g]).contiguous()
+    calls = {
+        "populate_plvs": (
+            lambda: engine_kernels.populate_plvs_cuda(streams, q, P, tips),
+            lambda: engine_kernels.populate_plvs_twin(streams, q, P, tips)),
+        "golden_sweep": (
+            lambda: engine_kernels.golden_sweep_cuda(A, B, eng._w, cur),
+            lambda: engine_kernels.golden_sweep_twin(A, B, eng._w, cur)),
+    }
+    out = time_pairs(calls, 1, plain_reps=(3, 2))
+    for use_kernels in (True, False):
+        eng = gp_instance("fluA.fa", "fluA.tree", torch.float32,
+                          use_kernels).get_engine()
+        bl0 = eng.branch_lengths.copy()
+        eng.run_branch_ascent(1e-2, 10)  # warm-up
+        times = []
+        for _ in range(runs):
+            eng.branch_lengths = bl0.copy()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            marginal, sweeps = eng.run_branch_ascent(1e-2, 10)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        route = "kernel route (K7 + K8)" if use_kernels else "level route"
+        print(f"  run_branch_ascent(1e-2, 10), {route}: median "
+              f"{statistics.median(times):.3f} ms per ascent (min "
+              f"{min(times):.3f}, {runs} runs, host clock, synchronised); "
+              f"{sweeps} sweeps, marginal {marginal:.6f}")
+    return out
+
+
 def main():
     name, smi = phase_device()
     phase_build()
     errs = phase_kernel_vs_twin()
     errs.update(phase_generic_vs_twin())
-    runs = [phase_main_path(), phase_gtr_path(), phase_vbpi()]
+    errs.update(phase_gp_vs_twin())
+    runs = [phase_main_path(), phase_gtr_path(), phase_vbpi(), phase_gp_path()]
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
     times = phase_timing(smi)
     time_vbpi(smi)
     times.update(phase_generic_timing(smi))
+    times.update(phase_gp_timing(smi))
     report = [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[k["key"]],

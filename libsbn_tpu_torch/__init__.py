@@ -3,8 +3,9 @@
 The second package beside ``libsbn_tpu`` (the JAX reference, which it never
 imports): the same host layer (parsing, site patterns, schedules, the SBN
 support and sampler), the same JC69 and GTR likelihood, branch- and
-model-gradient paths for unrooted trees, and the VBPI trainer
-(``vi.JitVBPI``), with hand-written CUDA kernels for NVIDIA Hopper
+model-gradient paths for unrooted trees, the VBPI trainer
+(``vi.JitVBPI``) and generalized pruning over the subsplit DAG
+(``gp.GPInstance``), with hand-written CUDA kernels for NVIDIA Hopper
 (``csrc/``, built with nvcc at first use) and plain PyTorch twins of those
 kernels that run on the CPU.
 
@@ -14,7 +15,10 @@ on every constructor, and the CPU is the default device.
 
 __version__ = "0.1.0"
 
-from .core.tree import UnrootedTree, UnrootedTreeCollection  # noqa: E402
+from .core.tree import (  # noqa: E402
+    RootedTree, RootedTreeCollection, UnrootedTree, UnrootedTreeCollection,
+)
+from .gp.instance import GPInstance  # noqa: E402
 from .instance import UnrootedInstance  # noqa: E402
 from .models.phylo_model import PhyloModelSpec  # noqa: E402
 
@@ -27,6 +31,9 @@ __all__ = [
     "PhyloModelSpec",
     "PhyloModelSpecification",
     "unrooted_instance",
+    "GPInstance",
+    "RootedTree",
+    "RootedTreeCollection",
     "UnrootedTree",
     "UnrootedTreeCollection",
     "__version__",

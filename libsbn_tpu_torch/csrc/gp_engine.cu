@@ -1,0 +1,390 @@
+// Generalized-pruning kernels for NVIDIA Hopper (sm_90a), the GP engine's
+// two hot loops (libsbn_tpu_torch/gp/engine_kernels.py):
+//   K7 gp_populate_kernel:     the whole PLV population pass over the subsplit
+//                              DAG, from two host-built edge streams;
+//   K8 gp_golden_sweep_kernel: a fixed golden-section search of every edge's
+//                              log branch length against its JC69 objective.
+//
+// Built by libsbn_tpu_torch/ops/_kernels.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC
+// (never --use_fast_math: exp(NEG - m) must underflow to exactly 0, and the
+// log-scales are compared across routes) into a shared library with a plain
+// C interface, bound with ctypes. Each entry point launches on the caller's
+// stream, allocates nothing, and returns a CUDA error code (0 on success).
+//
+// Layout (row-major, patterns innermost so that a warp's accesses to one row
+// are coalesced):
+//   rootward  (T_rw, 5) int32  dest row in PH, src node, gpcsp, finish flag, node
+//   leafward  (T_lw, 5) int32  dest node in rhat, src row in RB, gpcsp, finish
+//                              flag, node
+//   roots     (R, 2) int32     rootsplit node, its gpcsp
+//   q         (E,)             SBN parameters per GPCSP
+//   P         (E, 4, 4)        JC69 transition matrices (exp taken in f64)
+//   tips      (L, 4, S)        tip partials
+//   p, rhat   (N, 4, S)        outputs; lsp, lsrhat (N, S) their log-scales
+//   PH, RB    (2N, 4, S)       outputs [phat; phattilde] and [r; rtilde];
+//                              lsPH, lsRB (2N, S)
+//   A, B      (E, S)           K8: per-edge rows of r P(b) p = A + e^{-4b/3} B
+//   w         (S,)             pattern weights
+//   cur, out  (E,)             K8: current and new log branch lengths
+//
+// The arithmetic follows libsbn_tpu/gp/engine_pallas.py; the plain PyTorch
+// twins (populate_plvs_twin, golden_sweep_twin) repeat its order.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr size_t kMaxShared = 232448;  // bytes a block may use on sm_90
+constexpr double kNeg = -1e30;         // log-scale of an empty accumulator
+constexpr int kGoldenIters = 70;       // GOLDEN_ITERS
+constexpr double kMinLogBl = -13.9;    // MIN_LOG_BL
+constexpr double kMaxLogBl = 1.1;      // MAX_LOG_BL
+constexpr double kInvPhi = 0.6180339887498949;  // (sqrt(5) - 1) / 2
+
+__device__ __forceinline__ float exp_t(float x) { return expf(x); }
+__device__ __forceinline__ double exp_t(double x) { return exp(x); }
+__device__ __forceinline__ float log_t(float x) { return logf(x); }
+__device__ __forceinline__ double log_t(double x) { return log(x); }
+// A product that is never contracted into an FMA, so K8's bracket and
+// objective round as the twin's separate tensor ops do.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+  // Butterfly: every lane ends with the same, order-fixed sum.
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// K7: GP PLV population. Replaces the TPU kernel
+// libsbn_tpu/gp/engine_pallas.py::_kernel (pallas_call in _populate_pallas).
+//
+// Every pattern's recursion is independent (the finish max is over the 4
+// states of one pattern), so one thread owns one pattern column of every
+// PLV and walks the three streams in order; no thread reads another's data
+// and there is no barrier after staging. The stream rows, q and P are the
+// same for every thread: the block stages them in shared memory when they
+// fit (reads are then broadcasts), else reads them from device memory.
+// Bound on this card: the dependent chain of the T_rw + R + T_lw sequential
+// steps (each reads its source column and its destination's accumulator,
+// written a few steps earlier, then writes it back), not bandwidth; with
+// few patterns (fluA: 238) the grid is two blocks and most SMs are idle.
+// ---------------------------------------------------------------------------
+
+// One thread's pattern column of a (rows, 4, S) PLV slab and of its
+// (rows, S) log-scales.
+template <typename T>
+struct Column {
+  T* v;
+  T* ls;
+  size_t S;
+  __device__ T& at(int row, int i) const { return v[(size_t(row) * 4 + i) * S]; }
+  __device__ T& scale(int row) const { return ls[size_t(row) * S]; }
+};
+
+template <typename T>
+struct Vec4 {
+  T x[4];
+};
+
+template <typename T>
+__device__ __forceinline__ Vec4<T> load4(const Column<T>& c, int row) {
+  Vec4<T> r;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r.x[i] = c.at(row, i);
+  return r;
+}
+
+// q_g * P_g v.
+template <typename T>
+__device__ __forceinline__ Vec4<T> evolve(const T* P, T q, const Vec4<T>& v) {
+  Vec4<T> r;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const T* row = P + 4 * i;
+    r.x[i] = q * (row[0] * v.x[0] + row[1] * v.x[1] + row[2] * v.x[2] + row[3] * v.x[3]);
+  }
+  return r;
+}
+
+// buf[row] += contrib at log-scale ls_c, max-aligned (both exponents <= 0).
+template <typename T>
+__device__ __forceinline__ void accumulate(const Column<T>& buf, int row, const Vec4<T>& contrib,
+                                           T ls_c) {
+  const T ls_cur = buf.scale(row);
+  const T m = ls_cur > ls_c ? ls_cur : ls_c;
+  const T f_cur = exp_t(ls_cur - m);
+  const T f_c = exp_t(ls_c - m);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) buf.at(row, i) = buf.at(row, i) * f_cur + contrib.x[i] * f_c;
+  buf.scale(row) = m;
+}
+
+// dst[row] = prod / max over states (1 where that max is not > 0); the
+// log-scale absorbs the max.
+template <typename T>
+__device__ __forceinline__ void finish(const Column<T>& dst, int row, const Vec4<T>& prod,
+                                       T ls_sum) {
+  T scale = prod.x[0];
+#pragma unroll
+  for (int i = 1; i < 4; ++i) scale = prod.x[i] > scale ? prod.x[i] : scale;
+  scale = scale > T(0) ? scale : T(1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dst.at(row, i) = prod.x[i] / scale;
+  dst.scale(row) = ls_sum + log_t(scale);
+}
+
+template <typename T>
+__device__ __forceinline__ Vec4<T> times(const Vec4<T>& a, const Vec4<T>& b) {
+  Vec4<T> r;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) r.x[i] = a.x[i] * b.x[i];
+  return r;
+}
+
+// r = rhat * phattilde into RB row node, rtilde = rhat * phat into row node + N.
+template <typename T>
+__device__ __forceinline__ void finish_r(const Column<T>& rhat, const Column<T>& PH,
+                                         const Column<T>& RB, int node, int N) {
+  const Vec4<T> rh = load4(rhat, node);
+  const T ls_rh = rhat.scale(node);
+  finish(RB, node, times(rh, load4(PH, node + N)), ls_rh + PH.scale(node + N));
+  finish(RB, node + N, times(rh, load4(PH, node)), ls_rh + PH.scale(node));
+}
+
+template <typename T>
+__host__ __device__ size_t populate_shared_bytes(int n_rw, int n_lw, int n_roots, int E) {
+  return sizeof(T) * 17 * size_t(E) + sizeof(int) * (5 * size_t(n_rw) + 5 * size_t(n_lw) +
+                                                     2 * size_t(n_roots));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gp_populate_kernel(const int* __restrict__ rw_g, const int* __restrict__ lw_g,
+                   const int* __restrict__ roots_g, const T* __restrict__ q_g,
+                   const T* __restrict__ P_g, const T* __restrict__ tips, T* __restrict__ p,
+                   T* __restrict__ PH, T* __restrict__ rhat, T* __restrict__ RB,
+                   T* __restrict__ lsp, T* __restrict__ lsPH, T* __restrict__ lsrhat,
+                   T* __restrict__ lsRB, int n_rw, int n_lw, int n_roots, int E, int N, int L,
+                   int S, int staged) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const T* q = q_g;
+  const T* Pm = P_g;
+  const int* rw = rw_g;
+  const int* lw = lw_g;
+  const int* roots = roots_g;
+  if (staged) {  // uniform over the block
+    T* sq = reinterpret_cast<T*>(smem);
+    T* sP = sq + E;
+    int* srw = reinterpret_cast<int*>(sP + 16 * size_t(E));
+    int* slw = srw + 5 * n_rw;
+    int* sroots = slw + 5 * n_lw;
+    for (int i = threadIdx.x; i < E; i += kThreads) sq[i] = q_g[i];
+    for (int i = threadIdx.x; i < 16 * E; i += kThreads) sP[i] = P_g[i];
+    for (int i = threadIdx.x; i < 5 * n_rw; i += kThreads) srw[i] = rw_g[i];
+    for (int i = threadIdx.x; i < 5 * n_lw; i += kThreads) slw[i] = lw_g[i];
+    for (int i = threadIdx.x; i < 2 * n_roots; i += kThreads) sroots[i] = roots_g[i];
+    __syncthreads();
+    q = sq;
+    Pm = sP;
+    rw = srw;
+    lw = slw;
+    roots = sroots;
+  }
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  if (s >= S) return;  // the ragged last tile: masked, not padded
+  const size_t SS = size_t(S);
+  const Column<T> cp{p + s, lsp + s, SS};
+  const Column<T> cPH{PH + s, lsPH + s, SS};
+  const Column<T> crhat{rhat + s, lsrhat + s, SS};
+  const Column<T> cRB{RB + s, lsRB + s, SS};
+
+  // Leaves hold the tip partials at scale 0; every accumulator is empty.
+  for (int row = 0; row < N; ++row) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cp.at(row, i) = row < L ? tips[(size_t(row) * 4 + i) * SS + s] : T(0);
+      crhat.at(row, i) = T(0);
+    }
+    cp.scale(row) = T(0);
+    crhat.scale(row) = T(kNeg);
+  }
+  for (int row = 0; row < 2 * N; ++row) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      cPH.at(row, i) = T(0);
+      cRB.at(row, i) = T(0);
+    }
+    cPH.scale(row) = T(kNeg);
+    cRB.scale(row) = T(0);
+  }
+
+  // Rootward: PH[dest] += q_g P_g p[src]; p[node] = phat * phattilde on the
+  // node's last in-edge.
+  for (int t = 0; t < n_rw; ++t) {
+    const int* r = rw + 5 * t;
+    const int dest = r[0], src = r[1], g = r[2], fin = r[3], node = r[4];
+    accumulate(cPH, dest, evolve(Pm + 16 * g, q[g], load4(cp, src)), cp.scale(src));
+    if (fin) {
+      finish(cp, node, times(load4(cPH, node), load4(cPH, node + N)),
+             cPH.scale(node) + cPH.scale(node + N));
+    }
+  }
+  // Rootsplit seeds: rhat = q / 4 (the stationary distribution times q).
+  for (int i = 0; i < n_roots; ++i) {
+    const int node = roots[2 * i], g = roots[2 * i + 1];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) crhat.at(node, k) = T(0.25) * q[g];
+    crhat.scale(node) = T(0);
+    finish_r(crhat, cPH, cRB, node, N);
+  }
+  // Leafward: rhat[dest] += q_g P_g RB[src]; r and rtilde on the last in-edge.
+  for (int t = 0; t < n_lw; ++t) {
+    const int* r = lw + 5 * t;
+    const int dest = r[0], src = r[1], g = r[2], fin = r[3];
+    accumulate(crhat, dest, evolve(Pm + 16 * g, q[g], load4(cRB, src)), cRB.scale(src));
+    if (fin) finish_r(crhat, cPH, cRB, dest, N);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K8: golden-section branch sweep. Replaces the TPU kernel
+// libsbn_tpu/gp/engine_pallas.py::_sweep_kernel (pallas_call in
+// _optimize_pallas).
+//
+// One warp per edge, lanes striding over the patterns. Each objective
+// f(lb) = -sum_s w log(A + exp(-4/3 e^lb) B) is a butterfly warp sum, so every
+// lane holds the same value and takes the same fc < fd branch, and the
+// order is fixed (the result repeats exactly). Bound on this card: the
+// 2 + 2 * 70 + 1 dependent objective evaluations per edge, each S / 32 logs
+// per lane and five shuffles; A and B (E x S) are read from L1/L2 each time.
+// ---------------------------------------------------------------------------
+template <typename T>
+__device__ __forceinline__ T golden_objective(const T* A, const T* B, const T* w, int S, int lane,
+                                              T lb) {
+  const T e = exp_t(mul_rn(T(-4.0 / 3.0), exp_t(lb)));
+  T acc = T(0);
+  for (int s = lane; s < S; s += 32) acc += mul_rn(log_t(A[s] + mul_rn(e, B[s])), w[s]);
+  return -warp_sum(acc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gp_golden_sweep_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                       const T* __restrict__ w, const T* __restrict__ cur_log_bl,
+                       T* __restrict__ out, int E, int S) {
+  const int edge = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (edge >= E) return;  // a whole warp: no shuffle is left waiting
+  const int lane = threadIdx.x % 32;
+  const T* a_row = A + size_t(edge) * S;
+  const T* b_row = B + size_t(edge) * S;
+  const T cur = cur_log_bl[edge];
+  const T fcur = golden_objective(a_row, b_row, w, S, lane, cur);
+  const T invphi = T(kInvPhi);
+  T a = T(kMinLogBl);
+  T b = T(kMaxLogBl);
+  T c = b - mul_rn(invphi, b - a);
+  T d = a + mul_rn(invphi, b - a);
+  T fc = golden_objective(a_row, b_row, w, S, lane, c);
+  T fd = golden_objective(a_row, b_row, w, S, lane, d);
+  for (int it = 0; it < kGoldenIters; ++it) {
+    const bool left = fc < fd;
+    const T b2 = left ? d : b;
+    const T a2 = left ? a : c;
+    c = b2 - mul_rn(invphi, b2 - a2);
+    d = a2 + mul_rn(invphi, b2 - a2);
+    a = a2;
+    b = b2;
+    fc = golden_objective(a_row, b_row, w, S, lane, c);
+    fd = golden_objective(a_row, b_row, w, S, lane, d);
+  }
+  const T best = fc < fd ? c : d;
+  const T fbest = fc < fd ? fc : fd;
+  // Reject a step that makes the objective worse.
+  if (lane == 0) out[edge] = fbest < fcur ? best : cur;
+}
+
+template <typename Kern>
+cudaError_t prepare(Kern kernel, size_t smem) {
+  if (smem > kMaxShared) return cudaErrorInvalidConfiguration;
+  if (smem > 48 * 1024) {
+    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+int populate_entry(const void* rw, const void* lw, const void* roots, const void* q,
+                   const void* P, const void* tips, void* p, void* PH, void* rhat, void* RB,
+                   void* lsp, void* lsPH, void* lsrhat, void* lsRB, int n_rw, int n_lw,
+                   int n_roots, int E, int N, int L, int S, void* stream) {
+  const size_t want = populate_shared_bytes<T>(n_rw, n_lw, n_roots, E);
+  const int staged = want <= kMaxShared;
+  const size_t smem = staged ? want : 0;
+  cudaError_t err = prepare(gp_populate_kernel<T>, smem);
+  if (err != cudaSuccess) return int(err);
+  const int grid = (S + kThreads - 1) / kThreads;
+  gp_populate_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(rw), static_cast<const int*>(lw), static_cast<const int*>(roots),
+      static_cast<const T*>(q), static_cast<const T*>(P), static_cast<const T*>(tips),
+      static_cast<T*>(p), static_cast<T*>(PH), static_cast<T*>(rhat), static_cast<T*>(RB),
+      static_cast<T*>(lsp), static_cast<T*>(lsPH), static_cast<T*>(lsrhat), static_cast<T*>(lsRB),
+      n_rw, n_lw, n_roots, E, N, L, S, staged);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int golden_sweep_entry(const void* A, const void* B, const void* w, const void* cur, void* out,
+                       int E, int S, void* stream) {
+  const int grid = (E + kWarps - 1) / kWarps;
+  gp_golden_sweep_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<const T*>(B), static_cast<const T*>(w),
+      static_cast<const T*>(cur), static_cast<T*>(out), E, S);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* lsbn_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int lsbn_gp_populate_f32(const void* rw, const void* lw, const void* roots, const void* q,
+                         const void* P, const void* tips, void* p, void* PH, void* rhat, void* RB,
+                         void* lsp, void* lsPH, void* lsrhat, void* lsRB, int n_rw, int n_lw,
+                         int n_roots, int E, int N, int L, int S, void* stream) {
+  return populate_entry<float>(rw, lw, roots, q, P, tips, p, PH, rhat, RB, lsp, lsPH, lsrhat,
+                               lsRB, n_rw, n_lw, n_roots, E, N, L, S, stream);
+}
+
+int lsbn_gp_populate_f64(const void* rw, const void* lw, const void* roots, const void* q,
+                         const void* P, const void* tips, void* p, void* PH, void* rhat, void* RB,
+                         void* lsp, void* lsPH, void* lsrhat, void* lsRB, int n_rw, int n_lw,
+                         int n_roots, int E, int N, int L, int S, void* stream) {
+  return populate_entry<double>(rw, lw, roots, q, P, tips, p, PH, rhat, RB, lsp, lsPH, lsrhat,
+                                lsRB, n_rw, n_lw, n_roots, E, N, L, S, stream);
+}
+
+int lsbn_gp_golden_sweep_f32(const void* A, const void* B, const void* w, const void* cur,
+                             void* out, int E, int S, void* stream) {
+  return golden_sweep_entry<float>(A, B, w, cur, out, E, S, stream);
+}
+
+int lsbn_gp_golden_sweep_f64(const void* A, const void* B, const void* w, const void* cur,
+                             void* out, int E, int S, void* stream) {
+  return golden_sweep_entry<double>(A, B, w, cur, out, E, S, stream);
+}
+
+}  // extern "C"

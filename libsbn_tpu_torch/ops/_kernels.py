@@ -73,8 +73,18 @@ def _bind_generic(lib):
         _sig(lib, f"lsbn_generic_dp_{dt}", 11, 8)
 
 
+def _bind_gp(lib):
+    for dt in ("f32", "f64"):
+        # rootward, leafward, roots, q, P, tips, p, PH, rhat, RB, lsp, lsPH,
+        # lsrhat, lsRB; n_rw, n_lw, n_roots, E, N, L, S; stream
+        _sig(lib, f"lsbn_gp_populate_{dt}", 14, 7)
+        # A, B, w, cur, out; E, S; stream
+        _sig(lib, f"lsbn_gp_golden_sweep_{dt}", 5, 2)
+
+
 # One library per source, csrc/<name>.cu, with its C signatures.
-_BINDERS = {"pruning_jc": _bind_jc, "pruning_generic": _bind_generic}
+_BINDERS = {"pruning_jc": _bind_jc, "pruning_generic": _bind_generic,
+            "gp_engine": _bind_gp}
 SOURCES = tuple(_BINDERS)
 
 

@@ -6,7 +6,9 @@ of a gradient step runs as tensor code on the device: reparameterized
 branch lengths, the batched JC69 likelihood and linear-time branch
 gradients (kernel K1, ops/pruning_jc.py), the eq:dLdPsi scalar gradients,
 the VIMCO topology gradients and an Adam update. The evaluation half
-(``vbpi_log_f``) takes the LL-only kernel K2. PyTorch runs eagerly, so
+(``vbpi_log_f``) takes the LL-only kernel K2. With ``rescale=False`` both
+halves run the scan engine ops/pruning.py instead, on any device, as the
+JAX package's step does. PyTorch runs eagerly, so
 ``vbpi_train_step`` is a plain function of tensors; nothing in it copies to
 the host. On a CUDA device ``index_add_`` sums in no fixed order, so two
 runs of a step agree to rounding, not bit for bit.
@@ -16,8 +18,7 @@ default) and PSP (three summed component variables per branch, ICLR 2019),
 selected with ``branch_model=``: both run the same step with C = 1 or 3
 component rows in branch_rep.
 
-Not on this slice: a device mesh (``mesh=``, ROADMAP queue 1, item 11) and
-``rescale=False`` (a route through the scan engine, item 4).
+Not on this slice: a device mesh (``mesh=``, ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 
 from ..core.topology import Topology
 from ..io import native
-from ..ops import pruning_jc
+from ..ops import pruning, pruning_jc, substitution
 from ..ops import schedule as schedule_ops
 from ..sbn import gradients as sbn_gradients
 from ..sbn import probability as sbn_probability
@@ -39,10 +40,6 @@ from ..sbn.sampling import NativeSBNSampler
 PRIOR_RATE = 10.0
 MESH_TODO = (
     "mesh= is not ported yet (ROADMAP queue 1, item 11: torch.distributed)"
-)
-RESCALE_TODO = (
-    "rescale=False is not ported for the VBPI step yet (ROADMAP queue 1, "
-    "item 4: the step must route through the scan engine ops/pruning.py)"
 )
 
 
@@ -68,6 +65,8 @@ class VBPIStatics(NamedTuple):
     # lognormal parameters sum (ICLR 2019); the last q_params row is the
     # zeroed sentinel for absent components.
     psp: bool = False
+    # False: the likelihoods run unrescaled through the scan engine.
+    rescale: bool = True
 
 
 class Adam:
@@ -156,6 +155,18 @@ def _log_f_terms(sbn_params, segment_ids, num_segments, reps, mu, sigma,
     return log_prior - log_q_sbn - log_q_branch
 
 
+def _scan_inputs(theta):
+    """The scan engine's JC69 inputs for branch lengths theta (P, B):
+    per-tree transition matrices (P, B + 2, 1, 4, 4) over the padded
+    lengths, the rate matrix (1, 4, 4), freqs and props."""
+    dt, dev = theta.dtype, theta.device
+    freqs, evec, ivec, evals = substitution.jc69_eigen(dtype=dt, device=dev)
+    ones = torch.ones(1, dtype=dt, device=dev)
+    P = pruning.node_transition_matrices(
+        evec, ivec, evals, torch.nn.functional.pad(theta, (0, 2)), ones)
+    return P, substitution.jc69_q(dtype=dt, device=dev)[None], freqs, ones
+
+
 def vbpi_train_step(
     state: VBPIState,
     statics: VBPIStatics,
@@ -179,11 +190,19 @@ def vbpi_train_step(
     # 1. Reparameterized branch lengths.
     mu, sigma, theta = _branch_lengths(q_params, branch_rep, eps)
 
-    # 2. Batched pruning: likelihoods + linear-time branch gradients (K1).
-    bl_padded = torch.nn.functional.pad(theta, (0, 2))  # root + ones slots
-    lls, bgrads = pruning_jc.log_likelihood_and_branch_gradient_jc69(
-        post_children, bl_padded, tips, weights, root_id=statics.root_id,
-    )
+    # 2. Batched pruning: likelihoods + linear-time branch gradients (K1,
+    # or the unrescaled scan engine).
+    if statics.rescale:
+        bl_padded = torch.nn.functional.pad(theta, (0, 2))  # root + ones slots
+        lls, bgrads = pruning_jc.log_likelihood_and_branch_gradient_jc69(
+            post_children, bl_padded, tips, weights, root_id=statics.root_id,
+        )
+    else:
+        P, Qs, freqs, props = _scan_inputs(theta)
+        lls, bgrads = pruning.log_likelihood_and_branch_gradient(
+            post_children, P, Qs, tips, freqs, props, weights,
+            root_id=statics.root_id, rescale=False,
+        )
 
     # 3. Scalar lognormal gradient, eq:dLdPsi: each branch's per-occurrence
     # contribution scatters onto all C of its component variables.
@@ -222,15 +241,22 @@ def vbpi_train_step(
 def vbpi_log_f(state: VBPIState, statics: VBPIStatics, post_children,
                branch_rep, reps, eps, tips, weights, segment_ids):
     """Per-particle log f = loglike + log prior - log q_sbn - log q_branch
-    at beta = 1, with NO parameter update (K2 for the LLs): the evaluation
-    half of vbpi_train_step, for ELBO and importance-sampled marginal
-    estimates (vip burrito.py:127-183)."""
+    at beta = 1, with NO parameter update (K2 for the LLs, or the unrescaled
+    scan engine): the evaluation half of vbpi_train_step, for ELBO and
+    importance-sampled marginal estimates (vip burrito.py:127-183)."""
     q_params, sbn_params, _ = state
     mu, sigma, theta = _branch_lengths(q_params, branch_rep, eps)
-    lls = pruning_jc.log_likelihoods_jc69(
-        post_children, torch.nn.functional.pad(theta, (0, 2)), tips, weights,
-        root_id=statics.root_id,
-    )
+    if statics.rescale:
+        lls = pruning_jc.log_likelihoods_jc69(
+            post_children, torch.nn.functional.pad(theta, (0, 2)), tips,
+            weights, root_id=statics.root_id,
+        )
+    else:
+        P, _, freqs, props = _scan_inputs(theta)
+        lls = pruning.log_likelihoods(
+            post_children, P, tips, freqs, props, weights,
+            root_id=statics.root_id, rescale=False,
+        )
     return lls + _log_f_terms(sbn_params, segment_ids, statics.num_segments,
                               reps, mu, sigma, theta)
 
@@ -249,8 +275,6 @@ class JitVBPI:
                  rescale=True, branch_model: str = "split", device=None):
         if mesh is not None:
             raise NotImplementedError(MESH_TODO)
-        if not rescale:
-            raise NotImplementedError(RESCALE_TODO)
         if branch_model not in ("split", "psp"):
             raise ValueError(f"branch_model must be split or psp, got "
                              f"{branch_model!r}")
@@ -305,6 +329,7 @@ class JitVBPI:
             num_segments=num_segments,
             use_vimco=use_vimco,
             psp=(branch_model == "psp"),
+            rescale=rescale,
         )
 
     def _tensor(self, a):

@@ -1,6 +1,6 @@
 """The CUDA kernels of libsbn_tpu_torch against their plain PyTorch twins,
-the VBPI step and the GTR engine path on the card against the same on the
-CPU.
+the VBPI step, the GTR engine path and the GP fit on the card against the
+same on the CPU.
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so that it also runs on a machine with the card and no JAX installed:
@@ -18,6 +18,8 @@ import torch
 
 import libsbn_tpu_torch
 from libsbn_tpu_torch.core.site_pattern import SitePattern
+from libsbn_tpu_torch.gp import GPInstance, engine_kernels
+from libsbn_tpu_torch.gp.engine import _jc69_transition
 from libsbn_tpu_torch.io import newick
 from libsbn_tpu_torch.io.fasta import Alignment
 from libsbn_tpu_torch.ops import (
@@ -277,3 +279,83 @@ def test_gtr_engine_on_card_matches_cpu():
     for key in want:
         np.testing.assert_allclose(got[key].cpu().numpy(), want[key].numpy(),
                                    rtol=1e-9, atol=1e-8, err_msg=key)
+
+
+def _gp_instance(data, device, dtype=torch.float64, use_kernels="auto"):
+    fasta, nwk = {"hello": ("hello.fasta", "hello_rooted.nwk"),
+                  "fluA": ("fluA.fa", "fluA.tree")}[data]
+    inst = GPInstance()
+    inst.read_fasta_file(f"{DATA}/{fasta}")
+    inst.read_newick_file(f"{DATA}/{nwk}")
+    inst.make_engine(dtype=dtype, device=device, use_kernels=use_kernels)
+    return inst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("data", ["hello", "fluA"])
+def test_gp_kernels_match_twins_on_card(data, dtype):
+    """K7 and K8 against their twins on one card at seeded branch lengths:
+    K7's 12 arrays within rtol 1e-12 (log-scales atol 1e-12) in f64, rtol
+    1e-5 with atol 1e-6 (log-scales 1e-4) in f32; K8's objective at the two
+    outputs within 1e-12 (f64) or 1e-5 (f32) of |f| + sum(w), and in f64 the
+    log branch lengths within 1e-6 where the objective is not flat
+    (engine_kernels.sweep_disagreement)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    eng = _gp_instance(data, "cuda", dtype).get_engine()
+    assert eng.use_kernels
+    bl = eng._tensor(np.random.default_rng(0).uniform(
+        0.01, 0.3, eng.branch_lengths.size))
+    args = (eng._edge_streams(), eng._tensor(eng.q),
+            _jc69_transition(bl).contiguous(), eng._tips)
+    engine_kernels.reset_counters()
+    got = engine_kernels.populate_plvs_cuda(*args)
+    want = engine_kernels.populate_plvs_twin(*args)
+    torch.cuda.synchronize()
+    assert engine_kernels.LAUNCHES["populate_plvs"] == 1
+    f64 = dtype == torch.float64
+    for k in engine_kernels.PLV_KEYS:
+        if k.startswith("ls_"):
+            rtol, atol = (1e-12, 1e-12) if f64 else (1e-5, 1e-4)
+        else:
+            rtol, atol = (1e-12, 1e-300) if f64 else (1e-5, 1e-6)
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].cpu().numpy(),
+                                   rtol=rtol, atol=atol, err_msg=k)
+    A, B = engine_kernels.sweep_stats(got, eng._pa, eng._ch, eng._rot)
+    A, B = A.contiguous(), B.contiguous()
+    cur = torch.log(bl[eng._g]).contiguous()
+    k8 = engine_kernels.golden_sweep_cuda(A, B, eng._w, cur)
+    t8 = engine_kernels.golden_sweep_twin(A, B, eng._w, cur)
+    obj_gap, lb_gap, _ = engine_kernels.sweep_disagreement(A, B, eng._w, k8, t8)
+    assert obj_gap <= (1e-12 if f64 else 1e-5), obj_gap
+    if f64:
+        assert lb_gap <= 1e-6, lb_gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_kernels", [True, False], ids=["kernels", "level"])
+def test_gp_fit_on_card_matches_cpu(use_kernels):
+    """run_branch_ascent(1e-6, 100) on fluA in f64 on the card and on the
+    CPU, on one route: the kernel route (K7 + K8 on the card, their twins on
+    the CPU) or the level route. Both land on libsbn_tpu's optimum
+    -4337.885058592 within 1e-7. The level route's Newton sweeps differ
+    in summation order only: same sweep count, branch lengths within rtol
+    1e-6. The card's kernel route launches K7 and K8 and calls no twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = []
+    for device in ("cpu", "cuda"):
+        eng = _gp_instance("fluA", device, use_kernels=use_kernels).get_engine()
+        engine_kernels.reset_counters()
+        m, sweeps = eng.run_branch_ascent(1e-6, 100)
+        torch.cuda.synchronize()
+        assert abs(m - -4337.885058592) < 1e-7, (device, m)
+        out.append((sweeps, eng.branch_lengths.copy()))
+    if use_kernels:
+        assert engine_kernels.LAUNCHES["golden_sweep"] == out[1][0]
+        assert sum(engine_kernels.TWIN_CALLS.values()) == 0
+    else:
+        assert sum(engine_kernels.LAUNCHES.values()) == 0
+        assert out[0][0] == out[1][0]
+        np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-6)

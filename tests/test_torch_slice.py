@@ -21,6 +21,7 @@ from libsbn_tpu.models.phylo_model import default_parameters as jdefaults
 from libsbn_tpu_torch.models.phylo_model import (
     PhyloModelSpec, block_specification, params_from_numpy,
 )
+from libsbn_tpu_torch.gp import GPInstance
 from libsbn_tpu_torch.vi import JitVBPI
 
 torch.set_num_threads(1)
@@ -123,6 +124,9 @@ def test_import_leaves_jax_out():
         "from libsbn_tpu_torch.ops import substitution, transforms\n"
         "from libsbn_tpu_torch.sbn import gradients, probability, sampling\n"
         "from libsbn_tpu_torch.vi import JitVBPI, jit_step\n"
+        "from libsbn_tpu_torch.gp import GPInstance, SubsplitDAG\n"
+        "from libsbn_tpu_torch.gp import engine, engine_kernels, quartet\n"
+        "from libsbn_tpu_torch.utils import combinatorics\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'libsbn_tpu')]\n"
         "assert not bad, bad\n"
@@ -140,8 +144,8 @@ def _ds1(data_dir, site="constant"):
 
 
 @pytest.mark.parametrize("path", [
-    "per_tree", "rooted", "tree_count_option", "vbpi_mesh",
-    "vbpi_rescale_false", "em",
+    "per_tree", "rooted", "tree_count_option", "vbpi_mesh", "gp_streamed",
+    "gp_mesh", "em",
 ])
 def test_unported_paths_raise(data_dir, path):
     """Paths not on this slice raise NotImplementedError naming their
@@ -152,13 +156,18 @@ def test_unported_paths_raise(data_dir, path):
             inst.engine.log_likelihoods(
                 inst._batched_schedule(), inst.branch_length_matrix(),
                 inst.phylo_model_params, per_tree=True)
-        elif path in ("vbpi_mesh", "vbpi_rescale_false"):
+        elif path == "vbpi_mesh":
             inst = _ds1(data_dir)
             inst.process_loaded_trees()
-            if path == "vbpi_mesh":
-                JitVBPI(inst, particle_count=4, mesh=object())
-            else:
-                JitVBPI(inst, particle_count=4, rescale=False)
+            JitVBPI(inst, particle_count=4, mesh=object())
+        elif path.startswith("gp_"):
+            inst = GPInstance()
+            inst.read_fasta_file(f"{data_dir}/hello.fasta")
+            inst.read_newick_file(f"{data_dir}/hello_rooted.nwk")
+            if path == "gp_mesh":
+                inst.make_engine(mesh=object())
+            inst.make_engine()
+            inst.get_engine().run_branch_ascent_streamed(1e-6, 10, 16)
         elif path == "em":
             inst = _ds1(data_dir)
             inst.process_loaded_trees()

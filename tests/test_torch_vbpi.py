@@ -118,6 +118,44 @@ def test_train_step_matches_jax(data_dir, branch_model):
     _assert_metrics_close(got, want)
 
 
+def test_train_step_rescale_false_matches_jax(data_dir):
+    """JitVBPI(rescale=False): one vbpi_train_step on DS1 through the scan
+    engine (ops/pruning.py, no rescaling), fed the same host samples as the
+    JAX step with rescale=False from the same carried state, within
+    rtol 1e-9 / atol 1e-10; no JC69 kernel or twin runs. Then the
+    evaluation half, log_f_values(8) of a fresh pair on hello_out.t,
+    likewise."""
+    jv, tv = _pair(data_dir, "DS1.subsampled_10.t", "DS1.fasta",
+                   particle_count=10, seed=5, rescale=False)
+    assert not tv.statics.rescale
+    jv.step()
+    state = jit_step.state_from_numpy(
+        np.asarray(jv.state.q_params), np.asarray(jv.state.sbn_params),
+        _adam(jv.state.opt_state), device="cpu", dtype=torch.float64,
+    )
+    sched5, branch_rep, reps, touched, eps = jv._host_sample()
+    evec, ivec, evals, freqs, props, Q = jv.model_tensors
+    want_state, want = jstep.vbpi_train_step(
+        jv.state, jv.statics, jv.optimizer, tuple(map(jnp.asarray, sched5)),
+        jnp.asarray(branch_rep), jnp.asarray(reps), jnp.asarray(touched),
+        jnp.asarray(eps), jnp.asarray(1.0), jv.tips, jv.weights,
+        jv.segment_ids, evec, ivec, evals, freqs, props, Q,
+    )
+    inputs = tv._device_put((sched5[1], branch_rep, reps, touched), eps)
+    pruning_jc.reset_counters()
+    got_state, got = jit_step.vbpi_train_step(
+        state, tv.statics, tv.optimizer, *inputs, 1.0, tv.tips, tv.weights,
+        tv.segment_ids,
+    )
+    assert sum(pruning_jc.TWIN_CALLS.values()) == 0
+    _assert_state_close(got_state, want_state, "stepped")
+    _assert_metrics_close(got, want)
+    jv, tv = _pair(data_dir, particle_count=4, seed=2, rescale=False)
+    np.testing.assert_allclose(tv.log_f_values(8), jv.log_f_values(8),
+                               rtol=RTOL, atol=ATOL)
+    assert sum(pruning_jc.TWIN_CALLS.values()) == 0
+
+
 @pytest.mark.parametrize("route", ["native", "python"])
 @pytest.mark.parametrize("branch_model", BRANCH_MODELS)
 def test_steps_match_jax_trajectory(data_dir, monkeypatch, branch_model,
