@@ -15,7 +15,10 @@ Phases, each of which raises on failure:
   3. kernel vs twin: K1 (LL + branch gradient), K2 (LL) and K3 (d ll / d
      exp factors, d ll / d props) against their plain PyTorch twins on the
      card, on DS1.subsampled_10 tiled to 512 trees with perturbed branch
-     lengths, float32 and float64, one rate category and Weibull+4; then K4
+     lengths, float32 and float64, K = 1, 4 and 8 rate categories (K1 and
+     K3 on chip); K1 and K3 on a synthetic 256-taxon tree from a numpy seed
+     at float64 K = 8 (beyond shared memory: the slab route) and float32
+     K = 1 (on chip, 32 patterns a tile); then K4
      (generic LL + branch gradient), K5 (generic LL) and K6 (d ll / dP,
      d ll / d freqs, d ll / d props) against theirs on DS1.100_topologies
      tiled to 256 trees, GTR + constant and GTR + Weibull+4, float32 and
@@ -39,7 +42,12 @@ Phases, each of which raises on failure:
      twin called; then one float64 step on the card against the same step
      on the CPU;
   6. timing: K1, K2 and K3 against their twins at B = 512, float32, with
-     CUDA events; the VBPI step in ms per step (host clock, synchronised);
+     CUDA events, each beside its bound and its share of the bound; K1 and
+     K3 at K = 1 and at Weibull+4 beside their slab route (the first
+     design) on the same inputs, with the device memory one call adds and
+     the on-chip design's shared-memory traffic; engine.branch_gradients
+     from host arrays; the VBPI step in ms per step (host clock,
+     synchronised);
      K4, K5 and K6 against their twins at the JAX bench's config 2 (GTR +
      Weibull+4 at shape 0.5, B = 256, float32), the K5 + K6 autograd pass
      and engine.phylo_gradients from host arrays, with peak device memory;
@@ -55,9 +63,11 @@ Phases, each of which raises on failure:
   9. GP timing: K7 and K8 against their twins per launch on fluA, float32;
      the JAX bench's GP config (fluA, f32, run_branch_ascent(1e-2, 10) from
      the same starting lengths each run) on both routes, in ms per ascent.
-The last lines are the {"kernels": [...]} report, the card's `nvidia-smi`
-name and power limit, and {"ok": true, "device": {...}}. Imports nothing of
-JAX.
+The last lines are the {"kernels": [...]} report (each kernel's launches
+on its path, its error against its twin, its time, its twin's, and its
+bound: the larger of its operations at the float32 peak and its inputs and
+outputs at the HBM rate), the card's `nvidia-smi` name and power limit, and
+{"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import json
@@ -261,6 +271,13 @@ TWIN_TOL = {
     torch.float32: {"ll": (2e-6, 0.05), "grad": (1e-3, 0.05)},
 }
 B = 512  # trees per launch (the JAX bench's headline batch)
+KS = (1, 4, 8)  # rate categories of K1-K3 against their twins
+BIG_TAXA = 256  # the synthetic tree beyond shared memory
+# One H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, HBM3,
+# and the SMs' shared memory (132 SMs x 128 B per cycle at 1.755 GHz).
+PEAK_F32 = 67e12  # operations / s
+HBM_RATE = 3.35e12  # bytes / s
+SMEM_RATE = 132 * 128 * 1.755e9  # bytes / s
 B_GTR = 256  # the JAX bench's config 2 (DS1.100_topologies tiled)
 BENCH_SHAPE = 0.5  # config 2's Weibull shape
 DEV = "cuda"
@@ -347,8 +364,8 @@ def phase_build():
     print(f"[2] build: {time.perf_counter() - t0:.1f} s")
     # One line per kernel instance: registers and spills from ptxas -v.
     pattern = (r"Function properties for \S*?((?:jc69|generic)_"
-               r"(?:ll_grad|ll|dea|dp)_kernel|gp_(?:populate|golden_sweep)_kernel)"
-               r"I([fd])(?:Li(\d+)E)?")
+               r"(?:ll_grad|ll|dea|dp)(?:_slab)?_kernel|"
+               r"gp_(?:populate|golden_sweep)_kernel)I([fd])(?:Li(\d+)E)?")
     for source, info in _kernels.build_info.items():
         print(f"  {source}: nvcc {info['seconds']:.1f} s -> {info['path']}")
         name = None
@@ -364,6 +381,39 @@ def phase_build():
                 regs = re.search(r"Used (\d+) registers", line).group(1)
                 print(f"  ptxas {name}: {regs} registers; {spills}")
                 name = None
+    sass_mix("pruning_jc")
+
+
+def sass_mix(source, kernels=("jc69_ll_grad_kernelIfLi1E", "jc69_dea_kernelIfLi1E")):
+    """The static SASS instruction mix of some kernel instances of a built
+    source (cuobjdump from the CUDA toolkit): floating point, integer and
+    address, memory, and control instructions; "not measured" when the
+    toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print("  SASS mix: not measured (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", _kernels.build_info[source]["path"]],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    classes = {"float": ("FADD", "FMUL", "FFMA", "MUFU", "FSETP", "FSEL",
+                         "DADD", "DMUL", "DFMA", "DSETP"),
+               "memory": ("LDS", "STS", "LDG", "STG", "LDC", "LDL", "STL"),
+               "control": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT",
+                           "SHFL", "BAR", "WARPSYNC")}
+    for name in kernels:
+        counts, on = {"float": 0, "memory": 0, "control": 0, "integer": 0}, False
+        for line in sass.splitlines():
+            if "Function :" in line:
+                on = name in line
+            elif on and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+                op = re.sub(r"^\s+/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?", "",
+                            line).split()[0].split(".")[0]
+                kind = next((k for k, ops in classes.items() if op in ops),
+                            "integer")
+                counts[kind] += 1
+        print(f"  SASS mix of {name}: {sum(counts.values())} instructions, "
+              f"{counts}")
 
 
 def load_ds1(dtype):
@@ -387,56 +437,115 @@ def load_ds1(dtype):
     }
 
 
-def kernel_inputs(d, dtype, site):
-    if site == "constant":
+def kernel_inputs(d, dtype, K, shape=0.1):
+    """(ea, rates, props) in ``dtype`` on the card: one rate category, or K
+    Weibull categories at ``shape``."""
+    if K == 1:
         rates = torch.ones(1, dtype=torch.float64, device=DEV)
         props = rates.clone()
     else:
-        rates, props = weibull_rates(0.1, 4, device=DEV)
+        rates, props = weibull_rates(shape, K, device=DEV)
     rates, props = rates.to(dtype), props.to(dtype)
     ea = pruning_jc.exp_factors(d["bl"], rates, dtype)
     return ea, rates, props
 
 
+def jc69_vs_twins(d, dtype, K, tag):
+    """K1, K2 (on DS1-sized trees) and K3 against their twins on d's
+    inputs, at TWIN_TOL; checks that K1 and K3 took the route of their
+    shared-memory plan (on chip, or the slab route) and returns {key: max
+    abs error}."""
+    tol = TWIN_TOL[dtype]
+    r = d["root_id"]
+    L, S = d["tips"].shape[0], d["pc"].shape[1]
+    route = "onchip" if pruning_jc.onchip_plan(dtype, K, S, L) else "slab"
+    ea, rates, props = kernel_inputs(d, dtype, K)
+    args = (d["pc"], ea, rates, props, d["tips"], d["w"])
+    args2 = (d["pc"], ea, props, d["tips"], d["w"])
+    pruning_jc.reset_counters()
+    k_ll, k_g = pruning_jc.ll_grad_jc69_cuda(*args, root_id=r)
+    k_dea, k_dp = pruning_jc.ll_dea_jc69_cuda(*args2, root_id=r)
+    torch.cuda.synchronize()
+    sfx = "_slab" if route == "slab" else ""
+    took = (pruning_jc.LAUNCHES[f"ll_grad_jc69{sfx}"],
+            pruning_jc.LAUNCHES[f"ll_dea_jc69{sfx}"])
+    if took != (1, 1):
+        raise AssertionError(f"K1/K3 {tag}: not on the {route} route "
+                             f"({pruning_jc.LAUNCHES})")
+    print(f"  K1/K3 {tag}: {route} route")
+    t_ll, t_g = pruning_jc.ll_grad_jc69_plain(*args, root_id=r)
+    errs = {"ll_grad_jc69": max(
+        close(f"K1 LL {tag}", k_ll.cpu(), t_ll.cpu(), tol["ll"]),
+        close(f"K1 grad {tag}", k_g[:, :r].cpu(), t_g[:, :r].cpu(),
+              tol["grad"]))}
+    del t_g
+    if L < BIG_TAXA:
+        k2 = pruning_jc.ll_jc69_cuda(*args2, root_id=r)
+        t2 = pruning_jc.ll_jc69_plain(*args2, root_id=r)
+        errs["ll_jc69"] = close(f"K2 LL {tag}", k2.cpu(), t2.cpu(), tol["ll"])
+    if k_dea[:, r:].any():
+        raise AssertionError("K3: root or ones-slot rows not zero")
+    t_dea, t_dp = pruning_jc.ll_dea_jc69_plain(*args2, root_id=r)
+    errs["ll_dea_jc69"] = max(
+        close(f"K3 dea {tag}", k_dea.cpu(), t_dea.cpu(), tol["grad"]),
+        close(f"K3 dprops {tag}", k_dp.cpu(), t_dp.cpu(), tol["grad"]))
+    return errs
+
+
 def phase_kernel_vs_twin():
-    print(f"[3] kernel vs twin on the card, DS1 x {B} trees")
+    print(f"[3] kernel vs twin on the card, DS1 x {B} trees, K = {KS}")
     errs = {}
     for dtype in (torch.float32, torch.float64):
         d = load_ds1(dtype)
-        tol = TWIN_TOL[dtype]
-        for site in ("constant", "weibull+4"):
-            ea, rates, props = kernel_inputs(d, dtype, site)
-            args = (d["pc"], ea, rates, props, d["tips"], d["w"])
-            k_ll, k_g = pruning_jc.ll_grad_jc69_cuda(*args, root_id=d["root_id"])
-            t_ll, t_g = pruning_jc.ll_grad_jc69_plain(*args, root_id=d["root_id"])
-            args2 = (d["pc"], ea, props, d["tips"], d["w"])
-            k2 = pruning_jc.ll_jc69_cuda(*args2, root_id=d["root_id"])
-            t2 = pruning_jc.ll_jc69_plain(*args2, root_id=d["root_id"])
-            k_dea, k_dp = pruning_jc.ll_dea_jc69_cuda(*args2,
-                                                      root_id=d["root_id"])
-            t_dea, t_dp = pruning_jc.ll_dea_jc69_plain(*args2,
-                                                       root_id=d["root_id"])
-            torch.cuda.synchronize()
-            r = d["root_id"]
-            tag = f"{str(dtype)[6:]} {site}"
-            e1 = max(
-                close(f"K1 LL {tag}", k_ll.cpu(), t_ll.cpu(), tol["ll"]),
-                close(f"K1 grad {tag}", k_g[:, :r].cpu(), t_g[:, :r].cpu(),
-                      tol["grad"]),
-            )
-            e2 = close(f"K2 LL {tag}", k2.cpu(), t2.cpu(), tol["ll"])
-            if k_dea[:, r:].any():
-                raise AssertionError("K3: root or ones-slot rows not zero")
-            e3 = max(
-                close(f"K3 dea {tag}", k_dea.cpu(), t_dea.cpu(), tol["grad"]),
-                close(f"K3 dprops {tag}", k_dp.cpu(), t_dp.cpu(),
-                      tol["grad"]),
-            )
-            del k_dea, t_dea
-            if dtype == torch.float32 and site == "constant":
-                # the timed case
-                errs = {"ll_grad_jc69": e1, "ll_jc69": e2, "ll_dea_jc69": e3}
+        for K in KS:
+            tag = f"{str(dtype)[6:]} K={K}"
+            e = jc69_vs_twins(d, dtype, K, tag)
+            torch.cuda.empty_cache()
+            if dtype == torch.float32 and K == 1:
+                errs = e  # the timed case
+    for dtype, K in ((torch.float64, 8), (torch.float32, 1)):
+        d = synthetic_tree(dtype)
+        if dtype == torch.float64 and pruning_jc.onchip_plan(
+                dtype, K, d["pc"].shape[1], BIG_TAXA) is not None:
+            raise AssertionError("the 256-taxon tree fits on chip at f64 "
+                                 "K = 8: nothing exercises the slab route")
+        tag = (f"{str(dtype)[6:]} K={K}, {BIG_TAXA} taxa x {d['pc'].shape[0]} "
+               f"trees, {d['tips'].shape[2]} patterns")
+        jc69_vs_twins(d, dtype, K, tag)
     return errs
+
+
+def synthetic_tree(dtype, trees=8, patterns=300, seed=0):
+    """BIG_TAXA-taxon unrooted trees, joins drawn from default_rng(seed), in
+    the schedules' postorder-linear form, with random tip partials (most
+    one-hot), pattern weights and branch lengths."""
+    rng = np.random.default_rng(seed)
+    L = BIG_TAXA
+    S = L - 2
+    ones = L + S  # N1 - 1
+    pcs = []
+    for _ in range(trees):
+        pool, nxt, pc = list(range(L)), L, []
+        while len(pool) > 3:
+            i, j = sorted(rng.choice(len(pool), 2, replace=False))
+            a, b = pool[i], pool[j]
+            pool.pop(j)
+            pool.pop(i)
+            pc.append([a, b, ones])
+            pool.append(nxt)
+            nxt += 1
+        pcs.append(pc + [pool])
+    soft = rng.dirichlet(np.ones(4), size=(L, patterns)).transpose(0, 2, 1)
+    hard = (soft == soft.max(axis=1, keepdims=True)).astype(np.float64)
+    tips = np.where(rng.uniform(size=soft.shape) < 0.8, hard, soft)
+    bl = np.pad(rng.uniform(0.01, 0.2, (trees, L + S - 1)), ((0, 0), (0, 2)))
+    return {
+        "pc": torch.as_tensor(np.array(pcs), dtype=torch.int32, device=DEV),
+        "bl": torch.as_tensor(bl, device=DEV),
+        "tips": torch.as_tensor(tips, device=DEV).to(dtype).contiguous(),
+        "w": torch.as_tensor(rng.integers(1, 5, patterns), device=DEV).to(dtype),
+        "root_id": L + S - 1,
+    }
 
 
 def load_ds1_100(dtype):
@@ -807,22 +916,180 @@ def time_pairs(calls, n_trees, plain_reps=(7, 10)):
     return out
 
 
+def nbytes(*items):
+    """Bytes of the tensors in items (nested in tuples, lists and dicts),
+    each counted once."""
+    total = 0
+    for x in items:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, dict):
+            total += nbytes(*x.values())
+        elif isinstance(x, (tuple, list)):
+            total += nbytes(*x)
+    return total
+
+
+def bound(ops, inputs, outputs):
+    """(ms, "operations" or "bytes"): the least time of the work on this
+    card, the larger of its operations at the float32 peak and its inputs
+    read once and outputs written once at the HBM rate."""
+    t_ops = ops / PEAK_F32 * 1e3
+    t_bytes = nbytes(inputs, outputs) / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def jc69_ops(kind, B, L, S, K, P):
+    """Operations of K2 ("ll"), K1 ("ll_grad") or K3 ("dea") on these
+    shapes, counted from csrc/pruning_jc.cu: one per add, multiply,
+    divide, log or compare, and one add per value of a cross-pattern sum."""
+    scaled = sum(1 for s in range(S) if s % 2 or s == S - 1)
+    forward = (L * (3 + 11 * K) + S * 22 * K + scaled * (6 * K + 3)
+               + 2 * K + 4)
+    if kind == "ll":
+        return B * P * forward
+    edges, inner = L + S - 1, S - 1  # real edges; internal kids (U stored)
+    step = 11 * K + (3 * K if K > 1 else 0) + 16 * K + 1
+    per_edge = 18 * K + 3 if kind == "ll_grad" else 29 * K + 1
+    upper = S * step + edges * per_edge + inner * 4 * K
+    return B * P * (forward + upper)
+
+
+def generic_ops(kind, B, L, S, K, P):
+    """Operations of K5 ("ll"), K4 ("ll_grad") or K6 ("dp") on these
+    shapes, counted from csrc/pruning_generic.cu as jc69_ops counts: each
+    4x4 apply 28, each max-rescale 8K + 2, each edge's upper partial,
+    denominator, Q E or dP contraction and U rescale."""
+    forward = L * 28 * K + S * (44 * K + 2) + 12 * K + 4
+    if kind == "ll":
+        return B * P * forward
+    edges, inner = L + S - 1, S - 1
+    per_edge = 52 * K + 3 if kind == "ll_grad" else 52 * K + 2
+    upper = S * 28 * K + edges * per_edge + inner * 8 * K
+    if kind == "dp":
+        upper += 17 * K + 4  # d ll / d freqs and d ll / d props at the root
+    return B * P * (forward + upper)
+
+
+def populate_ops(streams, S):
+    """Operations of K7 over S patterns, counted from csrc/gp_engine.cu:
+    each stream step's 4x4 apply (28), q scale (4) and max-aligned
+    accumulate (17), each finishing step's product, max and normalisation
+    (14), each root seed (4)."""
+    rw = streams.rootward.cpu().numpy()
+    lw = streams.leafward.cpu().numpy()
+    finish = int(rw[:, 3].sum() + lw[:, 3].sum())
+    return S * (49 * (len(rw) + len(lw)) + 14 * finish
+                + 4 * len(streams.roots))
+
+
+def sweep_ops(E, S):
+    """Operations of K8: per edge 2 GOLDEN_ITERS + 3 objective evaluations,
+    each 5 per pattern (multiply, add, log, weight, sum)."""
+    return E * (2 * engine_kernels.GOLDEN_ITERS + 3) * S * 5
+
+
+def onchip_smem_ms(pc, L, K, P, itemsize):
+    """The on-chip K1/K3's shared-memory traffic on this schedule, at the
+    card's aggregate shared-memory rate: per pattern, each forward step's
+    three child rows read (4K values for an internal node; a leaf's tip
+    comes from device memory, the ones slot is a constant) and its row
+    written, and each upper step's U read, three kid rows read, and for
+    every internal kid its three children's rows read and its U written.
+    Returns (GB, ms)."""
+    pc = pc.cpu().numpy()
+    S = pc.shape[1]
+    ones = L + S
+
+    def row(c):
+        return 4 * K if L <= c < ones else 0
+
+    values = 0
+    for tree in pc:
+        for s, kids in enumerate(tree):
+            last = s == S - 1
+            values += 2 * sum(row(c) for c in kids) + (0 if last else 8 * K)
+            for c in kids:
+                if L <= c < ones:
+                    values += sum(row(g) for g in tree[c - L]) + 4 * K
+    gb = values * P * itemsize / 1e9
+    return gb, gb * 1e9 / SMEM_RATE * 1e3
+
+
+def call_memory(fn):
+    """Device memory one call adds: the peak during it less what was
+    allocated before it, in MB."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 1e6
+
+
 def phase_timing(smi):
-    print(f"[6] timing at B = {B}, float32, one category, DS1 ({smi})")
+    """K1, K2 and K3 against their twins at B = 512, f32, K = 1; K1 and K3
+    on chip against their slab route (the first design) on the same inputs
+    at K = 1 and Weibull+4, in turns; bounds, shares of bound, device memory
+    per call; the K2 + K3 autograd pass and engine.branch_gradients. Returns
+    ({key: (ms, twin ms)}, {key: (bound ms, bound_by)}) at K = 1."""
+    print(f"[6] timing at B = {B}, float32, DS1 ({smi})")
     d = load_ds1(torch.float32)
-    ea, rates, props = kernel_inputs(d, torch.float32, "constant")
     r = d["root_id"]
-    a1 = (d["pc"], ea, rates, props, d["tips"], d["w"])
-    a2 = (d["pc"], ea, props, d["tips"], d["w"])
-    calls = {
-        "ll_grad_jc69": (lambda: pruning_jc.ll_grad_jc69_cuda(*a1, root_id=r),
-                         lambda: pruning_jc.ll_grad_jc69_plain(*a1, root_id=r)),
-        "ll_jc69": (lambda: pruning_jc.ll_jc69_cuda(*a2, root_id=r),
-                    lambda: pruning_jc.ll_jc69_plain(*a2, root_id=r)),
-        "ll_dea_jc69": (lambda: pruning_jc.ll_dea_jc69_cuda(*a2, root_id=r),
-                        lambda: pruning_jc.ll_dea_jc69_plain(*a2, root_id=r)),
-    }
-    out = time_pairs(calls, B)
+    L, _, P = d["tips"].shape
+    S = d["pc"].shape[1]
+    lib = _kernels.load("pruning_jc")
+    out, bounds = {}, {}
+    for K in (1, 4):
+        ea, rates, props = kernel_inputs(d, torch.float32, K)
+        a1 = (d["pc"], ea, rates, props, d["tips"], d["w"])
+        a2 = (d["pc"], ea, props, d["tips"], d["w"])
+        dims = (B, L, S, r + 2, K, P)
+        kern = {
+            "ll_grad_jc69": lambda: pruning_jc.ll_grad_jc69_cuda(*a1, root_id=r),
+            "ll_jc69": lambda: pruning_jc.ll_jc69_cuda(*a2, root_id=r),
+            "ll_dea_jc69": lambda: pruning_jc.ll_dea_jc69_cuda(*a2, root_id=r),
+        }
+        if K == 1:
+            plain = {
+                "ll_grad_jc69": lambda: pruning_jc.ll_grad_jc69_plain(*a1, root_id=r),
+                "ll_jc69": lambda: pruning_jc.ll_jc69_plain(*a2, root_id=r),
+                "ll_dea_jc69": lambda: pruning_jc.ll_dea_jc69_plain(*a2, root_id=r),
+            }
+            out = time_pairs({k: (kern[k], plain[k]) for k in kern}, B)
+        slab = {
+            "ll_grad_jc69": lambda: pruning_jc._ll_grad_jc69_slab(lib, dims, *a1),
+            "ll_dea_jc69": lambda: pruning_jc._ll_dea_jc69_slab(lib, dims, *a2),
+        }
+        site = "one category" if K == 1 else f"Weibull+{K}"
+        smem_gb, smem_ms = onchip_smem_ms(d["pc"], L, K, P, 4)
+        for key, ops_kind, inputs in (("ll_grad_jc69", "ll_grad", a1),
+                                      ("ll_jc69", "ll", a2),
+                                      ("ll_dea_jc69", "dea", a2)):
+            b_ms, b_by = bound(jc69_ops(ops_kind, B, L, S, K, P), inputs,
+                               kern[key]())
+            if K == 1:
+                bounds[key] = (b_ms, b_by)
+            if key not in slab:
+                ms = out[key][0] if K == 1 else time_ms(kern[key])
+                print(f"  {key}, {site}: {ms:.4f} ms; bound {b_ms:.4f} ms "
+                      f"({b_by}), {b_ms / ms:.1%} of it")
+                continue
+            s1, k1, k2, s2 = (time_ms(slab[key]), time_ms(kern[key]),
+                              time_ms(kern[key]), time_ms(slab[key]))
+            ms, slab_ms = min(k1, k2), min(s1, s2)
+            mem, slab_mem = call_memory(kern[key]), call_memory(slab[key])
+            if mem >= 50:
+                raise AssertionError(f"{key}, {site}: one on-chip call adds "
+                                     f"{mem:.1f} MB (>= 50 MB)")
+            print(f"  {key}, {site}: on chip {k1:.4f} / {k2:.4f} ms, slab "
+                  f"route (first design) {s1:.4f} / {s2:.4f} ms, "
+                  f"{slab_ms / ms:.2f}x; bound {b_ms:.4f} ms ({b_by}), on "
+                  f"chip {b_ms / ms:.1%} of it; shared-memory traffic "
+                  f"{smem_gb:.2f} GB, {smem_ms:.4f} ms at "
+                  f"{SMEM_RATE / 1e12:.1f} TB/s, {smem_ms / ms:.1%} of it; "
+                  f"one call adds {mem:.2f} MB on chip, {slab_mem:.1f} MB "
+                  f"slab")
     # The differentiable LL: K2 forward + K3 backward through autograd.
     bl = d["bl"].detach().clone().requires_grad_(True)
 
@@ -833,7 +1100,34 @@ def phase_timing(smi):
 
     print(f"  log_likelihoods_jc69 + autograd (K2 + K3): "
           f"{time_ms(ll_and_grad, reps=5, inner=5):.4f} ms")
-    return out
+    engine_branch_gradients(smi)
+    return out, bounds
+
+
+def engine_branch_gradients(smi, calls=10):
+    """engine.branch_gradients (K1) from host arrays on the headline
+    workload: DS1.subsampled_10 tiled to B trees, perturbed lengths, f32."""
+    tops, bls, ttm = newick.parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
+    sp = SitePattern(Alignment.read_fasta(f"{DATA}/DS1.fasta"), ttm)
+    reps = B // len(tops) + 1
+    sched = schedule.schedules_of_topologies((tops * reps)[:B])
+    bl = np.tile(np.stack(bls), (reps, 1))[:B]
+    bl = bl * np.random.default_rng(0).uniform(0.8, 1.2, bl.shape)
+    spec = lt.PhyloModelSpec("JC69", "constant", "strict")
+    engine = LikelihoodEngine(sp, spec, dtype=torch.float32, device=DEV)
+    params = default_parameters(spec, device=DEV)
+    for _ in range(3):
+        engine.branch_gradients(sched, bl, params)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        engine.branch_gradients(sched, bl, params)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"  engine.branch_gradients from host arrays, B = {B}: median "
+          f"{statistics.median(times):.3f} ms (min {min(times):.3f}, {calls} "
+          f"calls, host clock, synchronised; {smi})")
 
 
 def phase_generic_timing(smi, calls=10):
@@ -863,6 +1157,16 @@ def phase_generic_timing(smi, calls=10):
             lambda: pruning_vjp.ll_dp_generic_plain(*a5, root_id=r)),
     }
     out = time_pairs(calls4, B_GTR, plain_reps=(3, 3))
+    L, _, npat = d["tips"].shape
+    S, K = d["pc"].shape[1], props.shape[0]
+    bounds = {}
+    for key, kind, inputs in (("ll_grad_generic", "ll_grad", a4),
+                              ("ll_generic", "ll", a5),
+                              ("ll_dp_generic", "dp", a5)):
+        bounds[key] = bound(generic_ops(kind, B_GTR, L, S, K, npat), inputs,
+                            calls4[key][0]())
+        print(f"  {key}: bound {bounds[key][0]:.4f} ms ({bounds[key][1]}), "
+              f"{bounds[key][0] / out[key][0]:.1%} of it")
 
     Pg = P.detach().clone().requires_grad_(True)
 
@@ -895,7 +1199,7 @@ def phase_generic_timing(smi, calls=10):
         print(f"  engine.{name} from host arrays: median "
               f"{statistics.median(times):.3f} ms (min {min(times):.3f}, "
               f"{calls} calls, host clock, synchronised); peak {peak:.2f} GiB")
-    return out
+    return out, bounds
 
 
 def time_vbpi(smi, steps=20):
@@ -1059,6 +1363,15 @@ def phase_gp_timing(smi, runs=5):
             lambda: engine_kernels.golden_sweep_twin(A, B, eng._w, cur)),
     }
     out = time_pairs(calls, 1, plain_reps=(3, 2))
+    bounds = {
+        "populate_plvs": bound(populate_ops(streams, tips.shape[2]),
+                               (streams, q, P, tips), calls["populate_plvs"][0]()),
+        "golden_sweep": bound(sweep_ops(*A.shape), (A, B, eng._w, cur),
+                              calls["golden_sweep"][0]()),
+    }
+    for key, (b_ms, b_by) in bounds.items():
+        print(f"  {key}: bound {b_ms:.5f} ms ({b_by}), "
+              f"{b_ms / out[key][0]:.2%} of it")
     for use_kernels in (True, False):
         eng = gp_instance("fluA.fa", "fluA.tree", torch.float32,
                           use_kernels).get_engine()
@@ -1077,7 +1390,7 @@ def phase_gp_timing(smi, runs=5):
               f"{statistics.median(times):.3f} ms per ascent (min "
               f"{min(times):.3f}, {runs} runs, host clock, synchronised); "
               f"{sweeps} sweeps, marginal {marginal:.6f}")
-    return out
+    return out, bounds
 
 
 def main():
@@ -1088,15 +1401,20 @@ def main():
     errs.update(phase_gp_vs_twin())
     runs = [phase_main_path(), phase_gtr_path(), phase_vbpi(), phase_gp_path()]
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
-    times = phase_timing(smi)
+    times, bounds = phase_timing(smi)
     time_vbpi(smi)
-    times.update(phase_generic_timing(smi))
-    times.update(phase_gp_timing(smi))
+    for phase in (phase_generic_timing, phase_gp_timing):
+        t, b = phase(smi)
+        times.update(t)
+        bounds.update(b)
+    # No single PyTorch call computes any of these functions (each is a
+    # pruning recursion or a golden-section search): library_ms is null.
     report = [
         {"name": k["name"], "route": "cuda", "source": k["source"],
          "replaces": k["replaces"], "launches": launches[k["key"]],
          "max_abs_err": errs[k["key"]], "ms": times[k["key"]][0],
-         "plain_ms": times[k["key"]][1]}
+         "plain_ms": times[k["key"]][1], "bound_ms": bounds[k["key"]][0],
+         "bound_by": bounds[k["key"]][1], "library_ms": None}
         for k in KERNELS
     ]
     print(json.dumps({"kernels": report}))

@@ -18,15 +18,21 @@
 //   rates, props  (K,)              site-rate categories
 //   tips          (L, 4, P)         tip partials
 //   weights       (P,)              pattern multiplicities
-//   E, U          (B, N1, 4K, P)    scratch: evolved and upper partials
-//   ES            (B, N1, K, P)     scratch: per-category row sums of E
-//   M             (B, S, 4K, P)     scratch (K3): pre-apply partials of the
-//                                   internal nodes, at E's scale
+//   E, U          (B, N1, 4K, P)    scratch of K2 and of the slab route of
+//                                   K1/K3: evolved and upper partials
+//   ES            (B, N1, K, P)     the same: per-category row sums of E
+//   M             (B, S, 4K, P)     scratch of K3's slab route: pre-apply
+//                                   partials of the internal nodes, at E's
+//                                   scale
 //   ll_part       (B, T)            per (tree, pattern tile) LL partials
 //   grad_part     (B, T, N1)        per (tree, pattern tile) edge gradients
 //   dprops_part   (B, T, K)         per (tree, pattern tile) d ll / d props
 //   dea_part      (B, T, N1 * K)    per (tree, pattern tile) d ll / d ea
-// with T = ceil(P / kThreads); the caller sums the partials over T.
+// with T = ceil(P / tile); the caller sums the partials over T. The tile is
+// kThreads patterns for K2 and the slab route, and kOnchipTile (32) for the
+// on-chip K1 and K3 (ops/pruning_jc.py onchip_plan checks that it fits),
+// which keep their whole pruning state in shared memory and take no
+// scratch at all.
 //
 // The arithmetic follows libsbn_tpu/ops/pruning_pallas_jc.py step for step:
 // the matrix-free apply P v = e v + (1 - e)/4 sum(v), row-sum rescaling on
@@ -43,6 +49,8 @@ namespace {
 constexpr int kThreads = 128;  // one thread per (tree, pattern); one tile
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 8;  // rate categories the templates are built for
+constexpr int kOnchipTile = 32;  // patterns (threads) per block of the on-chip K1/K3
+constexpr size_t kMaxShared = 232448;  // bytes a block may use on sm_90
 
 // Full-precision logarithm for each working type (no fast-math variants).
 __device__ __forceinline__ float log_t(float x) { return logf(x); }
@@ -55,6 +63,20 @@ __device__ __forceinline__ T warp_sum(T v) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   }
   return v;
+}
+
+// One element copied from device memory to shared memory without passing
+// through registers (cp.async, cache-all; kBytes is 4 or 8), and the wait for
+// all of this thread's copies.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst_shared, const void* src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src),
+               "n"(kBytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Shared memory: the tree's schedule row and exp factors, the category
@@ -415,51 +437,478 @@ __device__ __forceinline__ void forward_and_upper(
 }
 
 // ---------------------------------------------------------------------------
-// K1: LL and the branch gradient d LL / d b_e for every edge, in one pass.
-// Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas_jc.py::_kernel.
-// Bound on this card: device-memory traffic of E, ES and U (the forward
-// pass as in K2, then each upward step reads U of the node, three child
-// slabs of E and their ES, and writes three U slabs), and the dependent
-// loads along both node loops. The design does nothing about either yet:
-// one thread per (tree, pattern), scratch in device memory.
+// The slab route of K1 and K3: the first design of both, one thread per
+// (tree, pattern) over (B, N1, 4K, P) scratch slabs in device memory, bound
+// by that traffic and by the dependent loads along both node loops. It is
+// kept only for trees whose on-chip plan (below) cannot hold a tile of 32
+// patterns in shared memory (at double precision and K = 8, beyond 30 taxa;
+// at float and K = 1, beyond 433 taxa); ops/pruning_jc.py
+// chooses it from the plan and counts it as "ll_grad_jc69_slab" /
+// "ll_dea_jc69_slab". Its arithmetic is the on-chip kernels', value for
+// value.
 // ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-jc69_ll_grad_kernel(const int* __restrict__ post_children,
-                    const T* __restrict__ ea, const T* __restrict__ rates,
-                    const T* __restrict__ props, const T* __restrict__ tips,
-                    const T* __restrict__ weights, T* __restrict__ E,
-                    T* __restrict__ ES, T* __restrict__ U,
-                    T* __restrict__ ll_part, T* __restrict__ grad_part, int L,
-                    int S, int N1, int P) {
+jc69_ll_grad_slab_kernel(const int* __restrict__ post_children,
+                         const T* __restrict__ ea, const T* __restrict__ rates,
+                         const T* __restrict__ props, const T* __restrict__ tips,
+                         const T* __restrict__ weights, T* __restrict__ E,
+                         T* __restrict__ ES, T* __restrict__ U,
+                         T* __restrict__ ll_part, T* __restrict__ grad_part, int L,
+                         int S, int N1, int P) {
   extern __shared__ __align__(16) unsigned char smem[];
   forward_and_upper<T, K, false>(smem, post_children, ea, rates, props, tips, weights, E, ES,
                                  nullptr, U, ll_part, grad_part, L, S, N1, P);
 }
 
-// ---------------------------------------------------------------------------
-// K3: d ll / d e per (node, category) and d ll / d props, the backward half
-// of the LL's custom VJP (its forward half is K2). Replaces the TPU kernel
-// libsbn_tpu/ops/pruning_pallas_jc.py::_bwd_dea_kernel. It recomputes the
-// forward pass, keeping M (remat: the caller saves only the inputs).
-// Bound on this card: device-memory traffic, as K1 plus M (written once in
-// the forward pass and read once in the upper pass, about 1.3x K1's values
-// per (tree, pattern)), and the dependent loads along both node loops. The
-// design does nothing about either yet: one thread per (tree, pattern),
-// scratch in device memory; M is kept for internal nodes only (a leaf's M
-// is read from tips).
-// ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-jc69_dea_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
-                const T* __restrict__ props, const T* __restrict__ tips,
-                const T* __restrict__ weights, T* __restrict__ E,
-                T* __restrict__ ES, T* __restrict__ M, T* __restrict__ U,
-                T* __restrict__ dprops_part, T* __restrict__ dea_part, int L,
-                int S, int N1, int P) {
+jc69_dea_slab_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+                     const T* __restrict__ props, const T* __restrict__ tips,
+                     const T* __restrict__ weights, T* __restrict__ E,
+                     T* __restrict__ ES, T* __restrict__ M, T* __restrict__ U,
+                     T* __restrict__ dprops_part, T* __restrict__ dea_part, int L,
+                     int S, int N1, int P) {
   extern __shared__ __align__(16) unsigned char smem[];
   forward_and_upper<T, K, true>(smem, post_children, ea, nullptr, props, tips, weights, E, ES, M,
                                 U, dprops_part, dea_part, L, S, N1, P);
+}
+
+// ---------------------------------------------------------------------------
+// The on-chip design of K1 and K3. A block owns one tree and one tile of
+// kOnchipTile = 32 patterns (one warp, a thread per pattern) and keeps the tile's whole pruning state in shared memory
+// across both passes, pattern innermost, so that the 32 lanes of a warp hit
+// 32 banks. Nothing of size (B, ., ., P) exists. What is stored, per
+// pattern, is only what cannot be recomputed exactly: the E rows of the
+// internal nodes other than the root, S - 1 rows of 4K values. In the upper
+// pass U[kid] overwrites E[kid]: E[kid] is last read at its parent's upper
+// step, where all three kids' E are loaded into registers before any U is
+// written. The root's E is never read (the root is nobody's child), nor is
+// any U of a leaf. The tree's schedule row and exp factors are staged with
+// cp.async at block start.
+// What is recomputed where it is used, with the same operations in the same
+// order as the slab route stores it, so with the same values:
+//   * a leaf's E, from its tip and ea (e tip_i + ((1 - e)/4) rowsum(tip)),
+//     and its row sum S_E, the tip's row sum. The tips are read from device
+//     memory through the read-only cache, not staged: a staged tips tile
+//     (4L values per pattern) more than doubled the state at DS1 K = 1 and
+//     halved the blocks an SM holds, and K1 ran 0.50 ms with it against
+//     0.41 ms without (B = 512 f32, H100 80GB HBM3 at 700 W; PERF.md). The
+//     tree is the fast grid index, so the blocks an SM holds mostly share a
+//     tile's tips;
+//   * the ones slot, the constant 1 (S_E = 4);
+//   * S_E of an internal kid c at its parent's upper step, and K3's
+//     pre-apply partial M[c] = ((E[c0] E[c1]) E[c2]) inv_c there too, from
+//     c's children's E, which the upper pass has not overwritten yet (it
+//     reaches c only after c's parent);
+//   * U[root] = props / 4, and S_E[root], kept in registers from the last
+//     forward step.
+// The per-pattern state is (S - 1) 4K values (DS1 f32 K = 1: 384 B, so a
+// tile takes 12 KB and 16 blocks share an SM; DS1 f64 K = 8: 6.1 KB, so a
+// tile takes 197 KB of the 227 KB a block may use). Shared memory caps an
+// SM at about 16 warps whatever the tile's width, so the tile is the
+// smallest, a compile-time 32: every shared row's offset is then an
+// immediate, where a runtime width cost an address computation per load. Each
+// thread reads and writes only its own pattern column, so the node loops
+// need no barrier; the cross-pattern sums go warp butterfly -> per-warp
+// shared slot -> per-tile partial, in a fixed order, with no atomics.
+// Route for larger trees (the plan cannot hold 32 patterns): the slab
+// route above, chosen by ops/pruning_jc.py from the plan, rather than rows
+// spilled to a global scratch: it keeps one body per route and refuses no
+// shape the first design took.
+// Bound on this card: the arithmetic of the work, about 0.021 ms (K1) and
+// 0.024 ms (K3) at B = 512 DS1 f32 K = 1, above the on-chip design's
+// shared-memory traffic (about 1.1 GB, 0.037 ms at the SMs' aggregate
+// 29.7 TB/s); chip_smoke.py computes both from its inputs. Measured about
+// 0.35 ms (6% of the bound): each thread walks 50 dependent node steps, and
+// the SASS of K1<float, 1> holds 1.2k integer and address instructions
+// (leaf, internal and ones-slot cases of every row, device-memory tip
+// addresses) beside 0.5k floating-point ones; the design does nothing about
+// that instruction overhead yet (PERF.md, open questions).
+// ---------------------------------------------------------------------------
+
+// Bytes of shared memory the on-chip K1 (G = 1) or K3 (G = K) takes for a
+// tile of TP patterns; ops/pruning_jc.py onchip_plan computes the same sum.
+template <typename T>
+__host__ __device__ size_t onchip_bytes(int S, int N1, int K, int G, int TP) {
+  const size_t W = size_t(TP) / 32;
+  return sizeof(T) * (size_t(N1) * K + 2 * size_t(K) + W * N1 * G + W * K +
+                      (size_t(S) - 1) * 4 * K * TP) +
+         sizeof(int) * 3 * size_t(S);
+}
+
+// One thread's view of the on-chip state: the shared tables, its own
+// pattern column of the E/U slots (rows kOnchipTile apart) and of the tips
+// in device memory (rows P apart, read through the read-only cache).
+template <typename T, int K>
+struct OnChip {
+  const T* ea;     // N1 * K
+  const T* props;  // K
+  T* slot;         // (S - 1) * 4K rows: E, then U, of internal node L + s
+  const T* tip;    // L * 4 rows
+  const int* pc;   // 3 * S
+  int L, S, N1, P;
+
+  __device__ __forceinline__ T& at(int node, int r) const {
+    return slot[((node - L) * 4 * K + r) * kOnchipTile];
+  }
+  __device__ __forceinline__ T tip_at(int leaf, int i) const {
+    return __ldg(tip + (leaf * 4 + i) * P);
+  }
+
+  // E row of node c (4K values) for this thread's pattern: stored for an
+  // internal node, recomputed for a leaf, the constant 1 for the ones slot.
+  __device__ __forceinline__ void row(int c, T* out) const {
+    if (c >= L) {
+      if (c == N1 - 1) {
+#pragma unroll
+        for (int r = 0; r < 4 * K; ++r) out[r] = T(1);
+      } else {
+#pragma unroll
+        for (int r = 0; r < 4 * K; ++r) out[r] = at(c, r);
+      }
+      return;
+    }
+    T t[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) t[i] = tip_at(c, i);
+    const T rt = ((t[0] + t[1]) + t[2]) + t[3];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const T e = ea[c * K + k];
+      const T cl = ((T(1) - e) * T(0.25)) * rt;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) out[4 * k + i] = e * t[i] + cl;
+    }
+  }
+
+  // prod = (E[c0] E[c1]) E[c2] of combine step s, its per-category row sums
+  // rs and the step's rescale: returns inv (1 on steps that do not rescale)
+  // and adds log(scale) to *logscale when it is given.
+  __device__ __forceinline__ T combine(int s, T* prod, T* rs, T* logscale) const {
+    T a[4 * K];
+    row(pc[3 * s], prod);
+    row(pc[3 * s + 1], a);
+#pragma unroll
+    for (int r = 0; r < 4 * K; ++r) prod[r] = prod[r] * a[r];
+    row(pc[3 * s + 2], a);
+#pragma unroll
+    for (int r = 0; r < 4 * K; ++r) prod[r] = prod[r] * a[r];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      rs[k] = ((prod[4 * k] + prod[4 * k + 1]) + prod[4 * k + 2]) + prod[4 * k + 3];
+    }
+    // Odd steps and the last step rescale (as forward_pass).
+    if ((s & 1) || (s == S - 1)) {
+      T scale = rs[0];
+#pragma unroll
+      for (int k = 1; k < K; ++k) scale += rs[k];
+      scale = scale > T(0) ? scale : T(1);
+      if (logscale != nullptr) *logscale += log_t(scale);
+      return T(1) / scale;
+    }
+    return T(1);
+  }
+};
+
+// The forward pass of one pattern column: the S combine steps, each storing
+// E[node] (the root's is not stored). Returns the log scale and leaves the
+// root's S_E in es_root.
+template <typename T, int K>
+__device__ __forceinline__ T forward_onchip(const OnChip<T, K>& o, T* es_root) {
+  T logscale = T(0);
+  for (int s = 0; s < o.S; ++s) {
+    T prod[4 * K], rs[K];
+    const bool do_scale = (s & 1) || (s == o.S - 1);
+    const T inv = o.combine(s, prod, rs, &logscale);
+    if (s == o.S - 1) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) es_root[k] = do_scale ? rs[k] * inv : rs[k];
+      break;
+    }
+    const int node = o.L + s;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const T e = o.ea[node * K + k];
+      const T c = ((T(1) - e) * T(0.25)) * rs[k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const T v = e * prod[4 * k + i] + c;
+        o.at(node, 4 * k + i) = do_scale ? v * inv : v;
+      }
+    }
+  }
+  return logscale;
+}
+
+// The body of the on-chip K1 (kDea = false) and K3 (kDea = true): what
+// forward_and_upper computes, value for value, with the state on chip.
+template <typename T, int K, bool kDea>
+__device__ __forceinline__ void forward_and_upper_onchip(
+    unsigned char* smem, const int* __restrict__ post_children, const T* __restrict__ ea,
+    const T* __restrict__ rates, const T* __restrict__ props, const T* __restrict__ tips,
+    const T* __restrict__ weights, T* __restrict__ root_part, T* __restrict__ edge_part,
+    int L, int S, int N1, int P) {
+  constexpr int R = 4 * K;
+  constexpr int G = kDea ? K : 1;  // values per edge
+  constexpr int H = kDea ? K : 1;  // values at the root
+  constexpr int TP = kOnchipTile;
+  constexpr int W = TP / 32;
+  const int tid = threadIdx.x;
+  // The tree is the fast grid index, so the blocks an SM holds at once
+  // mostly share one tile and its tips stay in cache.
+  const int b = blockIdx.x;
+  const int p = blockIdx.y * TP + tid;
+  const bool active = p < P;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int root = L + S - 1;
+  const int ones = N1 - 1;
+  const T quarter = T(0.25);
+  const T tiny = T(1e-30);
+  const T third = T(1.0 / 3.0);
+  const T four_thirds = T(4.0 / 3.0);
+
+  // Carve shared memory in onchip_bytes' order.
+  T* s_ea = reinterpret_cast<T*>(smem);
+  T* s_rates = s_ea + N1 * K;
+  T* s_props = s_rates + K;
+  T* gsum = s_props + K;
+  T* lsum = gsum + W * N1 * G;
+  T* slot = lsum + W * K;
+  int* s_pc = reinterpret_cast<int*>(slot + size_t(S - 1) * R * TP);
+
+  // Stage the schedule row and the exp factors.
+  for (int i = tid; i < 3 * S; i += TP) {
+    cp_async<sizeof(int)>(s_pc + i, post_children + size_t(b) * 3 * S + i);
+  }
+  for (int i = tid; i < N1 * K; i += TP) {
+    cp_async<sizeof(T)>(s_ea + i, ea + size_t(b) * N1 * K + i);
+  }
+  for (int i = tid; i < K; i += TP) {
+    s_rates[i] = rates == nullptr ? T(0) : rates[i];
+    s_props[i] = props[i];
+  }
+  for (int i = tid; i < W * N1 * G; i += TP) gsum[i] = T(0);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const OnChip<T, K> o{s_ea, s_props, slot + tid, tips + p, s_pc, L, S, N1, P};
+
+  T hv[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) hv[h] = T(0);
+  const T w = active ? weights[p] : T(0);
+  if (active) {
+    T es_root[K] = {};
+    const T logscale = forward_onchip<T, K>(o, es_root);
+    T site = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k) site += (s_props[k] * quarter) * es_root[k];
+    site = site > tiny ? site : tiny;
+    if constexpr (kDea) {
+      const T w_over_site = w / site;
+#pragma unroll
+      for (int k = 0; k < K; ++k) hv[k] = (quarter * es_root[k]) * w_over_site;
+    } else {
+      hv[0] = w * (log_t(site) + logscale);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const T v = warp_sum(hv[h]);
+    if (lane == 0) lsum[warp * H + h] = v;
+  }
+
+  for (int t = 0; t < S; ++t) {
+    const int node = root - t;
+    const int s = node - L;
+    const int kid[3] = {s_pc[3 * s], s_pc[3 * s + 1], s_pc[3 * s + 2]};
+    T g[3][G];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+      for (int i = 0; i < G; ++i) g[j][i] = T(0);
+    }
+    if (active) {
+      // P^T U[node] = P U[node]; U[root] = props / 4. For K = 1 the rows of
+      // U sum to exactly 1, so the row-sum operand is the scalar 1.
+      T ev[R];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        T un[4];
+        if (node == root) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) un[i] = s_props[k] * quarter;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) un[i] = o.at(node, 4 * k + i);
+        }
+        const T e = s_ea[node * K + k];
+        const T rsu = K == 1 ? T(1) : ((un[0] + un[1]) + un[2]) + un[3];
+        const T c = ((T(1) - e) * quarter) * rsu;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ev[4 * k + i] = e * un[i] + c;
+      }
+      T e0[R], e1[R], e2[R];
+      o.row(kid[0], e0);
+      o.row(kid[1], e1);
+      o.row(kid[2], e2);
+      // Shared denominator: u_c . E_c = ev . e0 e1 e2 for every child c.
+      T d[K];
+      T denom = T(0);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        T acc[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = 4 * k + i;
+          acc[i] = ev[r] * ((e0[r] * e1[r]) * e2[r]);
+        }
+        d[k] = ((acc[0] + acc[1]) + acc[2]) + acc[3];
+        denom = k == 0 ? d[0] : denom + d[k];
+      }
+      const T winv = w / (denom > tiny ? denom : tiny);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int c = kid[j];
+        if (c == ones) continue;  // its edge is no edge; its U is never read
+        T u[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const T mab = j == 0 ? e1[r] * e2[r] : (j == 1 ? e0[r] * e2[r] : e0[r] * e1[r]);
+          u[r] = ev[r] * mab;
+        }
+        // The kid's S_E and (K3) its pre-apply partial M: the tip for a
+        // leaf (every category), recomputed from its children for an
+        // internal node.
+        T es[K], m[R];
+        if (c < L) {
+          T tp[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tp[i] = o.tip_at(c, i);
+          const T rt = ((tp[0] + tp[1]) + tp[2]) + tp[3];
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            es[k] = rt;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) m[4 * k + i] = tp[i];
+          }
+        } else {
+          T rs[K];
+          const int sc_ = c - L;
+          const bool do_scale = (sc_ & 1) || (sc_ == S - 1);
+          const T inv = o.combine(sc_, m, rs, nullptr);
+#pragma unroll
+          for (int k = 0; k < K; ++k) es[k] = do_scale ? rs[k] * inv : rs[k];
+          if constexpr (kDea) {
+            if (do_scale) {
+#pragma unroll
+              for (int r = 0; r < R; ++r) m[r] = m[r] * inv;
+            }
+          }
+        }
+        T su = T(0);
+        if constexpr (kDea) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            T uw[4], um[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              uw[i] = u[4 * k + i] * winv;
+              um[i] = uw[i] * m[4 * k + i];
+            }
+            const T suw = ((uw[0] + uw[1]) + uw[2]) + uw[3];
+            const T su_k = ((u[4 * k] + u[4 * k + 1]) + u[4 * k + 2]) + u[4 * k + 3];
+            su = k == 0 ? su_k : su + su_k;
+            g[j][k] = (((um[0] + um[1]) + um[2]) + um[3]) - quarter * (suw * es[k]);
+          }
+        } else {
+          T num = T(0);
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const T su_k = ((u[4 * k] + u[4 * k + 1]) + u[4 * k + 2]) + u[4 * k + 3];
+            su = k == 0 ? su_k : su + su_k;
+            num += s_rates[k] * (third * (su_k * es[k]) - four_thirds * d[k]);
+          }
+          g[j][0] = winv * num;
+        }
+        if (c >= L) {
+          const T sc = su > T(0) ? su : T(1);
+#pragma unroll
+          for (int r = 0; r < R; ++r) o.at(c, r) = u[r] / sc;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+#pragma unroll
+      for (int i = 0; i < G; ++i) {
+        const T v = warp_sum(g[j][i]);
+        if (lane == 0) gsum[(warp * N1 + kid[j]) * G + i] = v;
+      }
+    }
+  }
+
+  __syncthreads();
+  const size_t blk = size_t(b) * gridDim.y + blockIdx.y;
+  for (int h = tid; h < H; h += TP) {
+    T acc = lsum[h];
+    for (int v = 1; v < W; ++v) acc += lsum[v * H + h];
+    root_part[blk * H + h] = acc;
+  }
+  for (int i = tid; i < N1 * G; i += TP) {
+    const int n = i / G;
+    T acc = T(0);
+    if (n != root && n != ones) {
+      acc = gsum[i];
+      for (int v = 1; v < W; ++v) acc += gsum[v * N1 * G + i];
+    }
+    edge_part[blk * N1 * G + i] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1: LL and the branch gradient d LL / d b_e for every edge, in one pass.
+// Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas_jc.py:214 _kernel,
+// which kept E, ES, U and G in VMEM scratch of shape (N1, 4K, tile); this
+// design keeps the same working set in shared memory (see above).
+// Bound on this card: arithmetic, about 0.021 ms at B = 512 DS1 f32 K = 1
+// (shared-memory traffic 0.037 ms); measured about 0.35 ms (see above). The
+// first design was bound by device-memory slab traffic (2.57 GB, 0.77 ms)
+// and took 0.99 ms in the same run.
+// ---------------------------------------------------------------------------
+template <typename T, int K>
+__global__ void __launch_bounds__(kOnchipTile)
+jc69_ll_grad_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+                    const T* __restrict__ rates, const T* __restrict__ props,
+                    const T* __restrict__ tips, const T* __restrict__ weights,
+                    T* __restrict__ ll_part, T* __restrict__ grad_part, int L, int S,
+                    int N1, int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  forward_and_upper_onchip<T, K, false>(smem, post_children, ea, rates, props, tips, weights,
+                                        ll_part, grad_part, L, S, N1, P);
+}
+
+// ---------------------------------------------------------------------------
+// K3: d ll / d e per (node, category) and d ll / d props, the backward half
+// of the LL's custom VJP (its forward half is K2). Replaces the TPU kernel
+// libsbn_tpu/ops/pruning_pallas_jc.py:447 _bwd_dea_kernel. It recomputes the
+// forward pass (remat: the caller saves only the inputs) and stores no M:
+// each internal kid's M is recomputed at its parent's upper step.
+// Bound on this card: arithmetic, about 0.024 ms at B = 512 DS1 f32 K = 1
+// (shared-memory traffic as K1's); measured about 0.35 ms (see above). The
+// first design was bound by device-memory slab traffic (E, ES, U and M,
+// about 1.3x K1's) and took 1.26 ms in the same run.
+// ---------------------------------------------------------------------------
+template <typename T, int K>
+__global__ void __launch_bounds__(kOnchipTile)
+jc69_dea_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+                const T* __restrict__ props, const T* __restrict__ tips,
+                const T* __restrict__ weights, T* __restrict__ dprops_part,
+                T* __restrict__ dea_part, int L, int S, int N1, int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  forward_and_upper_onchip<T, K, true>(smem, post_children, ea, nullptr, props, tips, weights,
+                                       dprops_part, dea_part, L, S, N1, P);
 }
 
 template <typename Kern>
@@ -484,28 +933,64 @@ int launch_ll(const int* pc, const T* ea, const T* props, const T* tips, const T
 }
 
 template <typename T, int K>
-int launch_ll_grad(const int* pc, const T* ea, const T* rates, const T* props, const T* tips,
-                   const T* w, T* E, T* ES, T* U, T* ll_part, T* grad_part, int B, int L,
-                   int S, int N1, int P, cudaStream_t st) {
+int launch_ll_grad_slab(const int* pc, const T* ea, const T* rates, const T* props,
+                        const T* tips, const T* w, T* E, T* ES, T* U, T* ll_part, T* grad_part,
+                        int B, int L, int S, int N1, int P, cudaStream_t st) {
   const size_t smem = shared_bytes<T>(S, N1, K, 1);
-  cudaError_t err = prepare(jc69_ll_grad_kernel<T, K>, smem);
+  cudaError_t err = prepare(jc69_ll_grad_slab_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
-  jc69_ll_grad_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, ea, rates, props, tips, w, E, ES,
-                                                          U, ll_part, grad_part, L, S, N1, P);
+  jc69_ll_grad_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(
+      pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part, L, S, N1, P);
   return int(cudaGetLastError());
 }
 
 template <typename T, int K>
-int launch_dea(const int* pc, const T* ea, const T* props, const T* tips, const T* w, T* E,
-               T* ES, T* M, T* U, T* dprops_part, T* dea_part, int B, int L, int S, int N1,
-               int P, cudaStream_t st) {
+int launch_dea_slab(const int* pc, const T* ea, const T* props, const T* tips, const T* w,
+                    T* E, T* ES, T* M, T* U, T* dprops_part, T* dea_part, int B, int L, int S,
+                    int N1, int P, cudaStream_t st) {
   const size_t smem = shared_bytes<T>(S, N1, K, K);
-  cudaError_t err = prepare(jc69_dea_kernel<T, K>, smem);
+  cudaError_t err = prepare(jc69_dea_slab_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
-  jc69_dea_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, ea, props, tips, w, E, ES, M, U,
-                                                      dprops_part, dea_part, L, S, N1, P);
+  jc69_dea_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, ea, props, tips, w, E, ES, M, U,
+                                                           dprops_part, dea_part, L, S, N1, P);
+  return int(cudaGetLastError());
+}
+
+// The on-chip kernels take the plan's tile TP and shared-memory bytes from
+// the caller, and refuse a plan that does not hold what they carve.
+inline bool plan_ok(int TP, size_t smem, size_t need) {
+  return TP == kOnchipTile && smem >= need && smem <= kMaxShared;
+}
+
+template <typename T, int K>
+int launch_ll_grad(const int* pc, const T* ea, const T* rates, const T* props, const T* tips,
+                   const T* w, T* ll_part, T* grad_part, int B, int L, int S, int N1, int P,
+                   int TP, int smem, cudaStream_t st) {
+  if (!plan_ok(TP, size_t(smem), onchip_bytes<T>(S, N1, K, 1, TP))) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaError_t err = prepare(jc69_ll_grad_kernel<T, K>, size_t(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(B, (P + TP - 1) / TP);
+  jc69_ll_grad_kernel<T, K><<<grid, TP, smem, st>>>(pc, ea, rates, props, tips, w, ll_part,
+                                                    grad_part, L, S, N1, P);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int K>
+int launch_dea(const int* pc, const T* ea, const T* props, const T* tips, const T* w,
+               T* dprops_part, T* dea_part, int B, int L, int S, int N1, int P, int TP, int smem,
+               cudaStream_t st) {
+  if (!plan_ok(TP, size_t(smem), onchip_bytes<T>(S, N1, K, K, TP))) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaError_t err = prepare(jc69_dea_kernel<T, K>, size_t(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(B, (P + TP - 1) / TP);
+  jc69_dea_kernel<T, K><<<grid, TP, smem, st>>>(pc, ea, props, tips, w, dprops_part, dea_part, L,
+                                                S, N1, P);
   return int(cudaGetLastError());
 }
 
@@ -539,31 +1024,62 @@ int ll_entry(const void* pc, const void* ea, const void* props, const void* tips
 
 template <typename T>
 int ll_grad_entry(const void* pc, const void* ea, const void* rates, const void* props,
-                  const void* tips, const void* w, void* E, void* ES, void* U, void* ll_part,
-                  void* grad_part, int B, int L, int S, int N1, int K, int P, void* stream) {
+                  const void* tips, const void* w, void* ll_part, void* grad_part, int B, int L,
+                  int S, int N1, int K, int P, int TP, int smem, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define LSBN_CALL(KK)                                                                        \
-  launch_ll_grad<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),             \
-                        static_cast<const T*>(rates), static_cast<const T*>(props),          \
-                        static_cast<const T*>(tips), static_cast<const T*>(w),               \
-                        static_cast<T*>(E), static_cast<T*>(ES), static_cast<T*>(U),         \
+#define LSBN_CALL(KK)                                                                       \
+  launch_ll_grad<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),            \
+                        static_cast<const T*>(rates), static_cast<const T*>(props),         \
+                        static_cast<const T*>(tips), static_cast<const T*>(w),              \
                         static_cast<T*>(ll_part), static_cast<T*>(grad_part), B, L, S, N1, \
-                        P, st)
+                        P, TP, smem, st)
   LSBN_DISPATCH_K(K, LSBN_CALL)
 #undef LSBN_CALL
 }
 
 template <typename T>
 int dea_entry(const void* pc, const void* ea, const void* props, const void* tips, const void* w,
-              void* E, void* ES, void* M, void* U, void* dprops_part, void* dea_part, int B,
-              int L, int S, int N1, int K, int P, void* stream) {
+              void* dprops_part, void* dea_part, int B, int L, int S, int N1, int K, int P,
+              int TP, int smem, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define LSBN_CALL(KK)                                                                       \
-  launch_dea<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),                \
-                    static_cast<const T*>(props), static_cast<const T*>(tips),              \
-                    static_cast<const T*>(w), static_cast<T*>(E), static_cast<T*>(ES),      \
-                    static_cast<T*>(M), static_cast<T*>(U), static_cast<T*>(dprops_part),   \
-                    static_cast<T*>(dea_part), B, L, S, N1, P, st)
+#define LSBN_CALL(KK)                                                                   \
+  launch_dea<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),            \
+                    static_cast<const T*>(props), static_cast<const T*>(tips),          \
+                    static_cast<const T*>(w), static_cast<T*>(dprops_part),             \
+                    static_cast<T*>(dea_part), B, L, S, N1, P, TP, smem, st)
+  LSBN_DISPATCH_K(K, LSBN_CALL)
+#undef LSBN_CALL
+}
+
+template <typename T>
+int ll_grad_slab_entry(const void* pc, const void* ea, const void* rates, const void* props,
+                       const void* tips, const void* w, void* E, void* ES, void* U,
+                       void* ll_part, void* grad_part, int B, int L, int S, int N1, int K, int P,
+                       void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+#define LSBN_CALL(KK)                                                                         \
+  launch_ll_grad_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),         \
+                             static_cast<const T*>(rates), static_cast<const T*>(props),      \
+                             static_cast<const T*>(tips), static_cast<const T*>(w),           \
+                             static_cast<T*>(E), static_cast<T*>(ES), static_cast<T*>(U),     \
+                             static_cast<T*>(ll_part), static_cast<T*>(grad_part), B, L, S,  \
+                             N1, P, st)
+  LSBN_DISPATCH_K(K, LSBN_CALL)
+#undef LSBN_CALL
+}
+
+template <typename T>
+int dea_slab_entry(const void* pc, const void* ea, const void* props, const void* tips,
+                   const void* w, void* E, void* ES, void* M, void* U, void* dprops_part,
+                   void* dea_part, int B, int L, int S, int N1, int K, int P, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+#define LSBN_CALL(KK)                                                                        \
+  launch_dea_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),            \
+                         static_cast<const T*>(props), static_cast<const T*>(tips),          \
+                         static_cast<const T*>(w), static_cast<T*>(E), static_cast<T*>(ES),  \
+                         static_cast<T*>(M), static_cast<T*>(U),                              \
+                         static_cast<T*>(dprops_part), static_cast<T*>(dea_part), B, L, S,   \
+                         N1, P, st)
   LSBN_DISPATCH_K(K, LSBN_CALL)
 #undef LSBN_CALL
 }
@@ -572,7 +1088,8 @@ int dea_entry(const void* pc, const void* ea, const void* props, const void* tip
 
 extern "C" {
 
-// Patterns per block: the width of one partial-sum tile.
+// Patterns per block of K2 and of the slab route: the width of one
+// partial-sum tile.
 int lsbn_jc69_tile() { return kThreads; }
 int lsbn_jc69_max_k() { return kMaxK; }
 const char* lsbn_cuda_error_string(int err) {
@@ -591,34 +1108,70 @@ int lsbn_jc69_ll_f64(const void* pc, const void* ea, const void* props, const vo
   return ll_entry<double>(pc, ea, props, tips, w, E, ES, ll_part, B, L, S, N1, K, P, stream);
 }
 
+// K1 on chip: the plan's tile TP and shared-memory bytes come from the
+// caller (ops/pruning_jc.py onchip_plan).
 int lsbn_jc69_ll_grad_f32(const void* pc, const void* ea, const void* rates, const void* props,
-                          const void* tips, const void* w, void* E, void* ES, void* U,
-                          void* ll_part, void* grad_part, int B, int L, int S, int N1, int K,
-                          int P, void* stream) {
-  return ll_grad_entry<float>(pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part, B, L,
-                              S, N1, K, P, stream);
+                          const void* tips, const void* w, void* ll_part, void* grad_part,
+                          int B, int L, int S, int N1, int K, int P, int TP, int smem,
+                          void* stream) {
+  return ll_grad_entry<float>(pc, ea, rates, props, tips, w, ll_part, grad_part, B, L, S, N1, K,
+                              P, TP, smem, stream);
 }
 
 int lsbn_jc69_ll_grad_f64(const void* pc, const void* ea, const void* rates, const void* props,
-                          const void* tips, const void* w, void* E, void* ES, void* U,
-                          void* ll_part, void* grad_part, int B, int L, int S, int N1, int K,
-                          int P, void* stream) {
-  return ll_grad_entry<double>(pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part, B,
-                               L, S, N1, K, P, stream);
+                          const void* tips, const void* w, void* ll_part, void* grad_part,
+                          int B, int L, int S, int N1, int K, int P, int TP, int smem,
+                          void* stream) {
+  return ll_grad_entry<double>(pc, ea, rates, props, tips, w, ll_part, grad_part, B, L, S, N1,
+                               K, P, TP, smem, stream);
 }
 
+// K3 on chip.
 int lsbn_jc69_dea_f32(const void* pc, const void* ea, const void* props, const void* tips,
-                      const void* w, void* E, void* ES, void* M, void* U, void* dprops_part,
-                      void* dea_part, int B, int L, int S, int N1, int K, int P, void* stream) {
-  return dea_entry<float>(pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part, B, L, S,
-                          N1, K, P, stream);
+                      const void* w, void* dprops_part, void* dea_part, int B, int L, int S,
+                      int N1, int K, int P, int TP, int smem, void* stream) {
+  return dea_entry<float>(pc, ea, props, tips, w, dprops_part, dea_part, B, L, S, N1, K, P, TP,
+                          smem, stream);
 }
 
 int lsbn_jc69_dea_f64(const void* pc, const void* ea, const void* props, const void* tips,
-                      const void* w, void* E, void* ES, void* M, void* U, void* dprops_part,
-                      void* dea_part, int B, int L, int S, int N1, int K, int P, void* stream) {
-  return dea_entry<double>(pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part, B, L, S,
-                           N1, K, P, stream);
+                      const void* w, void* dprops_part, void* dea_part, int B, int L, int S,
+                      int N1, int K, int P, int TP, int smem, void* stream) {
+  return dea_entry<double>(pc, ea, props, tips, w, dprops_part, dea_part, B, L, S, N1, K, P, TP,
+                           smem, stream);
+}
+
+// The slab route of K1 and K3 (tile kThreads), for trees beyond the plan.
+int lsbn_jc69_ll_grad_slab_f32(const void* pc, const void* ea, const void* rates,
+                               const void* props, const void* tips, const void* w, void* E,
+                               void* ES, void* U, void* ll_part, void* grad_part, int B, int L,
+                               int S, int N1, int K, int P, void* stream) {
+  return ll_grad_slab_entry<float>(pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part,
+                                   B, L, S, N1, K, P, stream);
+}
+
+int lsbn_jc69_ll_grad_slab_f64(const void* pc, const void* ea, const void* rates,
+                               const void* props, const void* tips, const void* w, void* E,
+                               void* ES, void* U, void* ll_part, void* grad_part, int B, int L,
+                               int S, int N1, int K, int P, void* stream) {
+  return ll_grad_slab_entry<double>(pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part,
+                                    B, L, S, N1, K, P, stream);
+}
+
+int lsbn_jc69_dea_slab_f32(const void* pc, const void* ea, const void* props, const void* tips,
+                           const void* w, void* E, void* ES, void* M, void* U, void* dprops_part,
+                           void* dea_part, int B, int L, int S, int N1, int K, int P,
+                           void* stream) {
+  return dea_slab_entry<float>(pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part, B, L,
+                               S, N1, K, P, stream);
+}
+
+int lsbn_jc69_dea_slab_f64(const void* pc, const void* ea, const void* props, const void* tips,
+                           const void* w, void* E, void* ES, void* M, void* U, void* dprops_part,
+                           void* dea_part, int B, int L, int S, int N1, int K, int P,
+                           void* stream) {
+  return dea_slab_entry<double>(pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part, B, L,
+                                S, N1, K, P, stream);
 }
 
 }  // extern "C"

@@ -38,6 +38,7 @@ import torch
 
 from ..core.site_pattern import SitePattern
 from ..ops import substitution
+from ..utils.device import DEFAULT_DEVICE, compute_device
 from . import engine_kernels
 from .engine_kernels import MAX_LOG_BL, MIN_LOG_BL
 
@@ -88,7 +89,7 @@ class GPEngine:
         inverted_sbn_prior: np.ndarray,
         rescaling_threshold: float = 1e-40,  # kept for API parity; unused
         dtype=torch.float64,
-        device="cpu",
+        device=DEFAULT_DEVICE,
         use_kernels="auto",
         mesh=None,
     ):
@@ -96,15 +97,7 @@ class GPEngine:
             raise NotImplementedError(MESH_TODO)
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"device {device} requested, but no CUDA device is present"
-                )
-            # Precision policy: no TF32 on the likelihood path.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        device = compute_device(device)
         if use_kernels == "auto":
             use_kernels = device.type == "cuda"
         self.use_kernels = bool(use_kernels)

@@ -23,6 +23,7 @@ from ..io import newick
 from ..io.fasta import Alignment
 from ..sbn import maps as sbn_maps
 from ..utils.bitset import Bitset
+from ..utils.device import DEFAULT_DEVICE
 from .engine import GPEngine
 from .quartet import quartet_hybrid_request_of
 from .subsplit_dag import SubsplitDAG
@@ -55,11 +56,13 @@ class GPInstance:
 
     # -- engine -------------------------------------------------------------
     def make_engine(
-        self, rescaling_threshold: float = 1e-40, dtype=None, device="cpu",
+        self, rescaling_threshold: float = 1e-40, dtype=None,
+        device=DEFAULT_DEVICE,
         use_kernels="auto", mesh=None,
     ):
         """dtype: torch.float64 (the default) or torch.float32. device: the
-        CPU (the default) or "cuda", which raises without a card.
+        card (the default; raises without one) unless the caller passes
+        device="cpu".
         use_kernels: "auto" takes the kernel route (K7 populate, K8 golden
         sweep) on a CUDA device and the level route (torch ops, Newton
         sweep) on the CPU; True or False chooses (True on the CPU runs the

@@ -29,6 +29,7 @@ from ..ops import schedule as schedule_ops
 from ..sbn import probability as sbn_probability
 from ..sbn import sampling
 from ..sbn.support import PSPIndexer
+from ..utils.device import DEFAULT_DEVICE
 
 EM_TODO = "EM training is not ported yet (ROADMAP queue 1, item 5)"
 
@@ -125,22 +126,21 @@ class GenericSBNInstance:
     def prepare_for_phylo_likelihood(
         self, spec: PhyloModelSpec, thread_count: int = 1, beagle_flags=(),
         use_tip_states: bool = False, tree_count_option: Optional[int] = None,
-        rescaling: bool = True, *, device=None, dtype=None,
+        rescaling: bool = True, *, device=DEFAULT_DEVICE, dtype=None,
     ):
         """Create the likelihood engine. Argument order matches the reference
         binding (pylibsbn.cpp:196-199); thread_count and beagle_flags are
         accepted for that parity and ignored (one batched launch replaces
         the thread pool; there is no BEAGLE).
 
-        device: where the engine computes; the CPU unless the caller names
-        another ("cuda" requires a card and raises without one). dtype:
+        device: where the engine computes; the card unless the caller
+        passes device="cpu" (without a card the default raises). dtype:
         float64 unless the caller names float32."""
         self._check_trees_loaded()
         if self.alignment is None:
             raise RuntimeError("Please read a FASTA file first.")
         if tree_count_option is not None:
             raise NotImplementedError(PER_TREE_TODO)
-        device = torch.device("cpu" if device is None else device)
         dtype = torch.float64 if dtype is None else dtype
         site_pattern = SitePattern(
             self.alignment, self.tree_collection.tag_taxon_map

@@ -42,6 +42,7 @@ from ..ops import site_model as site_ops
 from ..ops import substitution as subst_ops
 from ..ops import transforms
 from ..ops.schedule import BatchedSchedule
+from ..utils.device import DEFAULT_DEVICE, compute_device
 
 PER_TREE_TODO = (
     "per-tree model parameters are not ported yet (ROADMAP queue 1, item 5: "
@@ -60,21 +61,13 @@ class LikelihoodEngine:
         spec: PhyloModelSpec,
         rescale: bool = True,
         dtype=torch.float64,
-        device="cpu",
+        device=DEFAULT_DEVICE,
         use_tip_states: bool = False,
     ):
         check_spec(spec)
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    f"device {device} requested, but no CUDA device is present"
-                )
-            # Precision policy: no TF32 anywhere on the likelihood path.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        device = compute_device(device)
         self.spec = spec
         self.rescale = rescale
         self.dtype = dtype

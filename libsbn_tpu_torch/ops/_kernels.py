@@ -48,12 +48,18 @@ def _bind_jc(lib):
     for dt in ("f32", "f64"):
         # pc, ea, props, tips, w, E, ES, ll_part; B, L, S, N1, K, P; stream
         _sig(lib, f"lsbn_jc69_ll_{dt}", 8, 6)
-        # pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part;
-        # B, L, S, N1, K, P; stream
-        _sig(lib, f"lsbn_jc69_ll_grad_{dt}", 11, 6)
+        # pc, ea, rates, props, tips, w, ll_part, grad_part;
+        # B, L, S, N1, K, P, tile, shared bytes; stream
+        _sig(lib, f"lsbn_jc69_ll_grad_{dt}", 8, 8)
+        # pc, ea, props, tips, w, dprops_part, dea_part;
+        # B, L, S, N1, K, P, tile, shared bytes; stream
+        _sig(lib, f"lsbn_jc69_dea_{dt}", 7, 8)
+        # The slab route: pc, ea, rates, props, tips, w, E, ES, U, ll_part,
+        # grad_part; B, L, S, N1, K, P; stream
+        _sig(lib, f"lsbn_jc69_ll_grad_slab_{dt}", 11, 6)
         # pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part;
         # B, L, S, N1, K, P; stream
-        _sig(lib, f"lsbn_jc69_dea_{dt}", 11, 6)
+        _sig(lib, f"lsbn_jc69_dea_slab_{dt}", 11, 6)
 
 
 def _bind_generic(lib):

@@ -30,6 +30,12 @@ cannot take. Nothing falls back.
 
 The CUDA kernels mask the ragged pattern edge themselves, so patterns are
 not padded (the TPU kernels' pad_patterns is a lane rule of that chip).
+K1 and K3 keep a tile's whole pruning state in shared memory; ``onchip_plan``
+checks from (dtype, K, S, L) that a tile of 32 patterns fits. A tree too
+large for it (or more than 65,535 tiles of patterns) takes the slab route
+instead: the first design of both kernels, over (B, N1, 4K, P) scratch in
+device memory, counted as ``ll_grad_jc69_slab`` / ``ll_dea_jc69_slab``.
+The route follows from the shapes alone; nothing else selects it.
 Preconditions the kernels do not check on the device (``check_schedule``
 checks them on the host): internal node ids are postorder-linear (step s
 writes node L + s) and every child id lies in [0, N1).
@@ -44,8 +50,15 @@ from . import _kernels
 
 # Launch counts of the CUDA kernels and call counts of their twins, so a run
 # can show which one it took. reset_counters() sets them all to 0.
-LAUNCHES = {"ll_grad_jc69": 0, "ll_jc69": 0, "ll_dea_jc69": 0}
+LAUNCHES = {"ll_grad_jc69": 0, "ll_jc69": 0, "ll_dea_jc69": 0,
+            "ll_grad_jc69_slab": 0, "ll_dea_jc69_slab": 0}
 TWIN_CALLS = {"ll_grad_jc69": 0, "ll_jc69": 0, "ll_dea_jc69": 0}
+# Shared memory a block may use on Hopper (sm_90: 227 KB), the on-chip K1/K3's
+# tile (csrc/pruning_jc.cu kOnchipTile: one warp a block) and the tiles a
+# grid's y dimension may hold.
+SHARED_LIMIT = 232_448
+ONCHIP_TILE = 32
+MAX_TILES = 65_535
 
 
 def reset_counters():
@@ -345,6 +358,28 @@ def ll_dea_jc69_plain(post_children, ea, props, tips, weights, *, root_id):
 # -- CUDA kernels (csrc/pruning_jc.cu) -----------------------------------------
 
 
+def onchip_bytes(itemsize, K, S, L, G):
+    """Shared-memory bytes of the on-chip K1 (G = 1) or K3 (G = K) for a
+    tile of ONCHIP_TILE patterns (one warp), as csrc/pruning_jc.cu
+    onchip_bytes carves them: the tree's exp factors, rates and props, the
+    warp's edge and root sums, the E/U rows of the S - 1 internal nodes
+    below the root, and the schedule row (int32)."""
+    N1 = L + S + 1
+    values = N1 * K + 2 * K + N1 * G + K + (S - 1) * 4 * K * ONCHIP_TILE
+    return itemsize * values + 4 * 3 * S
+
+
+def onchip_plan(dtype, K, S, L, kernel="ll_grad"):
+    """(tile, shared bytes) of the on-chip K1 (kernel "ll_grad") or K3
+    ("dea") for a tree of L leaves and S combine steps: ONCHIP_TILE
+    patterns when their state fits in SHARED_LIMIT, else None (the slab
+    route)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    G = K if kernel == "dea" else 1
+    need = onchip_bytes(itemsize, K, S, L, G)
+    return (ONCHIP_TILE, need) if need <= SHARED_LIMIT else None
+
+
 def _check_inputs(post_children, ea, tips, weights, cats, root_id):
     """Device, dtype, shape and contiguity checks shared by K1, K2 and K3.
     Returns (B, L, S, N1, K, P)."""
@@ -420,17 +455,20 @@ def ll_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
 
 def ll_grad_jc69_cuda(post_children, ea, rates, props, tips, weights, *,
                       root_id):
-    """K1 on the card: (ll (B,), grad (B, N1)). ea: (B, N1, K)."""
+    """K1 on the card: (ll (B,), grad (B, N1)). ea: (B, N1, K). On chip
+    when the plan fits, else the slab route."""
     dims = _check_inputs(post_children, ea, tips, weights,
                          [("rates", rates), ("props", props)], root_id)
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
     lib = _kernels.load("pruning_jc")
     _check_k(lib, K)
-    tiles = -(-P // lib.lsbn_jc69_tile())
-    E = torch.empty((B, N1, 4 * K, P), dtype=dt, device=dev)
-    ES = torch.empty((B, N1, K, P), dtype=dt, device=dev)
-    U = torch.empty_like(E)
+    plan = onchip_plan(dt, K, S, L, "ll_grad")
+    if plan is None or -(-P // ONCHIP_TILE) > MAX_TILES:
+        return _ll_grad_jc69_slab(lib, dims, post_children, ea, rates, props,
+                                  tips, weights)
+    tile, smem = plan
+    tiles = -(-P // tile)
     ll_part = torch.empty((B, tiles), dtype=dt, device=dev)
     grad_part = torch.empty((B, tiles, N1), dtype=dt, device=dev)
     fn = (lib.lsbn_jc69_ll_grad_f32 if dt == torch.float32
@@ -439,22 +477,73 @@ def ll_grad_jc69_cuda(post_children, ea, rates, props, tips, weights, *,
         rc = fn(
             post_children.data_ptr(), ea.data_ptr(), rates.data_ptr(),
             props.data_ptr(), tips.data_ptr(), weights.data_ptr(),
-            E.data_ptr(), ES.data_ptr(), U.data_ptr(), ll_part.data_ptr(),
-            grad_part.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream,
+            ll_part.data_ptr(), grad_part.data_ptr(), *dims, tile, smem,
+            torch.cuda.current_stream().cuda_stream,
         )
     _kernels.check(lib, rc, "jc69 LL + gradient kernel")
     LAUNCHES["ll_grad_jc69"] += 1
     return ll_part.sum(dim=1), grad_part.sum(dim=1)
 
 
+def _ll_grad_jc69_slab(lib, dims, post_children, ea, rates, props, tips,
+                       weights):
+    """K1's slab route (inputs checked by the caller)."""
+    B, L, S, N1, K, P = dims
+    dt, dev = tips.dtype, tips.device
+    tiles = -(-P // lib.lsbn_jc69_tile())
+    E = torch.empty((B, N1, 4 * K, P), dtype=dt, device=dev)
+    ES = torch.empty((B, N1, K, P), dtype=dt, device=dev)
+    U = torch.empty_like(E)
+    ll_part = torch.empty((B, tiles), dtype=dt, device=dev)
+    grad_part = torch.empty((B, tiles, N1), dtype=dt, device=dev)
+    fn = (lib.lsbn_jc69_ll_grad_slab_f32 if dt == torch.float32
+          else lib.lsbn_jc69_ll_grad_slab_f64)
+    with torch.cuda.device(dev):
+        rc = fn(
+            post_children.data_ptr(), ea.data_ptr(), rates.data_ptr(),
+            props.data_ptr(), tips.data_ptr(), weights.data_ptr(),
+            E.data_ptr(), ES.data_ptr(), U.data_ptr(), ll_part.data_ptr(),
+            grad_part.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(lib, rc, "jc69 LL + gradient kernel (slab route)")
+    LAUNCHES["ll_grad_jc69_slab"] += 1
+    return ll_part.sum(dim=1), grad_part.sum(dim=1)
+
+
 def ll_dea_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
-    """K3 on the card: (dea (B, N1, K), dprops (B, K)). ea: (B, N1, K)."""
+    """K3 on the card: (dea (B, N1, K), dprops (B, K)). ea: (B, N1, K). On
+    chip when the plan fits, else the slab route."""
     dims = _check_inputs(post_children, ea, tips, weights, [("props", props)],
                          root_id)
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
     lib = _kernels.load("pruning_jc")
     _check_k(lib, K)
+    plan = onchip_plan(dt, K, S, L, "dea")
+    if plan is None or -(-P // ONCHIP_TILE) > MAX_TILES:
+        return _ll_dea_jc69_slab(lib, dims, post_children, ea, props, tips,
+                                 weights)
+    tile, smem = plan
+    tiles = -(-P // tile)
+    dprops_part = torch.empty((B, tiles, K), dtype=dt, device=dev)
+    dea_part = torch.empty((B, tiles, N1 * K), dtype=dt, device=dev)
+    fn = lib.lsbn_jc69_dea_f32 if dt == torch.float32 else lib.lsbn_jc69_dea_f64
+    with torch.cuda.device(dev):
+        rc = fn(
+            post_children.data_ptr(), ea.data_ptr(), props.data_ptr(),
+            tips.data_ptr(), weights.data_ptr(), dprops_part.data_ptr(),
+            dea_part.data_ptr(), *dims, tile, smem,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(lib, rc, "jc69 d ll / d ea kernel")
+    LAUNCHES["ll_dea_jc69"] += 1
+    return dea_part.sum(dim=1).reshape(B, N1, K), dprops_part.sum(dim=1)
+
+
+def _ll_dea_jc69_slab(lib, dims, post_children, ea, props, tips, weights):
+    """K3's slab route (inputs checked by the caller)."""
+    B, L, S, N1, K, P = dims
+    dt, dev = tips.dtype, tips.device
     tiles = -(-P // lib.lsbn_jc69_tile())
     E = torch.empty((B, N1, 4 * K, P), dtype=dt, device=dev)
     ES = torch.empty((B, N1, K, P), dtype=dt, device=dev)
@@ -462,7 +551,8 @@ def ll_dea_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
     U = torch.empty_like(E)
     dprops_part = torch.empty((B, tiles, K), dtype=dt, device=dev)
     dea_part = torch.empty((B, tiles, N1 * K), dtype=dt, device=dev)
-    fn = lib.lsbn_jc69_dea_f32 if dt == torch.float32 else lib.lsbn_jc69_dea_f64
+    fn = (lib.lsbn_jc69_dea_slab_f32 if dt == torch.float32
+          else lib.lsbn_jc69_dea_slab_f64)
     with torch.cuda.device(dev):
         rc = fn(
             post_children.data_ptr(), ea.data_ptr(), props.data_ptr(),
@@ -470,6 +560,6 @@ def ll_dea_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
             M.data_ptr(), U.data_ptr(), dprops_part.data_ptr(),
             dea_part.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream,
         )
-    _kernels.check(lib, rc, "jc69 d ll / d ea kernel")
-    LAUNCHES["ll_dea_jc69"] += 1
+    _kernels.check(lib, rc, "jc69 d ll / d ea kernel (slab route)")
+    LAUNCHES["ll_dea_jc69_slab"] += 1
     return dea_part.sum(dim=1).reshape(B, N1, K), dprops_part.sum(dim=1)

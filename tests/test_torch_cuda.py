@@ -40,22 +40,60 @@ TOL = {
 }
 
 
+def _synthetic(trees, patterns, seed=0, taxa=256):
+    """``trees`` random unrooted trees of ``taxa`` leaves (joins drawn from
+    default_rng(seed)) in the schedules' postorder-linear form, random tip
+    partials (most one-hot), weights and branch lengths: (post_children,
+    branch lengths with the root and ones slots, tips, weights, root_id)."""
+    rng = np.random.default_rng(seed)
+    L, S = taxa, taxa - 2
+    ones = L + S
+    pcs = []
+    for _ in range(trees):
+        pool, nxt, pc = list(range(L)), L, []
+        while len(pool) > 3:
+            i, j = sorted(rng.choice(len(pool), 2, replace=False))
+            a, b = pool[i], pool[j]
+            pool.pop(j)
+            pool.pop(i)
+            pc.append([a, b, ones])
+            pool.append(nxt)
+            nxt += 1
+        pcs.append(pc + [pool])
+    soft = rng.dirichlet(np.ones(4), size=(L, patterns)).transpose(0, 2, 1)
+    hard = (soft == soft.max(axis=1, keepdims=True)).astype(np.float64)
+    tips = np.where(rng.uniform(size=soft.shape) < 0.8, hard, soft)
+    bl = np.pad(rng.uniform(0.01, 0.2, (trees, L + S - 1)), ((0, 0), (0, 2)))
+    return (np.array(pcs), bl, np.ascontiguousarray(tips),
+            rng.integers(1, 5, patterns).astype(np.float64), L + S - 1)
+
+
 def _inputs(data, dtype, K):
-    """The one hello tree (one combine step, a ragged tile of 9 patterns)
-    or three DS1 trees (934 patterns, 8 tiles), branch lengths perturbed by a
-    seeded U(0.8, 1.2), with one or K Weibull rate categories, on the card:
-    (post_children, ea, rates, props, tips, weights, root_id)."""
-    if data == "hello":
-        tops, bls, ttm = newick.parse_newick_file(f"{DATA}/hello.nwk")
-        aln = Alignment.read_fasta(f"{DATA}/hello.fasta")
+    """On the card: the one hello tree (one combine step, a ragged tile of 9
+    patterns), three DS1 trees (934 patterns, a ragged last tile), one DS1
+    tree ("ds1_b1"), or "big": two synthetic 256-taxon trees over 200
+    patterns (_synthetic: beyond shared memory, so on the slab route,
+    except at float32 K = 1, where a tile of 32 fits); DS1 branch
+    lengths perturbed by a seeded U(0.8, 1.2), one or K Weibull rate
+    categories: (post_children, ea, rates, props, tips, weights, root_id)."""
+    if data == "big":
+        pc, bl, tips, w, root_id = _synthetic(2, 200)
     else:
-        tops, bls, ttm = newick.parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
-        aln = Alignment.read_fasta(f"{DATA}/DS1.fasta")
-    tops, bls = tops[:3], np.stack(bls[:3])
-    sp = SitePattern(aln, ttm)
-    sched = schedule.schedules_of_topologies(tops)
-    rng = np.random.default_rng(1)
-    bl = np.pad(bls * rng.uniform(0.8, 1.2, bls.shape), ((0, 0), (0, 1)))
+        if data == "hello":
+            tops, bls, ttm = newick.parse_newick_file(f"{DATA}/hello.nwk")
+            aln = Alignment.read_fasta(f"{DATA}/hello.fasta")
+        else:
+            tops, bls, ttm = newick.parse_nexus_file(
+                f"{DATA}/DS1.subsampled_10.t")
+            aln = Alignment.read_fasta(f"{DATA}/DS1.fasta")
+        n = 1 if data == "ds1_b1" else 3
+        tops, bls = tops[:n], np.stack(bls[:n])
+        sp = SitePattern(aln, ttm)
+        sched = schedule.schedules_of_topologies(tops)
+        rng = np.random.default_rng(1)
+        bl = np.pad(bls * rng.uniform(0.8, 1.2, bls.shape), ((0, 0), (0, 1)))
+        pc, tips, w, root_id = (sched.post_children, sp.tip_partials(),
+                                sp.weights, sched.root_id)
 
     def dev(a, dt=dtype):
         return torch.as_tensor(np.asarray(a)).to(dt).cuda()
@@ -65,22 +103,34 @@ def _inputs(data, dtype, K):
     else:
         rates, props = (dev(x) for x in weibull_rates(0.3, K))
     ea = pruning_jc.exp_factors(dev(bl), rates, dtype)
-    pc = dev(sched.post_children, torch.int32)
-    return pc, ea, rates, props, dev(sp.tip_partials()), dev(sp.weights), \
-        sched.root_id
+    return (dev(pc, torch.int32), ea, rates, props, dev(tips), dev(w),
+            root_id)
+
+
+# Every K of the kernels' dispatch on DS1, the edge cases at K = 1 and 3,
+# and the synthetic tree beyond shared memory at f64 K = 8 and f32 K = 1.
+K1_K3_CASES = ([("ds1", K) for K in range(1, 9)]
+               + [(data, K) for data in ("hello", "ds1_b1") for K in (1, 3)]
+               + [("big", 8), ("big", 1)])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("data", ["hello", "ds1"])
-def test_kernels_match_twins_on_card(data, dtype, K):
-    """K1 and K2 against their twins on one card (inputs: _inputs)."""
+@pytest.mark.parametrize("data,K", K1_K3_CASES)
+def test_kernels_match_twins_on_card(data, K, dtype):
+    """K1 and K2 against their twins on one card (inputs: _inputs); K1
+    takes the on-chip route where onchip_plan fits and the slab route
+    beyond it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     pc, ea, rates, props, tips, w, r = _inputs(data, dtype, K)
     args = (pc, ea, rates, props, tips, w)
+    pruning_jc.reset_counters()
     k_ll, k_g = pruning_jc.ll_grad_jc69_cuda(*args, root_id=r)
+    plan = pruning_jc.onchip_plan(dtype, K, pc.shape[1], tips.shape[0])
+    assert (plan is None) == (data == "big" and (K, dtype) != (1, torch.float32))
+    route = "ll_grad_jc69" if plan else "ll_grad_jc69_slab"
+    assert pruning_jc.LAUNCHES[route] == 1
     t_ll, t_g = pruning_jc.ll_grad_jc69_plain(*args, root_id=r)
     k2 = pruning_jc.ll_jc69_cuda(pc, ea, props, tips, w, root_id=r)
     torch.cuda.synchronize()
@@ -96,12 +146,12 @@ def test_kernels_match_twins_on_card(data, dtype, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [1, 3])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("data", ["hello", "ds1"])
-def test_k3_matches_twin_on_card(data, dtype, K):
+@pytest.mark.parametrize("data,K", K1_K3_CASES)
+def test_k3_matches_twin_on_card(data, K, dtype):
     """K3 (d ll / d ea, d ll / d props) against its twin on one card, at
-    the gradient tolerance of TOL; the root and ones-slot rows are zero."""
+    the gradient tolerance of TOL; the root and ones-slot rows are zero;
+    on chip where onchip_plan fits, the slab route beyond it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     pc, ea, _, props, tips, w, r = _inputs(data, dtype, K)
@@ -111,7 +161,8 @@ def test_k3_matches_twin_on_card(data, dtype, K):
     t_dea, t_dp = pruning_jc.ll_dea_jc69_plain(pc, ea, props, tips, w,
                                                root_id=r)
     torch.cuda.synchronize()
-    assert pruning_jc.LAUNCHES["ll_dea_jc69"] == 1
+    plan = pruning_jc.onchip_plan(dtype, K, pc.shape[1], tips.shape[0], "dea")
+    assert pruning_jc.LAUNCHES["ll_dea_jc69" if plan else "ll_dea_jc69_slab"] == 1
     B = pc.shape[0]
     assert k_dea.shape == (B, r + 2, K) and k_dp.shape == (B, K)
     assert not k_dea[:, r:].any()
@@ -122,13 +173,79 @@ def test_k3_matches_twin_on_card(data, dtype, K):
                                rtol=g_rtol, atol=g_atol)
 
 
-def _ds1_instance():
+@pytest.mark.cuda
+def test_onchip_k1_adds_only_tile_partials():
+    """At B = 512 DS1 f32 K = 1, one on-chip K1 call adds only the per-tile
+    partials (grad_part is (512, 30, 53) floats, 3.3 MB; under 50 MB),
+    where the slab route adds its (B, N1, 4K, P) scratch (about 0.9 GB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pc, ea, rates, props, tips, w, r = _inputs("ds1", torch.float32, 1)
+    reps = 512 // pc.shape[0] + 1
+    pc, ea = pc.repeat(reps, 1, 1)[:512].contiguous(), ea.repeat(reps, 1, 1)[:512].contiguous()
+
+    def added(fn):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before
+
+    args = (pc, ea, rates, props, tips, w)
+    onchip = added(lambda: pruning_jc.ll_grad_jc69_cuda(*args, root_id=r))
+    dims = (512, tips.shape[0], pc.shape[1], r + 2, 1, tips.shape[2])
+    lib = pruning_jc._kernels.load("pruning_jc")
+    slab = added(lambda: pruning_jc._ll_grad_jc69_slab(lib, dims, *args))
+    assert onchip < 5e7 and slab > 5e8, (onchip, slab)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", [
+    "prepare_for_phylo_likelihood", "LikelihoodEngine", "make_engine",
+    "GPEngine",
+])
+def test_entry_points_default_to_the_card(entry):
+    """Called without device, each entry point computes on cuda."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from libsbn_tpu_torch.gp.engine import GPEngine
+    from libsbn_tpu_torch.models.engine import LikelihoodEngine
+    gp = GPInstance()
+    gp.read_fasta_file(f"{DATA}/hello.fasta")
+    gp.read_newick_file(f"{DATA}/hello_rooted.nwk")
+    if entry == "prepare_for_phylo_likelihood":
+        inst = libsbn_tpu_torch.UnrootedInstance("default device")
+        inst.read_newick_file(f"{DATA}/hello.nwk")
+        inst.read_fasta_file(f"{DATA}/hello.fasta")
+        inst.prepare_for_phylo_likelihood(libsbn_tpu_torch.PhyloModelSpec())
+        eng = inst.engine
+        assert abs(float(inst.log_likelihoods()[0]) - -84.852358) < 1e-6
+    elif entry == "make_engine":
+        gp.make_engine()
+        eng = gp.get_engine()
+        assert eng.use_kernels
+    else:
+        gp.make_engine(device="cpu")
+        cpu = gp.get_engine()
+        if entry == "LikelihoodEngine":
+            eng = LikelihoodEngine(cpu.site_pattern,
+                                   libsbn_tpu_torch.PhyloModelSpec())
+        else:
+            eng = GPEngine(cpu.site_pattern, gp.dag, cpu.q,
+                           cpu.unconditional_node_probabilities,
+                           cpu.inverted_sbn_prior)
+    assert eng.device.type == "cuda"
+
+
+def _ds1_instance(device):
     inst = libsbn_tpu_torch.UnrootedInstance("vbpi")
     inst.read_nexus_file(f"{DATA}/DS1.subsampled_10.t")
     inst.process_loaded_trees()
     inst.train_simple_average()
     inst.read_fasta_file(f"{DATA}/DS1.fasta")
-    inst.prepare_for_phylo_likelihood(libsbn_tpu_torch.PhyloModelSpec())
+    inst.prepare_for_phylo_likelihood(libsbn_tpu_torch.PhyloModelSpec(),
+                                      device=device)
     return inst
 
 
@@ -145,8 +262,8 @@ def test_vbpi_step_on_card_matches_cpu():
     sbn_params). The card's step launches K1 and calls no twin."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    cpu = JitVBPI(_ds1_instance(), particle_count=10, seed=0, device="cpu")
-    card = JitVBPI(_ds1_instance(), particle_count=10, seed=0, device="cuda")
+    cpu = JitVBPI(_ds1_instance("cpu"), particle_count=10, seed=0)
+    card = JitVBPI(_ds1_instance("cuda"), particle_count=10, seed=0)
     for _ in range(2):
         want = cpu.step()
         pruning_jc.reset_counters()

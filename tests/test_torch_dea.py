@@ -138,8 +138,9 @@ def _weibull(package, data_dir, shape):
     inst = package.UnrootedInstance("weibull")
     inst.read_nexus_file(f"{data_dir}/DS1.subsampled_10.t")
     inst.read_fasta_file(f"{data_dir}/DS1.fasta")
+    kw = {"device": "cpu"} if package is libsbn_tpu_torch else {}
     inst.prepare_for_phylo_likelihood(
-        package.PhyloModelSpec("JC69", "weibull+4", "strict"))
+        package.PhyloModelSpec("JC69", "weibull+4", "strict"), **kw)
     if package is libsbn_tpu:
         inst.phylo_model_params["site"]["shape"] = jnp.asarray(shape)
     else:

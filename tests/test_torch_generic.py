@@ -252,6 +252,8 @@ def _instance(package, data_dir, spec_args, trees="DS1.100_topologies.nwk",
         inst.tree_collection.trees = inst.tree_collection.trees[:count]
     inst.read_fasta_file(f"{data_dir}/{fasta}")
     spec = package.PhyloModelSpec(*spec_args)
+    if package is libsbn_tpu_torch:
+        prepare.setdefault("device", "cpu")
     inst.prepare_for_phylo_likelihood(spec, **prepare)
     if not params:
         return inst

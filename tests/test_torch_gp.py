@@ -48,9 +48,10 @@ HELLO_BL = np.array([0.0, 0.22, 0.113, 0.15, 0.1])
 
 def make_pair(data_dir, fasta, newick, **kw):
     """(JAX GPInstance, port GPInstance) on the same files, f64 engines;
-    ``kw`` goes to the port's make_engine."""
+    ``kw`` goes to the port's make_engine (on the CPU unless it names a
+    device)."""
     out = []
-    for cls, ekw in ((JGPInstance, {}), (GPInstance, kw)):
+    for cls, ekw in ((JGPInstance, {}), (GPInstance, {"device": "cpu", **kw})):
         inst = cls()
         inst.read_fasta_file(f"{data_dir}/{fasta}")
         inst.read_newick_file(f"{data_dir}/{newick}")
@@ -60,10 +61,12 @@ def make_pair(data_dir, fasta, newick, **kw):
 
 
 def make_port(data_dir, fasta, newick, **kw):
+    """The port's GPInstance; ``kw`` goes to make_engine (on the CPU unless
+    it names a device)."""
     inst = GPInstance()
     inst.read_fasta_file(f"{data_dir}/{fasta}")
     inst.read_newick_file(f"{data_dir}/{newick}")
-    inst.make_engine(**kw)
+    inst.make_engine(**{"device": "cpu", **kw})
     return inst
 
 
@@ -466,7 +469,7 @@ def test_routes_and_devices(data_dir):
     eng = inst.get_engine()
     assert (eng.use_kernels, eng.device.type, eng.dtype) == (
         False, "cpu", torch.float64)
-    inst.make_engine(use_kernels=True, dtype=torch.float32)
+    inst.make_engine(use_kernels=True, dtype=torch.float32, device="cpu")
     eng = inst.get_engine()
     assert eng.use_kernels and eng.dtype == torch.float32
     engine_kernels.reset_counters()

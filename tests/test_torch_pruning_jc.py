@@ -150,7 +150,8 @@ def test_f64_twins_match_jax_scan_engine(ds1, site):
     jll2, jgrad = map(
         np.asarray, jeng.branch_gradients(ds1["jsched"], bl, params)
     )
-    eng = LikelihoodEngine(ds1["sp"], PhyloModelSpec("JC69", site, "strict"))
+    eng = LikelihoodEngine(ds1["sp"], PhyloModelSpec("JC69", site, "strict"),
+                           device="cpu")
     tparams = params_from_numpy(
         {k: {n: np.asarray(x) for n, x in v.items()} for k, v in params.items()},
         "cpu", torch.float64,
@@ -170,7 +171,7 @@ def _engine_outputs(ds1, site, gradients):
     params = default_parameters(spec)
     if site != "constant":
         params["site"]["shape"] = torch.tensor(0.1, dtype=torch.float64)
-    eng = LikelihoodEngine(ds1["sp"], spec)
+    eng = LikelihoodEngine(ds1["sp"], spec, device="cpu")
     if gradients:
         return eng.branch_gradients(ds1["sched"], ds1["bl"], params)
     return eng.log_likelihoods(ds1["sched"], ds1["bl"], params)
@@ -187,7 +188,7 @@ def test_goldens(ds1, data_dir, golden):
         tops, bls, ttm = newick.parse_newick_file(f"{data_dir}/hello.nwk")
         sp = SitePattern(Alignment.read_fasta(f"{data_dir}/hello.fasta"), ttm)
         spec = PhyloModelSpec("JC69", "constant", "strict")
-        ll = LikelihoodEngine(sp, spec).log_likelihoods(
+        ll = LikelihoodEngine(sp, spec, device="cpu").log_likelihoods(
             schedule.schedules_of_topologies(tops), np.stack(bls),
             default_parameters(spec),
         )
@@ -245,8 +246,7 @@ def test_cpu_tensors_route_to_twins_and_never_reach_kernels(ds1):
         pc, bl_grad, tips, w, root_id=sched.root_id).sum().backward()
     assert pruning_jc.TWIN_CALLS == {"ll_grad_jc69": 1, "ll_jc69": 2,
                                      "ll_dea_jc69": 1}
-    assert pruning_jc.LAUNCHES == {"ll_grad_jc69": 0, "ll_jc69": 0,
-                                   "ll_dea_jc69": 0}
+    assert not any(pruning_jc.LAUNCHES.values())
     one = torch.ones(1)
     ea = pruning_jc.exp_factors(bl, one, torch.float32)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -257,5 +257,23 @@ def test_cpu_tensors_route_to_twins_and_never_reach_kernels(ds1):
     with pytest.raises(ValueError, match="CUDA tensors"):
         pruning_jc.ll_dea_jc69_cuda(pc, ea, one, tips, w,
                                     root_id=sched.root_id)
-    assert pruning_jc.LAUNCHES == {"ll_grad_jc69": 0, "ll_jc69": 0,
-                                   "ll_dea_jc69": 0}
+    assert not any(pruning_jc.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("K", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_onchip_plan_fits_shared_memory(dtype, K):
+    """The shared-memory plan of the on-chip K1 and K3: at DS1 (27 taxa,
+    25 combine steps) every (dtype, K <= 8) gets a tile of 32 patterns
+    within the 232,448 bytes a Hopper block may use; a 256-taxon tree gets
+    it at float32 K = 1 and no plan otherwise (the slab route)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for kernel, G in (("ll_grad", 1), ("dea", K)):
+        tile, smem = pruning_jc.onchip_plan(dtype, K, 25, 27, kernel)
+        assert tile == 32 and smem <= 232_448
+        assert smem == pruning_jc.onchip_bytes(itemsize, K, 25, 27, G)
+        big = pruning_jc.onchip_plan(dtype, K, 254, 256, kernel)
+        if dtype == torch.float32 and K == 1:
+            assert big[0] == 32 and big[1] <= 232_448
+        else:
+            assert big is None

@@ -22,6 +22,8 @@ from libsbn_tpu_torch.models.phylo_model import (
     PhyloModelSpec, block_specification, params_from_numpy,
 )
 from libsbn_tpu_torch.gp import GPInstance
+from libsbn_tpu_torch.gp.engine import GPEngine
+from libsbn_tpu_torch.models.engine import LikelihoodEngine
 from libsbn_tpu_torch.vi import JitVBPI
 
 torch.set_num_threads(1)
@@ -42,8 +44,9 @@ def _instance(package, data_dir, trees, fasta, site):
     else:
         inst.read_newick_file(f"{data_dir}/{trees}")
     inst.read_fasta_file(f"{data_dir}/{fasta}")
+    kw = {"device": "cpu"} if package is libsbn_tpu_torch else {}
     inst.prepare_for_phylo_likelihood(
-        package.PhyloModelSpec("JC69", site, "strict")
+        package.PhyloModelSpec("JC69", site, "strict"), **kw
     )
     return inst
 
@@ -166,7 +169,7 @@ def test_unported_paths_raise(data_dir, path):
             inst.read_newick_file(f"{data_dir}/hello_rooted.nwk")
             if path == "gp_mesh":
                 inst.make_engine(mesh=object())
-            inst.make_engine()
+            inst.make_engine(device="cpu")
             inst.get_engine().run_branch_ascent_streamed(1e-6, 10, 16)
         elif path == "em":
             inst = _ds1(data_dir)
@@ -180,12 +183,47 @@ def test_unported_paths_raise(data_dir, path):
 
 
 def test_cuda_device_is_the_callers_choice(data_dir):
-    """The default device is the CPU; asking for "cuda" without a card
-    raises instead of quietly running on the CPU."""
+    """An explicit device="cpu" computes on the CPU; the default is the
+    card, and without one it raises, naming device="cpu", instead of quietly
+    running on the CPU; so does an explicit "cuda"."""
     inst = _ds1(data_dir)
     assert inst.engine.device.type == "cpu"
     assert inst.engine.tips.dtype == torch.float64
     if torch.cuda.is_available():
         pytest.skip("a card is present; the no-card path is not reachable")
+    with pytest.raises(RuntimeError, match='no CUDA device.*device="cpu"'):
+        inst.prepare_for_phylo_likelihood(PhyloModelSpec())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         inst.prepare_for_phylo_likelihood(PhyloModelSpec(), device="cuda")
+    assert inst.engine.device.type == "cpu"  # the CPU engine stays
+
+
+@pytest.mark.parametrize("entry", [
+    "prepare_for_phylo_likelihood", "LikelihoodEngine", "make_engine",
+    "GPEngine",
+])
+def test_entry_points_default_to_the_card(data_dir, entry):
+    """Each of the four entry points, called without device, computes on
+    the card; without one it raises a RuntimeError that names device="cpu"
+    (tests/test_torch_cuda.py checks where the default lands on a card)."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; tests/test_torch_cuda.py covers it")
+    gp = GPInstance()
+    gp.read_fasta_file(f"{data_dir}/hello.fasta")
+    gp.read_newick_file(f"{data_dir}/hello_rooted.nwk")
+    gp.make_engine(device="cpu")
+    eng = gp.get_engine()
+    inst = libsbn_tpu_torch.UnrootedInstance("default device")
+    inst.read_newick_file(f"{data_dir}/hello.nwk")
+    inst.read_fasta_file(f"{data_dir}/hello.fasta")
+    with pytest.raises(RuntimeError, match='no CUDA device.*device="cpu"'):
+        if entry == "prepare_for_phylo_likelihood":
+            inst.prepare_for_phylo_likelihood(PhyloModelSpec())
+        elif entry == "LikelihoodEngine":
+            LikelihoodEngine(eng.site_pattern, PhyloModelSpec())
+        elif entry == "make_engine":
+            gp.make_engine()
+        else:
+            GPEngine(eng.site_pattern, gp.dag, eng.q,
+                     eng.unconditional_node_probabilities,
+                     eng.inverted_sbn_prior)

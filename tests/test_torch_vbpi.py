@@ -40,8 +40,9 @@ def _instance(package, data_dir, trees, fasta):
     inst.process_loaded_trees()
     inst.train_simple_average()
     inst.read_fasta_file(f"{data_dir}/{fasta}")
+    kw = {"device": "cpu"} if package is libsbn_tpu_torch else {}
     inst.prepare_for_phylo_likelihood(
-        package.PhyloModelSpec("JC69", "constant", "strict"))
+        package.PhyloModelSpec("JC69", "constant", "strict"), **kw)
     return inst
 
 
