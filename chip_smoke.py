@@ -15,14 +15,16 @@ Phases, each of which raises on failure:
   3. kernel vs twin: K1 (LL + branch gradient), K2 (LL) and K3 (d ll / d
      exp factors, d ll / d props) against their plain PyTorch twins on the
      card, on DS1.subsampled_10 tiled to 512 trees with perturbed branch
-     lengths, float32 and float64, K = 1, 4 and 8 rate categories (K1 and
-     K3 on chip); K1 and K3 on a synthetic 256-taxon tree from a numpy seed
-     at float64 K = 8 (beyond shared memory: the slab route) and float32
-     K = 1 (on chip, 32 patterns a tile); then K4
+     lengths, float32 and float64, K = 1, 4 and 8 rate categories (all
+     three on chip); K1, K2 and K3 on a synthetic 256-taxon tree from a
+     numpy seed at float64 K = 8 (beyond shared memory: the slab route) and
+     float32 K = 1 (on chip, 32 patterns a tile); then K4
      (generic LL + branch gradient), K5 (generic LL) and K6 (d ll / dP,
      d ll / d freqs, d ll / d props) against theirs on DS1.100_topologies
      tiled to 256 trees, GTR + constant and GTR + Weibull+4, float32 and
-     float64;
+     float64 (K6 on chip), and K6 on the 256-taxon tree at float32
+     Weibull+4 and float64 constant (its slab route); each call's route is
+     read from the launch counters;
   4. likelihood path: the port's UnrootedInstance on the card (JC69, DS1
      and hello) against the pybeagle/physher golden numbers, and the DS1
      Weibull+4 phylo_gradients (branch gradients against the physher
@@ -42,15 +44,17 @@ Phases, each of which raises on failure:
      twin called; then one float64 step on the card against the same step
      on the CPU;
   6. timing: K1, K2 and K3 against their twins at B = 512, float32, with
-     CUDA events, each beside its bound and its share of the bound; K1 and
-     K3 at K = 1 and at Weibull+4 beside their slab route (the first
-     design) on the same inputs, with the device memory one call adds and
-     the on-chip design's shared-memory traffic; engine.branch_gradients
-     from host arrays; the VBPI step in ms per step (host clock,
-     synchronised);
+     CUDA events, each beside its bound and its share of the bound; K1, K2
+     and K3 at K = 1 and at Weibull+4 beside their slab route (the first
+     design) on the same inputs, in turns, with the device memory one call
+     adds (fails at 50 MB) and the on-chip design's shared-memory traffic;
+     engine.branch_gradients and engine.log_likelihoods from host arrays;
+     the VBPI step in ms per step (host clock, synchronised);
      K4, K5 and K6 against their twins at the JAX bench's config 2 (GTR +
-     Weibull+4 at shape 0.5, B = 256, float32), the K5 + K6 autograd pass
-     and engine.phylo_gradients from host arrays, with peak device memory;
+     Weibull+4 at shape 0.5, B = 256, float32), K6 on chip beside its slab
+     route in turns with the memory one call adds (fails at 128 MB), the
+     K5 + K6 autograd pass and engine.phylo_gradients from host arrays,
+     with peak device memory;
   7. GP kernels vs twins: K7 (the PLV population) and K8 (the golden-section
      branch sweep) against their plain PyTorch twins on the card, on hello
      and fluA, float32 and float64;
@@ -382,9 +386,11 @@ def phase_build():
                 print(f"  ptxas {name}: {regs} registers; {spills}")
                 name = None
     sass_mix("pruning_jc")
+    sass_mix("pruning_generic", ("generic_dp_kernelIfLi4E", "generic_dp_slab_kernelIfLi4E"))
 
 
-def sass_mix(source, kernels=("jc69_ll_grad_kernelIfLi1E", "jc69_dea_kernelIfLi1E")):
+def sass_mix(source, kernels=("jc69_ll_grad_kernelIfLi1E", "jc69_dea_kernelIfLi1E",
+                              "jc69_ll_kernelIfLi1E", "jc69_ll_slab_kernelIfLi1E")):
     """The static SASS instruction mix of some kernel instances of a built
     source (cuobjdump from the CUDA toolkit): floating point, integer and
     address, memory, and control instructions; "not measured" when the
@@ -397,7 +403,7 @@ def sass_mix(source, kernels=("jc69_ll_grad_kernelIfLi1E", "jc69_dea_kernelIfLi1
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
     classes = {"float": ("FADD", "FMUL", "FFMA", "MUFU", "FSETP", "FSEL",
-                         "DADD", "DMUL", "DFMA", "DSETP"),
+                         "FMNMX", "DADD", "DMUL", "DFMA", "DSETP"),
                "memory": ("LDS", "STS", "LDG", "STG", "LDC", "LDL", "STL"),
                "control": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT",
                            "SHFL", "BAR", "WARPSYNC")}
@@ -406,8 +412,8 @@ def sass_mix(source, kernels=("jc69_ll_grad_kernelIfLi1E", "jc69_dea_kernelIfLi1
         for line in sass.splitlines():
             if "Function :" in line:
                 on = name in line
-            elif on and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
-                op = re.sub(r"^\s+/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?", "",
+            elif on and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+                op = re.sub(r"^\s+/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?", "",
                             line).split()[0].split(".")[0]
                 kind = next((k for k, ops in classes.items() if op in ops),
                             "integer")
@@ -451,14 +457,15 @@ def kernel_inputs(d, dtype, K, shape=0.1):
 
 
 def jc69_vs_twins(d, dtype, K, tag):
-    """K1, K2 (on DS1-sized trees) and K3 against their twins on d's
-    inputs, at TWIN_TOL; checks that K1 and K3 took the route of their
-    shared-memory plan (on chip, or the slab route) and returns {key: max
-    abs error}."""
+    """K1, K2 and K3 against their twins on d's inputs, at TWIN_TOL; checks
+    that each took the route of its shared-memory plan (on chip, or the
+    slab route) and returns {key: max abs error}."""
     tol = TWIN_TOL[dtype]
     r = d["root_id"]
     L, S = d["tips"].shape[0], d["pc"].shape[1]
     route = "onchip" if pruning_jc.onchip_plan(dtype, K, S, L) else "slab"
+    if (pruning_jc.onchip_plan(dtype, K, S, L, "ll") is None) != (route == "slab"):
+        raise AssertionError(f"K2's plan and K1's disagree at {dtype} K = {K}")
     ea, rates, props = kernel_inputs(d, dtype, K)
     args = (d["pc"], ea, rates, props, d["tips"], d["w"])
     args2 = (d["pc"], ea, props, d["tips"], d["w"])
@@ -479,10 +486,15 @@ def jc69_vs_twins(d, dtype, K, tag):
         close(f"K1 grad {tag}", k_g[:, :r].cpu(), t_g[:, :r].cpu(),
               tol["grad"]))}
     del t_g
-    if L < BIG_TAXA:
-        k2 = pruning_jc.ll_jc69_cuda(*args2, root_id=r)
-        t2 = pruning_jc.ll_jc69_plain(*args2, root_id=r)
-        errs["ll_jc69"] = close(f"K2 LL {tag}", k2.cpu(), t2.cpu(), tol["ll"])
+    pruning_jc.reset_counters()
+    k2 = pruning_jc.ll_jc69_cuda(*args2, root_id=r)
+    torch.cuda.synchronize()
+    if pruning_jc.LAUNCHES[f"ll_jc69{sfx}"] != 1:
+        raise AssertionError(f"K2 {tag}: not on the {route} route "
+                             f"({pruning_jc.LAUNCHES})")
+    t2 = pruning_jc.ll_jc69_plain(*args2, root_id=r)
+    errs["ll_jc69"] = close(f"K2 LL {tag}, {route} route", k2.cpu(), t2.cpu(),
+                            tol["ll"])
     if k_dea[:, r:].any():
         raise AssertionError("K3: root or ones-slot rows not zero")
     t_dea, t_dp = pruning_jc.ll_dea_jc69_plain(*args2, root_id=r)
@@ -602,10 +614,14 @@ def phase_generic_vs_twin():
             args2 = (d["pc"], P, d["tips"], freqs, props, d["w"])
             k5 = pruning_vjp.ll_generic_cuda(*args2, root_id=r)
             t5 = pruning_vjp.ll_generic_plain(*args2, root_id=r)
+            pruning_vjp.reset_counters()
             k6 = pruning_vjp.ll_dp_generic_cuda(*args2, root_id=r)
-            t6 = pruning_vjp.ll_dp_generic_plain(*args2, root_id=r)
             torch.cuda.synchronize()
             tag = f"{str(dtype)[6:]} GTR {site}"
+            if pruning_vjp.LAUNCHES["ll_dp_generic"] != 1:
+                raise AssertionError(f"K6 {tag}: not on chip "
+                                     f"({pruning_vjp.LAUNCHES})")
+            t6 = pruning_vjp.ll_dp_generic_plain(*args2, root_id=r)
             e4 = max(
                 close(f"K4 LL {tag}", k_ll.cpu(), t_ll.cpu(), tol["ll"]),
                 close(f"K4 grad {tag}", k_g[:, :r].cpu(), t_g[:, :r].cpu(),
@@ -623,7 +639,35 @@ def phase_generic_vs_twin():
                 # the timed case's model
                 errs = {"ll_grad_generic": e4, "ll_generic": e5,
                         "ll_dp_generic": e6}
+    k6_slab_vs_twin()
     return errs
+
+
+def k6_slab_vs_twin():
+    """K6 on the 256-taxon tree, GTR + Weibull+4 at float32 and GTR +
+    constant at float64, shapes its on-chip plan refuses: the slab route,
+    against the twin at TWIN_TOL."""
+    for dtype, site in ((torch.float32, "weibull+4"), (torch.float64, "constant")):
+        d = synthetic_tree(dtype)
+        r = d["root_id"]
+        P, _, freqs, props = generic_inputs(d, dtype, site)
+        L, S, K = BIG_TAXA, d["pc"].shape[1], props.shape[0]
+        if pruning_vjp.dp_onchip_plan(dtype, K, S, L) is not None:
+            raise AssertionError(f"K6 fits on chip at {BIG_TAXA} taxa, {dtype} "
+                                 f"K = {K}: nothing exercises its slab route")
+        args = (d["pc"], P, d["tips"], freqs, props, d["w"])
+        pruning_vjp.reset_counters()
+        k6 = pruning_vjp.ll_dp_generic_cuda(*args, root_id=r)
+        torch.cuda.synchronize()
+        tag = f"{str(dtype)[6:]} GTR {site}, {BIG_TAXA} taxa"
+        if pruning_vjp.LAUNCHES != {"ll_generic": 0, "ll_dp_generic": 0,
+                                    "ll_dp_generic_slab": 1}:
+            raise AssertionError(f"K6 {tag}: not on the slab route "
+                                 f"({pruning_vjp.LAUNCHES})")
+        t6 = pruning_vjp.ll_dp_generic_plain(*args, root_id=r)
+        for name, k, t in zip(("dP", "dfreqs", "dprops"), k6, t6):
+            close(f"K6 {name} {tag}, slab route", k.cpu(), t.cpu(),
+                  TWIN_TOL[dtype]["grad"])
 
 
 def instance(tree_file, fasta, spec, dtype):
@@ -989,14 +1033,14 @@ def sweep_ops(E, S):
     return E * (2 * engine_kernels.GOLDEN_ITERS + 3) * S * 5
 
 
-def onchip_smem_ms(pc, L, K, P, itemsize):
-    """The on-chip K1/K3's shared-memory traffic on this schedule, at the
-    card's aggregate shared-memory rate: per pattern, each forward step's
-    three child rows read (4K values for an internal node; a leaf's tip
-    comes from device memory, the ones slot is a constant) and its row
-    written, and each upper step's U read, three kid rows read, and for
-    every internal kid its three children's rows read and its U written.
-    Returns (GB, ms)."""
+def onchip_smem_ms(pc, L, K, P, itemsize, upper=True):
+    """The on-chip K1/K3's (upper) or K2's (not upper) shared-memory
+    traffic on this schedule, at the card's aggregate shared-memory rate:
+    per pattern, each forward step's three child rows read (4K values for
+    an internal node; a leaf's tip comes from device memory, the ones slot
+    is a constant) and its row written, and each upper step's U read, three
+    kid rows read, and for every internal kid its three children's rows
+    read and its U written. Returns (GB, ms)."""
     pc = pc.cpu().numpy()
     S = pc.shape[1]
     ones = L + S
@@ -1008,7 +1052,10 @@ def onchip_smem_ms(pc, L, K, P, itemsize):
     for tree in pc:
         for s, kids in enumerate(tree):
             last = s == S - 1
-            values += 2 * sum(row(c) for c in kids) + (0 if last else 8 * K)
+            values += sum(row(c) for c in kids) + (0 if last else 4 * K)
+            if not upper:
+                continue
+            values += sum(row(c) for c in kids) + (0 if last else 4 * K)
             for c in kids:
                 if L <= c < ones:
                     values += sum(row(g) for g in tree[c - L]) + 4 * K
@@ -1028,11 +1075,12 @@ def call_memory(fn):
 
 
 def phase_timing(smi):
-    """K1, K2 and K3 against their twins at B = 512, f32, K = 1; K1 and K3
-    on chip against their slab route (the first design) on the same inputs
-    at K = 1 and Weibull+4, in turns; bounds, shares of bound, device memory
-    per call; the K2 + K3 autograd pass and engine.branch_gradients. Returns
-    ({key: (ms, twin ms)}, {key: (bound ms, bound_by)}) at K = 1."""
+    """K1, K2 and K3 against their twins at B = 512, f32, K = 1; each on
+    chip against its slab route (the first design) on the same inputs at
+    K = 1 and Weibull+4, in turns; bounds, shares of bound, device memory
+    per call; the K2 + K3 autograd pass, engine.branch_gradients and
+    engine.log_likelihoods. Returns ({key: (ms, twin ms)}, {key: (bound ms,
+    bound_by)}) at K = 1."""
     print(f"[6] timing at B = {B}, float32, DS1 ({smi})")
     d = load_ds1(torch.float32)
     r = d["root_id"]
@@ -1059,22 +1107,19 @@ def phase_timing(smi):
             out = time_pairs({k: (kern[k], plain[k]) for k in kern}, B)
         slab = {
             "ll_grad_jc69": lambda: pruning_jc._ll_grad_jc69_slab(lib, dims, *a1),
+            "ll_jc69": lambda: pruning_jc._ll_jc69_slab(lib, dims, *a2),
             "ll_dea_jc69": lambda: pruning_jc._ll_dea_jc69_slab(lib, dims, *a2),
         }
         site = "one category" if K == 1 else f"Weibull+{K}"
-        smem_gb, smem_ms = onchip_smem_ms(d["pc"], L, K, P, 4)
         for key, ops_kind, inputs in (("ll_grad_jc69", "ll_grad", a1),
                                       ("ll_jc69", "ll", a2),
                                       ("ll_dea_jc69", "dea", a2)):
+            smem_gb, smem_ms = onchip_smem_ms(d["pc"], L, K, P, 4,
+                                              upper=key != "ll_jc69")
             b_ms, b_by = bound(jc69_ops(ops_kind, B, L, S, K, P), inputs,
                                kern[key]())
             if K == 1:
                 bounds[key] = (b_ms, b_by)
-            if key not in slab:
-                ms = out[key][0] if K == 1 else time_ms(kern[key])
-                print(f"  {key}, {site}: {ms:.4f} ms; bound {b_ms:.4f} ms "
-                      f"({b_by}), {b_ms / ms:.1%} of it")
-                continue
             s1, k1, k2, s2 = (time_ms(slab[key]), time_ms(kern[key]),
                               time_ms(kern[key]), time_ms(slab[key]))
             ms, slab_ms = min(k1, k2), min(s1, s2)
@@ -1100,13 +1145,14 @@ def phase_timing(smi):
 
     print(f"  log_likelihoods_jc69 + autograd (K2 + K3): "
           f"{time_ms(ll_and_grad, reps=5, inner=5):.4f} ms")
-    engine_branch_gradients(smi)
+    engine_calls(smi)
     return out, bounds
 
 
-def engine_branch_gradients(smi, calls=10):
-    """engine.branch_gradients (K1) from host arrays on the headline
-    workload: DS1.subsampled_10 tiled to B trees, perturbed lengths, f32."""
+def engine_calls(smi, calls=10):
+    """engine.branch_gradients (K1) and engine.log_likelihoods (K2) from
+    host arrays on the headline workload: DS1.subsampled_10 tiled to B
+    trees, perturbed lengths, f32."""
     tops, bls, ttm = newick.parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
     sp = SitePattern(Alignment.read_fasta(f"{DATA}/DS1.fasta"), ttm)
     reps = B // len(tops) + 1
@@ -1116,18 +1162,20 @@ def engine_branch_gradients(smi, calls=10):
     spec = lt.PhyloModelSpec("JC69", "constant", "strict")
     engine = LikelihoodEngine(sp, spec, dtype=torch.float32, device=DEV)
     params = default_parameters(spec, device=DEV)
-    for _ in range(3):
-        engine.branch_gradients(sched, bl, params)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(calls):
-        t0 = time.perf_counter()
-        engine.branch_gradients(sched, bl, params)
+    for name, fn in (("branch_gradients", engine.branch_gradients),
+                     ("log_likelihoods", engine.log_likelihoods)):
+        for _ in range(3):
+            fn(sched, bl, params)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    print(f"  engine.branch_gradients from host arrays, B = {B}: median "
-          f"{statistics.median(times):.3f} ms (min {min(times):.3f}, {calls} "
-          f"calls, host clock, synchronised; {smi})")
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn(sched, bl, params)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"  engine.{name} from host arrays, B = {B}: median "
+              f"{statistics.median(times):.3f} ms (min {min(times):.3f}, "
+              f"{calls} calls, host clock, synchronised; {smi})")
 
 
 def phase_generic_timing(smi, calls=10):
@@ -1167,6 +1215,7 @@ def phase_generic_timing(smi, calls=10):
                             calls4[key][0]())
         print(f"  {key}: bound {bounds[key][0]:.4f} ms ({bounds[key][1]}), "
               f"{bounds[key][0] / out[key][0]:.1%} of it")
+    k6_onchip_vs_slab(d, a5, bounds["ll_dp_generic"][0])
 
     Pg = P.detach().clone().requires_grad_(True)
 
@@ -1200,6 +1249,30 @@ def phase_generic_timing(smi, calls=10):
               f"{statistics.median(times):.3f} ms (min {min(times):.3f}, "
               f"{calls} calls, host clock, synchronised); peak {peak:.2f} GiB")
     return out, bounds
+
+
+def k6_onchip_vs_slab(d, a5, b_ms):
+    """K6 on chip against its slab route (the first design) on config 2's
+    inputs a5, in turns slab, chip, chip, slab, with the device memory one
+    call adds; fails if an on-chip call adds 128 MB or more."""
+    r = d["root_id"]
+    pc, P, tips, freqs, props, w = a5
+    L, S, K = tips.shape[0], pc.shape[1], props.shape[0]
+    dims = (pc.shape[0], L, S, r + 2, K, tips.shape[2])
+    lib = pruning_vjp.load_checked(K)
+    kern = lambda: pruning_vjp.ll_dp_generic_cuda(*a5, root_id=r)  # noqa: E731
+    slab = lambda: pruning_vjp._ll_dp_generic_slab(  # noqa: E731
+        lib, dims, pc, P, tips, (freqs, 0), (props, 0), w)
+    s1, k1, k2, s2 = time_ms(slab), time_ms(kern), time_ms(kern), time_ms(slab)
+    ms, slab_ms = min(k1, k2), min(s1, s2)
+    mem, slab_mem = call_memory(kern), call_memory(slab)
+    if mem >= 128:
+        raise AssertionError(f"K6: one on-chip call adds {mem:.1f} MB (>= 128 MB)")
+    print(f"  ll_dp_generic, Weibull+{K}: on chip {k1:.4f} / {k2:.4f} ms, slab "
+          f"route (first design) {s1:.4f} / {s2:.4f} ms, {slab_ms / ms:.2f}x; "
+          f"bound {b_ms:.4f} ms, on chip {b_ms / ms:.1%} of it, slab "
+          f"{b_ms / slab_ms:.1%}; one call adds {mem:.2f} MB on chip, "
+          f"{slab_mem:.1f} MB slab")
 
 
 def time_vbpi(smi, steps=20):

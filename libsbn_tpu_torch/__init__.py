@@ -9,8 +9,11 @@ model-gradient paths for unrooted trees, the VBPI trainer
 (``csrc/``, built with nvcc at first use) and plain PyTorch twins of those
 kernels that run on the CPU.
 
-Nothing here sets global state at import: dtypes and devices are explicit
-on every constructor, and the CPU is the default device.
+Nothing here sets global state at import. The entry points
+(``prepare_for_phylo_likelihood``, ``LikelihoodEngine``,
+``GPInstance.make_engine``, ``GPEngine``) compute on the CUDA card unless
+the caller passes ``device="cpu"``, and raise when there is no card
+(``utils/device.py``); dtypes are explicit on every constructor.
 """
 
 __version__ = "0.1.0"
@@ -21,9 +24,11 @@ from .core.tree import (  # noqa: E402
 from .gp.instance import GPInstance  # noqa: E402
 from .instance import UnrootedInstance  # noqa: E402
 from .models.phylo_model import PhyloModelSpec  # noqa: E402
+from .sbn.support import PSPIndexer  # noqa: E402
 
 # The reference's module names (pylibsbn.cpp), as libsbn_tpu exposes them.
 unrooted_instance = UnrootedInstance
+gp_instance = GPInstance
 PhyloModelSpecification = PhyloModelSpec
 
 __all__ = [
@@ -32,6 +37,8 @@ __all__ = [
     "PhyloModelSpecification",
     "unrooted_instance",
     "GPInstance",
+    "gp_instance",
+    "PSPIndexer",
     "RootedTree",
     "RootedTreeCollection",
     "UnrootedTree",

@@ -24,14 +24,19 @@
 //   freqs         (B, 4) or (4,)    root frequencies, tree stride fs (4 or 0)
 //   props         (B, K) or (K,)    category proportions, tree stride ps
 //   weights       (P,)              pattern multiplicities
-//   E, U          (B, N1, 4K, P)    scratch: evolved and upper partials
-//   M             (B, S, 4K, P)     scratch (K6): rescaled node partials of
-//                                   the internal nodes
+//   E, U          (B, N1, 4K, P)    scratch of K4, K5 and K6's slab route:
+//                                   evolved and upper partials
+//   M             (B, S, 4K, P)     scratch of K6's slab route: rescaled
+//                                   node partials of the internal nodes
 //   ll_part       (B, T)            per (tree, pattern tile) LL partials
 //   grad_part     (B, T, N1)        per (tree, tile) branch gradients
-//   dp_part       (B, T, N1*K*16)   per (tree, tile) d ll / dP
-//   root_part     (B, T, 4 + K)     per (tree, tile) d ll / d freqs, props
-// with T = ceil(P / kThreads); the caller sums the partials over T.
+//   dp_part       (B, C, N1*K*16)   per (tree, tile or chunk) d ll / dP
+//   root_part     (B, C, 4 + K)     per (tree, tile or chunk) d ll / d
+//                                   freqs, props
+// with T = ceil(P / kThreads) tiles of the slab kernels; the on-chip K6
+// works in tiles of 32 / K patterns and a block walks `walk` of them, so
+// its C = ceil(ceil(P / (32 / K)) / walk) chunks. The caller sums the
+// partials over T or C.
 //
 // The arithmetic follows libsbn_tpu/ops/pruning_pallas.py and
 // pruning_pallas_vjp.py: each combine step multiplies the three children's
@@ -42,14 +47,15 @@
 // max. The plain PyTorch twins (ops/pruning_generic.py, ops/pruning_vjp.py)
 // repeat this order.
 //
-// Design, for all three: one thread per (tree, pattern) walks the node loop
-// of its pattern column, E/U/M in device memory (csrc/pruning_jc.cu's
-// layout), and the block stages its tree's N1 * K 4x4 matrices (and Q) in
-// shared memory, so the 16 coefficient loads of every apply are broadcasts
-// from shared memory rather than device-memory loads on the dependent
-// chain. Cross-pattern
-// sums go warp shuffle -> shared memory -> per-tile partial, with no
-// atomics, so results repeat exactly from run to run.
+// Design of K4, K5 and K6's slab route: one thread per (tree, pattern) walks
+// the node loop of its pattern column, E/U/M in device memory
+// (csrc/pruning_jc.cu's layout), and the block stages its tree's N1 * K 4x4
+// matrices (and Q) in shared memory, so the 16 coefficient loads of every
+// apply are broadcasts from shared memory rather than device-memory loads on
+// the dependent chain. Cross-pattern sums go warp shuffle -> shared memory
+// -> per-tile partial, with no atomics, so results repeat exactly from run
+// to run. K6 on chip keeps its tile's state in shared memory instead (see
+// generic_dp_kernel below).
 
 #include <cuda_runtime.h>
 
@@ -64,6 +70,20 @@ constexpr size_t kMaxShared = 232448;  // bytes a block may use on sm_90
 
 __device__ __forceinline__ float log_t(float x) { return logf(x); }
 __device__ __forceinline__ double log_t(double x) { return log(x); }
+
+// One element copied from device memory to shared memory without passing
+// through registers (cp.async, cache-all; kBytes is 4 or 8), and the wait for
+// all of this thread's copies.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst_shared, const void* src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src),
+               "n"(kBytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -453,26 +473,369 @@ generic_ll_grad_kernel(const int* __restrict__ post_children, const T* __restric
 }
 
 // ---------------------------------------------------------------------------
-// K6: d ll / dP, d ll / d freqs and d ll / d props, the backward half of the
-// LL's custom VJP (its forward half is K5). Replaces the TPU kernel
-// libsbn_tpu/ops/pruning_pallas_vjp.py::_bwd_kernel. It recomputes the
-// forward pass keeping M (remat: the caller saves only the inputs).
-// Bound on this card: the per-edge contraction, 16K sums over the tile's
-// patterns for each of three children per step (warp shuffles: 80K per
-// child), on top of K4's device-memory traffic plus M (written once and read
-// once). M is kept for internal nodes only (a leaf's M is read from tips).
+// The slab route of K6: its first design, the body above over device-memory
+// E, M and U slabs, with the per-edge contraction dP[c, k]_ij = sum_p uw_ki
+// M_c,kj as 16K warp butterflies per child and a block reduction after each
+// step. Kept for trees whose on-chip plan (below) cannot hold a tile;
+// ops/pruning_vjp.py chooses it from the plan and counts it as
+// "ll_dp_generic_slab". M is kept for internal nodes only (a leaf's M is
+// read from tips).
 // ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-generic_dp_kernel(const int* __restrict__ post_children, const T* __restrict__ Pm,
-                  const T* __restrict__ tips, const T* __restrict__ freqs,
-                  const T* __restrict__ props, const T* __restrict__ weights,
-                  T* __restrict__ E, T* __restrict__ M, T* __restrict__ U,
-                  T* __restrict__ dp_part, T* __restrict__ root_part, int fs, int ps, int L,
-                  int S, int N1, int P) {
+generic_dp_slab_kernel(const int* __restrict__ post_children, const T* __restrict__ Pm,
+                       const T* __restrict__ tips, const T* __restrict__ freqs,
+                       const T* __restrict__ props, const T* __restrict__ weights,
+                       T* __restrict__ E, T* __restrict__ M, T* __restrict__ U,
+                       T* __restrict__ dp_part, T* __restrict__ root_part, int fs, int ps,
+                       int L, int S, int N1, int P) {
   extern __shared__ __align__(16) unsigned char smem[];
   forward_and_upper<T, K, true>(smem, post_children, Pm, nullptr, tips, freqs, props, weights, E,
                                 M, U, root_part, dp_part, fs, ps, L, S, N1, P);
+}
+
+// ---------------------------------------------------------------------------
+// K6: d ll / dP, d ll / d freqs and d ll / d props, the backward half of the
+// LL's custom VJP (its forward half is K5). Replaces the TPU kernel
+// libsbn_tpu/ops/pruning_pallas_vjp.py:111 _bwd_kernel, which recomputed the
+// forward pass in VMEM scratch of shape (N1, 4K, tile) and contracted dP
+// there. Remat: the caller saves only the inputs.
+// Design. A block is one warp and owns one tree. Its lanes run over
+// (pattern, rate category): lane l works on category l % K of pattern
+// l / K of the tile, so a tile is 32 / K patterns (the lanes past
+// K * (32 / K) idle) and each lane carries 4 values of a row where a lane
+// per pattern carried 4K. The block walks `walk` tiles in a fixed order and
+// keeps a tile's whole pruning state in shared memory: the tree's N1 * K
+// 4x4 matrices (staged with cp.async once per block, read as broadcasts),
+// and per lane only its 4 values of the E rows of the S - 1 internal nodes
+// below the root. In the upper pass U[kid] overwrites E[kid], which is
+// last read at its parent's upper step, where all three kids' E rows are
+// loaded into registers before any U is written (csrc/pruning_jc.cu's
+// argument for K1 and K3). The per-pattern max over the 4K rows, the
+// denominator and the site likelihood are reductions over the K lanes of
+// a pattern (shuffles from each in category order). What is recomputed
+// where it is used, with the same operations in the same order as
+// forward_pass, so with the same values:
+//   * a leaf's E = P_leaf tip, the tips read through the read-only cache;
+//   * the ones slot, the constant 1;
+//   * an internal kid's node partial M = (E[c0] E[c1] E[c2]) / max at its
+//     parent's upper step, from its children's E, which the upper pass has
+//     not overwritten yet (it reaches them after their parent);
+//   * the root's M, kept in registers from the last forward step, for
+//     d ll / d freqs and d ll / d props.
+// The per-edge contraction dP[c, k]_ij = sum_p uw_ki M_c,kj (uw = u w /
+// denom) was what the slab design spent its time on: 16K warp butterflies
+// of 5 shuffles per child and two block barriers per step. Here each lane
+// stages its uw and M values in shared memory (pattern stride 32 / K + 1,
+// so the lanes reading one pattern's rows hit distinct banks), the warp
+// syncs, and lane l sums the entries e = l, l + 32, ... of the 16K over the
+// tile's patterns in order: deterministic, with no atomics. A lane adds its
+// entries to the block's partial dp_part[tree, chunk] in device memory (the
+// first tile stores; the loads are issued before the edge's work, so their
+// latency overlaps it), which it alone touches, so nothing of size
+// (B, ., ., P) exists and a call adds B * C * N1 * 16K values,
+// C = ceil(tiles / walk). The root and ones-slot rows are zeros.
+// Why lanes over categories: the first on-chip design (a lane per pattern,
+// 32 patterns a tile) needed 4K values per pattern and node in shared
+// memory, 67 KB a block at float K = 4, so an SM held 3 warps; this layout
+// holds the same state for 32 / K patterns in 4 values per lane (27 KB at
+// float K = 4), so 8 warps an SM, and its code is smaller (2.9k SASS
+// instructions and 80 registers at float K = 4, against 7.5k and 255).
+// Route for larger trees (the plan cannot hold a tile): the slab route
+// above, chosen by ops/pruning_vjp.py from the shapes.
+// Bound on this card: arithmetic, about 0.078 ms at the JAX bench's config 2
+// (B = 256 DS1.100 f32 Weibull+4; chip_smoke.py computes it from its
+// inputs). Measured 2.06 ms there (3.8% of the bound), against 2.41 ms for
+// the first on-chip design and 3.95 ms for the slab route (E, M and U
+// slabs, about 2 GB a call) in the same run (NVIDIA H100 80GB HBM3,
+// 700 W; PERF.md). It issues more instructions than the work needs: the
+// per-pattern reductions cross K lanes by shuffles, and every lane repeats
+// the schedule, address and division work of its pattern.
+// ---------------------------------------------------------------------------
+
+// Bytes of shared memory the on-chip K6 takes (a tile of TP = 32 / K
+// patterns); ops/pruning_vjp.py dp_onchip_bytes computes the same sum.
+template <typename T>
+__host__ __device__ size_t dp_onchip_bytes(int S, int N1, int K, int TP) {
+  return sizeof(T) * (size_t(N1) * K * 16 + (size_t(S) - 1) * 4 * 32 +
+                      size_t(8) * K * (TP + 1) + 4 + K) +
+         sizeof(int) * 3 * size_t(S);
+}
+
+// Max and sum over the K lanes base .. base + K - 1 of one pattern, taken
+// from each lane in category order, so every lane of the group gets the
+// same value; all 32 lanes call them.
+template <typename T, int K>
+__device__ __forceinline__ T group_max(T v, int base) {
+  if constexpr (K == 1) return v;
+  T m = __shfl_sync(0xffffffffu, v, base);
+#pragma unroll
+  for (int j = 1; j < K; ++j) {
+    const T x = __shfl_sync(0xffffffffu, v, base + j);
+    m = x > m ? x : m;
+  }
+  return m;
+}
+
+template <typename T, int K>
+__device__ __forceinline__ T group_sum(T v, int base) {
+  if constexpr (K == 1) return v;
+  T acc = __shfl_sync(0xffffffffu, v, base);
+#pragma unroll
+  for (int j = 1; j < K; ++j) acc += __shfl_sync(0xffffffffu, v, base + j);
+  return acc;
+}
+
+// One lane's view of the on-chip K6 state: the tree's matrices in shared
+// memory, its own column of the E/U slots (4 values a node, rows 32
+// apart), its category k and the first lane `base` of its pattern, and its
+// pattern's tips in device memory (rows P apart, read through the
+// read-only cache).
+template <typename T, int K>
+struct GenericOnChip {
+  const T* Pm;     // N1 * K * 16
+  T* slot;         // (S - 1) * 4 rows: E, then U, of internal node L + s
+  const T* tip;    // L * 4 rows
+  const int* pc;   // 3 * S
+  int k, base, L, S, N1, P;
+
+  __device__ __forceinline__ T& at(int node, int i) const {
+    return slot[((node - L) * 4 + i) * 32];
+  }
+  __device__ __forceinline__ T tip_at(int leaf, int i) const {
+    return __ldg(tip + (leaf * 4 + i) * P);
+  }
+  __device__ __forceinline__ const T* mat(int node) const {
+    return Pm + (node * K + k) * 16;
+  }
+
+  // This lane's 4 values of the E row of node c: stored for an internal
+  // node, P_c tip for a leaf, the constant 1 for the ones slot.
+  __device__ __forceinline__ void row(int c, T* out) const {
+    if (c >= L) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) out[i] = c == N1 - 1 ? T(1) : at(c, i);
+      return;
+    }
+    T t[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) t[i] = tip_at(c, i);
+    apply4<T, false>(mat(c), t, out);
+  }
+
+  // This lane's 4 values of the node partial of combine step s: prod =
+  // (E[c0] E[c1]) E[c2] over its max across all 4K values of the pattern
+  // (1 when the max is not positive), as forward_pass computes it.
+  __device__ __forceinline__ void combine(int s, T* prod) const {
+    T a[4];
+    row(pc[3 * s], prod);
+    row(pc[3 * s + 1], a);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) prod[i] = prod[i] * a[i];
+    row(pc[3 * s + 2], a);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) prod[i] = prod[i] * a[i];
+    T scale = prod[0];
+#pragma unroll
+    for (int i = 1; i < 4; ++i) scale = prod[i] > scale ? prod[i] : scale;
+    scale = group_max<T, K>(scale, base);
+    scale = scale > T(0) ? scale : T(1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) prod[i] = prod[i] / scale;
+  }
+};
+
+template <typename T, int K>
+__global__ void __launch_bounds__(32)
+generic_dp_kernel(const int* __restrict__ post_children, const T* __restrict__ Pm,
+                  const T* __restrict__ tips, const T* __restrict__ freqs,
+                  const T* __restrict__ props, const T* __restrict__ weights,
+                  T* __restrict__ dp_part, T* __restrict__ root_part, int fs, int ps, int L,
+                  int S, int N1, int P, int walk) {
+  constexpr int TP = 32 / K;          // patterns a tile
+  constexpr int SP = TP + 1;          // pattern stride of the staged values
+  constexpr int V = 16 * K;           // dP values per edge
+  constexpr int NQ = (V + 31) / 32;   // of which one lane owns at most NQ
+  constexpr int H = 4 + K;            // values at the root
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x;
+  const int pl = lane / K;            // the lane's pattern in the tile
+  const int k = lane % K;             // and its rate category
+  const bool used = pl < TP;
+  // The tree is the fast grid index, so the blocks an SM holds at once
+  // mostly share one chunk of tiles and its tips stay in cache.
+  const int b = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const int root = L + S - 1;
+  const int ones = N1 - 1;
+  const T tiny = T(1e-30);
+
+  // Carve shared memory in dp_onchip_bytes' order and stage the tree.
+  T* s_P = reinterpret_cast<T*>(smem);
+  T* slot = s_P + N1 * K * 16;
+  T* uw_s = slot + size_t(S - 1) * 4 * 32;
+  T* m_s = uw_s + 4 * K * SP;
+  T* s_freqs = m_s + 4 * K * SP;
+  T* s_props = s_freqs + 4;
+  int* s_pc = reinterpret_cast<int*>(s_props + K);
+  for (int i = lane; i < 3 * S; i += 32) {
+    cp_async<sizeof(int)>(s_pc + i, post_children + size_t(b) * 3 * S + i);
+  }
+  const T* Pb = Pm + size_t(b) * N1 * K * 16;
+  for (int i = lane; i < N1 * K * 16; i += 32) cp_async<sizeof(T)>(s_P + i, Pb + i);
+  for (int i = lane; i < 4; i += 32) s_freqs[i] = freqs[size_t(b) * fs + i];
+  for (int i = lane; i < K; i += 32) s_props[i] = props[size_t(b) * ps + i];
+  cp_async_wait_all();
+  __syncthreads();
+
+  const size_t blk = size_t(b) * gridDim.y + chunk;
+  T* dp = dp_part + blk * N1 * V;
+  for (int i = lane; i < V; i += 32) {
+    dp[size_t(root) * V + i] = T(0);
+    dp[size_t(ones) * V + i] = T(0);
+  }
+  T hacc[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) hacc[h] = T(0);
+  const T pk = s_props[k];
+
+  const int tiles = (P + TP - 1) / TP;
+  const int t0 = chunk * walk;
+  const int t1 = t0 + walk < tiles ? t0 + walk : tiles;
+  for (int tile = t0; tile < t1; ++tile) {
+    const bool first = tile == t0;
+    const int p = tile * TP + pl;
+    const bool active = used && p < P;
+    // Every lane runs every step, so that the shuffles see the whole warp;
+    // an inactive lane works on pattern 0 and its results are dropped.
+    const GenericOnChip<T, K> o{s_P, slot + lane, tips + (active ? p : 0), s_pc,
+                                k, pl * K, L, S, N1, P};
+    const T w = active ? weights[p] : T(0);
+
+    // Forward: the S combine steps, each storing E[node]; the root's M
+    // stays in registers.
+    T mroot[4];
+    for (int s = 0; s < S; ++s) {
+      T prod[4];
+      o.combine(s, prod);
+      if (s == S - 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mroot[i] = prod[i];
+        break;
+      }
+      T out[4];
+      apply4<T, false>(o.mat(L + s), prod, out);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o.at(L + s, i) = out[i];
+    }
+    // d ll / d freqs_i and d ll / d props_k at the root, from its rescaled
+    // partial (the scales cancel in w / site).
+    T site = T(0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) site += (pk * s_freqs[i]) * mroot[i];
+    site = group_sum<T, K>(site, o.base);
+    const T w_over_site = w / (site > tiny ? site : tiny);
+    T hv[H];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const T row = group_sum<T, K>(pk * mroot[i], o.base);
+      hv[i] = active && k == 0 ? row * w_over_site : T(0);
+    }
+    T dprop = T(0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dprop += s_freqs[i] * mroot[i];
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) hv[4 + kk] = active && k == kk ? dprop * w_over_site : T(0);
+#pragma unroll
+    for (int h = 0; h < H; ++h) {
+      const T v = warp_sum(hv[h]);
+      hacc[h] = first ? v : hacc[h] + v;
+    }
+
+    // Upper pass, from the root down.
+    for (int t = 0; t < S; ++t) {
+      const int node = root - t;
+      const int s = node - L;
+      const int kid[3] = {s_pc[3 * s], s_pc[3 * s + 1], s_pc[3 * s + 2]};
+      T un[4], ev[4], e0[4], e1[4], e2[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) un[i] = node == root ? pk * s_freqs[i] : o.at(node, i);
+      apply4<T, true>(o.mat(node), un, ev);
+      o.row(kid[0], e0);
+      o.row(kid[1], e1);
+      o.row(kid[2], e2);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int c = kid[j];
+        if (c == ones) continue;  // its edge is no edge: its dP rows are zero
+        // This lane's running sums of the edge, loaded before the work below
+        // so that their latency overlaps it.
+        T* dpc = dp + size_t(c) * V;
+        T prev[NQ];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int e = lane + 32 * q;
+          prev[q] = (!first && e < V) ? dpc[e] : T(0);
+        }
+        T u[4], m[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const T a = j == 0 ? e1[i] : e0[i];
+          const T bb = j == 2 ? e1[i] : e2[i];
+          u[i] = (ev[i] * a) * bb;
+        }
+        const T* ek = j == 0 ? e0 : (j == 1 ? e1 : e2);
+        T d = u[0] * ek[0];
+#pragma unroll
+        for (int i = 1; i < 4; ++i) d += u[i] * ek[i];
+        const T denom = group_sum<T, K>(d, o.base);
+        const T winv = w / (denom > tiny ? denom : tiny);
+        // The kid's M: its tip for a leaf (every category), recomputed from
+        // its children for an internal node.
+        if (c < L) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) m[i] = o.tip_at(c, i);
+        } else {
+          o.combine(c - L, m);
+        }
+        if (used) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            uw_s[(4 * k + i) * SP + pl] = active ? u[i] * winv : T(0);
+            m_s[(4 * k + i) * SP + pl] = active ? m[i] : T(0);
+          }
+        }
+        __syncwarp();
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int e = lane + 32 * q;
+          if (e < V) {
+            const int ke = e >> 4, ie = (e >> 2) & 3, je = e & 3;
+            const T* x = uw_s + (4 * ke + ie) * SP;
+            const T* y = m_s + (4 * ke + je) * SP;
+            T acc = x[0] * y[0];
+#pragma unroll
+            for (int pp = 1; pp < TP; ++pp) acc += x[pp] * y[pp];
+            dpc[e] = first ? acc : prev[q] + acc;
+          }
+        }
+        __syncwarp();
+        if (c >= L) {
+          T sc = u[0];
+#pragma unroll
+          for (int i = 1; i < 4; ++i) sc = u[i] > sc ? u[i] : sc;
+          sc = group_max<T, K>(sc, o.base);
+          sc = sc > T(0) ? sc : T(1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o.at(c, i) = u[i] / sc;
+        }
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int h = 0; h < H; ++h) root_part[blk * H + h] = hacc[h];
+  }
 }
 
 template <typename Kern>
@@ -512,15 +875,33 @@ int launch_ll_grad(const int* pc, const T* Pm, const T* Q, const T* tips, const 
 }
 
 template <typename T, int K>
-int launch_dp(const int* pc, const T* Pm, const T* tips, const T* freqs, const T* props,
-              const T* w, T* E, T* M, T* U, T* dp_part, T* root_part, int fs, int ps, int B,
-              int L, int S, int N1, int P, cudaStream_t st) {
+int launch_dp_slab(const int* pc, const T* Pm, const T* tips, const T* freqs, const T* props,
+                   const T* w, T* E, T* M, T* U, T* dp_part, T* root_part, int fs, int ps, int B,
+                   int L, int S, int N1, int P, cudaStream_t st) {
   const size_t smem = shared_bytes<T>(S, N1, K, 3 * 16 * K, 4 + K);
-  cudaError_t err = prepare(generic_dp_kernel<T, K>, smem);
+  cudaError_t err = prepare(generic_dp_slab_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
-  generic_dp_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, Pm, tips, freqs, props, w, E, M, U,
-                                                        dp_part, root_part, fs, ps, L, S, N1, P);
+  generic_dp_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(
+      pc, Pm, tips, freqs, props, w, E, M, U, dp_part, root_part, fs, ps, L, S, N1, P);
+  return int(cudaGetLastError());
+}
+
+// The on-chip K6 takes the plan's tile TP and shared-memory bytes from the
+// caller, and refuses a plan that does not hold what it carves.
+template <typename T, int K>
+int launch_dp(const int* pc, const T* Pm, const T* tips, const T* freqs, const T* props,
+              const T* w, T* dp_part, T* root_part, int fs, int ps, int B, int L, int S, int N1,
+              int P, int TP, int smem, int walk, cudaStream_t st) {
+  if (TP != 32 / K || walk < 1 || size_t(smem) < dp_onchip_bytes<T>(S, N1, K, TP)) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaError_t err = prepare(generic_dp_kernel<T, K>, size_t(smem));
+  if (err != cudaSuccess) return int(err);
+  const int tiles = (P + TP - 1) / TP;
+  const dim3 grid(B, (tiles + walk - 1) / walk);
+  generic_dp_kernel<T, K><<<grid, 32, smem, st>>>(pc, Pm, tips, freqs, props, w, dp_part,
+                                                  root_part, fs, ps, L, S, N1, P, walk);
   return int(cudaGetLastError());
 }
 
@@ -571,16 +952,33 @@ int ll_grad_entry(const void* pc, const void* Pm, const void* Q, const void* tip
 
 template <typename T>
 int dp_entry(const void* pc, const void* Pm, const void* tips, const void* freqs,
-             const void* props, const void* w, void* E, void* M, void* U, void* dp_part,
-             void* root_part, int fs, int ps, int B, int L, int S, int N1, int K, int P,
+             const void* props, const void* w, void* dp_part, void* root_part, int fs, int ps,
+             int B, int L, int S, int N1, int K, int P, int TP, int smem, int walk,
              void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+#define LSBN_CALL(KK)                                                                        \
+  launch_dp<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(Pm),                  \
+                   static_cast<const T*>(tips), static_cast<const T*>(freqs),                \
+                   static_cast<const T*>(props), static_cast<const T*>(w),                   \
+                   static_cast<T*>(dp_part), static_cast<T*>(root_part), fs, ps, B, L, S, N1, \
+                   P, TP, smem, walk, st)
+  LSBN_DISPATCH_K(K, LSBN_CALL)
+#undef LSBN_CALL
+}
+
+template <typename T>
+int dp_slab_entry(const void* pc, const void* Pm, const void* tips, const void* freqs,
+                  const void* props, const void* w, void* E, void* M, void* U, void* dp_part,
+                  void* root_part, int fs, int ps, int B, int L, int S, int N1, int K, int P,
+                  void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
 #define LSBN_CALL(KK)                                                                          \
-  launch_dp<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(Pm),                    \
-                   static_cast<const T*>(tips), static_cast<const T*>(freqs),                  \
-                   static_cast<const T*>(props), static_cast<const T*>(w), static_cast<T*>(E),  \
-                   static_cast<T*>(M), static_cast<T*>(U), static_cast<T*>(dp_part),           \
-                   static_cast<T*>(root_part), fs, ps, B, L, S, N1, P, st)
+  launch_dp_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(Pm),               \
+                        static_cast<const T*>(tips), static_cast<const T*>(freqs),             \
+                        static_cast<const T*>(props), static_cast<const T*>(w),                \
+                        static_cast<T*>(E), static_cast<T*>(M), static_cast<T*>(U),            \
+                        static_cast<T*>(dp_part), static_cast<T*>(root_part), fs, ps, B, L, S, \
+                        N1, P, st)
   LSBN_DISPATCH_K(K, LSBN_CALL)
 #undef LSBN_CALL
 }
@@ -589,7 +987,7 @@ int dp_entry(const void* pc, const void* Pm, const void* tips, const void* freqs
 
 extern "C" {
 
-// Patterns per block: the width of one partial-sum tile.
+// Patterns per block of the slab kernels: the width of one partial-sum tile.
 int lsbn_generic_tile() { return kThreads; }
 int lsbn_generic_max_k() { return kMaxK; }
 const char* lsbn_cuda_error_string(int err) {
@@ -626,20 +1024,40 @@ int lsbn_generic_ll_grad_f64(const void* pc, const void* Pm, const void* Q, cons
                                S, N1, K, P, stream);
 }
 
+// K6 on chip: the plan's tile TP and shared-memory bytes come from the
+// caller (ops/pruning_vjp.py dp_onchip_plan), and each block walks `walk`
+// tiles.
 int lsbn_generic_dp_f32(const void* pc, const void* Pm, const void* tips, const void* freqs,
-                        const void* props, const void* w, void* E, void* M, void* U,
-                        void* dp_part, void* root_part, int fs, int ps, int B, int L, int S,
-                        int N1, int K, int P, void* stream) {
-  return dp_entry<float>(pc, Pm, tips, freqs, props, w, E, M, U, dp_part, root_part, fs, ps, B,
-                         L, S, N1, K, P, stream);
+                        const void* props, const void* w, void* dp_part, void* root_part, int fs,
+                        int ps, int B, int L, int S, int N1, int K, int P, int TP, int smem,
+                        int walk, void* stream) {
+  return dp_entry<float>(pc, Pm, tips, freqs, props, w, dp_part, root_part, fs, ps, B, L, S, N1,
+                         K, P, TP, smem, walk, stream);
 }
 
 int lsbn_generic_dp_f64(const void* pc, const void* Pm, const void* tips, const void* freqs,
-                        const void* props, const void* w, void* E, void* M, void* U,
-                        void* dp_part, void* root_part, int fs, int ps, int B, int L, int S,
-                        int N1, int K, int P, void* stream) {
-  return dp_entry<double>(pc, Pm, tips, freqs, props, w, E, M, U, dp_part, root_part, fs, ps, B,
-                          L, S, N1, K, P, stream);
+                        const void* props, const void* w, void* dp_part, void* root_part, int fs,
+                        int ps, int B, int L, int S, int N1, int K, int P, int TP, int smem,
+                        int walk, void* stream) {
+  return dp_entry<double>(pc, Pm, tips, freqs, props, w, dp_part, root_part, fs, ps, B, L, S,
+                          N1, K, P, TP, smem, walk, stream);
+}
+
+// K6's slab route (tile kThreads), for trees beyond the plan.
+int lsbn_generic_dp_slab_f32(const void* pc, const void* Pm, const void* tips,
+                             const void* freqs, const void* props, const void* w, void* E,
+                             void* M, void* U, void* dp_part, void* root_part, int fs, int ps,
+                             int B, int L, int S, int N1, int K, int P, void* stream) {
+  return dp_slab_entry<float>(pc, Pm, tips, freqs, props, w, E, M, U, dp_part, root_part, fs, ps,
+                              B, L, S, N1, K, P, stream);
+}
+
+int lsbn_generic_dp_slab_f64(const void* pc, const void* Pm, const void* tips,
+                             const void* freqs, const void* props, const void* w, void* E,
+                             void* M, void* U, void* dp_part, void* root_part, int fs, int ps,
+                             int B, int L, int S, int N1, int K, int P, void* stream) {
+  return dp_slab_entry<double>(pc, Pm, tips, freqs, props, w, E, M, U, dp_part, root_part, fs,
+                               ps, B, L, S, N1, K, P, stream);
 }
 
 }  // extern "C"

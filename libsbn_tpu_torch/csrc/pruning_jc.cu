@@ -18,8 +18,8 @@
 //   rates, props  (K,)              site-rate categories
 //   tips          (L, 4, P)         tip partials
 //   weights       (P,)              pattern multiplicities
-//   E, U          (B, N1, 4K, P)    scratch of K2 and of the slab route of
-//                                   K1/K3: evolved and upper partials
+//   E, U          (B, N1, 4K, P)    scratch of the slab routes only:
+//                                   evolved and upper partials
 //   ES            (B, N1, K, P)     the same: per-category row sums of E
 //   M             (B, S, 4K, P)     scratch of K3's slab route: pre-apply
 //                                   partials of the internal nodes, at E's
@@ -28,11 +28,12 @@
 //   grad_part     (B, T, N1)        per (tree, pattern tile) edge gradients
 //   dprops_part   (B, T, K)         per (tree, pattern tile) d ll / d props
 //   dea_part      (B, T, N1 * K)    per (tree, pattern tile) d ll / d ea
-// with T = ceil(P / tile); the caller sums the partials over T. The tile is
-// kThreads patterns for K2 and the slab route, and kOnchipTile (32) for the
-// on-chip K1 and K3 (ops/pruning_jc.py onchip_plan checks that it fits),
-// which keep their whole pruning state in shared memory and take no
-// scratch at all.
+// with T = ceil(P / tile); the caller sums the partials over T. K1, K2 and
+// K3 keep their whole pruning state in shared memory, a tile of kOnchipTile
+// (32) patterns a block (ops/pruning_jc.py onchip_plan checks that it
+// fits), and take no scratch at all; a tree beyond that plan takes the slab
+// route of the same kernel, the first design, whose tile is kThreads
+// patterns.
 //
 // The arithmetic follows libsbn_tpu/ops/pruning_pallas_jc.py step for step:
 // the matrix-free apply P v = e v + (1 - e)/4 sum(v), row-sum rescaling on
@@ -223,22 +224,20 @@ __device__ void write_ll_partial(Shared<T>& sh, T ll, T* ll_part, int b) {
 }
 
 // ---------------------------------------------------------------------------
-// K2: LL only.
-// Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas_jc.py::_fwd_ll_kernel.
-// Bound on this card: device-memory traffic of E and ES (each combine step
-// reads three child slabs of 4K values and writes one per pattern, with no
-// reuse kept on chip), and the dependent loads along the node loop (step s
-// reads what step s - 1 wrote). The design does nothing about either yet:
-// a simple first kernel, one thread per (tree, pattern) and all scratch in
-// device memory.
+// The slab route of K2: its first design, one thread per (tree, pattern) and
+// all scratch (E, ES) in device memory, bound by that traffic and by the
+// dependent loads along the node loop. Kept for trees whose on-chip plan
+// cannot hold a tile of 32 patterns; ops/pruning_jc.py chooses it from the
+// plan and counts it as "ll_jc69_slab". Its arithmetic is the on-chip K2's,
+// value for value.
 // ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-jc69_ll_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
-               const T* __restrict__ props, const T* __restrict__ tips,
-               const T* __restrict__ weights, T* __restrict__ E,
-               T* __restrict__ ES, T* __restrict__ ll_part, int L, int S,
-               int N1, int P) {
+jc69_ll_slab_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+                    const T* __restrict__ props, const T* __restrict__ tips,
+                    const T* __restrict__ weights, T* __restrict__ E,
+                    T* __restrict__ ES, T* __restrict__ ll_part, int L, int S,
+                    int N1, int P) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.y;
   const int p = blockIdx.x * kThreads + threadIdx.x;
@@ -475,8 +474,9 @@ jc69_dea_slab_kernel(const int* __restrict__ post_children, const T* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// The on-chip design of K1 and K3. A block owns one tree and one tile of
-// kOnchipTile = 32 patterns (one warp, a thread per pattern) and keeps the tile's whole pruning state in shared memory
+// The on-chip design of K1 and K3 (K2 runs its forward half). A block owns
+// one tree and one tile of kOnchipTile = 32 patterns (one warp, a thread per
+// pattern) and keeps the tile's whole pruning state in shared memory
 // across both passes, pattern innermost, so that the 32 lanes of a warp hit
 // 32 banks. Nothing of size (B, ., ., P) exists. What is stored, per
 // pattern, is only what cannot be recomputed exactly: the E rows of the
@@ -527,8 +527,9 @@ jc69_dea_slab_kernel(const int* __restrict__ post_children, const T* __restrict_
 // that instruction overhead yet (PERF.md, open questions).
 // ---------------------------------------------------------------------------
 
-// Bytes of shared memory the on-chip K1 (G = 1) or K3 (G = K) takes for a
-// tile of TP patterns; ops/pruning_jc.py onchip_plan computes the same sum.
+// Bytes of shared memory the on-chip K2 (G = 0), K1 (G = 1) or K3 (G = K)
+// takes for a tile of TP patterns; ops/pruning_jc.py onchip_plan computes
+// the same sum.
 template <typename T>
 __host__ __device__ size_t onchip_bytes(int S, int N1, int K, int G, int TP) {
   const size_t W = size_t(TP) / 32;
@@ -641,6 +642,53 @@ __device__ __forceinline__ T forward_onchip(const OnChip<T, K>& o, T* es_root) {
   return logscale;
 }
 
+// The on-chip kernels' shared memory, carved in onchip_bytes' order: the
+// tree's exp factors, rates and props, the warps' G values per node and K at
+// the root, the E/U slot rows, and the schedule row.
+template <typename T>
+struct OnChipShared {
+  T* ea;     // N1 * K
+  T* rates;  // K
+  T* props;  // K
+  T* gsum;   // W * N1 * G
+  T* lsum;   // W * K
+  T* slot;   // (S - 1) * 4K * kOnchipTile
+  int* pc;   // 3 * S
+};
+
+// Carve shared memory, stage the tree's schedule row and exp factors with
+// cp.async, set the category tables and zero the edge sums.
+template <typename T, int K, int G>
+__device__ __forceinline__ OnChipShared<T> stage_onchip(
+    unsigned char* smem, const int* __restrict__ post_children, const T* __restrict__ ea,
+    const T* __restrict__ rates, const T* __restrict__ props, int b, int S, int N1) {
+  constexpr int TP = kOnchipTile;
+  constexpr int W = TP / 32;
+  const int tid = threadIdx.x;
+  OnChipShared<T> sh;
+  sh.ea = reinterpret_cast<T*>(smem);
+  sh.rates = sh.ea + N1 * K;
+  sh.props = sh.rates + K;
+  sh.gsum = sh.props + K;
+  sh.lsum = sh.gsum + W * N1 * G;
+  sh.slot = sh.lsum + W * K;
+  sh.pc = reinterpret_cast<int*>(sh.slot + size_t(S - 1) * 4 * K * TP);
+  for (int i = tid; i < 3 * S; i += TP) {
+    cp_async<sizeof(int)>(sh.pc + i, post_children + size_t(b) * 3 * S + i);
+  }
+  for (int i = tid; i < N1 * K; i += TP) {
+    cp_async<sizeof(T)>(sh.ea + i, ea + size_t(b) * N1 * K + i);
+  }
+  for (int i = tid; i < K; i += TP) {
+    sh.rates[i] = rates == nullptr ? T(0) : rates[i];
+    sh.props[i] = props[i];
+  }
+  for (int i = tid; i < W * N1 * G; i += TP) sh.gsum[i] = T(0);
+  cp_async_wait_all();
+  __syncthreads();
+  return sh;
+}
+
 // The body of the on-chip K1 (kDea = false) and K3 (kDea = true): what
 // forward_and_upper computes, value for value, with the state on chip.
 template <typename T, int K, bool kDea>
@@ -668,31 +716,15 @@ __device__ __forceinline__ void forward_and_upper_onchip(
   const T third = T(1.0 / 3.0);
   const T four_thirds = T(4.0 / 3.0);
 
-  // Carve shared memory in onchip_bytes' order.
-  T* s_ea = reinterpret_cast<T*>(smem);
-  T* s_rates = s_ea + N1 * K;
-  T* s_props = s_rates + K;
-  T* gsum = s_props + K;
-  T* lsum = gsum + W * N1 * G;
-  T* slot = lsum + W * K;
-  int* s_pc = reinterpret_cast<int*>(slot + size_t(S - 1) * R * TP);
-
-  // Stage the schedule row and the exp factors.
-  for (int i = tid; i < 3 * S; i += TP) {
-    cp_async<sizeof(int)>(s_pc + i, post_children + size_t(b) * 3 * S + i);
-  }
-  for (int i = tid; i < N1 * K; i += TP) {
-    cp_async<sizeof(T)>(s_ea + i, ea + size_t(b) * N1 * K + i);
-  }
-  for (int i = tid; i < K; i += TP) {
-    s_rates[i] = rates == nullptr ? T(0) : rates[i];
-    s_props[i] = props[i];
-  }
-  for (int i = tid; i < W * N1 * G; i += TP) gsum[i] = T(0);
-  cp_async_wait_all();
-  __syncthreads();
-
-  const OnChip<T, K> o{s_ea, s_props, slot + tid, tips + p, s_pc, L, S, N1, P};
+  const OnChipShared<T> sh =
+      stage_onchip<T, K, G>(smem, post_children, ea, rates, props, b, S, N1);
+  const T* s_ea = sh.ea;
+  const T* s_rates = sh.rates;
+  const T* s_props = sh.props;
+  T* gsum = sh.gsum;
+  T* lsum = sh.lsum;
+  const int* s_pc = sh.pc;
+  const OnChip<T, K> o{s_ea, s_props, sh.slot + tid, tips + p, s_pc, L, S, N1, P};
 
   T hv[H];
 #pragma unroll
@@ -868,6 +900,52 @@ __device__ __forceinline__ void forward_and_upper_onchip(
 }
 
 // ---------------------------------------------------------------------------
+// K2: LL only, the primal of the LL's custom VJP (its backward is K3).
+// Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas_jc.py:431
+// _fwd_ll_kernel, which kept E and ES in VMEM scratch of shape (N1, 4K,
+// tile). Design: the on-chip K1's forward pass alone (forward_onchip), in
+// the same shared-memory plan with no edge sums (G = 0): a block owns one
+// tree and one tile of 32 patterns, stores the E rows of the S - 1 internal
+// nodes below the root, recomputes leaves and the ones slot where they are
+// read, keeps the root's S_E in registers and sums the tile's LL with one
+// warp butterfly. Nothing of size (B, ., ., P) exists; a tree beyond the
+// plan takes jc69_ll_slab_kernel.
+// Bound on this card: arithmetic, about 0.0075 ms at B = 512 DS1 f32 K = 1
+// (chip_smoke.py computes it from its inputs). Measured 0.10 ms there (7%
+// of the bound) and 0.45 ms at Weibull+4, against 0.52 and 2.80 ms for
+// the first design, which was bound by its E and ES slab traffic (about
+// 0.5 GB a call), in the same run (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+// Like K1 it is held back by its instruction stream: 984 SASS
+// instructions, 562 of them integer and address work.
+// ---------------------------------------------------------------------------
+template <typename T, int K>
+__global__ void __launch_bounds__(kOnchipTile)
+jc69_ll_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+               const T* __restrict__ props, const T* __restrict__ tips,
+               const T* __restrict__ weights, T* __restrict__ ll_part, int L, int S, int N1,
+               int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;  // the tree is the fast grid index, as in K1
+  const int p = blockIdx.y * kOnchipTile + tid;
+  const OnChipShared<T> sh =
+      stage_onchip<T, K, 0>(smem, post_children, ea, nullptr, props, b, S, N1);
+  T ll = T(0);
+  if (p < P) {
+    const OnChip<T, K> o{sh.ea, sh.props, sh.slot + tid, tips + p, sh.pc, L, S, N1, P};
+    T es_root[K] = {};
+    const T logscale = forward_onchip<T, K>(o, es_root);
+    T site = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k) site += (sh.props[k] * T(0.25)) * es_root[k];
+    site = site > T(1e-30) ? site : T(1e-30);
+    ll = weights[p] * (log_t(site) + logscale);
+  }
+  ll = warp_sum(ll);
+  if (tid == 0) ll_part[size_t(b) * gridDim.y + blockIdx.y] = ll;
+}
+
+// ---------------------------------------------------------------------------
 // K1: LL and the branch gradient d LL / d b_e for every edge, in one pass.
 // Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas_jc.py:214 _kernel,
 // which kept E, ES, U and G in VMEM scratch of shape (N1, 4K, tile); this
@@ -921,14 +999,14 @@ cudaError_t prepare(Kern kernel, size_t smem) {
 }
 
 template <typename T, int K>
-int launch_ll(const int* pc, const T* ea, const T* props, const T* tips, const T* w, T* E,
-              T* ES, T* ll_part, int B, int L, int S, int N1, int P, cudaStream_t st) {
+int launch_ll_slab(const int* pc, const T* ea, const T* props, const T* tips, const T* w, T* E,
+                   T* ES, T* ll_part, int B, int L, int S, int N1, int P, cudaStream_t st) {
   const size_t smem = shared_bytes<T>(S, N1, K, 1);
-  cudaError_t err = prepare(jc69_ll_kernel<T, K>, smem);
+  cudaError_t err = prepare(jc69_ll_slab_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
-  jc69_ll_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, ea, props, tips, w, E, ES, ll_part, L,
-                                                     S, N1, P);
+  jc69_ll_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, ea, props, tips, w, E, ES, ll_part,
+                                                          L, S, N1, P);
   return int(cudaGetLastError());
 }
 
@@ -962,6 +1040,19 @@ int launch_dea_slab(const int* pc, const T* ea, const T* props, const T* tips, c
 // the caller, and refuse a plan that does not hold what they carve.
 inline bool plan_ok(int TP, size_t smem, size_t need) {
   return TP == kOnchipTile && smem >= need && smem <= kMaxShared;
+}
+
+template <typename T, int K>
+int launch_ll(const int* pc, const T* ea, const T* props, const T* tips, const T* w, T* ll_part,
+              int B, int L, int S, int N1, int P, int TP, int smem, cudaStream_t st) {
+  if (!plan_ok(TP, size_t(smem), onchip_bytes<T>(S, N1, K, 0, TP))) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaError_t err = prepare(jc69_ll_kernel<T, K>, size_t(smem));
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid(B, (P + TP - 1) / TP);
+  jc69_ll_kernel<T, K><<<grid, TP, smem, st>>>(pc, ea, props, tips, w, ll_part, L, S, N1, P);
+  return int(cudaGetLastError());
 }
 
 template <typename T, int K>
@@ -1010,14 +1101,28 @@ int launch_dea(const int* pc, const T* ea, const T* props, const T* tips, const 
 
 template <typename T>
 int ll_entry(const void* pc, const void* ea, const void* props, const void* tips, const void* w,
-             void* E, void* ES, void* ll_part, int B, int L, int S, int N1, int K, int P,
+             void* ll_part, int B, int L, int S, int N1, int K, int P, int TP, int smem,
              void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define LSBN_CALL(KK)                                                                      \
   launch_ll<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),                \
                    static_cast<const T*>(props), static_cast<const T*>(tips),              \
-                   static_cast<const T*>(w), static_cast<T*>(E), static_cast<T*>(ES),      \
-                   static_cast<T*>(ll_part), B, L, S, N1, P, st)
+                   static_cast<const T*>(w), static_cast<T*>(ll_part), B, L, S, N1, P, TP, \
+                   smem, st)
+  LSBN_DISPATCH_K(K, LSBN_CALL)
+#undef LSBN_CALL
+}
+
+template <typename T>
+int ll_slab_entry(const void* pc, const void* ea, const void* props, const void* tips,
+                  const void* w, void* E, void* ES, void* ll_part, int B, int L, int S, int N1,
+                  int K, int P, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+#define LSBN_CALL(KK)                                                                       \
+  launch_ll_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),            \
+                        static_cast<const T*>(props), static_cast<const T*>(tips),          \
+                        static_cast<const T*>(w), static_cast<T*>(E), static_cast<T*>(ES),  \
+                        static_cast<T*>(ll_part), B, L, S, N1, P, st)
   LSBN_DISPATCH_K(K, LSBN_CALL)
 #undef LSBN_CALL
 }
@@ -1088,24 +1193,25 @@ int dea_slab_entry(const void* pc, const void* ea, const void* props, const void
 
 extern "C" {
 
-// Patterns per block of K2 and of the slab route: the width of one
-// partial-sum tile.
+// Patterns per block of the slab routes: the width of one partial-sum tile.
 int lsbn_jc69_tile() { return kThreads; }
 int lsbn_jc69_max_k() { return kMaxK; }
 const char* lsbn_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// K2 on chip: the plan's tile TP and shared-memory bytes come from the
+// caller (ops/pruning_jc.py onchip_plan, kind "ll").
 int lsbn_jc69_ll_f32(const void* pc, const void* ea, const void* props, const void* tips,
-                     const void* w, void* E, void* ES, void* ll_part, int B, int L, int S,
-                     int N1, int K, int P, void* stream) {
-  return ll_entry<float>(pc, ea, props, tips, w, E, ES, ll_part, B, L, S, N1, K, P, stream);
+                     const void* w, void* ll_part, int B, int L, int S, int N1, int K, int P,
+                     int TP, int smem, void* stream) {
+  return ll_entry<float>(pc, ea, props, tips, w, ll_part, B, L, S, N1, K, P, TP, smem, stream);
 }
 
 int lsbn_jc69_ll_f64(const void* pc, const void* ea, const void* props, const void* tips,
-                     const void* w, void* E, void* ES, void* ll_part, int B, int L, int S,
-                     int N1, int K, int P, void* stream) {
-  return ll_entry<double>(pc, ea, props, tips, w, E, ES, ll_part, B, L, S, N1, K, P, stream);
+                     const void* w, void* ll_part, int B, int L, int S, int N1, int K, int P,
+                     int TP, int smem, void* stream) {
+  return ll_entry<double>(pc, ea, props, tips, w, ll_part, B, L, S, N1, K, P, TP, smem, stream);
 }
 
 // K1 on chip: the plan's tile TP and shared-memory bytes come from the
@@ -1141,7 +1247,21 @@ int lsbn_jc69_dea_f64(const void* pc, const void* ea, const void* props, const v
                            smem, stream);
 }
 
-// The slab route of K1 and K3 (tile kThreads), for trees beyond the plan.
+// The slab route of K2, K1 and K3 (tile kThreads), for trees beyond the
+// plan.
+int lsbn_jc69_ll_slab_f32(const void* pc, const void* ea, const void* props, const void* tips,
+                          const void* w, void* E, void* ES, void* ll_part, int B, int L, int S,
+                          int N1, int K, int P, void* stream) {
+  return ll_slab_entry<float>(pc, ea, props, tips, w, E, ES, ll_part, B, L, S, N1, K, P, stream);
+}
+
+int lsbn_jc69_ll_slab_f64(const void* pc, const void* ea, const void* props, const void* tips,
+                          const void* w, void* E, void* ES, void* ll_part, int B, int L, int S,
+                          int N1, int K, int P, void* stream) {
+  return ll_slab_entry<double>(pc, ea, props, tips, w, E, ES, ll_part, B, L, S, N1, K, P,
+                               stream);
+}
+
 int lsbn_jc69_ll_grad_slab_f32(const void* pc, const void* ea, const void* rates,
                                const void* props, const void* tips, const void* w, void* E,
                                void* ES, void* U, void* ll_part, void* grad_part, int B, int L,

@@ -30,12 +30,13 @@ cannot take. Nothing falls back.
 
 The CUDA kernels mask the ragged pattern edge themselves, so patterns are
 not padded (the TPU kernels' pad_patterns is a lane rule of that chip).
-K1 and K3 keep a tile's whole pruning state in shared memory; ``onchip_plan``
-checks from (dtype, K, S, L) that a tile of 32 patterns fits. A tree too
-large for it (or more than 65,535 tiles of patterns) takes the slab route
-instead: the first design of both kernels, over (B, N1, 4K, P) scratch in
-device memory, counted as ``ll_grad_jc69_slab`` / ``ll_dea_jc69_slab``.
-The route follows from the shapes alone; nothing else selects it.
+K1, K2 and K3 keep a tile's whole pruning state in shared memory;
+``onchip_plan`` checks from (dtype, K, S, L) that a tile of 32 patterns
+fits. A tree too large for it (or more than 65,535 tiles of patterns) takes
+the slab route instead: the first design of each kernel, over
+(B, N1, 4K, P) scratch in device memory, counted as ``ll_jc69_slab`` /
+``ll_grad_jc69_slab`` / ``ll_dea_jc69_slab``. The route follows from the
+shapes alone; nothing else selects it.
 Preconditions the kernels do not check on the device (``check_schedule``
 checks them on the host): internal node ids are postorder-linear (step s
 writes node L + s) and every child id lies in [0, N1).
@@ -51,11 +52,11 @@ from . import _kernels
 # Launch counts of the CUDA kernels and call counts of their twins, so a run
 # can show which one it took. reset_counters() sets them all to 0.
 LAUNCHES = {"ll_grad_jc69": 0, "ll_jc69": 0, "ll_dea_jc69": 0,
-            "ll_grad_jc69_slab": 0, "ll_dea_jc69_slab": 0}
+            "ll_jc69_slab": 0, "ll_grad_jc69_slab": 0, "ll_dea_jc69_slab": 0}
 TWIN_CALLS = {"ll_grad_jc69": 0, "ll_jc69": 0, "ll_dea_jc69": 0}
-# Shared memory a block may use on Hopper (sm_90: 227 KB), the on-chip K1/K3's
-# tile (csrc/pruning_jc.cu kOnchipTile: one warp a block) and the tiles a
-# grid's y dimension may hold.
+# Shared memory a block may use on Hopper (sm_90: 227 KB), the on-chip
+# kernels' tile (csrc/pruning_jc.cu kOnchipTile: one warp a block) and the
+# tiles a grid's y dimension may hold.
 SHARED_LIMIT = 232_448
 ONCHIP_TILE = 32
 MAX_TILES = 65_535
@@ -359,23 +360,23 @@ def ll_dea_jc69_plain(post_children, ea, props, tips, weights, *, root_id):
 
 
 def onchip_bytes(itemsize, K, S, L, G):
-    """Shared-memory bytes of the on-chip K1 (G = 1) or K3 (G = K) for a
-    tile of ONCHIP_TILE patterns (one warp), as csrc/pruning_jc.cu
-    onchip_bytes carves them: the tree's exp factors, rates and props, the
-    warp's edge and root sums, the E/U rows of the S - 1 internal nodes
-    below the root, and the schedule row (int32)."""
+    """Shared-memory bytes of the on-chip K2 (G = 0), K1 (G = 1) or K3
+    (G = K) for a tile of ONCHIP_TILE patterns (one warp), as
+    csrc/pruning_jc.cu onchip_bytes carves them: the tree's exp factors,
+    rates and props, the warp's edge and root sums, the E/U rows of the
+    S - 1 internal nodes below the root, and the schedule row (int32)."""
     N1 = L + S + 1
     values = N1 * K + 2 * K + N1 * G + K + (S - 1) * 4 * K * ONCHIP_TILE
     return itemsize * values + 4 * 3 * S
 
 
 def onchip_plan(dtype, K, S, L, kernel="ll_grad"):
-    """(tile, shared bytes) of the on-chip K1 (kernel "ll_grad") or K3
-    ("dea") for a tree of L leaves and S combine steps: ONCHIP_TILE
+    """(tile, shared bytes) of the on-chip K1 (kernel "ll_grad"), K2 ("ll")
+    or K3 ("dea") for a tree of L leaves and S combine steps: ONCHIP_TILE
     patterns when their state fits in SHARED_LIMIT, else None (the slab
     route)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    G = K if kernel == "dea" else 1
+    G = {"ll": 0, "ll_grad": 1, "dea": K}[kernel]  # values summed per edge
     need = onchip_bytes(itemsize, K, S, L, G)
     return (ONCHIP_TILE, need) if need <= SHARED_LIMIT else None
 
@@ -430,26 +431,50 @@ def _check_k(lib, K):
 
 
 def ll_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
-    """K2 on the card: (B,) log likelihoods. ea: (B, N1, K)."""
+    """K2 on the card: (B,) log likelihoods. ea: (B, N1, K). On chip when
+    the plan fits, else the slab route."""
     dims = _check_inputs(post_children, ea, tips, weights, [("props", props)],
                          root_id)
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
     lib = _kernels.load("pruning_jc")
     _check_k(lib, K)
+    plan = onchip_plan(dt, K, S, L, "ll")
+    if plan is None or -(-P // ONCHIP_TILE) > MAX_TILES:
+        return _ll_jc69_slab(lib, dims, post_children, ea, props, tips,
+                             weights)
+    tile, smem = plan
+    ll_part = torch.empty((B, -(-P // tile)), dtype=dt, device=dev)
+    fn = lib.lsbn_jc69_ll_f32 if dt == torch.float32 else lib.lsbn_jc69_ll_f64
+    with torch.cuda.device(dev):
+        rc = fn(
+            post_children.data_ptr(), ea.data_ptr(), props.data_ptr(),
+            tips.data_ptr(), weights.data_ptr(), ll_part.data_ptr(), *dims,
+            tile, smem, torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(lib, rc, "jc69 LL kernel")
+    LAUNCHES["ll_jc69"] += 1
+    return ll_part.sum(dim=1)
+
+
+def _ll_jc69_slab(lib, dims, post_children, ea, props, tips, weights):
+    """K2's slab route (inputs checked by the caller)."""
+    B, L, S, N1, K, P = dims
+    dt, dev = tips.dtype, tips.device
     tiles = -(-P // lib.lsbn_jc69_tile())
     E = torch.empty((B, N1, 4 * K, P), dtype=dt, device=dev)
     ES = torch.empty((B, N1, K, P), dtype=dt, device=dev)
     ll_part = torch.empty((B, tiles), dtype=dt, device=dev)
-    fn = lib.lsbn_jc69_ll_f32 if dt == torch.float32 else lib.lsbn_jc69_ll_f64
+    fn = (lib.lsbn_jc69_ll_slab_f32 if dt == torch.float32
+          else lib.lsbn_jc69_ll_slab_f64)
     with torch.cuda.device(dev):
         rc = fn(
             post_children.data_ptr(), ea.data_ptr(), props.data_ptr(),
             tips.data_ptr(), weights.data_ptr(), E.data_ptr(), ES.data_ptr(),
             ll_part.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream,
         )
-    _kernels.check(lib, rc, "jc69 LL kernel")
-    LAUNCHES["ll_jc69"] += 1
+    _kernels.check(lib, rc, "jc69 LL kernel (slab route)")
+    LAUNCHES["ll_jc69_slab"] += 1
     return ll_part.sum(dim=1)
 
 

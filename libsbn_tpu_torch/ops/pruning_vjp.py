@@ -17,6 +17,15 @@ kernels take freqs as (B, 4) and props as (B, K), one row per tree, or
 shared as (4,) and (K,): the per-tree rows let the engine get every tree's
 model gradient from one launch. tips and weights are data: they get no
 gradient here.
+
+K6 runs a lane per (pattern, rate category), a tile of 32 // K patterns a
+warp, and keeps the tile's pruning state in shared memory
+(``dp_onchip_plan`` checks from (dtype, K, S, L) that it fits); each block
+walks the tiles of DP_SPAN patterns, adding its dP into one partial per
+(tree, chunk of tiles). A tree beyond the plan (or more than 65,535 chunks
+of patterns) takes the slab route, K6's first design over (B, N1, 4K, P)
+scratch, counted as ``ll_dp_generic_slab``. The route follows from the
+shapes alone.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 
 from . import _kernels
 from .pruning import per_tree, reduce_per_tree
+from .pruning_jc import MAX_TILES, SHARED_LIMIT
 from .pruning_generic import (
     TINY, _forward_plain, _ll_plain, _site, _upper_plain, check_inputs,
     load_checked,
@@ -32,8 +42,11 @@ from .pruning_generic import (
 
 # Launch counts of the CUDA kernels and call counts of their twins, so a run
 # can show which one it took. reset_counters() sets them all to 0.
-LAUNCHES = {"ll_generic": 0, "ll_dp_generic": 0}
+LAUNCHES = {"ll_generic": 0, "ll_dp_generic": 0, "ll_dp_generic_slab": 0}
 TWIN_CALLS = {"ll_generic": 0, "ll_dp_generic": 0}
+# Patterns each block of the on-chip K6 walks, in tiles of 32 // K (one warp
+# a block).
+DP_SPAN = 128
 
 
 def reset_counters():
@@ -162,21 +175,77 @@ def ll_generic_cuda(post_children, P, tips, freqs, props, weights, *, root_id):
     return ll_part.sum(dim=1)
 
 
+def dp_onchip_bytes(itemsize, K, S, L):
+    """Shared-memory bytes of the on-chip K6 for a tile of 32 // K patterns
+    (one warp, a lane per pattern and category), as csrc/pruning_generic.cu
+    dp_onchip_bytes carves them: the tree's N1 K 4x4 matrices, each lane's
+    4 values of the E/U rows of the S - 1 internal nodes below the root,
+    one edge's staged uw and M values (pattern stride 32 // K + 1), freqs
+    and props, and the schedule row (int32)."""
+    N1 = L + S + 1
+    tile = 32 // K
+    values = N1 * K * 16 + (S - 1) * 4 * 32 + 8 * K * (tile + 1) + 4 + K
+    return itemsize * values + 4 * 3 * S
+
+
+def dp_onchip_plan(dtype, K, S, L):
+    """(tile, shared bytes) of the on-chip K6 for a tree of L leaves and S
+    combine steps: 32 // K patterns when their state fits in SHARED_LIMIT,
+    else None (the slab route)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    need = dp_onchip_bytes(itemsize, K, S, L)
+    return (32 // K, need) if need <= SHARED_LIMIT else None
+
+
 def ll_dp_generic_cuda(post_children, P, tips, freqs, props, weights, *,
                        root_id):
-    """K6 on the card: (dP (B, N1, K, 4, 4), dfreqs (B, 4), dprops (B, K))."""
+    """K6 on the card: (dP (B, N1, K, 4, 4), dfreqs (B, 4), dprops (B, K)).
+    On chip when the plan fits, else the slab route."""
     dims, (freqs, fs), (props, ps) = check_inputs(
         post_children, P, tips, weights, freqs, props, root_id)
     B, L, S, N1, K, n_pat = dims
     dt, dev = tips.dtype, tips.device
     lib = load_checked(K)
+    plan = dp_onchip_plan(dt, K, S, L)
+    tile = 32 // K
+    walk = -(-DP_SPAN // tile)  # tiles a block walks
+    chunks = -(-n_pat // (walk * tile))  # blocks per tree, the grid's y
+    if plan is None or chunks > MAX_TILES:
+        return _ll_dp_generic_slab(lib, dims, post_children, P, tips,
+                                   (freqs, fs), (props, ps), weights)
+    smem = plan[1]
+    dp_part = torch.empty((B, chunks, N1 * K * 16), dtype=dt, device=dev)
+    root_part = torch.empty((B, chunks, 4 + K), dtype=dt, device=dev)
+    fn = lib.lsbn_generic_dp_f32 if dt == torch.float32 else lib.lsbn_generic_dp_f64
+    with torch.cuda.device(dev):
+        rc = fn(
+            post_children.data_ptr(), P.data_ptr(), tips.data_ptr(),
+            freqs.data_ptr(), props.data_ptr(), weights.data_ptr(),
+            dp_part.data_ptr(), root_part.data_ptr(), fs, ps, *dims, tile,
+            smem, walk, torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(lib, rc, "generic dP kernel")
+    LAUNCHES["ll_dp_generic"] += 1
+    root = root_part.sum(dim=1)
+    return (dp_part.sum(dim=1).reshape(B, N1, K, 4, 4), root[:, :4],
+            root[:, 4:])
+
+
+def _ll_dp_generic_slab(lib, dims, post_children, P, tips, freqs_fs, props_ps,
+                        weights):
+    """K6's slab route (inputs checked by the caller; freqs and props with
+    their tree strides, as ``check_inputs`` gives them)."""
+    B, L, S, N1, K, n_pat = dims
+    (freqs, fs), (props, ps) = freqs_fs, props_ps
+    dt, dev = tips.dtype, tips.device
     tiles = -(-n_pat // lib.lsbn_generic_tile())
     E = torch.empty((B, N1, 4 * K, n_pat), dtype=dt, device=dev)
     U = torch.empty_like(E)
     M = torch.empty((B, S, 4 * K, n_pat), dtype=dt, device=dev)
     dp_part = torch.empty((B, tiles, N1 * K * 16), dtype=dt, device=dev)
     root_part = torch.empty((B, tiles, 4 + K), dtype=dt, device=dev)
-    fn = lib.lsbn_generic_dp_f32 if dt == torch.float32 else lib.lsbn_generic_dp_f64
+    fn = (lib.lsbn_generic_dp_slab_f32 if dt == torch.float32
+          else lib.lsbn_generic_dp_slab_f64)
     with torch.cuda.device(dev):
         rc = fn(
             post_children.data_ptr(), P.data_ptr(), tips.data_ptr(),
@@ -185,8 +254,8 @@ def ll_dp_generic_cuda(post_children, P, tips, freqs, props, weights, *,
             root_part.data_ptr(), fs, ps, *dims,
             torch.cuda.current_stream().cuda_stream,
         )
-    _kernels.check(lib, rc, "generic dP kernel")
-    LAUNCHES["ll_dp_generic"] += 1
+    _kernels.check(lib, rc, "generic dP kernel (slab route)")
+    LAUNCHES["ll_dp_generic_slab"] += 1
     root = root_part.sum(dim=1)
     return (dp_part.sum(dim=1).reshape(B, N1, K, 4, 4), root[:, :4],
             root[:, 4:])

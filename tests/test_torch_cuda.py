@@ -118,9 +118,9 @@ K1_K3_CASES = ([("ds1", K) for K in range(1, 9)]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("data,K", K1_K3_CASES)
 def test_kernels_match_twins_on_card(data, K, dtype):
-    """K1 and K2 against their twins on one card (inputs: _inputs); K1
-    takes the on-chip route where onchip_plan fits and the slab route
-    beyond it."""
+    """K1 and K2 against their twins on one card (inputs: _inputs); each
+    takes the on-chip route where its onchip_plan fits and the slab route
+    beyond it (on the 256-taxon tree, all but float32 K = 1)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     pc, ea, rates, props, tips, w, r = _inputs(data, dtype, K)
@@ -134,6 +134,9 @@ def test_kernels_match_twins_on_card(data, K, dtype):
     t_ll, t_g = pruning_jc.ll_grad_jc69_plain(*args, root_id=r)
     k2 = pruning_jc.ll_jc69_cuda(pc, ea, props, tips, w, root_id=r)
     torch.cuda.synchronize()
+    plan2 = pruning_jc.onchip_plan(dtype, K, pc.shape[1], tips.shape[0], "ll")
+    assert (plan2 is None) == (plan is None)
+    assert pruning_jc.LAUNCHES["ll_jc69" if plan2 else "ll_jc69_slab"] == 1
     (ll_rtol, ll_atol), (g_rtol, g_atol) = TOL[dtype]
     want = t_ll.cpu().numpy()
     assert np.all(np.isfinite(want)) and want.shape == (pc.shape[0],)
@@ -173,6 +176,17 @@ def test_k3_matches_twin_on_card(data, K, dtype):
                                rtol=g_rtol, atol=g_atol)
 
 
+def _added(fn):
+    """Device memory one call of fn adds: its peak less what was allocated
+    before it, in bytes."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - before
+
+
 @pytest.mark.cuda
 def test_onchip_k1_adds_only_tile_partials():
     """At B = 512 DS1 f32 K = 1, one on-chip K1 call adds only the per-tile
@@ -183,21 +197,54 @@ def test_onchip_k1_adds_only_tile_partials():
     pc, ea, rates, props, tips, w, r = _inputs("ds1", torch.float32, 1)
     reps = 512 // pc.shape[0] + 1
     pc, ea = pc.repeat(reps, 1, 1)[:512].contiguous(), ea.repeat(reps, 1, 1)[:512].contiguous()
-
-    def added(fn):
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fn()
-        torch.cuda.synchronize()
-        return torch.cuda.max_memory_allocated() - before
-
     args = (pc, ea, rates, props, tips, w)
-    onchip = added(lambda: pruning_jc.ll_grad_jc69_cuda(*args, root_id=r))
+    onchip = _added(lambda: pruning_jc.ll_grad_jc69_cuda(*args, root_id=r))
     dims = (512, tips.shape[0], pc.shape[1], r + 2, 1, tips.shape[2])
     lib = pruning_jc._kernels.load("pruning_jc")
-    slab = added(lambda: pruning_jc._ll_grad_jc69_slab(lib, dims, *args))
+    slab = _added(lambda: pruning_jc._ll_grad_jc69_slab(lib, dims, *args))
     assert onchip < 5e7 and slab > 5e8, (onchip, slab)
+
+
+@pytest.mark.cuda
+def test_onchip_k2_adds_only_tile_partials():
+    """At B = 512 DS1 f32 K = 1, one on-chip K2 call adds only its per-tile
+    LL partials ((512, 30) floats) and the sum, under 1 MB, where the slab
+    route adds its E and ES scratch (about 0.5 GB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pc, ea, _, props, tips, w, r = _inputs("ds1", torch.float32, 1)
+    reps = 512 // pc.shape[0] + 1
+    pc, ea = pc.repeat(reps, 1, 1)[:512].contiguous(), ea.repeat(reps, 1, 1)[:512].contiguous()
+    args = (pc, ea, props, tips, w)
+    pruning_jc.reset_counters()
+    onchip = _added(lambda: pruning_jc.ll_jc69_cuda(*args, root_id=r))
+    assert pruning_jc.LAUNCHES["ll_jc69"] == 1
+    dims = (512, tips.shape[0], pc.shape[1], r + 2, 1, tips.shape[2])
+    lib = pruning_jc._kernels.load("pruning_jc")
+    slab = _added(lambda: pruning_jc._ll_jc69_slab(lib, dims, *args))
+    assert onchip < 1e6 and slab > 4e8, (onchip, slab)
+
+
+@pytest.mark.cuda
+def test_onchip_k6_adds_only_chunk_partials():
+    """At the JAX bench's config 2 shapes (256 DS1.100_topologies trees,
+    f32, GTR + Weibull+4), one on-chip K6 call adds its per-(tree, chunk)
+    dP partials, (256, 8, 3392) floats, 28 MB, and their sum: under
+    128 MB, where the slab route adds its E, U and M scratch (about 2 GB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pc, P, _, tips, freqs, props, w, r = _generic_inputs("ds1", torch.float32, 4)
+    reps = 256 // pc.shape[0] + 1
+    pc, P = pc.repeat(reps, 1, 1)[:256].contiguous(), P.repeat(reps, 1, 1, 1, 1)[:256].contiguous()
+    args = (pc, P, tips, freqs, props, w)
+    pruning_vjp.reset_counters()
+    onchip = _added(lambda: pruning_vjp.ll_dp_generic_cuda(*args, root_id=r))
+    assert pruning_vjp.LAUNCHES["ll_dp_generic"] == 1
+    dims = (256, tips.shape[0], pc.shape[1], r + 2, 4, tips.shape[2])
+    lib = pruning_vjp.load_checked(4)
+    slab = _added(lambda: pruning_vjp._ll_dp_generic_slab(
+        lib, dims, pc, P, tips, (freqs, 0), (props, 0), w))
+    assert onchip < 1.28e8 and slab > 1e9, (onchip, slab)
 
 
 @pytest.mark.cuda
@@ -282,22 +329,28 @@ def test_vbpi_step_on_card_matches_cpu():
 
 
 def _generic_inputs(data, dtype, K):
-    """The hello tree or three DS1.100_topologies trees, GTR at non-uniform
-    rates and frequencies with one or K Weibull categories (shape 0.7), on
-    the card: (post_children, P, Q_scaled, tips, freqs, props, weights,
-    root_id)."""
-    if data == "hello":
+    """The hello tree, three DS1.100_topologies trees, or "big" (two
+    synthetic 256-taxon trees over 200 patterns, _synthetic), GTR at
+    non-uniform rates and frequencies with one or K Weibull categories
+    (shape 0.7), on the card: (post_children, P, Q_scaled, tips, freqs,
+    props, weights, root_id)."""
+    if data == "big":
+        pc, bl, tips, w, root_id = _synthetic(2, 200)
+    elif data == "hello":
         tops, bls, ttm = newick.parse_newick_file(f"{DATA}/hello.nwk")
         aln = Alignment.read_fasta(f"{DATA}/hello.fasta")
     else:
         tops, bls, ttm = newick.parse_newick_file(
             f"{DATA}/DS1.100_topologies.nwk")
         aln = Alignment.read_fasta(f"{DATA}/DS1.fasta")
-    tops, bls = tops[:3], np.stack(bls[:3])
-    sp = SitePattern(aln, ttm)
-    sched = schedule.schedules_of_topologies(tops)
-    bl = np.pad(bls * np.random.default_rng(1).uniform(0.8, 1.2, bls.shape),
-                ((0, 0), (0, 1)))
+    if data != "big":
+        tops, bls = tops[:3], np.stack(bls[:3])
+        sp = SitePattern(aln, ttm)
+        sched = schedule.schedules_of_topologies(tops)
+        bl = np.pad(bls * np.random.default_rng(1).uniform(0.8, 1.2, bls.shape),
+                    ((0, 0), (0, 1)))
+        pc, tips, w, root_id = (sched.post_children, sp.tip_partials(),
+                                sp.weights, sched.root_id)
 
     def dev(a, dt=dtype):
         return torch.as_tensor(np.asarray(a)).to(dt).cuda()
@@ -312,9 +365,8 @@ def _generic_inputs(data, dtype, K):
     ts = dev(bl)[:, :, None] * rates.to(dtype)
     P = substitution.expm_transition(Q.to(dtype), freqs.to(dtype), ts)
     Qs = Q.to(dtype)[None] * rates.to(dtype)[:, None, None]
-    return (dev(sched.post_children, torch.int32), P.contiguous(),
-            Qs.contiguous(), dev(sp.tip_partials()), freqs.to(dtype),
-            props.to(dtype), dev(sp.weights), sched.root_id)
+    return (dev(pc, torch.int32), P.contiguous(), Qs.contiguous(), dev(tips),
+            freqs.to(dtype), props.to(dtype), dev(w), root_id)
 
 
 @pytest.mark.cuda
@@ -324,7 +376,8 @@ def _generic_inputs(data, dtype, K):
 def test_generic_kernels_match_twins_on_card(data, dtype, K):
     """K4, K5 and K6 against their twins on one card, at the tolerances of
     TOL (inputs: _generic_inputs); K5 and K6 with shared freqs and props
-    and with one row per tree; K6's root and ones-slot rows are zero."""
+    and with one row per tree; K6 on chip, its root and ones-slot rows
+    zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     pc, P, Qs, tips, freqs, props, w, r = _generic_inputs(data, dtype, K)
@@ -348,12 +401,52 @@ def test_generic_kernels_match_twins_on_card(data, dtype, K):
         args = (pc, P, tips, f, p, w)
         close(pruning_vjp.ll_generic_cuda(*args, root_id=r),
               pruning_vjp.ll_generic_plain(*args, root_id=r), ll_rtol, ll_atol)
+        pruning_vjp.reset_counters()
         got = pruning_vjp.ll_dp_generic_cuda(*args, root_id=r)
         want = pruning_vjp.ll_dp_generic_plain(*args, root_id=r)
         torch.cuda.synchronize()
+        assert pruning_vjp.LAUNCHES["ll_dp_generic"] == 1
         assert got[0].shape == (B, r + 2, K, 4, 4) and not got[0][:, r:].any()
         for a, b in zip(got, want):
             close(a, b, g_rtol, g_atol)
+
+
+# K6 beyond its on-chip plan (the slab route: the 256-taxon tree at float64,
+# or float32 K >= 4), where the plan still fits on that tree (float32
+# K <= 3), and on DS1 at K that leave lanes idle (5) or fill the most shared
+# memory (float64 K = 8).
+K6_ROUTE_CASES = [("big", torch.float32, 4, "slab"),
+                  ("big", torch.float64, 1, "slab"),
+                  ("big", torch.float32, 1, "onchip"),
+                  ("big", torch.float32, 3, "onchip"),
+                  ("ds1", torch.float32, 5, "onchip"),
+                  ("ds1", torch.float64, 8, "onchip")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,dtype,K,route", K6_ROUTE_CASES)
+def test_k6_routes_match_twin_on_card(data, dtype, K, route):
+    """K6 against its twin where dp_onchip_plan refuses the shapes (the
+    slab route) and where it fits (K6_ROUTE_CASES); the counters show the
+    route taken."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pc, P, _, tips, freqs, props, w, r = _generic_inputs(data, dtype, K)
+    plan = pruning_vjp.dp_onchip_plan(dtype, K, pc.shape[1], tips.shape[0])
+    assert (plan is None) == (route == "slab")
+    pruning_vjp.reset_counters()
+    got = pruning_vjp.ll_dp_generic_cuda(pc, P, tips, freqs, props, w, root_id=r)
+    want = pruning_vjp.ll_dp_generic_plain(pc, P, tips, freqs, props, w,
+                                           root_id=r)
+    torch.cuda.synchronize()
+    key = "ll_dp_generic_slab" if route == "slab" else "ll_dp_generic"
+    assert pruning_vjp.LAUNCHES[key] == 1 and sum(pruning_vjp.LAUNCHES.values()) == 1
+    assert not got[0][:, r:].any()
+    g_rtol, g_atol = TOL[dtype][1]
+    for a, b in zip(got, want):
+        b = b.cpu().numpy()
+        assert np.all(np.isfinite(b))
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=g_rtol, atol=g_atol)
 
 
 def _gtr_instance(device, count=10):
@@ -388,7 +481,8 @@ def test_gtr_engine_on_card_matches_cpu():
     got_ll, got = card.log_likelihoods(), card.phylo_gradients()
     torch.cuda.synchronize()
     assert pruning_generic.LAUNCHES == {"ll_grad_generic": 1}
-    assert pruning_vjp.LAUNCHES == {"ll_generic": 2, "ll_dp_generic": 1}
+    assert pruning_vjp.LAUNCHES == {"ll_generic": 2, "ll_dp_generic": 1,
+                                    "ll_dp_generic_slab": 0}
     for m in (pruning_jc, pruning_generic, pruning_vjp):
         assert not any(m.TWIN_CALLS.values())
     np.testing.assert_allclose(got_ll, want_ll, rtol=1e-12)

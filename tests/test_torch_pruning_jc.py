@@ -277,3 +277,58 @@ def test_onchip_plan_fits_shared_memory(dtype, K):
             assert big[0] == 32 and big[1] <= 232_448
         else:
             assert big is None
+
+
+def _cu_onchip_bytes(itemsize, K, S, L, G, TP=32):
+    """csrc/pruning_jc.cu onchip_bytes, written out again: exp factors
+    (N1 K), rates and props (2K), the warps' edge sums (W N1 G) and root sums
+    (W K), the slot rows ((S - 1) 4K TP) and the int32 schedule row (3S)."""
+    N1, W = L + S + 1, TP // 32
+    return (itemsize * (N1 * K + 2 * K + W * N1 * G + W * K + (S - 1) * 4 * K * TP)
+            + 4 * 3 * S)
+
+
+@pytest.mark.parametrize("K", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_plan_fits_ds1_and_refuses_the_big_tree(dtype, K):
+    """The on-chip K2's plan (kind "ll": no edge sums, G = 0) gives a tile of
+    32 patterns at DS1 (S = 25, L = 27) for every (dtype, K <= 8), in
+    exactly the bytes csrc/pruning_jc.cu carves, fewer than K1's; on the
+    256-taxon tree only float32 K = 1 fits, so everything else takes the
+    slab route there."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    tile, smem = pruning_jc.onchip_plan(dtype, K, 25, 27, "ll")
+    assert tile == 32 and smem <= pruning_jc.SHARED_LIMIT
+    assert smem == pruning_jc.onchip_bytes(itemsize, K, 25, 27, 0)
+    assert smem == _cu_onchip_bytes(itemsize, K, 25, 27, 0)
+    assert smem < pruning_jc.onchip_plan(dtype, K, 25, 27, "ll_grad")[1]
+    big = pruning_jc.onchip_plan(dtype, K, 254, 256, "ll")
+    if dtype == torch.float32 and K == 1:
+        assert big == (32, _cu_onchip_bytes(4, 1, 254, 256, 0))
+    else:
+        assert big is None
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_cpu_tensors_reach_only_the_twin(ds1, dtype, K):
+    """log_likelihoods_jc69 on CPU tensors calls K2's twin (and K3's for
+    its backward), never a kernel of either route, at every dtype and K;
+    the K2 wrapper refuses CPU tensors before it chooses a route."""
+    sched, sp = ds1["sched"], ds1["sp"]
+    pc = torch.as_tensor(sched.post_children, dtype=torch.int32)
+    bl = torch.as_tensor(ds1["bl_p"]).to(dtype).requires_grad_(True)
+    tips = torch.as_tensor(sp.tip_partials()).to(dtype)
+    w = torch.as_tensor(sp.weights).to(dtype)
+    rates, props = (x.to(dtype) for x in weibull_rates(0.3, K))
+    pruning_jc.reset_counters()
+    ll = pruning_jc.log_likelihoods_jc69(pc, bl, tips, w, root_id=sched.root_id,
+                                         rates=rates, props=props)
+    ll.sum().backward()
+    assert ll.dtype == dtype and torch.isfinite(bl.grad).all()
+    assert pruning_jc.TWIN_CALLS == {"ll_grad_jc69": 0, "ll_jc69": 1,
+                                     "ll_dea_jc69": 1}
+    ea = pruning_jc.exp_factors(bl.detach(), rates, dtype)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pruning_jc.ll_jc69_cuda(pc, ea, props, tips, w, root_id=sched.root_id)
+    assert not any(pruning_jc.LAUNCHES.values())
