@@ -11,7 +11,7 @@ Phases, each of which raises on failure:
      name and `nvidia-smi` power limit;
   2. build: builds the CUDA kernels from libsbn_tpu_torch/csrc (one nvcc
      per source, in parallel) and prints each instance's registers and
-     spills;
+     spills, and the static SASS mix of the on-chip and slab designs;
   3. kernel vs twin: K1 (LL + branch gradient), K2 (LL) and K3 (d ll / d
      exp factors, d ll / d props) against their plain PyTorch twins on the
      card, on DS1.subsampled_10 tiled to 512 trees with perturbed branch
@@ -22,9 +22,9 @@ Phases, each of which raises on failure:
      (generic LL + branch gradient), K5 (generic LL) and K6 (d ll / dP,
      d ll / d freqs, d ll / d props) against theirs on DS1.100_topologies
      tiled to 256 trees, GTR + constant and GTR + Weibull+4, float32 and
-     float64 (K6 on chip), and K6 on the 256-taxon tree at float32
-     Weibull+4 and float64 constant (its slab route); each call's route is
-     read from the launch counters;
+     float64 (K4 and K6 on chip), and K4 and K6 on the 256-taxon tree at
+     float32 Weibull+4 and float64 constant (their slab routes); each
+     call's route is read from the launch counters;
   4. likelihood path: the port's UnrootedInstance on the card (JC69, DS1
      and hello) against the pybeagle/physher golden numbers, and the DS1
      Weibull+4 phylo_gradients (branch gradients against the physher
@@ -51,22 +51,26 @@ Phases, each of which raises on failure:
      engine.branch_gradients and engine.log_likelihoods from host arrays;
      the VBPI step in ms per step (host clock, synchronised);
      K4, K5 and K6 against their twins at the JAX bench's config 2 (GTR +
-     Weibull+4 at shape 0.5, B = 256, float32), K6 on chip beside its slab
-     route in turns with the memory one call adds (fails at 128 MB), the
-     K5 + K6 autograd pass and engine.phylo_gradients from host arrays,
-     with peak device memory;
-  7. GP kernels vs twins: K7 (the PLV population) and K8 (the golden-section
-     branch sweep) against their plain PyTorch twins on the card, on hello
-     and fluA, float32 and float64;
+     Weibull+4 at shape 0.5, B = 256, float32), K4 on chip beside its slab
+     route in turns with the memory one call adds (fails at 50 MB), K6 the
+     same (fails at 128 MB), the K5 + K6 autograd pass and
+     engine.phylo_gradients from host arrays, with peak device memory;
+  7. GP kernels vs twins: K7 (the PLV population, on chip) and K8 (the
+     golden-section branch sweep) against their plain PyTorch twins on the
+     card, on hello and fluA, float32 and float64; K7 on a synthetic
+     600-taxon rooted tree from a numpy seed, float32 and float64 (beyond
+     its plan: the slab route);
   8. GP path: GPInstance.make_engine(device="cuda"): on the kernel route
      (K7 + K8) in f64 the hello marginal and gradient goldens and the fluA
      fit run_branch_ascent(1e-6, 100) against libsbn_tpu's pinned optimum;
      the same fit on the level route on the card (the f64 oracle); the f32
      kernel route's fit within 1e-2 of the optimum; the counters show K7 and
      K8 launched and no twin called;
-  9. GP timing: K7 and K8 against their twins per launch on fluA, float32;
-     the JAX bench's GP config (fluA, f32, run_branch_ascent(1e-2, 10) from
-     the same starting lengths each run) on both routes, in ms per ascent.
+  9. GP timing: K7 and K8 against their twins per launch on fluA, float32,
+     and K7 on chip beside its slab route in turns, each with its share of
+     the bound; the JAX bench's GP config (fluA, f32,
+     run_branch_ascent(1e-2, 10) from the same starting lengths each run)
+     on both routes, in ms per ascent.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its path, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the float32 peak and its inputs and
@@ -91,6 +95,7 @@ sys.path.insert(0, REPO)
 
 import libsbn_tpu_torch as lt  # noqa: E402
 from libsbn_tpu_torch.core.site_pattern import SitePattern  # noqa: E402
+from libsbn_tpu_torch.core.tree import RootedTree, RootedTreeCollection  # noqa: E402
 from libsbn_tpu_torch.gp import GPInstance, engine_kernels  # noqa: E402
 from libsbn_tpu_torch.gp.engine import _jc69_transition  # noqa: E402
 from libsbn_tpu_torch.io import newick  # noqa: E402
@@ -277,6 +282,7 @@ TWIN_TOL = {
 B = 512  # trees per launch (the JAX bench's headline batch)
 KS = (1, 4, 8)  # rate categories of K1-K3 against their twins
 BIG_TAXA = 256  # the synthetic tree beyond shared memory
+GP_BIG_TAXA = 600  # the synthetic rooted tree beyond K7's plan (1,199 nodes)
 # One H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, HBM3,
 # and the SMs' shared memory (132 SMs x 128 B per cycle at 1.755 GHz).
 PEAK_F32 = 67e12  # operations / s
@@ -369,7 +375,7 @@ def phase_build():
     # One line per kernel instance: registers and spills from ptxas -v.
     pattern = (r"Function properties for \S*?((?:jc69|generic)_"
                r"(?:ll_grad|ll|dea|dp)(?:_slab)?_kernel|"
-               r"gp_(?:populate|golden_sweep)_kernel)I([fd])(?:Li(\d+)E)?")
+               r"gp_(?:populate(?:_slab)?|golden_sweep)_kernel)I([fd])(?:Li(\d+)E)?")
     for source, info in _kernels.build_info.items():
         print(f"  {source}: nvcc {info['seconds']:.1f} s -> {info['path']}")
         name = None
@@ -386,7 +392,10 @@ def phase_build():
                 print(f"  ptxas {name}: {regs} registers; {spills}")
                 name = None
     sass_mix("pruning_jc")
-    sass_mix("pruning_generic", ("generic_dp_kernelIfLi4E", "generic_dp_slab_kernelIfLi4E"))
+    sass_mix("pruning_generic", ("generic_dp_kernelIfLi4E", "generic_dp_slab_kernelIfLi4E",
+                                 "generic_ll_grad_kernelIfLi4E",
+                                 "generic_ll_grad_slab_kernelIfLi4E"))
+    sass_mix("gp_engine", ("gp_populate_kernelIfE", "gp_populate_slab_kernelIfE"))
 
 
 def sass_mix(source, kernels=("jc69_ll_grad_kernelIfLi1E", "jc69_dea_kernelIfLi1E",
@@ -609,7 +618,14 @@ def phase_generic_vs_twin():
         for site in ("constant", "weibull+4"):
             P, Qs, freqs, props = generic_inputs(d, dtype, site)
             args = (d["pc"], P, Qs, d["tips"], freqs, props, d["w"])
+            pruning_generic.reset_counters()
             k_ll, k_g = pruning_generic.ll_grad_generic_cuda(*args, root_id=r)
+            torch.cuda.synchronize()
+            if pruning_generic.LAUNCHES["ll_grad_generic"] != 1:
+                raise AssertionError(f"K4 {str(dtype)[6:]} GTR {site}: not on chip "
+                                     f"({pruning_generic.LAUNCHES})")
+            if k_g[:, r:].any():
+                raise AssertionError("K4: root or ones-slot rows not zero")
             t_ll, t_g = pruning_generic.ll_grad_generic_plain(*args, root_id=r)
             args2 = (d["pc"], P, d["tips"], freqs, props, d["w"])
             k5 = pruning_vjp.ll_generic_cuda(*args2, root_id=r)
@@ -640,7 +656,36 @@ def phase_generic_vs_twin():
                 errs = {"ll_grad_generic": e4, "ll_generic": e5,
                         "ll_dp_generic": e6}
     k6_slab_vs_twin()
+    k4_slab_vs_twin()
     return errs
+
+
+def k4_slab_vs_twin():
+    """K4 on the 256-taxon tree, GTR + Weibull+4 at float32 and GTR +
+    constant at float64, shapes its on-chip plan refuses: the slab route,
+    against the twin at TWIN_TOL."""
+    for dtype, site in ((torch.float32, "weibull+4"), (torch.float64, "constant")):
+        d = synthetic_tree(dtype)
+        r = d["root_id"]
+        P, Qs, freqs, props = generic_inputs(d, dtype, site)
+        L, S, K = BIG_TAXA, d["pc"].shape[1], props.shape[0]
+        if pruning_generic.ll_grad_onchip_plan(dtype, K, S, L) is not None:
+            raise AssertionError(f"K4 fits on chip at {BIG_TAXA} taxa, {dtype} "
+                                 f"K = {K}: nothing exercises its slab route")
+        args = (d["pc"], P, Qs, d["tips"], freqs, props, d["w"])
+        pruning_generic.reset_counters()
+        k_ll, k_g = pruning_generic.ll_grad_generic_cuda(*args, root_id=r)
+        torch.cuda.synchronize()
+        tag = f"{str(dtype)[6:]} GTR {site}, {BIG_TAXA} taxa"
+        if pruning_generic.LAUNCHES != {"ll_grad_generic": 0,
+                                        "ll_grad_generic_slab": 1}:
+            raise AssertionError(f"K4 {tag}: not on the slab route "
+                                 f"({pruning_generic.LAUNCHES})")
+        t_ll, t_g = pruning_generic.ll_grad_generic_plain(*args, root_id=r)
+        close(f"K4 LL {tag}, slab route", k_ll.cpu(), t_ll.cpu(),
+              TWIN_TOL[dtype]["ll"])
+        close(f"K4 grad {tag}, slab route", k_g[:, :r].cpu(), t_g[:, :r].cpu(),
+              TWIN_TOL[dtype]["grad"])
 
 
 def k6_slab_vs_twin():
@@ -686,14 +731,16 @@ def reset_counters():
         module.reset_counters()
 
 
-def launch_counts(path, needed):
+def launch_counts(path, needed, avoided=()):
     """Read every module's counters after a path's run; fail unless every
-    kernel in ``needed`` launched and no twin ran."""
+    kernel in ``needed`` launched, none in ``avoided`` (slab routes) did
+    and no twin ran."""
     torch.cuda.synchronize()
     launches = {k: v for m in COUNTED for k, v in m.LAUNCHES.items()}
     twins = {k: v for m in COUNTED for k, v in m.TWIN_CALLS.items()}
     print(f"  {path}: kernel launches {launches}, twin calls {twins}")
-    if min(launches[k] for k in needed) < 1 or max(twins.values()) != 0:
+    if (min(launches[k] for k in needed) < 1 or max(twins.values()) != 0
+            or any(launches[k] for k in avoided)):
         raise AssertionError(f"the {path} did not run (only) its kernels")
     return launches
 
@@ -803,7 +850,8 @@ def phase_gtr_path():
         close(f"GTR shape gradients (10 trees), {tag}",
               grads["site_model"][:10].cpu(), GTR_SITE_GRADIENTS, tol["grad"])
     launches = launch_counts(
-        "GTR path", ["ll_grad_generic", "ll_generic", "ll_dp_generic"])
+        "GTR path", ["ll_grad_generic", "ll_generic", "ll_dp_generic"],
+        ["ll_grad_generic_slab", "ll_dp_generic_slab"])
     gtr_scan_engine_check()
     gtr_uniform_rates_check()
     return launches
@@ -1215,6 +1263,7 @@ def phase_generic_timing(smi, calls=10):
                             calls4[key][0]())
         print(f"  {key}: bound {bounds[key][0]:.4f} ms ({bounds[key][1]}), "
               f"{bounds[key][0] / out[key][0]:.1%} of it")
+    k4_onchip_vs_slab(d, a4, bounds["ll_grad_generic"][0])
     k6_onchip_vs_slab(d, a5, bounds["ll_dp_generic"][0])
 
     Pg = P.detach().clone().requires_grad_(True)
@@ -1251,6 +1300,37 @@ def phase_generic_timing(smi, calls=10):
     return out, bounds
 
 
+def onchip_vs_slab(key, kern, slab, b_ms, limit_mb, what):
+    """A kernel on chip against its slab route (the first design) on the
+    same inputs, in turns slab, chip, chip, slab, with the device memory
+    one call adds; fails if an on-chip call adds ``limit_mb`` or more."""
+    s1, k1, k2, s2 = time_ms(slab), time_ms(kern), time_ms(kern), time_ms(slab)
+    ms, slab_ms = min(k1, k2), min(s1, s2)
+    mem, slab_mem = call_memory(kern), call_memory(slab)
+    if mem >= limit_mb:
+        raise AssertionError(f"{key}: one on-chip call adds {mem:.1f} MB "
+                             f"(>= {limit_mb} MB)")
+    print(f"  {key}, {what}: on chip {k1:.4f} / {k2:.4f} ms, slab route "
+          f"(first design) {s1:.4f} / {s2:.4f} ms, {slab_ms / ms:.2f}x; bound "
+          f"{b_ms:.5f} ms, on chip {b_ms / ms:.2%} of it, slab "
+          f"{b_ms / slab_ms:.2%}; one call adds {mem:.2f} MB on chip, "
+          f"{slab_mem:.2f} MB slab")
+
+
+def k4_onchip_vs_slab(d, a4, b_ms):
+    """K4 on chip against its slab route on config 2's inputs a4."""
+    r = d["root_id"]
+    pc, P, Qs, tips, freqs, props, w = a4
+    K = props.shape[0]
+    dims = (pc.shape[0], tips.shape[0], pc.shape[1], r + 2, K, tips.shape[2])
+    lib = pruning_generic.load_checked(K)
+    onchip_vs_slab(
+        "ll_grad_generic",
+        lambda: pruning_generic.ll_grad_generic_cuda(*a4, root_id=r),
+        lambda: pruning_generic._ll_grad_generic_slab(lib, dims, *a4),
+        b_ms, 50, f"Weibull+{K}")
+
+
 def k6_onchip_vs_slab(d, a5, b_ms):
     """K6 on chip against its slab route (the first design) on config 2's
     inputs a5, in turns slab, chip, chip, slab, with the device memory one
@@ -1260,19 +1340,12 @@ def k6_onchip_vs_slab(d, a5, b_ms):
     L, S, K = tips.shape[0], pc.shape[1], props.shape[0]
     dims = (pc.shape[0], L, S, r + 2, K, tips.shape[2])
     lib = pruning_vjp.load_checked(K)
-    kern = lambda: pruning_vjp.ll_dp_generic_cuda(*a5, root_id=r)  # noqa: E731
-    slab = lambda: pruning_vjp._ll_dp_generic_slab(  # noqa: E731
-        lib, dims, pc, P, tips, (freqs, 0), (props, 0), w)
-    s1, k1, k2, s2 = time_ms(slab), time_ms(kern), time_ms(kern), time_ms(slab)
-    ms, slab_ms = min(k1, k2), min(s1, s2)
-    mem, slab_mem = call_memory(kern), call_memory(slab)
-    if mem >= 128:
-        raise AssertionError(f"K6: one on-chip call adds {mem:.1f} MB (>= 128 MB)")
-    print(f"  ll_dp_generic, Weibull+{K}: on chip {k1:.4f} / {k2:.4f} ms, slab "
-          f"route (first design) {s1:.4f} / {s2:.4f} ms, {slab_ms / ms:.2f}x; "
-          f"bound {b_ms:.4f} ms, on chip {b_ms / ms:.1%} of it, slab "
-          f"{b_ms / slab_ms:.1%}; one call adds {mem:.2f} MB on chip, "
-          f"{slab_mem:.1f} MB slab")
+    onchip_vs_slab(
+        "ll_dp_generic",
+        lambda: pruning_vjp.ll_dp_generic_cuda(*a5, root_id=r),
+        lambda: pruning_vjp._ll_dp_generic_slab(
+            lib, dims, pc, P, tips, (freqs, 0), (props, 0), w),
+        b_ms, 128, f"Weibull+{K}")
 
 
 def time_vbpi(smi, steps=20):
@@ -1332,21 +1405,7 @@ def phase_gp_vs_twin():
             tag = f"{fasta.split('.')[0]} {str(dtype)[6:]}"
             eng = gp_instance(fasta, nwk, dtype).get_engine()
             streams, q, P, tips, bl = gp_kernel_inputs(eng)
-            got = engine_kernels.populate_plvs_cuda(streams, q, P, tips)
-            want = engine_kernels.populate_plvs_twin(streams, q, P, tips)
-            torch.cuda.synchronize()
-            e7 = {}
-            for k in engine_kernels.PLV_KEYS:
-                kind = "ls" if k.startswith("ls_") else "plv"
-                a, b = got[k].double().cpu().numpy(), want[k].double().cpu().numpy()
-                if a.shape != b.shape or not np.all(np.isfinite(a)):
-                    raise AssertionError(f"K7 {k} {tag}: shape / non-finite")
-                np.testing.assert_allclose(a, b, *tol[kind], err_msg=f"K7 {k} {tag}")
-                e7[kind] = max(e7.get(kind, 0.0), float(np.max(np.abs(a - b))))
-            print(f"  ok  K7 {tag}, 12 arrays: max abs err {e7['plv']:.3e} on "
-                  f"the PLVs (rtol, atol {tol['plv']}), {e7['ls']:.3e} on the "
-                  f"log-scales ({tol['ls']})")
-            e7 = e7["plv"]
+            got, e7 = k7_vs_twin(streams, q, P, tips, dtype, tag, "populate_plvs")
             A, B = engine_kernels.sweep_stats(got, eng._pa, eng._ch, eng._rot)
             A, B = A.contiguous(), B.contiguous()
             cur = torch.log(bl[eng._g]).contiguous()
@@ -1365,7 +1424,68 @@ def phase_gp_vs_twin():
                   f"(<= {tol['lb']})")
             if fasta == "fluA.fa" and dtype == torch.float32:
                 errs = {"populate_plvs": e7, "golden_sweep": e8}
+    for dtype in (torch.float32, torch.float64):
+        eng = synthetic_gp_engine(dtype)
+        streams, q, P, tips, _ = gp_kernel_inputs(eng)
+        k7_vs_twin(streams, q, P, tips, dtype,
+                   f"{GP_BIG_TAXA} taxa {str(dtype)[6:]}, slab route",
+                   "populate_plvs_slab")
     return errs
+
+
+def k7_vs_twin(streams, q, P, tips, dtype, tag, route):
+    """K7 against its twin at GP_TWIN_TOL, failing unless it took ``route``
+    (the counter it bumps: "populate_plvs" on chip or "populate_plvs_slab");
+    returns the kernel's PLV dict and its largest PLV error."""
+    tol = GP_TWIN_TOL[dtype]
+    engine_kernels.reset_counters()
+    got = engine_kernels.populate_plvs_cuda(streams, q, P, tips)
+    torch.cuda.synchronize()
+    if engine_kernels.LAUNCHES[route] != 1 or sum(engine_kernels.LAUNCHES.values()) != 1:
+        raise AssertionError(f"K7 {tag}: not on the {route} route "
+                             f"({engine_kernels.LAUNCHES})")
+    want = engine_kernels.populate_plvs_twin(streams, q, P, tips)
+    errs = {}
+    for k in engine_kernels.PLV_KEYS:
+        kind = "ls" if k.startswith("ls_") else "plv"
+        a, b = got[k].double().cpu().numpy(), want[k].double().cpu().numpy()
+        if a.shape != b.shape or not np.all(np.isfinite(a)):
+            raise AssertionError(f"K7 {k} {tag}: shape / non-finite")
+        np.testing.assert_allclose(a, b, *tol[kind], err_msg=f"K7 {k} {tag}")
+        errs[kind] = max(errs.get(kind, 0.0), float(np.max(np.abs(a - b))))
+    print(f"  ok  K7 {tag} ({route}), 12 arrays: max abs err {errs['plv']:.3e} "
+          f"on the PLVs (rtol, atol {tol['plv']}), {errs['ls']:.3e} on the "
+          f"log-scales ({tol['ls']})")
+    return got, errs["plv"]
+
+
+def synthetic_gp_engine(dtype, taxa=GP_BIG_TAXA, sites=200, seed=0):
+    """A GP engine on the card over one rooted tree of ``taxa`` leaves
+    (random joins and branch lengths from default_rng(seed)) and a random
+    alignment of ``sites`` columns: 2 taxa - 1 DAG nodes, beyond K7's
+    on-chip plan at 600 taxa in float32 and float64."""
+    rng = np.random.default_rng(seed)
+    pool = [f"t{i}" for i in range(taxa)]
+    while len(pool) > 1:
+        i, j = sorted(rng.choice(len(pool), 2, replace=False))
+        a, b = pool.pop(j), pool.pop(i)
+        la, lb = rng.uniform(0.01, 0.2, 2)
+        pool.append(f"({b}:{la:.4f},{a}:{lb:.4f})")
+    tops, bls, ttm = newick.parse_newick_string(pool[0] + ";")
+    inst = GPInstance()
+    inst.alignment = Alignment({f"t{i}": "".join(row) for i, row in enumerate(
+        rng.choice(list("ACGT"), size=(taxa, sites)))})
+    inst.tree_collection = RootedTreeCollection(
+        [RootedTree(t, bl) for t, bl in zip(tops, bls)], ttm)
+    inst.make_engine(dtype=dtype, device=DEV)
+    eng = inst.get_engine()
+    st = eng._edge_streams()
+    if engine_kernels.populate_onchip_plan(
+            dtype, st.node_count, eng.dag.gpcsp_count_with_fake(),
+            st.rootward.shape[0], st.leafward.shape[0], st.roots.shape[0]) is not None:
+        raise AssertionError(f"K7 fits on chip at {taxa} taxa, {dtype}: "
+                             "nothing exercises its slab route")
+    return eng
 
 
 def gp_fit(dtype, use_kernels, tol=1e-6, max_iter=100):
@@ -1412,7 +1532,8 @@ def phase_gp_path():
               inst.dag.node_count() - 1, 0), GP_GRADIENT, (0.0, 1e-6))
     gp_fit(torch.float64, use_kernels=True)
     gp_fit(torch.float32, use_kernels=True)
-    launches = launch_counts("GP path", ["populate_plvs", "golden_sweep"])
+    launches = launch_counts("GP path", ["populate_plvs", "golden_sweep"],
+                             ["populate_plvs_slab"])
     gp_fit(torch.float64, use_kernels=False)
     return launches
 
@@ -1445,6 +1566,10 @@ def phase_gp_timing(smi, runs=5):
     for key, (b_ms, b_by) in bounds.items():
         print(f"  {key}: bound {b_ms:.5f} ms ({b_by}), "
               f"{b_ms / out[key][0]:.2%} of it")
+    onchip_vs_slab(
+        "populate_plvs", calls["populate_plvs"][0],
+        lambda: engine_kernels._populate_plvs_launch(streams, q, P, tips, None),
+        bounds["populate_plvs"][0], 50, f"fluA, {tips.shape[2]} patterns")
     for use_kernels in (True, False):
         eng = gp_instance("fluA.fa", "fluA.tree", torch.float32,
                           use_kernels).get_engine()

@@ -1,7 +1,10 @@
 // Generalized-pruning kernels for NVIDIA Hopper (sm_90a), the GP engine's
 // two hot loops (libsbn_tpu_torch/gp/engine_kernels.py):
 //   K7 gp_populate_kernel:     the whole PLV population pass over the subsplit
-//                              DAG, from two host-built edge streams;
+//                              DAG, from two host-built edge streams, with a
+//                              tile of patterns' PLVs in shared memory
+//                              (gp_populate_slab_kernel, its first design over
+//                              device-memory PLVs, for DAGs beyond the plan);
 //   K8 gp_golden_sweep_kernel: a fixed golden-section search of every edge's
 //                              log branch length against its JC69 objective.
 //
@@ -56,6 +59,20 @@ __device__ __forceinline__ double log_t(double x) { return log(x); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
+// One element copied from device memory to shared memory without passing
+// through registers (cp.async, cache-all; kBytes is 4 or 8), and the wait for
+// all of this thread's copies.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst_shared, const void* src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(dst_shared));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(src),
+               "n"(kBytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
   // Butterfly: every lane ends with the same, order-fixed sum.
@@ -66,8 +83,9 @@ __device__ __forceinline__ T warp_sum(T v) {
 }
 
 // ---------------------------------------------------------------------------
-// K7: GP PLV population. Replaces the TPU kernel
-// libsbn_tpu/gp/engine_pallas.py::_kernel (pallas_call in _populate_pallas).
+// K7's slab route: its first design, kept for DAGs whose on-chip plan
+// (gp_populate_kernel below) cannot hold one pattern; gp/engine_kernels.py
+// chooses it from the plan and counts it as "populate_plvs_slab".
 //
 // Every pattern's recursion is independent (the finish max is over the 4
 // states of one pattern), so one thread owns one pattern column of every
@@ -170,7 +188,7 @@ __host__ __device__ size_t populate_shared_bytes(int n_rw, int n_lw, int n_roots
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gp_populate_kernel(const int* __restrict__ rw_g, const int* __restrict__ lw_g,
+gp_populate_slab_kernel(const int* __restrict__ rw_g, const int* __restrict__ lw_g,
                    const int* __restrict__ roots_g, const T* __restrict__ q_g,
                    const T* __restrict__ P_g, const T* __restrict__ tips, T* __restrict__ p,
                    T* __restrict__ PH, T* __restrict__ rhat, T* __restrict__ RB,
@@ -258,6 +276,279 @@ gp_populate_kernel(const int* __restrict__ rw_g, const int* __restrict__ lw_g,
 }
 
 // ---------------------------------------------------------------------------
+// K7: GP PLV population. Replaces the TPU kernel
+// libsbn_tpu/gp/engine_pallas.py::_kernel (pallas_call in _populate_pallas),
+// which kept a pattern tile's PLVs in VMEM scratch.
+// Bound on this card: the dependent chain of the population program; bytes
+// and operations are tiny (about 1 us of either at fluA). The slab route
+// above gave each thread one pattern with the PLVs in device memory, so each
+// of the T_rw + R + T_lw steps (fluA: 136 + 1 + 136) waited on L2 round
+// trips, and fluA's 238 patterns made 2 blocks on 132 SMs.
+// Design. A block owns a tile of TP <= 8 consecutive patterns, and each of
+// its kPopulateWarps warps covers the tile with a lane per (pattern,
+// state): lane l works on state l % 4 of pattern l / 4 (lanes past 4 TP
+// idle). The tile's whole PLV state lives in shared memory, [row][state]
+// [pattern] for the values and [row][pattern] for the log-scales (p, PH,
+// rhat and RB: 30 N values a pattern), beside q, P, the three streams and
+// their level and group offsets, all staged once with cp.async (the tips
+// too); nothing on the chain touches device memory, and the block writes
+// its tile of the 8 outputs once at the end. The streams come in levels
+// (subsplit_dag.level_schedules): a level's sources were finished at
+// earlier levels, and its rows fall into groups, one per destination (a
+// node's in-edges, rootward; a node's, leafward), each ending at its
+// finish flag. The warps share a level's groups (group g to warp g % W),
+// each warp walking its groups' rows in stream order, with a block barrier
+// between levels; so each destination sees the same operations in the
+// same order as in the serial stream and the twin, and the chain is the
+// levels' longest group runs (fluA: 33 + 33 levels) rather than 273 steps.
+// Within a warp a step is a few shared-memory loads (the source's 4 states
+// are broadcasts to its pattern's 4 lanes, and a row access touches 32
+// consecutive words), two exps and a few FMAs, the next step's stream row
+// and q_g P_g row read ahead; two __syncwarp a step order its reads before
+// its writes and its writes before the next step's reads. The finish max
+// over a pattern's 4 states is two __shfl_xor steps within its 4 lanes (a
+// max is exact, so the order of comparison does not change it); every lane
+// of a pattern computes its log-scale and state 0 stores it. The plan
+// (gp/engine_kernels.py populate_onchip_plan) takes the largest TP <= 8
+// whose state fits: 8 for fluA at float (148 KB, one block an SM: 30 blocks
+// where the slab route had 2), 6 at double; a DAG where one pattern does
+// not fit takes the slab route. Measured on fluA at float: 0.094-0.114 ms,
+// against 0.28 ms for a first on-chip design with one warp a tile walking
+// the serial stream, and 0.48-0.51 ms for the slab route, in one run
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md); about 1.2% of the bound, the
+// rest is the chain's latency with one block an SM.
+// ---------------------------------------------------------------------------
+
+constexpr int kPopulateWarps = 8;  // warps a block of the on-chip K7
+
+// Bytes of shared memory gp_populate_kernel takes for a tile of TP patterns;
+// gp/engine_kernels.py populate_onchip_bytes computes the same sum. The
+// group and level offsets of a stream of n rows take at most 2 (n + 1)
+// int32: the plan reserves that, so that it follows from the shapes alone.
+template <typename T>
+__host__ __device__ size_t populate_onchip_bytes(int n_rw, int n_lw, int n_roots, int E, int N,
+                                                 int TP) {
+  return sizeof(T) * (30 * size_t(N) * TP + 17 * size_t(E)) +
+         sizeof(int) * (7 * size_t(n_rw) + 7 * size_t(n_lw) + 2 * size_t(n_roots) + 4);
+}
+
+// One stream step as a lane needs it: the row's indices and the lane's row
+// i of q_g and P_g.
+template <typename T>
+struct StreamStep {
+  int dest, src, fin, node;
+  T q, m0, m1, m2, m3;
+};
+
+template <typename T>
+__device__ __forceinline__ StreamStep<T> read_step(const int* rows, const T* q, const T* P, int t,
+                                                   int i) {
+  const int* r = rows + 5 * t;
+  const int g = r[2];
+  const T* m = P + 16 * g + 4 * i;
+  return StreamStep<T>{r[0], r[1], r[3], r[4], q[g], m[0], m[1], m[2], m[3]};
+}
+
+// out (R, S) <- the tile's (R, TP) block of shared memory, patterns
+// s0 .. s0 + TP - 1 less the ragged edge.
+template <typename T>
+__device__ __forceinline__ void store_tile(T* __restrict__ out, const T* v, int R, int TP, int s0,
+                                           int S) {
+  for (int k = threadIdx.x; k < R * TP; k += blockDim.x) {
+    const int r = k / TP, c = k - r * TP;
+    if (s0 + c < S) out[size_t(r) * S + s0 + c] = v[k];
+  }
+}
+
+// n int32 or T values from device memory to shared memory with cp.async.
+template <typename X>
+__device__ __forceinline__ void stage(X* dst, const X* src, size_t n) {
+  for (size_t k = threadIdx.x; k < n; k += blockDim.x) cp_async<sizeof(X)>(dst + k, src + k);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kPopulateWarps)
+gp_populate_kernel(const int* __restrict__ rw_g, const int* __restrict__ lw_g,
+                   const int* __restrict__ roots_g, const int* __restrict__ rw_grp_g,
+                   const int* __restrict__ rw_lev_g, const int* __restrict__ lw_grp_g,
+                   const int* __restrict__ lw_lev_g, const T* __restrict__ q_g,
+                   const T* __restrict__ P_g, const T* __restrict__ tips, T* __restrict__ p,
+                   T* __restrict__ PH, T* __restrict__ rhat, T* __restrict__ RB,
+                   T* __restrict__ lsp, T* __restrict__ lsPH, T* __restrict__ lsrhat,
+                   T* __restrict__ lsRB, int n_rw, int n_lw, int n_roots, int g_rw, int v_rw,
+                   int g_lw, int v_lw, int E, int N, int L, int S, int TP) {
+  constexpr int W = kPopulateWarps;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool used = (lane >> 2) < TP;
+  const int i = lane & 3;                // the lane's state
+  const int pl = used ? lane >> 2 : 0;   // and its pattern in the tile
+  const int s0 = blockIdx.x * TP;
+  // A lane past the last pattern works on zeros and stores nothing; an idle
+  // lane (past 4 TP) reads pattern 0's values and stores nothing.
+  const bool active = used && s0 + pl < S;
+  const int RS = 4 * TP;          // values a PLV row holds
+  const int col = i * TP + pl;    // the lane's value in a row
+  // Carve shared memory in populate_onchip_bytes' order: P first, so that
+  // its rows are 16-byte aligned.
+  T* sP = reinterpret_cast<T*>(smem);
+  T* sq = sP + 16 * size_t(E);
+  T* vp = sq + E;                     // p: N rows
+  T* vPH = vp + size_t(N) * RS;       // [phat; phattilde]: 2N rows
+  T* vrh = vPH + size_t(2 * N) * RS;  // rhat: N rows
+  T* vRB = vrh + size_t(N) * RS;      // [r; rtilde]: 2N rows
+  T* lp = vRB + size_t(2 * N) * RS;   // their log-scales, TP a row
+  T* lPH = lp + size_t(N) * TP;
+  T* lrh = lPH + size_t(2 * N) * TP;
+  T* lRB = lrh + size_t(N) * TP;
+  int* srw = reinterpret_cast<int*>(lRB + size_t(2 * N) * TP);
+  int* slw = srw + 5 * n_rw;
+  int* sroots = slw + 5 * n_lw;
+  int* rw_grp = sroots + 2 * n_roots;  // g_rw + 1 row offsets
+  int* rw_lev = rw_grp + g_rw + 1;     // v_rw + 1 group offsets
+  int* lw_grp = rw_lev + v_rw + 1;
+  int* lw_lev = lw_grp + g_lw + 1;
+  stage(sP, P_g, 16 * size_t(E));
+  stage(sq, q_g, size_t(E));
+  stage(srw, rw_g, 5 * size_t(n_rw));
+  stage(slw, lw_g, 5 * size_t(n_lw));
+  stage(sroots, roots_g, 2 * size_t(n_roots));
+  stage(rw_grp, rw_grp_g, size_t(g_rw) + 1);
+  stage(rw_lev, rw_lev_g, size_t(v_rw) + 1);
+  stage(lw_grp, lw_grp_g, size_t(g_lw) + 1);
+  stage(lw_lev, lw_lev_g, size_t(v_lw) + 1);
+  // Leaves hold the tip partials at scale 0; every accumulator is empty.
+  const size_t SS = size_t(S);
+  if (used) {
+    for (int row = warp; row < N; row += W) {
+      T* x = vp + row * RS + col;
+      if (row < L && active) {
+        cp_async<sizeof(T)>(x, tips + (size_t(row) * 4 + i) * SS + s0 + pl);
+      } else {
+        *x = T(0);
+      }
+      vrh[row * RS + col] = T(0);
+      if (i == 0) {
+        lp[row * TP + pl] = T(0);
+        lrh[row * TP + pl] = T(kNeg);
+      }
+    }
+    for (int row = warp; row < 2 * N; row += W) {
+      vPH[row * RS + col] = T(0);
+      vRB[row * RS + col] = T(0);
+      if (i == 0) {
+        lPH[row * TP + pl] = T(kNeg);
+        lRB[row * TP + pl] = T(0);
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // q_g P_g src for the lane's state i, in the slab route's order.
+  auto evolve = [&](const StreamStep<T>& st, const T* v) {
+    const T* x = v + st.src * RS + pl;
+    return st.q * (st.m0 * x[0] + st.m1 * x[TP] + st.m2 * x[2 * TP] + st.m3 * x[3 * TP]);
+  };
+  // v[row] += contrib at log-scale ls_c, max-aligned (both exponents <= 0):
+  // every lane reads the row's scale before the warp syncs, state 0 stores
+  // the new one after.
+  auto accumulate = [&](T* v, T* ls, int row, T contrib, T ls_c) {
+    const T cur = v[row * RS + col];
+    const T ls_cur = ls[row * TP + pl];
+    const T m = ls_cur > ls_c ? ls_cur : ls_c;
+    const T f_cur = exp_t(ls_cur - m);
+    const T f_c = exp_t(ls_c - m);
+    __syncwarp();
+    if (used) {
+      v[row * RS + col] = cur * f_cur + contrib * f_c;
+      if (i == 0) ls[row * TP + pl] = m;
+    }
+    __syncwarp();
+  };
+  // v[row] = prod / max over the pattern's 4 states (1 where that max is
+  // not > 0); the log-scale absorbs the max.
+  auto finish = [&](T* v, T* ls, int row, T prod, T ls_sum) {
+    T scale = prod;
+    const T x1 = __shfl_xor_sync(0xffffffffu, scale, 1);
+    scale = x1 > scale ? x1 : scale;
+    const T x2 = __shfl_xor_sync(0xffffffffu, scale, 2);
+    scale = x2 > scale ? x2 : scale;
+    scale = scale > T(0) ? scale : T(1);
+    if (used) {
+      v[row * RS + col] = prod / scale;
+      if (i == 0) ls[row * TP + pl] = ls_sum + log_t(scale);
+    }
+  };
+  // r = rhat * phattilde into RB row node, rtilde = rhat * phat into row
+  // node + N.
+  auto finish_r = [&](int node) {
+    const T rh = vrh[node * RS + col];
+    const T ls_rh = lrh[node * TP + pl];
+    finish(vRB, lRB, node, rh * vPH[(node + N) * RS + col], ls_rh + lPH[(node + N) * TP + pl]);
+    finish(vRB, lRB, node + N, rh * vPH[node * RS + col], ls_rh + lPH[node * TP + pl]);
+  };
+  // A stream level by level: the warps share each level's destination
+  // groups, each walking its groups' rows in order; then the block syncs.
+  auto walk = [&](const int* rows, const int* grp, const int* lev, int n_lev, auto&& step) {
+    for (int v = 0; v < n_lev; ++v) {
+      for (int g = lev[v] + warp; g < lev[v + 1]; g += W) {
+        const int t1 = grp[g + 1];
+        StreamStep<T> next = read_step(rows, sq, sP, grp[g], i);
+        for (int t = grp[g]; t < t1; ++t) {
+          const StreamStep<T> st = next;
+          if (t + 1 < t1) next = read_step(rows, sq, sP, t + 1, i);
+          step(st);
+        }
+      }
+      __syncthreads();
+    }
+  };
+
+  // Rootward: PH[dest] += q_g P_g p[src]; p[node] = phat * phattilde on the
+  // node's last in-edge.
+  walk(srw, rw_grp, rw_lev, v_rw, [&](const StreamStep<T>& st) {
+    accumulate(vPH, lPH, st.dest, evolve(st, vp), lp[st.src * TP + pl]);
+    if (st.fin) {
+      const int a = st.node, b = st.node + N;
+      finish(vp, lp, a, vPH[a * RS + col] * vPH[b * RS + col],
+             lPH[a * TP + pl] + lPH[b * TP + pl]);
+      __syncwarp();
+    }
+  });
+  // Rootsplit seeds: rhat = q / 4 (the stationary distribution times q).
+  for (int r = warp; r < n_roots; r += W) {
+    const int node = sroots[2 * r], g = sroots[2 * r + 1];
+    if (used) {
+      vrh[node * RS + col] = T(0.25) * sq[g];
+      if (i == 0) lrh[node * TP + pl] = T(0);
+    }
+    __syncwarp();
+    finish_r(node);
+    __syncwarp();
+  }
+  __syncthreads();
+  // Leafward: rhat[dest] += q_g P_g RB[src]; r and rtilde on the last
+  // in-edge.
+  walk(slw, lw_grp, lw_lev, v_lw, [&](const StreamStep<T>& st) {
+    accumulate(vrh, lrh, st.dest, evolve(st, vRB), lRB[st.src * TP + pl]);
+    if (st.fin) {
+      finish_r(st.dest);
+      __syncwarp();
+    }
+  });
+
+  store_tile(p, vp, 4 * N, TP, s0, S);
+  store_tile(PH, vPH, 8 * N, TP, s0, S);
+  store_tile(rhat, vrh, 4 * N, TP, s0, S);
+  store_tile(RB, vRB, 8 * N, TP, s0, S);
+  store_tile(lsp, lp, N, TP, s0, S);
+  store_tile(lsPH, lPH, 2 * N, TP, s0, S);
+  store_tile(lsrhat, lrh, N, TP, s0, S);
+  store_tile(lsRB, lRB, 2 * N, TP, s0, S);
+}
+
+// ---------------------------------------------------------------------------
 // K8: golden-section branch sweep. Replaces the TPU kernel
 // libsbn_tpu/gp/engine_pallas.py::_sweep_kernel (pallas_call in
 // _optimize_pallas).
@@ -323,18 +614,45 @@ cudaError_t prepare(Kern kernel, size_t smem) {
   return cudaSuccess;
 }
 
+// The on-chip K7 takes the plan's tile TP and shared-memory bytes from the
+// caller, and refuses a plan that does not hold what it carves.
 template <typename T>
-int populate_entry(const void* rw, const void* lw, const void* roots, const void* q,
+int populate_entry(const void* rw, const void* lw, const void* roots, const void* rw_grp,
+                   const void* rw_lev, const void* lw_grp, const void* lw_lev, const void* q,
                    const void* P, const void* tips, void* p, void* PH, void* rhat, void* RB,
                    void* lsp, void* lsPH, void* lsrhat, void* lsRB, int n_rw, int n_lw,
-                   int n_roots, int E, int N, int L, int S, void* stream) {
+                   int n_roots, int g_rw, int v_rw, int g_lw, int v_lw, int E, int N, int L,
+                   int S, int TP, int smem, void* stream) {
+  if (TP < 1 || TP > 8 || smem < 0 || g_rw > n_rw || v_rw > g_rw || g_lw > n_lw ||
+      v_lw > g_lw || size_t(smem) < populate_onchip_bytes<T>(n_rw, n_lw, n_roots, E, N, TP)) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaError_t err = prepare(gp_populate_kernel<T>, size_t(smem));
+  if (err != cudaSuccess) return int(err);
+  const int grid = (S + TP - 1) / TP;
+  gp_populate_kernel<T><<<grid, 32 * kPopulateWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(rw), static_cast<const int*>(lw), static_cast<const int*>(roots),
+      static_cast<const int*>(rw_grp), static_cast<const int*>(rw_lev),
+      static_cast<const int*>(lw_grp), static_cast<const int*>(lw_lev), static_cast<const T*>(q),
+      static_cast<const T*>(P), static_cast<const T*>(tips), static_cast<T*>(p),
+      static_cast<T*>(PH), static_cast<T*>(rhat), static_cast<T*>(RB), static_cast<T*>(lsp),
+      static_cast<T*>(lsPH), static_cast<T*>(lsrhat), static_cast<T*>(lsRB), n_rw, n_lw, n_roots,
+      g_rw, v_rw, g_lw, v_lw, E, N, L, S, TP);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int populate_slab_entry(const void* rw, const void* lw, const void* roots, const void* q,
+                        const void* P, const void* tips, void* p, void* PH, void* rhat,
+                        void* RB, void* lsp, void* lsPH, void* lsrhat, void* lsRB, int n_rw,
+                        int n_lw, int n_roots, int E, int N, int L, int S, void* stream) {
   const size_t want = populate_shared_bytes<T>(n_rw, n_lw, n_roots, E);
   const int staged = want <= kMaxShared;
   const size_t smem = staged ? want : 0;
-  cudaError_t err = prepare(gp_populate_kernel<T>, smem);
+  cudaError_t err = prepare(gp_populate_slab_kernel<T>, smem);
   if (err != cudaSuccess) return int(err);
   const int grid = (S + kThreads - 1) / kThreads;
-  gp_populate_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  gp_populate_slab_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(rw), static_cast<const int*>(lw), static_cast<const int*>(roots),
       static_cast<const T*>(q), static_cast<const T*>(P), static_cast<const T*>(tips),
       static_cast<T*>(p), static_cast<T*>(PH), static_cast<T*>(rhat), static_cast<T*>(RB),
@@ -361,20 +679,50 @@ const char* lsbn_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-int lsbn_gp_populate_f32(const void* rw, const void* lw, const void* roots, const void* q,
-                         const void* P, const void* tips, void* p, void* PH, void* rhat, void* RB,
-                         void* lsp, void* lsPH, void* lsrhat, void* lsRB, int n_rw, int n_lw,
-                         int n_roots, int E, int N, int L, int S, void* stream) {
-  return populate_entry<float>(rw, lw, roots, q, P, tips, p, PH, rhat, RB, lsp, lsPH, lsrhat,
-                               lsRB, n_rw, n_lw, n_roots, E, N, L, S, stream);
+// K7 on chip: the streams' group and level offsets (gp/engine_kernels.py
+// edge_streams), and the plan's tile TP and shared-memory bytes
+// (populate_onchip_plan), come from the caller.
+int lsbn_gp_populate_f32(const void* rw, const void* lw, const void* roots,
+                         const void* rw_grp, const void* rw_lev, const void* lw_grp,
+                         const void* lw_lev, const void* q, const void* P, const void* tips,
+                         void* p, void* PH, void* rhat, void* RB, void* lsp, void* lsPH,
+                         void* lsrhat, void* lsRB, int n_rw, int n_lw, int n_roots, int g_rw,
+                         int v_rw, int g_lw, int v_lw, int E, int N, int L, int S, int TP,
+                         int smem, void* stream) {
+  return populate_entry<float>(rw, lw, roots, rw_grp, rw_lev, lw_grp, lw_lev, q, P, tips, p,
+                               PH, rhat, RB, lsp, lsPH, lsrhat, lsRB, n_rw, n_lw, n_roots, g_rw,
+                               v_rw, g_lw, v_lw, E, N, L, S, TP, smem, stream);
 }
 
-int lsbn_gp_populate_f64(const void* rw, const void* lw, const void* roots, const void* q,
-                         const void* P, const void* tips, void* p, void* PH, void* rhat, void* RB,
-                         void* lsp, void* lsPH, void* lsrhat, void* lsRB, int n_rw, int n_lw,
-                         int n_roots, int E, int N, int L, int S, void* stream) {
-  return populate_entry<double>(rw, lw, roots, q, P, tips, p, PH, rhat, RB, lsp, lsPH, lsrhat,
-                                lsRB, n_rw, n_lw, n_roots, E, N, L, S, stream);
+int lsbn_gp_populate_f64(const void* rw, const void* lw, const void* roots,
+                         const void* rw_grp, const void* rw_lev, const void* lw_grp,
+                         const void* lw_lev, const void* q, const void* P, const void* tips,
+                         void* p, void* PH, void* rhat, void* RB, void* lsp, void* lsPH,
+                         void* lsrhat, void* lsRB, int n_rw, int n_lw, int n_roots, int g_rw,
+                         int v_rw, int g_lw, int v_lw, int E, int N, int L, int S, int TP,
+                         int smem, void* stream) {
+  return populate_entry<double>(rw, lw, roots, rw_grp, rw_lev, lw_grp, lw_lev, q, P, tips, p,
+                                PH, rhat, RB, lsp, lsPH, lsrhat, lsRB, n_rw, n_lw, n_roots, g_rw,
+                                v_rw, g_lw, v_lw, E, N, L, S, TP, smem, stream);
+}
+
+// K7's slab route (a thread per pattern), for DAGs beyond the plan.
+int lsbn_gp_populate_slab_f32(const void* rw, const void* lw, const void* roots,
+                              const void* q, const void* P, const void* tips, void* p, void* PH,
+                              void* rhat, void* RB, void* lsp, void* lsPH, void* lsrhat,
+                              void* lsRB, int n_rw, int n_lw, int n_roots, int E, int N, int L,
+                              int S, void* stream) {
+  return populate_slab_entry<float>(rw, lw, roots, q, P, tips, p, PH, rhat, RB, lsp, lsPH,
+                                    lsrhat, lsRB, n_rw, n_lw, n_roots, E, N, L, S, stream);
+}
+
+int lsbn_gp_populate_slab_f64(const void* rw, const void* lw, const void* roots,
+                              const void* q, const void* P, const void* tips, void* p, void* PH,
+                              void* rhat, void* RB, void* lsp, void* lsPH, void* lsrhat,
+                              void* lsRB, int n_rw, int n_lw, int n_roots, int E, int N, int L,
+                              int S, void* stream) {
+  return populate_slab_entry<double>(rw, lw, roots, q, P, tips, p, PH, rhat, RB, lsp, lsPH,
+                                     lsrhat, lsRB, n_rw, n_lw, n_roots, E, N, L, S, stream);
 }
 
 int lsbn_gp_golden_sweep_f32(const void* A, const void* B, const void* w, const void* cur,

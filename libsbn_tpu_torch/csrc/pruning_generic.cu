@@ -24,18 +24,18 @@
 //   freqs         (B, 4) or (4,)    root frequencies, tree stride fs (4 or 0)
 //   props         (B, K) or (K,)    category proportions, tree stride ps
 //   weights       (P,)              pattern multiplicities
-//   E, U          (B, N1, 4K, P)    scratch of K4, K5 and K6's slab route:
-//                                   evolved and upper partials
+//   E, U          (B, N1, 4K, P)    scratch of K5 and of K4's and K6's slab
+//                                   routes: evolved and upper partials
 //   M             (B, S, 4K, P)     scratch of K6's slab route: rescaled
 //                                   node partials of the internal nodes
-//   ll_part       (B, T)            per (tree, pattern tile) LL partials
-//   grad_part     (B, T, N1)        per (tree, tile) branch gradients
+//   ll_part       (B, T or C)       per (tree, tile or chunk) LL partials
+//   grad_part     (B, T or C, N1)   per (tree, tile or chunk) branch gradients
 //   dp_part       (B, C, N1*K*16)   per (tree, tile or chunk) d ll / dP
 //   root_part     (B, C, 4 + K)     per (tree, tile or chunk) d ll / d
 //                                   freqs, props
-// with T = ceil(P / kThreads) tiles of the slab kernels; the on-chip K6
-// works in tiles of 32 / K patterns and a block walks `walk` of them, so
-// its C = ceil(ceil(P / (32 / K)) / walk) chunks. The caller sums the
+// with T = ceil(P / kThreads) tiles of the slab kernels; the on-chip K4 and
+// K6 work in tiles of 32 / K patterns and a block walks `walk` of them, so
+// their C = ceil(ceil(P / (32 / K)) / walk) chunks. The caller sums the
 // partials over T or C.
 //
 // The arithmetic follows libsbn_tpu/ops/pruning_pallas.py and
@@ -47,15 +47,15 @@
 // max. The plain PyTorch twins (ops/pruning_generic.py, ops/pruning_vjp.py)
 // repeat this order.
 //
-// Design of K4, K5 and K6's slab route: one thread per (tree, pattern) walks
+// Design of K5 and of K4's and K6's slab routes: one thread per (tree, pattern) walks
 // the node loop of its pattern column, E/U/M in device memory
 // (csrc/pruning_jc.cu's layout), and the block stages its tree's N1 * K 4x4
 // matrices (and Q) in shared memory, so the 16 coefficient loads of every
 // apply are broadcasts from shared memory rather than device-memory loads on
 // the dependent chain. Cross-pattern sums go warp shuffle -> shared memory
 // -> per-tile partial, with no atomics, so results repeat exactly from run
-// to run. K6 on chip keeps its tile's state in shared memory instead (see
-// generic_dp_kernel below).
+// to run. K4 and K6 on chip keep their tile's state in shared memory instead
+// (see generic_dp_kernel and generic_ll_grad_kernel below).
 
 #include <cuda_runtime.h>
 
@@ -451,22 +451,21 @@ __device__ __forceinline__ void forward_and_upper(
 }
 
 // ---------------------------------------------------------------------------
-// K4: LL and the branch gradient d LL / d b_e for every edge, in one pass.
-// Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas.py::_kernel.
-// Bound on this card: device-memory traffic of E and U (the forward pass as
-// in K5, then each upward step reads U of the node and three child slabs of
-// E and writes three U slabs) and the dependent loads along both node loops;
-// the matrices and Q come from shared memory, so the explicit 4x4 applies
-// (and the Q_k E product per edge) cost arithmetic, not loads.
+// The slab route of K4: its first design, the body above over device-memory
+// E and U slabs (each upward step reads U of the node and three child slabs
+// of E and writes three U slabs; the matrices and Q come from shared
+// memory). Kept for trees whose on-chip plan (generic_ll_grad_kernel below)
+// cannot hold a tile; ops/pruning_generic.py chooses it from the plan and
+// counts it as "ll_grad_generic_slab".
 // ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-generic_ll_grad_kernel(const int* __restrict__ post_children, const T* __restrict__ Pm,
-                       const T* __restrict__ Q, const T* __restrict__ tips,
-                       const T* __restrict__ freqs, const T* __restrict__ props,
-                       const T* __restrict__ weights, T* __restrict__ E, T* __restrict__ U,
-                       T* __restrict__ ll_part, T* __restrict__ grad_part, int L, int S, int N1,
-                       int P) {
+generic_ll_grad_slab_kernel(const int* __restrict__ post_children, const T* __restrict__ Pm,
+                            const T* __restrict__ Q, const T* __restrict__ tips,
+                            const T* __restrict__ freqs, const T* __restrict__ props,
+                            const T* __restrict__ weights, T* __restrict__ E,
+                            T* __restrict__ U, T* __restrict__ ll_part, T* __restrict__ grad_part,
+                            int L, int S, int N1, int P) {
   extern __shared__ __align__(16) unsigned char smem[];
   forward_and_upper<T, K, false>(smem, post_children, Pm, Q, tips, freqs, props, weights, E,
                                  nullptr, U, ll_part, grad_part, 0, 0, L, S, N1, P);
@@ -625,8 +624,9 @@ struct GenericOnChip {
 
   // This lane's 4 values of the node partial of combine step s: prod =
   // (E[c0] E[c1]) E[c2] over its max across all 4K values of the pattern
-  // (1 when the max is not positive), as forward_pass computes it.
-  __device__ __forceinline__ void combine(int s, T* prod) const {
+  // (1 when the max is not positive), as forward_pass computes it; returns
+  // that scale.
+  __device__ __forceinline__ T combine(int s, T* prod) const {
     T a[4];
     row(pc[3 * s], prod);
     row(pc[3 * s + 1], a);
@@ -642,6 +642,7 @@ struct GenericOnChip {
     scale = scale > T(0) ? scale : T(1);
 #pragma unroll
     for (int i = 0; i < 4; ++i) prod[i] = prod[i] / scale;
+    return scale;
   }
 };
 
@@ -838,6 +839,190 @@ generic_dp_kernel(const int* __restrict__ post_children, const T* __restrict__ P
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4: LL and the branch gradient d LL / d b_e for every edge, in one pass.
+// Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas.py::_kernel, which
+// kept a pattern tile's E and U in VMEM scratch.
+// Design: generic_dp_kernel's (a block is one warp and owns one tree; lane l
+// works on category l % K of pattern l / K, a tile of 32 / K patterns; the
+// block walks `walk` tiles in a fixed order), with K4's outputs:
+//   * the forward pass as K6 runs it, E rows of the S - 1 internal nodes
+//     below the root in the lanes' shared-memory columns, leaves recomputed
+//     as P_leaf tip, the ones slot the constant 1; at the root, E = P_root M
+//     and the LL w (log site + sum log scale), K5's arithmetic;
+//   * the upper pass from U[root] = props_k freqs_i down: U[kid] overwrites
+//     E[kid] after all three kids' E rows are in registers (K6's argument);
+//   * per child edge c, each lane forms u and Q_k E_c (one 4x4 apply from the
+//     staged Q), and two group sums over the pattern's K lanes, in category
+//     order, give num = u . Q_k E_c and denom = u . E_c; the gradient
+//     w num / max(denom, 1e-30) goes into the block's running sum for
+//     (c, the lane's pattern slot) in shared memory, which only that lane
+//     touches: no atomics, no shuffles. At the end the block sums each
+//     edge's pattern slots in order and writes one partial per (tree,
+//     chunk), and its LL partial: a call adds B C (N1 + 1) values, where the
+//     slab route's E and U scratch took 2 B N1 4K P.
+// Bound on this card: arithmetic, about 0.08 ms at the JAX bench's config 2
+// (B = 256 DS1.100 f32 Weibull+4; chip_smoke.py computes it from its
+// inputs), against device-memory traffic for the slab route. Measured
+// 1.40 ms there (5.6% of the bound) against 2.28 ms for the slab route in
+// the same run (NVIDIA H100 80GB HBM3, 700 W; PERF.md). Like K6 it issues
+// more instructions than the work needs: every lane repeats its pattern's
+// schedule, address and division work, and the per-pattern max,
+// denominator, numerator and site sums cross K lanes by shuffles.
+// Route for larger trees (the plan cannot hold a tile): the slab route above,
+// chosen by ops/pruning_generic.py from the shapes.
+// ---------------------------------------------------------------------------
+
+// Bytes of shared memory the on-chip K4 takes (a tile of TP = 32 / K
+// patterns); ops/pruning_generic.py ll_grad_onchip_bytes computes the same
+// sum.
+template <typename T>
+__host__ __device__ size_t ll_grad_onchip_bytes(int S, int N1, int K, int TP) {
+  return sizeof(T) * (size_t(N1) * K * 16 + size_t(K) * 16 + (size_t(S) - 1) * 4 * 32 +
+                      size_t(N1) * TP + 4 + K) +
+         sizeof(int) * 3 * size_t(S);
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(32)
+generic_ll_grad_kernel(const int* __restrict__ post_children, const T* __restrict__ Pm,
+                       const T* __restrict__ Q, const T* __restrict__ tips,
+                       const T* __restrict__ freqs, const T* __restrict__ props,
+                       const T* __restrict__ weights, T* __restrict__ ll_part,
+                       T* __restrict__ grad_part, int L, int S, int N1, int P, int walk) {
+  constexpr int TP = 32 / K;  // patterns a tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x;
+  const int pl = lane / K;    // the lane's pattern in the tile
+  const int k = lane % K;     // and its rate category
+  const bool used = pl < TP;
+  const int b = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const int root = L + S - 1;
+  const int ones = N1 - 1;
+  const T tiny = T(1e-30);
+
+  // Carve shared memory in ll_grad_onchip_bytes' order and stage the tree.
+  T* s_P = reinterpret_cast<T*>(smem);
+  T* s_Q = s_P + N1 * K * 16;
+  T* slot = s_Q + K * 16;
+  T* gacc = slot + size_t(S - 1) * 4 * 32;  // (N1, TP) edge sums per pattern slot
+  T* s_freqs = gacc + size_t(N1) * TP;
+  T* s_props = s_freqs + 4;
+  int* s_pc = reinterpret_cast<int*>(s_props + K);
+  for (int i = lane; i < 3 * S; i += 32) {
+    cp_async<sizeof(int)>(s_pc + i, post_children + size_t(b) * 3 * S + i);
+  }
+  const T* Pb = Pm + size_t(b) * N1 * K * 16;
+  for (int i = lane; i < N1 * K * 16; i += 32) cp_async<sizeof(T)>(s_P + i, Pb + i);
+  for (int i = lane; i < K * 16; i += 32) cp_async<sizeof(T)>(s_Q + i, Q + i);
+  for (int i = lane; i < 4; i += 32) s_freqs[i] = freqs[i];
+  for (int i = lane; i < K; i += 32) s_props[i] = props[i];
+  for (int i = lane; i < N1 * TP; i += 32) gacc[i] = T(0);
+  cp_async_wait_all();
+  __syncthreads();
+
+  T llacc = T(0);
+  const T pk = s_props[k];
+  const int tiles = (P + TP - 1) / TP;
+  const int t0 = chunk * walk;
+  const int t1 = t0 + walk < tiles ? t0 + walk : tiles;
+  for (int tile = t0; tile < t1; ++tile) {
+    const int p = tile * TP + pl;
+    const bool active = used && p < P;
+    // Every lane runs every step, so that the shuffles see the whole warp;
+    // an inactive lane works on pattern 0 and its results are dropped.
+    const GenericOnChip<T, K> o{s_P, slot + lane, tips + (active ? p : 0), s_pc,
+                                k, pl * K, L, S, N1, P};
+    const T w = active ? weights[p] : T(0);
+
+    // Forward: the S combine steps, each storing E[node] but the root's,
+    // which stays in registers, with the sum of the log scales.
+    T logscale = T(0);
+    T eroot[4];
+    for (int s = 0; s < S; ++s) {
+      T prod[4], out[4];
+      logscale += log_t(o.combine(s, prod));
+      apply4<T, false>(o.mat(L + s), prod, out);
+      if (s == S - 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) eroot[i] = out[i];
+        break;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o.at(L + s, i) = out[i];
+    }
+    T site = T(0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) site += (pk * s_freqs[i]) * eroot[i];
+    site = group_sum<T, K>(site, o.base);
+    site = site > tiny ? site : tiny;
+    if (active && k == 0) llacc += w * (log_t(site) + logscale);
+
+    // Upper pass, from the root down.
+    for (int t = 0; t < S; ++t) {
+      const int node = root - t;
+      const int s = node - L;
+      const int kid[3] = {s_pc[3 * s], s_pc[3 * s + 1], s_pc[3 * s + 2]};
+      T un[4], ev[4], e0[4], e1[4], e2[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) un[i] = node == root ? pk * s_freqs[i] : o.at(node, i);
+      apply4<T, true>(o.mat(node), un, ev);
+      o.row(kid[0], e0);
+      o.row(kid[1], e1);
+      o.row(kid[2], e2);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int c = kid[j];
+        if (c == ones) continue;  // its edge is no edge: its gradient is zero
+        T u[4], qe[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const T a = j == 0 ? e1[i] : e0[i];
+          const T bb = j == 2 ? e1[i] : e2[i];
+          u[i] = (ev[i] * a) * bb;
+        }
+        const T* ek = j == 0 ? e0 : (j == 1 ? e1 : e2);
+        T d = u[0] * ek[0];
+#pragma unroll
+        for (int i = 1; i < 4; ++i) d += u[i] * ek[i];
+        const T denom = group_sum<T, K>(d, o.base);
+        apply4<T, false>(s_Q + k * 16, ek, qe);
+        T x = u[0] * qe[0];
+#pragma unroll
+        for (int i = 1; i < 4; ++i) x += u[i] * qe[i];
+        const T num = group_sum<T, K>(x, o.base);
+        if (active && k == 0) {
+          gacc[c * TP + pl] += w * num / (denom > tiny ? denom : tiny);
+        }
+        if (c >= L) {
+          T sc = u[0];
+#pragma unroll
+          for (int i = 1; i < 4; ++i) sc = u[i] > sc ? u[i] : sc;
+          sc = group_max<T, K>(sc, o.base);
+          sc = sc > T(0) ? sc : T(1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o.at(c, i) = u[i] / sc;
+        }
+      }
+    }
+  }
+  // The chunk's partials: each edge's pattern slots summed in order (the
+  // root and ones-slot rows are zero), and the LL over the warp.
+  __syncwarp();
+  const size_t blk = size_t(b) * gridDim.y + chunk;
+  for (int n = lane; n < N1; n += 32) {
+    T acc = T(0);
+    if (n != root && n != ones) {
+      acc = gacc[n * TP];
+      for (int q = 1; q < TP; ++q) acc += gacc[n * TP + q];
+    }
+    grad_part[blk * N1 + n] = acc;
+  }
+  llacc = warp_sum(llacc);
+  if (lane == 0) ll_part[blk] = llacc;
+}
+
 template <typename Kern>
 cudaError_t prepare(Kern kernel, size_t smem) {
   if (smem > kMaxShared) return cudaErrorInvalidConfiguration;
@@ -861,16 +1046,34 @@ int launch_ll(const int* pc, const T* Pm, const T* tips, const T* freqs, const T
 }
 
 template <typename T, int K>
-int launch_ll_grad(const int* pc, const T* Pm, const T* Q, const T* tips, const T* freqs,
-                   const T* props, const T* w, T* E, T* U, T* ll_part, T* grad_part, int B,
-                   int L, int S, int N1, int P, cudaStream_t st) {
+int launch_ll_grad_slab(const int* pc, const T* Pm, const T* Q, const T* tips, const T* freqs,
+                        const T* props, const T* w, T* E, T* U, T* ll_part, T* grad_part, int B,
+                        int L, int S, int N1, int P, cudaStream_t st) {
   const size_t smem = shared_bytes<T>(S, N1, K, N1, 1);
-  cudaError_t err = prepare(generic_ll_grad_kernel<T, K>, smem);
+  cudaError_t err = prepare(generic_ll_grad_slab_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
-  generic_ll_grad_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, Pm, Q, tips, freqs, props, w,
-                                                             E, U, ll_part, grad_part, L, S, N1,
-                                                             P);
+  generic_ll_grad_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(
+      pc, Pm, Q, tips, freqs, props, w, E, U, ll_part, grad_part, L, S, N1, P);
+  return int(cudaGetLastError());
+}
+
+// The on-chip K4 takes the plan's tile TP and shared-memory bytes from the
+// caller, and refuses a plan that does not hold what it carves.
+template <typename T, int K>
+int launch_ll_grad(const int* pc, const T* Pm, const T* Q, const T* tips, const T* freqs,
+                   const T* props, const T* w, T* ll_part, T* grad_part, int B, int L, int S,
+                   int N1, int P, int TP, int smem, int walk, cudaStream_t st) {
+  if (TP != 32 / K || walk < 1 || smem < 0 ||
+      size_t(smem) < ll_grad_onchip_bytes<T>(S, N1, K, TP)) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaError_t err = prepare(generic_ll_grad_kernel<T, K>, size_t(smem));
+  if (err != cudaSuccess) return int(err);
+  const int tiles = (P + TP - 1) / TP;
+  const dim3 grid(B, (tiles + walk - 1) / walk);
+  generic_ll_grad_kernel<T, K><<<grid, 32, smem, st>>>(pc, Pm, Q, tips, freqs, props, w,
+                                                       ll_part, grad_part, L, S, N1, P, walk);
   return int(cudaGetLastError());
 }
 
@@ -935,17 +1138,33 @@ int ll_entry(const void* pc, const void* Pm, const void* tips, const void* freqs
 
 template <typename T>
 int ll_grad_entry(const void* pc, const void* Pm, const void* Q, const void* tips,
-                  const void* freqs, const void* props, const void* w, void* E, void* U,
-                  void* ll_part, void* grad_part, int B, int L, int S, int N1, int K, int P,
-                  void* stream) {
+                  const void* freqs, const void* props, const void* w, void* ll_part,
+                  void* grad_part, int B, int L, int S, int N1, int K, int P, int TP, int smem,
+                  int walk, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+#define LSBN_CALL(KK)                                                                          \
+  launch_ll_grad<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(Pm),               \
+                        static_cast<const T*>(Q), static_cast<const T*>(tips),                 \
+                        static_cast<const T*>(freqs), static_cast<const T*>(props),            \
+                        static_cast<const T*>(w), static_cast<T*>(ll_part),                    \
+                        static_cast<T*>(grad_part), B, L, S, N1, P, TP, smem, walk, st)
+  LSBN_DISPATCH_K(K, LSBN_CALL)
+#undef LSBN_CALL
+}
+
+template <typename T>
+int ll_grad_slab_entry(const void* pc, const void* Pm, const void* Q, const void* tips,
+                       const void* freqs, const void* props, const void* w, void* E, void* U,
+                       void* ll_part, void* grad_part, int B, int L, int S, int N1, int K, int P,
+                       void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define LSBN_CALL(KK)                                                                           \
-  launch_ll_grad<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(Pm),                \
-                        static_cast<const T*>(Q), static_cast<const T*>(tips),                  \
-                        static_cast<const T*>(freqs), static_cast<const T*>(props),             \
-                        static_cast<const T*>(w), static_cast<T*>(E), static_cast<T*>(U),       \
-                        static_cast<T*>(ll_part), static_cast<T*>(grad_part), B, L, S, N1, P, \
-                        st)
+  launch_ll_grad_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(Pm),           \
+                             static_cast<const T*>(Q), static_cast<const T*>(tips),             \
+                             static_cast<const T*>(freqs), static_cast<const T*>(props),        \
+                             static_cast<const T*>(w), static_cast<T*>(E), static_cast<T*>(U),  \
+                             static_cast<T*>(ll_part), static_cast<T*>(grad_part), B, L, S, N1, \
+                             P, st)
   LSBN_DISPATCH_K(K, LSBN_CALL)
 #undef LSBN_CALL
 }
@@ -1008,20 +1227,42 @@ int lsbn_generic_ll_f64(const void* pc, const void* Pm, const void* tips, const 
                           stream);
 }
 
+// K4 on chip: the plan's tile TP and shared-memory bytes come from the
+// caller (ops/pruning_generic.py ll_grad_onchip_plan), and each block walks
+// `walk` tiles.
 int lsbn_generic_ll_grad_f32(const void* pc, const void* Pm, const void* Q, const void* tips,
-                             const void* freqs, const void* props, const void* w, void* E,
-                             void* U, void* ll_part, void* grad_part, int B, int L, int S,
-                             int N1, int K, int P, void* stream) {
-  return ll_grad_entry<float>(pc, Pm, Q, tips, freqs, props, w, E, U, ll_part, grad_part, B, L,
-                              S, N1, K, P, stream);
+                             const void* freqs, const void* props, const void* w, void* ll_part,
+                             void* grad_part, int B, int L, int S, int N1, int K, int P, int TP,
+                             int smem, int walk, void* stream) {
+  return ll_grad_entry<float>(pc, Pm, Q, tips, freqs, props, w, ll_part, grad_part, B, L, S, N1,
+                              K, P, TP, smem, walk, stream);
 }
 
 int lsbn_generic_ll_grad_f64(const void* pc, const void* Pm, const void* Q, const void* tips,
-                             const void* freqs, const void* props, const void* w, void* E,
-                             void* U, void* ll_part, void* grad_part, int B, int L, int S,
-                             int N1, int K, int P, void* stream) {
-  return ll_grad_entry<double>(pc, Pm, Q, tips, freqs, props, w, E, U, ll_part, grad_part, B, L,
-                               S, N1, K, P, stream);
+                             const void* freqs, const void* props, const void* w, void* ll_part,
+                             void* grad_part, int B, int L, int S, int N1, int K, int P, int TP,
+                             int smem, int walk, void* stream) {
+  return ll_grad_entry<double>(pc, Pm, Q, tips, freqs, props, w, ll_part, grad_part, B, L, S,
+                               N1, K, P, TP, smem, walk, stream);
+}
+
+// K4's slab route (tile kThreads), for trees beyond the plan.
+int lsbn_generic_ll_grad_slab_f32(const void* pc, const void* Pm, const void* Q,
+                                  const void* tips, const void* freqs, const void* props,
+                                  const void* w, void* E, void* U, void* ll_part,
+                                  void* grad_part, int B, int L, int S, int N1, int K, int P,
+                                  void* stream) {
+  return ll_grad_slab_entry<float>(pc, Pm, Q, tips, freqs, props, w, E, U, ll_part, grad_part, B,
+                                   L, S, N1, K, P, stream);
+}
+
+int lsbn_generic_ll_grad_slab_f64(const void* pc, const void* Pm, const void* Q,
+                                  const void* tips, const void* freqs, const void* props,
+                                  const void* w, void* E, void* U, void* ll_part,
+                                  void* grad_part, int B, int L, int S, int N1, int K, int P,
+                                  void* stream) {
+  return ll_grad_slab_entry<double>(pc, Pm, Q, tips, freqs, props, w, E, U, ll_part, grad_part,
+                                    B, L, S, N1, K, P, stream);
 }
 
 // K6 on chip: the plan's tile TP and shared-memory bytes come from the

@@ -37,6 +37,14 @@ operations (``populate_plvs_twin``, ``golden_sweep_twin``). The public
 functions route by device: a CPU tensor goes to the twin, a CUDA tensor to
 the kernel (csrc/gp_engine.cu), which raises on anything it cannot take.
 Nothing falls back.
+
+K7 on the card keeps a tile of up to 8 patterns' PLVs in shared memory, a
+lane per (pattern, state), and its warps share each level's destination
+groups (``stream_groups``); ``populate_onchip_plan`` chooses the tile from
+the dtype and the DAG's sizes. A DAG where not even one pattern fits takes
+the slab route, K7's first design over device-memory PLVs (a thread per
+pattern), counted as ``populate_plvs_slab``. The route follows from the
+shapes alone.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ import numpy as np
 import torch
 
 from ..ops import _kernels
+from ..ops.pruning_jc import SHARED_LIMIT
 
 NEG = -1e30  # log-scale "empty" sentinel: exp(NEG - m) underflows to 0
 MIN_LOG_BL = -13.9
@@ -57,8 +66,12 @@ INVPHI = (math.sqrt(5.0) - 1.0) / 2.0
 
 # Launch counts of the CUDA kernels and call counts of their twins, so a run
 # can show which one it took. reset_counters() sets them all to 0.
-LAUNCHES = {"populate_plvs": 0, "golden_sweep": 0}
+LAUNCHES = {"populate_plvs": 0, "populate_plvs_slab": 0, "golden_sweep": 0}
 TWIN_CALLS = {"populate_plvs": 0, "golden_sweep": 0}
+
+# Patterns a tile of the on-chip K7 holds at most: a lane per (pattern,
+# state), one warp.
+POPULATE_TILE = 8
 
 PLV_KEYS = ("p", "phat", "phattilde", "rhat", "r", "rtilde", "ls_p", "ls_phat",
             "ls_phattilde", "ls_rhat", "ls_r", "ls_rtilde")
@@ -71,12 +84,18 @@ def reset_counters():
 
 
 class EdgeStreams(NamedTuple):
-    """K7's instruction streams on one device (see build_edge_streams)."""
+    """K7's instruction streams on one device (see build_edge_streams), and
+    the offsets the on-chip K7 shares a level's rows out by
+    (``stream_groups``)."""
 
     rootward: torch.Tensor  # (T_rw, 5) int32
     leafward: torch.Tensor  # (T_lw, 5) int32
     roots: torch.Tensor  # (R, 2) int32: (root node, root gpcsp)
     node_count: int
+    rootward_groups: torch.Tensor  # (G_rw + 1,) int32 row offsets
+    rootward_levels: torch.Tensor  # (V_rw + 1,) int32 group offsets
+    leafward_groups: torch.Tensor  # (G_lw + 1,) int32
+    leafward_levels: torch.Tensor  # (V_lw + 1,) int32
 
 
 def build_edge_streams(engine):
@@ -127,9 +146,24 @@ def build_edge_streams(engine):
     )
 
 
+def stream_groups(rows, level_sizes):
+    """(groups, levels) of one stream: the row offsets of its destination
+    groups (a group is the rows into one destination in one level, and
+    ends at its finish flag) and, per level, the offsets of its groups.
+    Every level ends a group, so the on-chip K7's warps can share a
+    level's groups out and sync between levels."""
+    ends = np.flatnonzero(rows[:, 3]) + 1
+    level_ends = np.cumsum(np.asarray(level_sizes, dtype=np.int64))
+    if len(rows) and not np.isin(level_ends, np.r_[0, ends]).all():
+        raise ValueError("a stream level does not end at a finish flag")
+    levels = np.searchsorted(ends, level_ends, side="right")
+    return np.r_[0, ends], np.r_[0, levels]
+
+
 def edge_streams(engine, device) -> EdgeStreams:
     """build_edge_streams as int32 tensors on ``device``, with the node
-    count; the host checks every index once here, so the kernel does not."""
+    count and the streams' group and level offsets; the host checks every
+    index once here, so the kernel does not."""
     rw, lw, roots = build_edge_streams(engine)
     N = engine.dag.node_count()
     E = engine.dag.gpcsp_count_with_fake()
@@ -144,7 +178,9 @@ def edge_streams(engine, device) -> EdgeStreams:
     def t(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=device)
 
-    return EdgeStreams(t(rw), t(lw), t(roots), N)
+    rw_groups = stream_groups(rw, [len(lv["parent"]) for lv in engine.rootward_levels])
+    lw_groups = stream_groups(lw, [len(lv["parent"]) for lv in engine.leafward_levels])
+    return EdgeStreams(t(rw), t(lw), t(roots), N, *map(t, rw_groups + lw_groups))
 
 
 def _plv_dict(N, p, PH, rhat, RB, lsp, lsPH, lsrhat, lsRB):
@@ -326,12 +362,41 @@ def _working(x):
     return x.dtype, x.device
 
 
+def populate_onchip_bytes(itemsize, N, E, T_rw, T_lw, R, TP):
+    """Shared-memory bytes of the on-chip K7 for a tile of TP patterns, as
+    csrc/gp_engine.cu populate_onchip_bytes carves them: P and q (17 E
+    values), the tile's PLVs p, PH, rhat and RB (24 N values a pattern) and
+    their log-scales (6 N a pattern), and in int32 the three streams and,
+    reserved at their most, each stream's group and level offsets
+    (2 (T + 1) each)."""
+    ints = 7 * T_rw + 7 * T_lw + 2 * R + 4
+    return itemsize * (30 * N * TP + 17 * E) + 4 * ints
+
+
+def populate_onchip_plan(dtype, N, E, T_rw, T_lw, R):
+    """(TP, shared bytes) of the on-chip K7 for a DAG of N nodes, E GPCSPs,
+    T_rw rootward and T_lw leafward stream rows and R rootsplits: the largest
+    tile TP <= POPULATE_TILE whose state fits in SHARED_LIMIT, or None when
+    not even one pattern fits (the slab route)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    for TP in range(POPULATE_TILE, 0, -1):
+        need = populate_onchip_bytes(itemsize, N, E, T_rw, T_lw, R, TP)
+        if need <= SHARED_LIMIT:
+            return TP, need
+    return None
+
+
 def populate_plvs_cuda(streams: EdgeStreams, q, P, tips):
-    """K7 on the card: the 12-entry PLV dict (see populate_plvs)."""
+    """K7 on the card: the 12-entry PLV dict (see populate_plvs). On chip
+    when populate_onchip_plan fits, else the slab route."""
     dt, dev = _working(tips)
     i32 = torch.int32
     _check([("rootward", streams.rootward, i32),
             ("leafward", streams.leafward, i32), ("roots", streams.roots, i32),
+            ("rootward_groups", streams.rootward_groups, i32),
+            ("rootward_levels", streams.rootward_levels, i32),
+            ("leafward_groups", streams.leafward_groups, i32),
+            ("leafward_levels", streams.leafward_levels, i32),
             ("q", q, None), ("P", P, None), ("tips", tips, None)], dt, dev)
     E = q.shape[0]
     L, four, S = tips.shape
@@ -341,6 +406,18 @@ def populate_plvs_cuda(streams: EdgeStreams, q, P, tips):
                          f"{tuple(q.shape)}, {tuple(P.shape)}, {tuple(tips.shape)}")
     if S < 1 or L > N:
         raise ValueError(f"{S} patterns, {L} tips for {N} nodes")
+    plan = populate_onchip_plan(dt, N, E, streams.rootward.shape[0],
+                                streams.leafward.shape[0], streams.roots.shape[0])
+    return _populate_plvs_launch(streams, q, P, tips, plan)
+
+
+def _populate_plvs_launch(streams: EdgeStreams, q, P, tips, plan):
+    """K7 on chip with ``plan`` (TP, shared bytes), or its slab route when
+    plan is None; inputs checked by the caller."""
+    dt, dev = tips.dtype, tips.device
+    E = q.shape[0]
+    L, _, S = tips.shape
+    N = streams.node_count
     lib = _kernels.load("gp_engine")
     p = torch.empty((N, 4, S), dtype=dt, device=dev)
     PH = torch.empty((2 * N, 4, S), dtype=dt, device=dev)
@@ -350,20 +427,24 @@ def populate_plvs_cuda(streams: EdgeStreams, q, P, tips):
     lsPH = torch.empty((2 * N, S), dtype=dt, device=dev)
     lsrhat = torch.empty_like(lsp)
     lsRB = torch.empty_like(lsPH)
-    fn = (lib.lsbn_gp_populate_f32 if dt == torch.float32
-          else lib.lsbn_gp_populate_f64)
+    rows = (streams.rootward, streams.leafward, streams.roots)
+    if plan is None:
+        key, name, offsets = "populate_plvs_slab", "lsbn_gp_populate_slab", ()
+    else:
+        key, name = "populate_plvs", "lsbn_gp_populate"
+        offsets = (streams.rootward_groups, streams.rootward_levels,
+                   streams.leafward_groups, streams.leafward_levels)
+    fn = getattr(lib, f"{name}_{'f32' if dt == torch.float32 else 'f64'}")
+    outs = (p, PH, rhat, RB, lsp, lsPH, lsrhat, lsRB)
     with torch.cuda.device(dev):
         rc = fn(
-            streams.rootward.data_ptr(), streams.leafward.data_ptr(),
-            streams.roots.data_ptr(), q.data_ptr(), P.data_ptr(),
-            tips.data_ptr(), p.data_ptr(), PH.data_ptr(), rhat.data_ptr(),
-            RB.data_ptr(), lsp.data_ptr(), lsPH.data_ptr(), lsrhat.data_ptr(),
-            lsRB.data_ptr(), streams.rootward.shape[0],
-            streams.leafward.shape[0], streams.roots.shape[0], E, N, L, S,
-            torch.cuda.current_stream().cuda_stream,
+            *(x.data_ptr() for x in rows + offsets + (q, P, tips) + outs),
+            *(x.shape[0] for x in rows), *(x.shape[0] - 1 for x in offsets),
+            E, N, L, S, *(plan or ()), torch.cuda.current_stream().cuda_stream,
         )
-    _kernels.check(lib, rc, "GP populate kernel")
-    LAUNCHES["populate_plvs"] += 1
+    _kernels.check(lib, rc, "GP populate kernel"
+                   + (" (slab route)" if plan is None else ""))
+    LAUNCHES[key] += 1
     return _plv_dict(N, p, PH, rhat, RB, lsp, lsPH, lsrhat, lsRB)
 
 

@@ -75,9 +75,12 @@ def _bind_generic(lib):
         # pc, P, tips, freqs, props, w, E, ll_part; fs, ps, B, L, S, N1, K,
         # P; stream
         _sig(lib, f"lsbn_generic_ll_{dt}", 8, 8)
-        # pc, P, Q, tips, freqs, props, w, E, U, ll_part, grad_part;
-        # B, L, S, N1, K, P; stream
-        _sig(lib, f"lsbn_generic_ll_grad_{dt}", 11, 6)
+        # pc, P, Q, tips, freqs, props, w, ll_part, grad_part; B, L, S, N1,
+        # K, P, tile, shared bytes, tiles a block walks; stream
+        _sig(lib, f"lsbn_generic_ll_grad_{dt}", 9, 9)
+        # The slab route: pc, P, Q, tips, freqs, props, w, E, U, ll_part,
+        # grad_part; B, L, S, N1, K, P; stream
+        _sig(lib, f"lsbn_generic_ll_grad_slab_{dt}", 11, 6)
         # pc, P, tips, freqs, props, w, dp_part, root_part; fs, ps, B, L, S,
         # N1, K, P, tile, shared bytes, tiles a block walks; stream
         _sig(lib, f"lsbn_generic_dp_{dt}", 8, 11)
@@ -88,9 +91,14 @@ def _bind_generic(lib):
 
 def _bind_gp(lib):
     for dt in ("f32", "f64"):
-        # rootward, leafward, roots, q, P, tips, p, PH, rhat, RB, lsp, lsPH,
-        # lsrhat, lsRB; n_rw, n_lw, n_roots, E, N, L, S; stream
-        _sig(lib, f"lsbn_gp_populate_{dt}", 14, 7)
+        # rootward, leafward, roots, the streams' group and level offsets
+        # (rootward, then leafward), q, P, tips, p, PH, rhat, RB, lsp, lsPH,
+        # lsrhat, lsRB; n_rw, n_lw, n_roots, the offsets' group and level
+        # counts, E, N, L, S, tile, shared bytes; stream
+        _sig(lib, f"lsbn_gp_populate_{dt}", 18, 13)
+        # The slab route: rootward, leafward, roots, q, P, tips, the 8
+        # outputs; n_rw, n_lw, n_roots, E, N, L, S; stream
+        _sig(lib, f"lsbn_gp_populate_slab_{dt}", 14, 7)
         # A, B, w, cur, out; E, S; stream
         _sig(lib, f"lsbn_gp_golden_sweep_{dt}", 5, 2)
 

@@ -18,6 +18,15 @@ twins in ops/pruning_vjp.py. A CPU tensor goes to the twin, a CUDA tensor
 to the kernel, which raises on anything it cannot take; nothing falls back.
 The kernel masks the ragged pattern tile, so patterns are not padded, and
 assumes what ``pruning_jc.check_schedule`` checks on the host.
+
+K4 runs K6's layout: a lane per (pattern, rate category), a tile of
+32 // K patterns a warp, the tile's pruning state in shared memory
+(``ll_grad_onchip_plan`` checks from (dtype, K, S, L) that it fits); each
+block walks the tiles of GRAD_SPAN patterns and writes one LL and one
+gradient partial per (tree, chunk of tiles). A tree beyond the plan (or
+more than 65,535 chunks of patterns) takes the slab route, K4's first
+design over (B, N1, 4K, P) scratch, counted as ``ll_grad_generic_slab``.
+The route follows from the shapes alone.
 """
 
 from __future__ import annotations
@@ -26,11 +35,15 @@ import torch
 
 from . import _kernels
 from .pruning import per_tree
+from .pruning_jc import MAX_TILES, SHARED_LIMIT
 
 # Launch counts of the CUDA kernel and call counts of its twin, so a run can
 # show which one it took. reset_counters() sets them to 0.
-LAUNCHES = {"ll_grad_generic": 0}
+LAUNCHES = {"ll_grad_generic": 0, "ll_grad_generic_slab": 0}
 TWIN_CALLS = {"ll_grad_generic": 0}
+# Patterns each block of the on-chip K4 walks, in tiles of 32 // K (one warp
+# a block).
+GRAD_SPAN = 128
 
 TINY = 1e-30
 
@@ -267,10 +280,33 @@ def load_checked(K):
     return lib
 
 
+def ll_grad_onchip_bytes(itemsize, K, S, L):
+    """Shared-memory bytes of the on-chip K4 for a tile of 32 // K patterns
+    (one warp, a lane per pattern and category), as csrc/pruning_generic.cu
+    ll_grad_onchip_bytes carves them: the tree's N1 K 4x4 matrices, Q
+    (K 16), each lane's 4 values of the E/U rows of the S - 1 internal
+    nodes below the root, the running edge sums per pattern slot
+    (N1 (32 // K)), freqs and props, and the schedule row (int32)."""
+    N1 = L + S + 1
+    tile = 32 // K
+    values = N1 * K * 16 + K * 16 + (S - 1) * 4 * 32 + N1 * tile + 4 + K
+    return itemsize * values + 4 * 3 * S
+
+
+def ll_grad_onchip_plan(dtype, K, S, L):
+    """(tile, shared bytes) of the on-chip K4 for a tree of L leaves and S
+    combine steps: 32 // K patterns when their state fits in SHARED_LIMIT,
+    else None (the slab route)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    need = ll_grad_onchip_bytes(itemsize, K, S, L)
+    return (32 // K, need) if need <= SHARED_LIMIT else None
+
+
 def ll_grad_generic_cuda(post_children, P, Q_scaled, tips, freqs, props,
                          weights, *, root_id):
     """K4 on the card: (ll (B,), grad (B, N1)). freqs (4,) and props (K,)
-    are shared by all trees."""
+    are shared by all trees. On chip when the plan fits, else the slab
+    route."""
     dims, (freqs, fs), (props, ps) = check_inputs(
         post_children, P, tips, weights, freqs, props, root_id, Q=Q_scaled)
     if fs or ps:
@@ -278,13 +314,41 @@ def ll_grad_generic_cuda(post_children, P, Q_scaled, tips, freqs, props,
     B, L, S, N1, K, n_pat = dims
     dt, dev = tips.dtype, tips.device
     lib = load_checked(K)
+    plan = ll_grad_onchip_plan(dt, K, S, L)
+    tile = 32 // K
+    walk = -(-GRAD_SPAN // tile)  # tiles a block walks
+    chunks = -(-n_pat // (walk * tile))  # blocks per tree, the grid's y
+    args = (post_children, P, Q_scaled, tips, freqs, props, weights)
+    if plan is None or chunks > MAX_TILES:
+        return _ll_grad_generic_slab(lib, dims, *args)
+    ll_part = torch.empty((B, chunks), dtype=dt, device=dev)
+    grad_part = torch.empty((B, chunks, N1), dtype=dt, device=dev)
+    fn = (lib.lsbn_generic_ll_grad_f32 if dt == torch.float32
+          else lib.lsbn_generic_ll_grad_f64)
+    with torch.cuda.device(dev):
+        rc = fn(
+            *(x.data_ptr() for x in args), ll_part.data_ptr(),
+            grad_part.data_ptr(), *dims, tile, plan[1], walk,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(lib, rc, "generic LL + gradient kernel")
+    LAUNCHES["ll_grad_generic"] += 1
+    return ll_part.sum(dim=1), grad_part.sum(dim=1)
+
+
+def _ll_grad_generic_slab(lib, dims, post_children, P, Q_scaled, tips, freqs,
+                          props, weights):
+    """K4's slab route (inputs checked by the caller; freqs (4,) and props
+    (K,) shared by all trees)."""
+    B, L, S, N1, K, n_pat = dims
+    dt, dev = tips.dtype, tips.device
     tiles = -(-n_pat // lib.lsbn_generic_tile())
     E = torch.empty((B, N1, 4 * K, n_pat), dtype=dt, device=dev)
     U = torch.empty_like(E)
     ll_part = torch.empty((B, tiles), dtype=dt, device=dev)
     grad_part = torch.empty((B, tiles, N1), dtype=dt, device=dev)
-    fn = (lib.lsbn_generic_ll_grad_f32 if dt == torch.float32
-          else lib.lsbn_generic_ll_grad_f64)
+    fn = (lib.lsbn_generic_ll_grad_slab_f32 if dt == torch.float32
+          else lib.lsbn_generic_ll_grad_slab_f64)
     with torch.cuda.device(dev):
         rc = fn(
             post_children.data_ptr(), P.data_ptr(), Q_scaled.data_ptr(),
@@ -292,6 +356,6 @@ def ll_grad_generic_cuda(post_children, P, Q_scaled, tips, freqs, props,
             weights.data_ptr(), E.data_ptr(), U.data_ptr(), ll_part.data_ptr(),
             grad_part.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream,
         )
-    _kernels.check(lib, rc, "generic LL + gradient kernel")
-    LAUNCHES["ll_grad_generic"] += 1
+    _kernels.check(lib, rc, "generic LL + gradient kernel (slab route)")
+    LAUNCHES["ll_grad_generic_slab"] += 1
     return ll_part.sum(dim=1), grad_part.sum(dim=1)

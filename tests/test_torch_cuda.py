@@ -18,6 +18,7 @@ import torch
 
 import libsbn_tpu_torch
 from libsbn_tpu_torch.core.site_pattern import SitePattern
+from libsbn_tpu_torch.core.tree import RootedTree, RootedTreeCollection
 from libsbn_tpu_torch.gp import GPInstance, engine_kernels
 from libsbn_tpu_torch.gp.engine import _jc69_transition
 from libsbn_tpu_torch.io import newick
@@ -376,8 +377,8 @@ def _generic_inputs(data, dtype, K):
 def test_generic_kernels_match_twins_on_card(data, dtype, K):
     """K4, K5 and K6 against their twins on one card, at the tolerances of
     TOL (inputs: _generic_inputs); K5 and K6 with shared freqs and props
-    and with one row per tree; K6 on chip, its root and ones-slot rows
-    zero."""
+    and with one row per tree; K4 and K6 on chip, their root and ones-slot
+    rows zero."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     pc, P, Qs, tips, freqs, props, w, r = _generic_inputs(data, dtype, K)
@@ -391,7 +392,12 @@ def test_generic_kernels_match_twins_on_card(data, dtype, K):
                                    atol=atol)
 
     args = (pc, P, Qs, tips, freqs, props, w)
+    pruning_generic.reset_counters()
     k_ll, k_g = pruning_generic.ll_grad_generic_cuda(*args, root_id=r)
+    torch.cuda.synchronize()
+    assert pruning_generic.LAUNCHES == {"ll_grad_generic": 1,
+                                        "ll_grad_generic_slab": 0}
+    assert not k_g[:, r:].any()
     t_ll, t_g = pruning_generic.ll_grad_generic_plain(*args, root_id=r)
     close(k_ll, t_ll, ll_rtol, ll_atol)
     close(k_g[:, :r], t_g[:, :r], g_rtol, g_atol)
@@ -449,6 +455,72 @@ def test_k6_routes_match_twin_on_card(data, dtype, K, route):
         np.testing.assert_allclose(a.cpu().numpy(), b, rtol=g_rtol, atol=g_atol)
 
 
+# K4 beyond its on-chip plan (the slab route: the 256-taxon tree at float64,
+# or float32 K >= 3), where the plan still fits on that tree (float32
+# K <= 2), and on DS1 at the config-2 model, at K that leave lanes idle (5)
+# or fill the most shared memory (float64 K = 8).
+K4_ROUTE_CASES = [("big", torch.float32, 4, "slab"),
+                  ("big", torch.float64, 1, "slab"),
+                  ("big", torch.float32, 3, "slab"),
+                  ("big", torch.float32, 1, "onchip"),
+                  ("big", torch.float32, 2, "onchip"),
+                  ("ds1", torch.float32, 4, "onchip"),
+                  ("ds1", torch.float64, 4, "onchip"),
+                  ("ds1", torch.float32, 5, "onchip"),
+                  ("ds1", torch.float64, 8, "onchip")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,dtype,K,route", K4_ROUTE_CASES)
+def test_k4_routes_match_twin_on_card(data, dtype, K, route):
+    """K4 against its twin where ll_grad_onchip_plan refuses the shapes
+    (the slab route) and where it fits (K4_ROUTE_CASES), at the tolerances
+    of TOL; the counters show the route taken."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pc, P, Qs, tips, freqs, props, w, r = _generic_inputs(data, dtype, K)
+    plan = pruning_generic.ll_grad_onchip_plan(dtype, K, pc.shape[1],
+                                               tips.shape[0])
+    assert (plan is None) == (route == "slab")
+    args = (pc, P, Qs, tips, freqs, props, w)
+    pruning_generic.reset_counters()
+    k_ll, k_g = pruning_generic.ll_grad_generic_cuda(*args, root_id=r)
+    torch.cuda.synchronize()
+    key = "ll_grad_generic_slab" if route == "slab" else "ll_grad_generic"
+    assert pruning_generic.LAUNCHES[key] == 1
+    assert sum(pruning_generic.LAUNCHES.values()) == 1
+    assert not k_g[:, r:].any()
+    t_ll, t_g = pruning_generic.ll_grad_generic_plain(*args, root_id=r)
+    (ll_rtol, ll_atol), (g_rtol, g_atol) = TOL[dtype]
+    for got, want, rtol, atol in ((k_ll, t_ll, ll_rtol, ll_atol),
+                                  (k_g[:, :r], t_g[:, :r], g_rtol, g_atol)):
+        want = want.cpu().numpy()
+        assert np.all(np.isfinite(want))
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_onchip_k4_adds_only_chunk_partials():
+    """At the JAX bench's config 2 shapes (256 DS1.100_topologies trees,
+    f32, GTR + Weibull+4), one on-chip K4 call adds its per-(tree, chunk)
+    LL and gradient partials, (256, 8) and (256, 8, 53) floats, and their
+    sums: under 50 MB, where the slab route adds its E and U scratch (about
+    1.6 GB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pc, P, Qs, tips, freqs, props, w, r = _generic_inputs("ds1", torch.float32, 4)
+    reps = 256 // pc.shape[0] + 1
+    pc, P = pc.repeat(reps, 1, 1)[:256].contiguous(), P.repeat(reps, 1, 1, 1, 1)[:256].contiguous()
+    args = (pc, P, Qs, tips, freqs, props, w)
+    pruning_generic.reset_counters()
+    onchip = _added(lambda: pruning_generic.ll_grad_generic_cuda(*args, root_id=r))
+    assert pruning_generic.LAUNCHES["ll_grad_generic"] == 1
+    dims = (256, tips.shape[0], pc.shape[1], r + 2, 4, tips.shape[2])
+    lib = pruning_generic.load_checked(4)
+    slab = _added(lambda: pruning_generic._ll_grad_generic_slab(lib, dims, *args))
+    assert onchip < 5e7 and slab > 1e9, (onchip, slab)
+
+
 def _gtr_instance(device, count=10):
     inst = libsbn_tpu_torch.UnrootedInstance("gtr")
     inst.read_newick_file(f"{DATA}/DS1.100_topologies.nwk")
@@ -480,7 +552,8 @@ def test_gtr_engine_on_card_matches_cpu():
         m.reset_counters()
     got_ll, got = card.log_likelihoods(), card.phylo_gradients()
     torch.cuda.synchronize()
-    assert pruning_generic.LAUNCHES == {"ll_grad_generic": 1}
+    assert pruning_generic.LAUNCHES == {"ll_grad_generic": 1,
+                                        "ll_grad_generic_slab": 0}
     assert pruning_vjp.LAUNCHES == {"ll_generic": 2, "ll_dp_generic": 1,
                                     "ll_dp_generic_slab": 0}
     for m in (pruning_jc, pruning_generic, pruning_vjp):
@@ -506,8 +579,8 @@ def _gp_instance(data, device, dtype=torch.float64, use_kernels="auto"):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("data", ["hello", "fluA"])
 def test_gp_kernels_match_twins_on_card(data, dtype):
-    """K7 and K8 against their twins on one card at seeded branch lengths:
-    K7's 12 arrays within rtol 1e-12 (log-scales atol 1e-12) in f64, rtol
+    """K7 (on chip) and K8 against their twins on one card at seeded branch
+    lengths: K7's 12 arrays within rtol 1e-12 (log-scales atol 1e-12) in f64, rtol
     1e-5 with atol 1e-6 (log-scales 1e-4) in f32; K8's objective at the two
     outputs within 1e-12 (f64) or 1e-5 (f32) of |f| + sum(w), and in f64 the
     log branch lengths within 1e-6 where the objective is not flat
@@ -525,6 +598,7 @@ def test_gp_kernels_match_twins_on_card(data, dtype):
     want = engine_kernels.populate_plvs_twin(*args)
     torch.cuda.synchronize()
     assert engine_kernels.LAUNCHES["populate_plvs"] == 1
+    assert engine_kernels.LAUNCHES["populate_plvs_slab"] == 0
     f64 = dtype == torch.float64
     for k in engine_kernels.PLV_KEYS:
         if k.startswith("ls_"):
@@ -570,3 +644,82 @@ def test_gp_fit_on_card_matches_cpu(use_kernels):
         assert sum(engine_kernels.LAUNCHES.values()) == 0
         assert out[0][0] == out[1][0]
         np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-6)
+
+
+def _synthetic_gp(taxa, sites, seed=0, dtype=torch.float64):
+    """A GP engine on the card over one random rooted tree of ``taxa``
+    leaves (joins and branch lengths from default_rng(seed)) and a random
+    alignment of ``sites`` columns; 600 taxa make a DAG of 1,199 nodes,
+    beyond K7's on-chip plan at both dtypes."""
+    rng = np.random.default_rng(seed)
+    pool = [f"t{i}" for i in range(taxa)]
+    while len(pool) > 1:
+        i, j = sorted(rng.choice(len(pool), 2, replace=False))
+        a, b = pool.pop(j), pool.pop(i)
+        la, lb = rng.uniform(0.01, 0.2, 2)
+        pool.append(f"({b}:{la:.4f},{a}:{lb:.4f})")
+    tops, bls, ttm = newick.parse_newick_string(pool[0] + ";")
+    inst = GPInstance()
+    inst.alignment = Alignment({f"t{i}": "".join(row) for i, row in enumerate(
+        rng.choice(list("ACGT"), size=(taxa, sites)))})
+    inst.tree_collection = RootedTreeCollection(
+        [RootedTree(t, bl) for t, bl in zip(tops, bls)], ttm)
+    inst.make_engine(dtype=dtype, device="cuda")
+    return inst.get_engine()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k7_slab_route_matches_twin_on_card(dtype):
+    """K7 on a 600-taxon synthetic rooted tree (_synthetic_gp), whose
+    1,199-node DAG does not fit one pattern on chip: the slab route,
+    against the twin at the tolerances of test_gp_kernels_match_twins_on_card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    eng = _synthetic_gp(600, 200, dtype=dtype)
+    st = eng._edge_streams()
+    dims = (st.node_count, eng.dag.gpcsp_count_with_fake(), st.rootward.shape[0],
+            st.leafward.shape[0], st.roots.shape[0])
+    assert engine_kernels.populate_onchip_plan(dtype, *dims) is None
+    bl = eng._tensor(np.random.default_rng(0).uniform(
+        0.01, 0.3, eng.branch_lengths.size))
+    args = (st, eng._tensor(eng.q), _jc69_transition(bl).contiguous(), eng._tips)
+    engine_kernels.reset_counters()
+    got = engine_kernels.populate_plvs_cuda(*args)
+    torch.cuda.synchronize()
+    assert engine_kernels.LAUNCHES == {"populate_plvs": 0, "populate_plvs_slab": 1,
+                                       "golden_sweep": 0}
+    want = engine_kernels.populate_plvs_twin(*args)
+    f64 = dtype == torch.float64
+    for k in engine_kernels.PLV_KEYS:
+        if k.startswith("ls_"):
+            rtol, atol = (1e-12, 1e-12) if f64 else (1e-5, 1e-4)
+        else:
+            rtol, atol = (1e-12, 1e-300) if f64 else (1e-5, 1e-6)
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].cpu().numpy(),
+                                   rtol=rtol, atol=atol, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_onchip_k7_adds_only_its_outputs():
+    """On fluA, float32, one on-chip K7 call adds its 8 output tensors (the
+    12 PLV views of them) and nothing else: exactly what allocating those 8
+    tensors adds, from an emptied cache each time."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    eng = _gp_instance("fluA", "cuda", torch.float32).get_engine()
+    bl = eng._tensor(np.random.default_rng(0).uniform(
+        0.01, 0.3, eng.branch_lengths.size))
+    args = (eng._edge_streams(), eng._tensor(eng.q),
+            _jc69_transition(bl).contiguous(), eng._tips)
+    N, S = args[0].node_count, eng._tips.shape[2]
+    shapes = [(N, 4, S), (2 * N, 4, S), (N, 4, S), (2 * N, 4, S), (N, S),
+              (2 * N, S), (N, S), (2 * N, S)]
+    engine_kernels.reset_counters()
+    torch.cuda.empty_cache()
+    added = _added(lambda: engine_kernels.populate_plvs_cuda(*args))
+    assert engine_kernels.LAUNCHES["populate_plvs"] == 1
+    torch.cuda.empty_cache()
+    want = _added(lambda: [torch.empty(x, dtype=torch.float32, device="cuda")
+                           for x in shapes])
+    assert added == want >= sum(np.prod(x) * 4 for x in shapes), (added, want)

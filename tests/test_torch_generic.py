@@ -237,7 +237,8 @@ def test_cpu_tensors_route_to_generic_twins(kernel_data):
     ):
         with pytest.raises(ValueError, match="CUDA tensors"):
             call()
-    assert pruning_generic.LAUNCHES == {"ll_grad_generic": 0}
+    assert pruning_generic.LAUNCHES == {"ll_grad_generic": 0,
+                                        "ll_grad_generic_slab": 0}
     assert pruning_vjp.LAUNCHES == {"ll_generic": 0, "ll_dp_generic": 0,
                                     "ll_dp_generic_slab": 0}
 
