@@ -22,8 +22,8 @@ Phases, each of which raises on failure:
      (generic LL + branch gradient), K5 (generic LL) and K6 (d ll / dP,
      d ll / d freqs, d ll / d props) against theirs on DS1.100_topologies
      tiled to 256 trees, GTR + constant and GTR + Weibull+4, float32 and
-     float64 (K4 and K6 on chip), and K4 and K6 on the 256-taxon tree at
-     float32 Weibull+4 and float64 constant (their slab routes); each
+     float64 (all three on chip), and K4, K5 and K6 on the 256-taxon tree
+     at float32 Weibull+4 and float64 constant (their slab routes); each
      call's route is read from the launch counters;
   4. likelihood path: the port's UnrootedInstance on the card (JC69, DS1
      and hello) against the pybeagle/physher golden numbers, and the DS1
@@ -51,15 +51,18 @@ Phases, each of which raises on failure:
      engine.branch_gradients and engine.log_likelihoods from host arrays;
      the VBPI step in ms per step (host clock, synchronised);
      K4, K5 and K6 against their twins at the JAX bench's config 2 (GTR +
-     Weibull+4 at shape 0.5, B = 256, float32), K4 on chip beside its slab
-     route in turns with the memory one call adds (fails at 50 MB), K6 the
-     same (fails at 128 MB), the K5 + K6 autograd pass and
-     engine.phylo_gradients from host arrays, with peak device memory;
+     Weibull+4 at shape 0.5, B = 256, float32), K4 and K5 on chip beside
+     their slab routes in turns with the memory one call adds (fails at
+     50 MB), K6 the same (fails at 128 MB), the K5 + K6 autograd pass and
+     engine.log_likelihoods and engine.phylo_gradients from host arrays,
+     with peak device memory, device time per call (torch.profiler) and
+     the device's idle share of the host-clock median;
   7. GP kernels vs twins: K7 (the PLV population, on chip) and K8 (the
-     golden-section branch sweep) against their plain PyTorch twins on the
-     card, on hello and fluA, float32 and float64; K7 on a synthetic
+     golden-section branch sweep, a block per edge over staged rows, and
+     its slab route, the first design) against their plain PyTorch twins
+     on the card, on hello and fluA, float32 and float64; K7 on a synthetic
      600-taxon rooted tree from a numpy seed, float32 and float64 (beyond
-     its plan: the slab route);
+     its plan: the slab route), and K8 on seeded rows beyond its plan;
   8. GP path: GPInstance.make_engine(device="cuda"): on the kernel route
      (K7 + K8) in f64 the hello marginal and gradient goldens and the fluA
      fit run_branch_ascent(1e-6, 100) against libsbn_tpu's pinned optimum;
@@ -67,10 +70,12 @@ Phases, each of which raises on failure:
      kernel route's fit within 1e-2 of the optimum; the counters show K7 and
      K8 launched and no twin called;
   9. GP timing: K7 and K8 against their twins per launch on fluA, float32,
-     and K7 on chip beside its slab route in turns, each with its share of
-     the bound; the JAX bench's GP config (fluA, f32,
+     and K7 and K8 each beside its slab route in turns, each with its share
+     of the bound and the SM clock (nvidia-smi) before and after; the JAX
+     bench's GP config (fluA, f32,
      run_branch_ascent(1e-2, 10) from the same starting lengths each run)
-     on both routes, in ms per ascent.
+     on both routes, in ms per ascent, with device time per ascent and the
+     device's idle share as in phase 6.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its path, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the float32 peak and its inputs and
@@ -375,7 +380,7 @@ def phase_build():
     # One line per kernel instance: registers and spills from ptxas -v.
     pattern = (r"Function properties for \S*?((?:jc69|generic)_"
                r"(?:ll_grad|ll|dea|dp)(?:_slab)?_kernel|"
-               r"gp_(?:populate(?:_slab)?|golden_sweep)_kernel)I([fd])(?:Li(\d+)E)?")
+               r"gp_(?:populate|golden_sweep)(?:_slab)?_kernel)I([fd])(?:Li(\d+)E)?")
     for source, info in _kernels.build_info.items():
         print(f"  {source}: nvcc {info['seconds']:.1f} s -> {info['path']}")
         name = None
@@ -394,8 +399,10 @@ def phase_build():
     sass_mix("pruning_jc")
     sass_mix("pruning_generic", ("generic_dp_kernelIfLi4E", "generic_dp_slab_kernelIfLi4E",
                                  "generic_ll_grad_kernelIfLi4E",
-                                 "generic_ll_grad_slab_kernelIfLi4E"))
-    sass_mix("gp_engine", ("gp_populate_kernelIfE", "gp_populate_slab_kernelIfE"))
+                                 "generic_ll_grad_slab_kernelIfLi4E",
+                                 "generic_ll_kernelIfLi4E", "generic_ll_slab_kernelIfLi4E"))
+    sass_mix("gp_engine", ("gp_populate_kernelIfE", "gp_populate_slab_kernelIfE",
+                           "gp_golden_sweep_kernelIfE", "gp_golden_sweep_slab_kernelIfE"))
 
 
 def sass_mix(source, kernels=("jc69_ll_grad_kernelIfLi1E", "jc69_dea_kernelIfLi1E",
@@ -628,12 +635,17 @@ def phase_generic_vs_twin():
                 raise AssertionError("K4: root or ones-slot rows not zero")
             t_ll, t_g = pruning_generic.ll_grad_generic_plain(*args, root_id=r)
             args2 = (d["pc"], P, d["tips"], freqs, props, d["w"])
+            tag = f"{str(dtype)[6:]} GTR {site}"
+            pruning_vjp.reset_counters()
             k5 = pruning_vjp.ll_generic_cuda(*args2, root_id=r)
+            torch.cuda.synchronize()
+            if pruning_vjp.LAUNCHES["ll_generic"] != 1:
+                raise AssertionError(f"K5 {tag}: not on chip "
+                                     f"({pruning_vjp.LAUNCHES})")
             t5 = pruning_vjp.ll_generic_plain(*args2, root_id=r)
             pruning_vjp.reset_counters()
             k6 = pruning_vjp.ll_dp_generic_cuda(*args2, root_id=r)
             torch.cuda.synchronize()
-            tag = f"{str(dtype)[6:]} GTR {site}"
             if pruning_vjp.LAUNCHES["ll_dp_generic"] != 1:
                 raise AssertionError(f"K6 {tag}: not on chip "
                                      f"({pruning_vjp.LAUNCHES})")
@@ -643,7 +655,10 @@ def phase_generic_vs_twin():
                 close(f"K4 grad {tag}", k_g[:, :r].cpu(), t_g[:, :r].cpu(),
                       tol["grad"]),
             )
-            e5 = close(f"K5 LL {tag}", k5.cpu(), t5.cpu(), tol["ll"])
+            W = pruning_vjp.ll_onchip_plan(dtype, props.shape[0], d["pc"].shape[1],
+                                           d["tips"].shape[0])[0]
+            e5 = close(f"K5 LL {tag}, on chip, {W} warps a block", k5.cpu(),
+                       t5.cpu(), tol["ll"])
             if k6[0][:, r:].any():
                 raise AssertionError("K6: root or ones-slot rows not zero")
             e6 = max(
@@ -657,7 +672,33 @@ def phase_generic_vs_twin():
                         "ll_dp_generic": e6}
     k6_slab_vs_twin()
     k4_slab_vs_twin()
+    k5_slab_vs_twin()
     return errs
+
+
+def k5_slab_vs_twin():
+    """K5 on the 256-taxon tree, GTR + Weibull+4 at float32 and GTR +
+    constant at float64, shapes its on-chip plan refuses: the slab route,
+    against the twin at TWIN_TOL."""
+    for dtype, site in ((torch.float32, "weibull+4"), (torch.float64, "constant")):
+        d = synthetic_tree(dtype)
+        r = d["root_id"]
+        P, _, freqs, props = generic_inputs(d, dtype, site)
+        L, S, K = BIG_TAXA, d["pc"].shape[1], props.shape[0]
+        if pruning_vjp.ll_onchip_plan(dtype, K, S, L) is not None:
+            raise AssertionError(f"K5 fits on chip at {BIG_TAXA} taxa, {dtype} "
+                                 f"K = {K}: nothing exercises its slab route")
+        args = (d["pc"], P, d["tips"], freqs, props, d["w"])
+        pruning_vjp.reset_counters()
+        k5 = pruning_vjp.ll_generic_cuda(*args, root_id=r)
+        torch.cuda.synchronize()
+        tag = f"{str(dtype)[6:]} GTR {site}, {BIG_TAXA} taxa"
+        if pruning_vjp.LAUNCHES != {"ll_generic": 0, "ll_generic_slab": 1,
+                                    "ll_dp_generic": 0, "ll_dp_generic_slab": 0}:
+            raise AssertionError(f"K5 {tag}: not on the slab route "
+                                 f"({pruning_vjp.LAUNCHES})")
+        t5 = pruning_vjp.ll_generic_plain(*args, root_id=r)
+        close(f"K5 LL {tag}, slab route", k5.cpu(), t5.cpu(), TWIN_TOL[dtype]["ll"])
 
 
 def k4_slab_vs_twin():
@@ -705,8 +746,8 @@ def k6_slab_vs_twin():
         k6 = pruning_vjp.ll_dp_generic_cuda(*args, root_id=r)
         torch.cuda.synchronize()
         tag = f"{str(dtype)[6:]} GTR {site}, {BIG_TAXA} taxa"
-        if pruning_vjp.LAUNCHES != {"ll_generic": 0, "ll_dp_generic": 0,
-                                    "ll_dp_generic_slab": 1}:
+        if pruning_vjp.LAUNCHES != {"ll_generic": 0, "ll_generic_slab": 0,
+                                    "ll_dp_generic": 0, "ll_dp_generic_slab": 1}:
             raise AssertionError(f"K6 {tag}: not on the slab route "
                                  f"({pruning_vjp.LAUNCHES})")
         t6 = pruning_vjp.ll_dp_generic_plain(*args, root_id=r)
@@ -851,7 +892,7 @@ def phase_gtr_path():
               grads["site_model"][:10].cpu(), GTR_SITE_GRADIENTS, tol["grad"])
     launches = launch_counts(
         "GTR path", ["ll_grad_generic", "ll_generic", "ll_dp_generic"],
-        ["ll_grad_generic_slab", "ll_dp_generic_slab"])
+        ["ll_grad_generic_slab", "ll_generic_slab", "ll_dp_generic_slab"])
     gtr_scan_engine_check()
     gtr_uniform_rates_check()
     return launches
@@ -988,6 +1029,47 @@ def time_ms(fn, reps=7, inner=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def host_and_device(fn, calls):
+    """(line, peak GiB) for an entry point called from the host: the median
+    and least host-clock ms of ``calls`` synchronised calls after two
+    warm-ups, with the peak device memory over them; then, over ``calls``
+    more under torch.profiler, the device ms per call summed over the
+    device's kernels and copies, and their number per call. The device's
+    idle share is 1 - device ms / the unprofiled median, since the profiler
+    slows the host; "not measured" when the profiler records no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(times)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total if hasattr(e, "self_device_time_total")
+             else e.self_cuda_time_total for e in kernels)
+    count = sum(e.count for e in kernels) / calls
+    dev_ms = us / 1e3 / calls
+    device = (f"device time {dev_ms:.3f} ms per call in {count:.0f} kernels "
+              f"and copies, the device idle {1 - dev_ms / med:.1%} of the "
+              "median" if us > 0 else "device time not measured")
+    return (f"median {med:.3f} ms (min {min(times):.3f}, {calls} calls, host "
+            f"clock, synchronised); {device} (torch.profiler, {calls} more "
+            "calls)"), peak
 
 
 def time_pairs(calls, n_trees, plain_reps=(7, 10)):
@@ -1264,6 +1346,7 @@ def phase_generic_timing(smi, calls=10):
         print(f"  {key}: bound {bounds[key][0]:.4f} ms ({bounds[key][1]}), "
               f"{bounds[key][0] / out[key][0]:.1%} of it")
     k4_onchip_vs_slab(d, a4, bounds["ll_grad_generic"][0])
+    k5_onchip_vs_slab(d, a5, bounds["ll_generic"][0])
     k6_onchip_vs_slab(d, a5, bounds["ll_dp_generic"][0])
 
     Pg = P.detach().clone().requires_grad_(True)
@@ -1283,20 +1366,9 @@ def phase_generic_timing(smi, calls=10):
                                            device=DEV)
     for name, fn in (("log_likelihoods", engine.log_likelihoods),
                      ("phylo_gradients", engine.phylo_gradients)):
-        for _ in range(2):
-            fn(d["sched"], d["bl_host"], params)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for _ in range(calls):
-            t0 = time.perf_counter()
-            fn(d["sched"], d["bl_host"], params)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"  engine.{name} from host arrays: median "
-              f"{statistics.median(times):.3f} ms (min {min(times):.3f}, "
-              f"{calls} calls, host clock, synchronised); peak {peak:.2f} GiB")
+        line, peak = host_and_device(
+            lambda fn=fn: fn(d["sched"], d["bl_host"], params), calls)
+        print(f"  engine.{name} from host arrays: {line}; peak {peak:.2f} GiB")
     return out, bounds
 
 
@@ -1329,6 +1401,41 @@ def k4_onchip_vs_slab(d, a4, b_ms):
         lambda: pruning_generic.ll_grad_generic_cuda(*a4, root_id=r),
         lambda: pruning_generic._ll_grad_generic_slab(lib, dims, *a4),
         b_ms, 50, f"Weibull+{K}")
+
+
+def k5_onchip_vs_slab(d, a5, b_ms):
+    """K5 on chip against its slab route (the first design) on config 2's
+    inputs a5; fails if an on-chip call adds 50 MB or more."""
+    r = d["root_id"]
+    pc, P, tips, freqs, props, w = a5
+    L, S, K = tips.shape[0], pc.shape[1], props.shape[0]
+    dims = (pc.shape[0], L, S, r + 2, K, tips.shape[2])
+    lib = pruning_vjp.load_checked(K)
+    W = pruning_vjp.ll_onchip_plan(P.dtype, K, S, L)[0]
+    onchip_vs_slab(
+        "ll_generic",
+        lambda: pruning_vjp.ll_generic_cuda(*a5, root_id=r),
+        lambda: pruning_vjp._ll_generic_slab(lib, dims, *a5, 0, 0),
+        b_ms, 50, f"Weibull+{K}, {W} warps a block")
+    # Warps a block sharing one staged copy of the tree's matrices.
+    itemsize = P.element_size()
+    by_warps = {n: (lambda n=n: pruning_vjp._ll_generic_onchip(
+        lib, dims, *a5, 0, 0, (n, pruning_vjp.ll_onchip_bytes(itemsize, K, S, L, n))))
+        for n in (1, 2, 4, 8)}
+    print("  ll_generic on chip by warps a block (blocks a tree, warps an SM): "
+          + warps_in_turns(by_warps, lambda n: (
+              pruning_vjp.ll_chunks(tips.shape[2], K, n),
+              pruning_vjp.sm_warps(n, pruning_vjp.ll_onchip_bytes(itemsize, K, S, L, n)))))
+
+
+def warps_in_turns(runs, note):
+    """Time {warps: call} in turns, most warps first, then back; returns a
+    line of each count's better time and ``note(count)``."""
+    order = sorted(runs, reverse=True)
+    first = {n: time_ms(runs[n]) for n in order}
+    second = {n: time_ms(runs[n]) for n in reversed(order)}
+    return "; ".join(f"{n}: {min(first[n], second[n]):.4f} ms {note(n)}"
+                     for n in order)
 
 
 def k6_onchip_vs_slab(d, a5, b_ms):
@@ -1401,7 +1508,6 @@ def phase_gp_vs_twin():
     for fasta, nwk in (("hello.fasta", "hello_rooted.nwk"),
                        ("fluA.fa", "fluA.tree")):
         for dtype in (torch.float32, torch.float64):
-            tol = GP_TWIN_TOL[dtype]
             tag = f"{fasta.split('.')[0]} {str(dtype)[6:]}"
             eng = gp_instance(fasta, nwk, dtype).get_engine()
             streams, q, P, tips, bl = gp_kernel_inputs(eng)
@@ -1409,19 +1515,7 @@ def phase_gp_vs_twin():
             A, B = engine_kernels.sweep_stats(got, eng._pa, eng._ch, eng._rot)
             A, B = A.contiguous(), B.contiguous()
             cur = torch.log(bl[eng._g]).contiguous()
-            k8 = engine_kernels.golden_sweep_cuda(A, B, eng._w, cur)
-            t8 = engine_kernels.golden_sweep_twin(A, B, eng._w, cur)
-            obj_gap, lb_gap, e8 = engine_kernels.sweep_disagreement(
-                A, B, eng._w, k8, t8)
-            ok = obj_gap <= tol["obj"] and (tol["lb"] is None
-                                            or lb_gap <= tol["lb"])
-            if not ok or not torch.isfinite(k8).all():
-                raise AssertionError(f"K8 {tag}: objective gap {obj_gap:.3e}, "
-                                     f"log-length gap {lb_gap:.3e}")
-            print(f"  ok  K8 {tag}: objective gap {e8:.3e} nats, "
-                  f"{obj_gap:.3e} of |f| + sum(w) (<= {tol['obj']}); "
-                  f"log-length gap on edges that are not flat {lb_gap:.3e} "
-                  f"(<= {tol['lb']})")
+            e8 = k8_vs_twin(A, B, eng._w, cur, dtype, tag)
             if fasta == "fluA.fa" and dtype == torch.float32:
                 errs = {"populate_plvs": e7, "golden_sweep": e8}
     for dtype in (torch.float32, torch.float64):
@@ -1430,7 +1524,74 @@ def phase_gp_vs_twin():
         k7_vs_twin(streams, q, P, tips, dtype,
                    f"{GP_BIG_TAXA} taxa {str(dtype)[6:]}, slab route",
                    "populate_plvs_slab")
+    k8_beyond_the_plan()
     return errs
+
+
+def k8_vs_twin(A, B, w, cur, dtype, tag):
+    """K8's main design (a block per edge over staged rows) and its slab
+    route (the first design) against the twin by sweep_disagreement at
+    GP_TWIN_TOL, each route read from the counters, the main design twice
+    with the same bits; returns the main design's largest objective gap in
+    nats."""
+    want = engine_kernels.golden_sweep_twin(A, B, w, cur)
+    gaps = {}
+    for route, call, n in (
+            ("golden_sweep", lambda: engine_kernels.golden_sweep_cuda(A, B, w, cur), 2),
+            ("golden_sweep_slab",
+             lambda: engine_kernels._golden_sweep_launch(A, B, w, cur, None), 1)):
+        engine_kernels.reset_counters()
+        runs = [call() for _ in range(n)]
+        torch.cuda.synchronize()
+        if (engine_kernels.LAUNCHES[route] != n
+                or sum(engine_kernels.LAUNCHES.values()) != n):
+            raise AssertionError(f"K8 {tag}: not on the {route} route "
+                                 f"({engine_kernels.LAUNCHES})")
+        got = runs[0]
+        if not all(torch.equal(got, x) for x in runs[1:]):
+            raise AssertionError(f"K8 {tag}: two launches differ")
+        gaps[route] = sweep_vs_twin(A, B, w, got, want, dtype,
+                                    f"K8 {tag} ({route}"
+                                    + (", bit-identical twice)" if n > 1 else ")"))
+    return gaps["golden_sweep"]
+
+
+def sweep_vs_twin(A, B, w, got, want, dtype, tag):
+    """Fail unless sweep_disagreement holds ``got`` to ``want`` at
+    GP_TWIN_TOL; returns the largest objective gap in nats."""
+    tol = GP_TWIN_TOL[dtype]
+    obj_gap, lb_gap, gap = engine_kernels.sweep_disagreement(A, B, w, got, want)
+    ok = obj_gap <= tol["obj"] and (tol["lb"] is None or lb_gap <= tol["lb"])
+    if not ok or not torch.isfinite(got).all():
+        raise AssertionError(f"{tag}: objective gap {obj_gap:.3e}, "
+                             f"log-length gap {lb_gap:.3e}")
+    print(f"  ok  {tag}: objective gap {gap:.3e} nats, {obj_gap:.3e} of "
+          f"|f| + sum(w) (<= {tol['obj']}); log-length gap on edges that are "
+          f"not flat {lb_gap:.3e} (<= {tol['lb']})")
+    return gap
+
+
+def k8_beyond_the_plan(edges=4, seed=0):
+    """K8 on seeded rows (A, B > 0) one pattern longer than its plan holds,
+    float32 and float64: the slab route, against the twin."""
+    rng = np.random.default_rng(seed)
+    for dtype in (torch.float32, torch.float64):
+        S = next(n for n in range(8_000, 40_000)
+                 if engine_kernels.golden_sweep_plan(dtype, n) is None)
+        A, B = (torch.as_tensor(rng.uniform(0.01, 1.0, (edges, S)), device=DEV)
+                .to(dtype) for _ in range(2))
+        w = torch.as_tensor(rng.integers(1, 5, S), device=DEV).to(dtype)
+        cur = torch.as_tensor(np.log(rng.uniform(0.01, 0.3, edges)),
+                              device=DEV).to(dtype)
+        engine_kernels.reset_counters()
+        got = engine_kernels.golden_sweep_cuda(A, B, w, cur)
+        torch.cuda.synchronize()
+        if engine_kernels.LAUNCHES["golden_sweep_slab"] != 1:
+            raise AssertionError(f"K8 at {S} patterns: not on the slab route "
+                                 f"({engine_kernels.LAUNCHES})")
+        sweep_vs_twin(A, B, w, got, engine_kernels.golden_sweep_twin(A, B, w, cur),
+                      dtype, f"K8 {edges} seeded edges x {S} patterns "
+                      f"{str(dtype)[6:]} (golden_sweep_slab)")
 
 
 def k7_vs_twin(streams, q, P, tips, dtype, tag, route):
@@ -1533,9 +1694,16 @@ def phase_gp_path():
     gp_fit(torch.float64, use_kernels=True)
     gp_fit(torch.float32, use_kernels=True)
     launches = launch_counts("GP path", ["populate_plvs", "golden_sweep"],
-                             ["populate_plvs_slab"])
+                             ["populate_plvs_slab", "golden_sweep_slab"])
     gp_fit(torch.float64, use_kernels=False)
     return launches
+
+
+def sm_clock():
+    """The card's SM clock now, as nvidia-smi reads it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
 def phase_gp_timing(smi, runs=5):
@@ -1556,6 +1724,7 @@ def phase_gp_timing(smi, runs=5):
             lambda: engine_kernels.golden_sweep_cuda(A, B, eng._w, cur),
             lambda: engine_kernels.golden_sweep_twin(A, B, eng._w, cur)),
     }
+    print(f"  SM clock before the K7 / K8 timings: {sm_clock()}")
     out = time_pairs(calls, 1, plain_reps=(3, 2))
     bounds = {
         "populate_plvs": bound(populate_ops(streams, tips.shape[2]),
@@ -1566,27 +1735,29 @@ def phase_gp_timing(smi, runs=5):
     for key, (b_ms, b_by) in bounds.items():
         print(f"  {key}: bound {b_ms:.5f} ms ({b_by}), "
               f"{b_ms / out[key][0]:.2%} of it")
-    onchip_vs_slab(
-        "populate_plvs", calls["populate_plvs"][0],
-        lambda: engine_kernels._populate_plvs_launch(streams, q, P, tips, None),
-        bounds["populate_plvs"][0], 50, f"fluA, {tips.shape[2]} patterns")
+    for key, slab, what in (
+            ("populate_plvs",
+             lambda: engine_kernels._populate_plvs_launch(streams, q, P, tips, None),
+             f"fluA, {tips.shape[2]} patterns"),
+            ("golden_sweep",
+             lambda: engine_kernels._golden_sweep_launch(A, B, eng._w, cur, None),
+             f"fluA, {A.shape[0]} edges x {A.shape[1]} patterns")):
+        print(f"  SM clock before {key}: {sm_clock()}")
+        onchip_vs_slab(key, calls[key][0], slab, bounds[key][0], 50, what)
+        print(f"  SM clock after {key}: {sm_clock()}")
     for use_kernels in (True, False):
         eng = gp_instance("fluA.fa", "fluA.tree", torch.float32,
                           use_kernels).get_engine()
         bl0 = eng.branch_lengths.copy()
-        eng.run_branch_ascent(1e-2, 10)  # warm-up
-        times = []
-        for _ in range(runs):
+
+        def ascent(eng=eng, bl0=bl0):
             eng.branch_lengths = bl0.copy()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            marginal, sweeps = eng.run_branch_ascent(1e-2, 10)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+            return eng.run_branch_ascent(1e-2, 10)
+
+        line, _ = host_and_device(ascent, runs)
+        marginal, sweeps = ascent()
         route = "kernel route (K7 + K8)" if use_kernels else "level route"
-        print(f"  run_branch_ascent(1e-2, 10), {route}: median "
-              f"{statistics.median(times):.3f} ms per ascent (min "
-              f"{min(times):.3f}, {runs} runs, host clock, synchronised); "
+        print(f"  run_branch_ascent(1e-2, 10), {route}, per ascent: {line}; "
               f"{sweeps} sweeps, marginal {marginal:.6f}")
     return out, bounds
 

@@ -6,7 +6,11 @@
 //                              (gp_populate_slab_kernel, its first design over
 //                              device-memory PLVs, for DAGs beyond the plan);
 //   K8 gp_golden_sweep_kernel: a fixed golden-section search of every edge's
-//                              log branch length against its JC69 objective.
+//                              log branch length against its JC69 objective,
+//                              a block per edge over rows staged in shared
+//                              memory (gp_golden_sweep_slab_kernel, its first
+//                              design, a warp per edge over device-memory
+//                              rows, for rows beyond the plan).
 //
 // Built by libsbn_tpu_torch/ops/_kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -551,15 +555,136 @@ gp_populate_kernel(const int* __restrict__ rw_g, const int* __restrict__ lw_g,
 // ---------------------------------------------------------------------------
 // K8: golden-section branch sweep. Replaces the TPU kernel
 // libsbn_tpu/gp/engine_pallas.py::_sweep_kernel (pallas_call in
-// _optimize_pallas).
+// _optimize_pallas): per edge, f(cur), then GOLDEN_ITERS iterations each
+// evaluating f at both interior points c and d, of
+// f(lb) = -sum_s w log(A + exp(-4/3 e^lb) B); the better of c and d unless
+// it is worse than f(cur).
 //
-// One warp per edge, lanes striding over the patterns. Each objective
-// f(lb) = -sum_s w log(A + exp(-4/3 e^lb) B) is a butterfly warp sum, so every
-// lane holds the same value and takes the same fc < fd branch, and the
-// order is fixed (the result repeats exactly). Bound on this card: the
-// 2 + 2 * 70 + 1 dependent objective evaluations per edge, each S / 32 logs
-// per lane and five shuffles; A and B (E x S) are read from L1/L2 each time.
+// Bound on this card: the chain of 1 + 1 + GOLDEN_ITERS dependent steps per
+// edge (each step's bracket depends on the last step's fc < fd), not the
+// bytes (A and B are read once: about 0.35 us of traffic at fluA f32).
+//
+// gp_golden_sweep_kernel, the main design: one block per edge, of
+// kSweepWarps warps (gp/engine_kernels.py SWEEP_WARPS), so that fluA's 137
+// edges give about one block on each SM.
+// The block stages its edge's A and B rows and w into shared memory once
+// with cp.async (fluA f32: 2.9 KB), and its threads stride the patterns (8
+// warps at 238 patterns: one each). Each step evaluates two points
+// together: every thread takes the two scalars e(x), e(y), forms its
+// partial sums for f(x) and f(y) side by side (two independent log
+// chains), each warp reduces both by one interleaved butterfly and writes
+// its two sums to shared memory, and after one __syncthreads every thread
+// adds the block's warp sums in warp order. So every thread holds the same f(c) and f(d) and takes the same
+// branch, there are no atomics, and the result repeats exactly from launch
+// to launch. The warp sums alternate between two buffers from step to step:
+// a warp can only write a buffer again after the next barrier, which every
+// warp reaches only when it has read that buffer. The steps are f(cur)
+// (paired with itself, so that every step is the same code: one redundant
+// log chain in 72 steps), (f(c), f(d)) of the first bracket, and one pair
+// per iteration: the reference's sequence of points, with neither evaluation
+// reused (the new c is not bit-equal to the old d). The rows need 3 S values
+// of shared memory (golden_sweep_bytes); gp/engine_kernels.py
+// golden_sweep_plan refuses more than that, and such edges take the slab
+// route below.
+//
+// gp_golden_sweep_slab_kernel, the first design, kept as the route beyond
+// the plan (counted as "golden_sweep_slab"): one warp per edge, lanes
+// striding the patterns, each objective a butterfly warp sum over A and B
+// read from L1/L2 at every evaluation, the evaluations one after another.
+// At fluA that is 35 blocks of 4 warps, one warp on each of 35 SMs, through
+// 143 evaluations of about 1,500 cycles each.
 // ---------------------------------------------------------------------------
+constexpr int kSweepWarps = 8;  // warps a block of the main K8, one edge a block
+
+// Bytes of shared memory the main K8 takes for rows of S patterns: A, B and
+// w, then two buffers of kSweepWarps pairs of warp sums.
+// gp/engine_kernels.py golden_sweep_bytes computes the same sum.
+template <typename T>
+__host__ __device__ size_t golden_sweep_bytes(int S) {
+  return sizeof(T) * (3 * size_t(S) + 2 * 2 * kSweepWarps);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kSweepWarps)
+gp_golden_sweep_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                       const T* __restrict__ w, const T* __restrict__ cur_log_bl,
+                       T* __restrict__ out, int S) {
+  constexpr int nt = 32 * kSweepWarps;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Carve shared memory in golden_sweep_bytes' order and stage the rows.
+  T* sA = reinterpret_cast<T*>(smem);
+  T* sB = sA + S;
+  T* sw = sB + S;
+  T* sums = sw + S;  // [2][kSweepWarps][2]
+  const int edge = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const T* a_row = A + size_t(edge) * S;
+  const T* b_row = B + size_t(edge) * S;
+  for (int s = tid; s < S; s += nt) {
+    cp_async<sizeof(T)>(sA + s, a_row + s);
+    cp_async<sizeof(T)>(sB + s, b_row + s);
+    cp_async<sizeof(T)>(sw + s, w + s);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  int buf = 0;
+  // (f(x), f(y)) for two log branch lengths, the same in every thread.
+  auto objective2 = [&](T x, T y, T& fx, T& fy) {
+    const T ex = exp_t(mul_rn(T(-4.0 / 3.0), exp_t(x)));
+    const T ey = exp_t(mul_rn(T(-4.0 / 3.0), exp_t(y)));
+    T px = T(0), py = T(0);
+    for (int s = tid; s < S; s += nt) {
+      const T a = sA[s], b = sB[s], ws = sw[s];
+      px += mul_rn(log_t(a + mul_rn(ex, b)), ws);
+      py += mul_rn(log_t(a + mul_rn(ey, b)), ws);
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      px += __shfl_xor_sync(0xffffffffu, px, off);
+      py += __shfl_xor_sync(0xffffffffu, py, off);
+    }
+    T* slot = sums + buf * 2 * kSweepWarps;
+    if (lane == 0) {
+      slot[2 * warp] = px;
+      slot[2 * warp + 1] = py;
+    }
+    __syncthreads();
+    T sx = slot[0], sy = slot[1];
+#pragma unroll
+    for (int v = 1; v < kSweepWarps; ++v) {
+      sx += slot[2 * v];
+      sy += slot[2 * v + 1];
+    }
+    buf ^= 1;
+    fx = -sx;
+    fy = -sy;
+  };
+
+  const T cur = cur_log_bl[edge];
+  T fcur, fc, fd;
+  objective2(cur, cur, fcur, fc);
+  const T invphi = T(kInvPhi);
+  T a = T(kMinLogBl);
+  T b = T(kMaxLogBl);
+  T c = b - mul_rn(invphi, b - a);
+  T d = a + mul_rn(invphi, b - a);
+  objective2(c, d, fc, fd);
+  for (int it = 0; it < kGoldenIters; ++it) {
+    const bool left = fc < fd;
+    const T b2 = left ? d : b;
+    const T a2 = left ? a : c;
+    c = b2 - mul_rn(invphi, b2 - a2);
+    d = a2 + mul_rn(invphi, b2 - a2);
+    a = a2;
+    b = b2;
+    objective2(c, d, fc, fd);
+  }
+  const T best = fc < fd ? c : d;
+  const T fbest = fc < fd ? fc : fd;
+  // Reject a step that makes the objective worse.
+  if (tid == 0) out[edge] = fbest < fcur ? best : cur;
+}
+
 template <typename T>
 __device__ __forceinline__ T golden_objective(const T* A, const T* B, const T* w, int S, int lane,
                                               T lb) {
@@ -571,9 +696,9 @@ __device__ __forceinline__ T golden_objective(const T* A, const T* B, const T* w
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gp_golden_sweep_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                       const T* __restrict__ w, const T* __restrict__ cur_log_bl,
-                       T* __restrict__ out, int E, int S) {
+gp_golden_sweep_slab_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                            const T* __restrict__ w, const T* __restrict__ cur_log_bl,
+                            T* __restrict__ out, int E, int S) {
   const int edge = blockIdx.x * kWarps + threadIdx.x / 32;
   if (edge >= E) return;  // a whole warp: no shuffle is left waiting
   const int lane = threadIdx.x % 32;
@@ -661,11 +786,25 @@ int populate_slab_entry(const void* rw, const void* lw, const void* roots, const
   return int(cudaGetLastError());
 }
 
+// The main K8 takes the plan's shared-memory bytes from the caller, and
+// refuses bytes that do not hold what it carves.
 template <typename T>
 int golden_sweep_entry(const void* A, const void* B, const void* w, const void* cur, void* out,
-                       int E, int S, void* stream) {
+                       int E, int S, int smem, void* stream) {
+  if (smem < 0 || size_t(smem) < golden_sweep_bytes<T>(S)) return int(cudaErrorInvalidValue);
+  cudaError_t err = prepare(gp_golden_sweep_kernel<T>, size_t(smem));
+  if (err != cudaSuccess) return int(err);
+  gp_golden_sweep_kernel<T><<<E, 32 * kSweepWarps, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<const T*>(B), static_cast<const T*>(w),
+      static_cast<const T*>(cur), static_cast<T*>(out), S);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int golden_sweep_slab_entry(const void* A, const void* B, const void* w, const void* cur,
+                            void* out, int E, int S, void* stream) {
   const int grid = (E + kWarps - 1) / kWarps;
-  gp_golden_sweep_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  gp_golden_sweep_slab_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(A), static_cast<const T*>(B), static_cast<const T*>(w),
       static_cast<const T*>(cur), static_cast<T*>(out), E, S);
   return int(cudaGetLastError());
@@ -725,14 +864,27 @@ int lsbn_gp_populate_slab_f64(const void* rw, const void* lw, const void* roots,
                                      lsrhat, lsRB, n_rw, n_lw, n_roots, E, N, L, S, stream);
 }
 
+// K8: the plan's shared-memory bytes (gp/engine_kernels.py
+// golden_sweep_plan) come from the caller.
 int lsbn_gp_golden_sweep_f32(const void* A, const void* B, const void* w, const void* cur,
-                             void* out, int E, int S, void* stream) {
-  return golden_sweep_entry<float>(A, B, w, cur, out, E, S, stream);
+                             void* out, int E, int S, int smem, void* stream) {
+  return golden_sweep_entry<float>(A, B, w, cur, out, E, S, smem, stream);
 }
 
 int lsbn_gp_golden_sweep_f64(const void* A, const void* B, const void* w, const void* cur,
-                             void* out, int E, int S, void* stream) {
-  return golden_sweep_entry<double>(A, B, w, cur, out, E, S, stream);
+                             void* out, int E, int S, int smem, void* stream) {
+  return golden_sweep_entry<double>(A, B, w, cur, out, E, S, smem, stream);
+}
+
+// K8's slab route (a warp per edge), for rows beyond the plan.
+int lsbn_gp_golden_sweep_slab_f32(const void* A, const void* B, const void* w,
+                                  const void* cur, void* out, int E, int S, void* stream) {
+  return golden_sweep_slab_entry<float>(A, B, w, cur, out, E, S, stream);
+}
+
+int lsbn_gp_golden_sweep_slab_f64(const void* A, const void* B, const void* w,
+                                  const void* cur, void* out, int E, int S, void* stream) {
+  return golden_sweep_slab_entry<double>(A, B, w, cur, out, E, S, stream);
 }
 
 }  // extern "C"

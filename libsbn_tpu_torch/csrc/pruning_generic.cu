@@ -24,8 +24,8 @@
 //   freqs         (B, 4) or (4,)    root frequencies, tree stride fs (4 or 0)
 //   props         (B, K) or (K,)    category proportions, tree stride ps
 //   weights       (P,)              pattern multiplicities
-//   E, U          (B, N1, 4K, P)    scratch of K5 and of K4's and K6's slab
-//                                   routes: evolved and upper partials
+//   E, U          (B, N1, 4K, P)    scratch of the slab routes of K4, K5
+//                                   and K6: evolved and upper partials
 //   M             (B, S, 4K, P)     scratch of K6's slab route: rescaled
 //                                   node partials of the internal nodes
 //   ll_part       (B, T or C)       per (tree, tile or chunk) LL partials
@@ -35,8 +35,9 @@
 //                                   freqs, props
 // with T = ceil(P / kThreads) tiles of the slab kernels; the on-chip K4 and
 // K6 work in tiles of 32 / K patterns and a block walks `walk` of them, so
-// their C = ceil(ceil(P / (32 / K)) / walk) chunks. The caller sums the
-// partials over T or C.
+// their C = ceil(ceil(P / (32 / K)) / walk) chunks; the on-chip K5's W
+// warps walk `walk` tiles each, C = ceil(ceil(P / (32 / K)) / (W walk)).
+// The caller sums the partials over T or C.
 //
 // The arithmetic follows libsbn_tpu/ops/pruning_pallas.py and
 // pruning_pallas_vjp.py: each combine step multiplies the three children's
@@ -47,15 +48,17 @@
 // max. The plain PyTorch twins (ops/pruning_generic.py, ops/pruning_vjp.py)
 // repeat this order.
 //
-// Design of K5 and of K4's and K6's slab routes: one thread per (tree, pattern) walks
-// the node loop of its pattern column, E/U/M in device memory
-// (csrc/pruning_jc.cu's layout), and the block stages its tree's N1 * K 4x4
-// matrices (and Q) in shared memory, so the 16 coefficient loads of every
-// apply are broadcasts from shared memory rather than device-memory loads on
-// the dependent chain. Cross-pattern sums go warp shuffle -> shared memory
-// -> per-tile partial, with no atomics, so results repeat exactly from run
-// to run. K4 and K6 on chip keep their tile's state in shared memory instead
-// (see generic_dp_kernel and generic_ll_grad_kernel below).
+// Design of the slab routes (the first designs of K4, K5 and K6): one
+// thread per (tree, pattern) walks the node loop of its pattern column,
+// E/U/M in device memory (csrc/pruning_jc.cu's layout), and the block stages
+// its tree's N1 * K 4x4 matrices (and Q) in shared memory where they fit a
+// block (else it reads them from device memory), so the 16 coefficient
+// loads of every apply are broadcasts from shared memory rather than
+// device-memory loads on the dependent chain. Cross-pattern sums go warp
+// shuffle -> shared memory -> per-tile partial, with no atomics, so results
+// repeat exactly from run to run. K4, K5 and K6 on chip keep their tile's state in shared memory
+// instead (see generic_dp_kernel, generic_ll_grad_kernel and
+// generic_ll_kernel below).
 
 #include <cuda_runtime.h>
 
@@ -94,12 +97,14 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Shared memory: the tree's transition matrices, Q (K4), freqs and props,
-// per-warp partial sums (G per warp: the edge values, and H per warp: the
-// root values), and the tree's schedule row.
+// Shared memory of the slab routes: the tree's transition matrices when
+// they fit (`staged`; else P points at them in device memory, as on the
+// 256-taxon tree at double K >= 4), Q (K4), freqs and props, per-warp
+// partial sums (G per warp: the edge values, and H per warp: the root
+// values), and the tree's schedule row.
 template <typename T>
 struct Shared {
-  T* P;      // N1 * K * 16
+  const T* P;  // N1 * K * 16
   T* Q;      // K * 16
   T* freqs;  // 4
   T* props;  // K
@@ -109,19 +114,29 @@ struct Shared {
 };
 
 template <typename T>
-__host__ __device__ size_t shared_bytes(int S, int N1, int K, int G, int H) {
-  return sizeof(T) * (size_t(N1) * K * 16 + size_t(K) * 16 + 4 + K +
+__host__ __device__ size_t shared_bytes(int S, int N1, int K, int G, int H, bool staged) {
+  return sizeof(T) * ((staged ? size_t(N1) * K * 16 : 0) + size_t(K) * 16 + 4 + K +
                       size_t(kWarps) * G + size_t(kWarps) * H) +
          sizeof(int) * 3 * size_t(S);
+}
+
+// The slab routes' shared-memory bytes, with the matrices staged when they
+// fit a block (*staged set to 1) and left in device memory otherwise.
+template <typename T>
+size_t slab_shared_bytes(int S, int N1, int K, int G, int H, int* staged) {
+  *staged = shared_bytes<T>(S, N1, K, G, H, true) <= kMaxShared;
+  return shared_bytes<T>(S, N1, K, G, H, *staged);
 }
 
 template <typename T>
 __device__ Shared<T> load_shared(unsigned char* raw, const int* post_children, const T* Pm,
                                  const T* Q, const T* freqs, const T* props, int fs, int ps,
-                                 int b, int S, int N1, int K, int G, int H) {
+                                 int b, int S, int N1, int K, int G, int H, int staged) {
   Shared<T> sh;
-  sh.P = reinterpret_cast<T*>(raw);
-  sh.Q = sh.P + N1 * K * 16;
+  const T* Pb = Pm + size_t(b) * N1 * K * 16;
+  T* sP = reinterpret_cast<T*>(raw);
+  sh.P = staged ? sP : Pb;
+  sh.Q = staged ? sP + N1 * K * 16 : sP;
   sh.freqs = sh.Q + K * 16;
   sh.props = sh.freqs + 4;
   sh.gsum = sh.props + K;
@@ -131,8 +146,9 @@ __device__ Shared<T> load_shared(unsigned char* raw, const int* post_children, c
   for (int i = tid; i < 3 * S; i += kThreads) {
     sh.pc[i] = post_children[size_t(b) * 3 * S + i];
   }
-  const T* Pb = Pm + size_t(b) * N1 * K * 16;
-  for (int i = tid; i < N1 * K * 16; i += kThreads) sh.P[i] = Pb[i];
+  if (staged) {
+    for (int i = tid; i < N1 * K * 16; i += kThreads) sP[i] = Pb[i];
+  }
   for (int i = tid; i < K * 16; i += kThreads) sh.Q[i] = Q == nullptr ? T(0) : Q[i];
   for (int i = tid; i < 4; i += kThreads) sh.freqs[i] = freqs[size_t(b) * fs + i];
   for (int i = tid; i < K; i += kThreads) sh.props[i] = props[size_t(b) * ps + i];
@@ -216,7 +232,9 @@ __device__ T root_site(const Shared<T>& sh, const T* X, int P) {
 }
 
 // ---------------------------------------------------------------------------
-// K5: LL only.
+// K5's slab route: its first design, kept for trees whose on-chip plan
+// (generic_ll_kernel below) cannot hold a tile; ops/pruning_vjp.py chooses it
+// from the shapes and counts it as "ll_generic_slab".
 // Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas_vjp.py::_fwd_kernel.
 // Bound on this card: device-memory traffic of E (each combine step reads
 // three child slabs of 4K values and writes one per pattern) and the
@@ -226,17 +244,17 @@ __device__ T root_site(const Shared<T>& sh, const T* X, int P) {
 // ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-generic_ll_kernel(const int* __restrict__ post_children, const T* __restrict__ Pm,
-                  const T* __restrict__ tips, const T* __restrict__ freqs,
-                  const T* __restrict__ props, const T* __restrict__ weights,
-                  T* __restrict__ E, T* __restrict__ ll_part, int fs, int ps, int L, int S,
-                  int N1, int P) {
+generic_ll_slab_kernel(const int* __restrict__ post_children, const T* __restrict__ Pm,
+                       const T* __restrict__ tips, const T* __restrict__ freqs,
+                       const T* __restrict__ props, const T* __restrict__ weights,
+                       T* __restrict__ E, T* __restrict__ ll_part, int fs, int ps, int L,
+                       int S, int N1, int P, int staged) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.y;
   const int p = blockIdx.x * kThreads + threadIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   Shared<T> sh = load_shared<T>(smem, post_children, Pm, nullptr, freqs, props, fs, ps, b, S, N1,
-                                K, 0, 1);
+                                K, 0, 1, staged);
   T ll = T(0);
   if (p < P) {
     T* Eb = E + size_t(b) * N1 * 4 * K * size_t(P) + p;
@@ -278,7 +296,7 @@ __device__ __forceinline__ void forward_and_upper(
     const T* __restrict__ Q, const T* __restrict__ tips, const T* __restrict__ freqs,
     const T* __restrict__ props, const T* __restrict__ weights, T* __restrict__ E,
     T* __restrict__ M, T* __restrict__ U, T* __restrict__ root_part, T* __restrict__ edge_part,
-    int fs, int ps, int L, int S, int N1, int P) {
+    int fs, int ps, int L, int S, int N1, int P, int staged) {
   constexpr int R = 4 * K;
   constexpr int V = kDp ? 16 * K : 1;  // values per child edge
   constexpr int G = kDp ? 3 * V : 0;   // per-warp edge slots (K4 uses N1)
@@ -293,7 +311,7 @@ __device__ __forceinline__ void forward_and_upper(
   const size_t blk = size_t(b) * gridDim.x + blockIdx.x;
   const T tiny = T(1e-30);
   Shared<T> sh = load_shared<T>(smem, post_children, Pm, Q, freqs, props, fs, ps, b, S, N1, K,
-                                kDp ? G : N1, H);
+                                kDp ? G : N1, H, staged);
 
   T* Eb = E + size_t(b) * N1 * R * sP + p;
   T* Ub = U + size_t(b) * N1 * R * sP + p;
@@ -465,10 +483,10 @@ generic_ll_grad_slab_kernel(const int* __restrict__ post_children, const T* __re
                             const T* __restrict__ freqs, const T* __restrict__ props,
                             const T* __restrict__ weights, T* __restrict__ E,
                             T* __restrict__ U, T* __restrict__ ll_part, T* __restrict__ grad_part,
-                            int L, int S, int N1, int P) {
+                            int L, int S, int N1, int P, int staged) {
   extern __shared__ __align__(16) unsigned char smem[];
   forward_and_upper<T, K, false>(smem, post_children, Pm, Q, tips, freqs, props, weights, E,
-                                 nullptr, U, ll_part, grad_part, 0, 0, L, S, N1, P);
+                                 nullptr, U, ll_part, grad_part, 0, 0, L, S, N1, P, staged);
 }
 
 // ---------------------------------------------------------------------------
@@ -487,10 +505,10 @@ generic_dp_slab_kernel(const int* __restrict__ post_children, const T* __restric
                        const T* __restrict__ props, const T* __restrict__ weights,
                        T* __restrict__ E, T* __restrict__ M, T* __restrict__ U,
                        T* __restrict__ dp_part, T* __restrict__ root_part, int fs, int ps,
-                       int L, int S, int N1, int P) {
+                       int L, int S, int N1, int P, int staged) {
   extern __shared__ __align__(16) unsigned char smem[];
   forward_and_upper<T, K, true>(smem, post_children, Pm, nullptr, tips, freqs, props, weights, E,
-                                M, U, root_part, dp_part, fs, ps, L, S, N1, P);
+                                M, U, root_part, dp_part, fs, ps, L, S, N1, P, staged);
 }
 
 // ---------------------------------------------------------------------------
@@ -1023,6 +1041,138 @@ generic_ll_grad_kernel(const int* __restrict__ post_children, const T* __restric
   if (lane == 0) ll_part[blk] = llacc;
 }
 
+// ---------------------------------------------------------------------------
+// K5: LL only.
+// Replaces the TPU kernel libsbn_tpu/ops/pruning_pallas_vjp.py::_fwd_kernel,
+// which kept a pattern tile's E rows in VMEM scratch.
+// Design: K4's and K6's on-chip forward pass without an upper pass, with W
+// warps a block sharing one staged copy of the tree's matrices:
+//   * lane l of a warp works on category l % K of pattern l / K, a tile of
+//     TP = 32 / K patterns; the block's W warps take different tiles of the
+//     same tree, warp v the tiles t0 + v, t0 + v + W, ... of the block's
+//     chunk of W * walk tiles;
+//   * the tree's N1 K 4x4 matrices and its schedule row are staged once per
+//     block with cp.async, freqs and props beside them;
+//   * each lane keeps its 4 E values of the S - 1 internal nodes below the
+//     root in its warp's shared-memory column; leaves (P_leaf tip, the tips
+//     read through the read-only cache) and the ones slot (the constant 1)
+//     are recomputed where they are used (GenericOnChip::row); the root's E
+//     stays in registers, and its site sum and the LL w (log site + sum of
+//     log scales) are K4's;
+//   * each warp sums its lanes' LLs by a butterfly, and the block adds its
+//     warps' sums in warp order into one partial per (tree, chunk), which
+//     the caller sums: no atomics, the result repeats exactly, and a call
+//     adds B C values where the slab route's E scratch took B N1 4K P.
+// The tree is the fast grid index, so that the blocks an SM holds at once
+// share a chunk of patterns and its tips stay in cache. W comes from
+// ops/pruning_vjp.py ll_onchip_plan: the largest W <= 8 whose shared memory
+// (ll_onchip_bytes) fits a block and gives an SM at least as many warps as
+// W = 1 (config 2 f32 K = 4: 13.6 KB of matrices and 12.3 KB of E rows a
+// warp, so W = 8 in 112 KB, 2 blocks and 16 warps an SM, where W = 1 gives 8).
+// Bound on this card: arithmetic, about 0.027 ms at the JAX bench's config 2
+// (B = 256 DS1.100 f32 Weibull+4; chip_smoke.py computes it from its
+// inputs), against the slab route's 1.9 GB of E traffic a call. Like K4 and
+// K6 it issues more instructions than the work needs: every lane repeats
+// its pattern's schedule, address and division work, and the per-pattern
+// max and site sum cross K lanes by shuffles.
+// Route for larger trees (the plan cannot hold one warp's tile): the slab
+// route above, chosen by ops/pruning_vjp.py from the shapes.
+// ---------------------------------------------------------------------------
+constexpr int kMaxLlWarps = 8;  // warps a block of the on-chip K5 at most
+
+// Bytes of shared memory the on-chip K5 takes with W warps (a tile of
+// TP = 32 / K patterns each); ops/pruning_vjp.py ll_onchip_bytes computes the
+// same sum.
+template <typename T>
+__host__ __device__ size_t ll_onchip_bytes(int S, int N1, int K, int W) {
+  return sizeof(T) * (size_t(N1) * K * 16 + size_t(W) * (size_t(S) - 1) * 4 * 32 + W + 4 + K) +
+         sizeof(int) * 3 * size_t(S);
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(32 * kMaxLlWarps)
+generic_ll_kernel(const int* __restrict__ post_children, const T* __restrict__ Pm,
+                  const T* __restrict__ tips, const T* __restrict__ freqs,
+                  const T* __restrict__ props, const T* __restrict__ weights,
+                  T* __restrict__ ll_part, int fs, int ps, int L, int S, int N1, int P,
+                  int walk) {
+  constexpr int TP = 32 / K;  // patterns a tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = blockDim.x / 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int pl = lane / K;    // the lane's pattern in the tile
+  const int k = lane % K;     // and its rate category
+  const bool used = pl < TP;
+  const int b = blockIdx.x;
+  const int chunk = blockIdx.y;
+  const T tiny = T(1e-30);
+
+  // Carve shared memory in ll_onchip_bytes' order and stage the tree.
+  T* s_P = reinterpret_cast<T*>(smem);
+  T* slots = s_P + N1 * K * 16;
+  T* s_part = slots + size_t(W) * (S - 1) * 4 * 32;  // one LL sum a warp
+  T* s_freqs = s_part + W;
+  T* s_props = s_freqs + 4;
+  int* s_pc = reinterpret_cast<int*>(s_props + K);
+  for (int i = tid; i < 3 * S; i += blockDim.x) {
+    cp_async<sizeof(int)>(s_pc + i, post_children + size_t(b) * 3 * S + i);
+  }
+  const T* Pb = Pm + size_t(b) * N1 * K * 16;
+  for (int i = tid; i < N1 * K * 16; i += blockDim.x) cp_async<sizeof(T)>(s_P + i, Pb + i);
+  for (int i = tid; i < 4; i += blockDim.x) s_freqs[i] = freqs[size_t(b) * fs + i];
+  for (int i = tid; i < K; i += blockDim.x) s_props[i] = props[size_t(b) * ps + i];
+  cp_async_wait_all();
+  __syncthreads();
+
+  T llacc = T(0);
+  const T pk = s_props[k];
+  const int tiles = (P + TP - 1) / TP;
+  const int span = W * walk;  // tiles of the block's chunk
+  const int t1 = (chunk + 1) * span < tiles ? (chunk + 1) * span : tiles;
+  T* column = slots + size_t(warp) * (S - 1) * 4 * 32 + lane;
+  for (int tile = chunk * span + warp; tile < t1; tile += W) {
+    const int p = tile * TP + pl;
+    const bool active = used && p < P;
+    // Every lane runs every step, so that the shuffles see the whole warp;
+    // an inactive lane works on pattern 0 and its results are dropped.
+    const GenericOnChip<T, K> o{s_P, column, tips + (active ? p : 0), s_pc,
+                                k, pl * K, L, S, N1, P};
+    const T w = active ? weights[p] : T(0);
+
+    // The S combine steps, each storing E[node] but the root's, which stays
+    // in registers, with the sum of the log scales.
+    T logscale = T(0);
+    T eroot[4];
+    for (int s = 0; s < S; ++s) {
+      T prod[4], out[4];
+      logscale += log_t(o.combine(s, prod));
+      apply4<T, false>(o.mat(L + s), prod, out);
+      if (s == S - 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) eroot[i] = out[i];
+        break;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o.at(L + s, i) = out[i];
+    }
+    T site = T(0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) site += (pk * s_freqs[i]) * eroot[i];
+    site = group_sum<T, K>(site, o.base);
+    site = site > tiny ? site : tiny;
+    if (active && k == 0) llacc += w * (log_t(site) + logscale);
+  }
+  // The chunk's partial: the warps' sums in warp order.
+  llacc = warp_sum(llacc);
+  if (lane == 0) s_part[warp] = llacc;
+  __syncthreads();
+  if (tid == 0) {
+    T acc = s_part[0];
+    for (int v = 1; v < W; ++v) acc += s_part[v];
+    ll_part[size_t(b) * gridDim.y + chunk] = acc;
+  }
+}
+
 template <typename Kern>
 cudaError_t prepare(Kern kernel, size_t smem) {
   if (smem > kMaxShared) return cudaErrorInvalidConfiguration;
@@ -1032,16 +1182,36 @@ cudaError_t prepare(Kern kernel, size_t smem) {
   return cudaSuccess;
 }
 
+// The on-chip K5 takes the plan's warps a block and shared-memory bytes from
+// the caller, and refuses a plan that does not hold what it carves.
 template <typename T, int K>
 int launch_ll(const int* pc, const T* Pm, const T* tips, const T* freqs, const T* props,
-              const T* w, T* E, T* ll_part, int fs, int ps, int B, int L, int S, int N1, int P,
-              cudaStream_t st) {
-  const size_t smem = shared_bytes<T>(S, N1, K, 0, 1);
-  cudaError_t err = prepare(generic_ll_kernel<T, K>, smem);
+              const T* w, T* ll_part, int fs, int ps, int B, int L, int S, int N1, int P, int W,
+              int smem, int walk, cudaStream_t st) {
+  if (W < 1 || W > kMaxLlWarps || walk < 1 || smem < 0 ||
+      size_t(smem) < ll_onchip_bytes<T>(S, N1, K, W)) {
+    return int(cudaErrorInvalidValue);
+  }
+  cudaError_t err = prepare(generic_ll_kernel<T, K>, size_t(smem));
+  if (err != cudaSuccess) return int(err);
+  const int tiles = (P + 32 / K - 1) / (32 / K);
+  const dim3 grid(B, (tiles + W * walk - 1) / (W * walk));
+  generic_ll_kernel<T, K><<<grid, 32 * W, smem, st>>>(pc, Pm, tips, freqs, props, w, ll_part,
+                                                      fs, ps, L, S, N1, P, walk);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int K>
+int launch_ll_slab(const int* pc, const T* Pm, const T* tips, const T* freqs, const T* props,
+                   const T* w, T* E, T* ll_part, int fs, int ps, int B, int L, int S, int N1,
+                   int P, cudaStream_t st) {
+  int staged;
+  const size_t smem = slab_shared_bytes<T>(S, N1, K, 0, 1, &staged);
+  cudaError_t err = prepare(generic_ll_slab_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
-  generic_ll_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, Pm, tips, freqs, props, w, E,
-                                                        ll_part, fs, ps, L, S, N1, P);
+  generic_ll_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, Pm, tips, freqs, props, w, E,
+                                                             ll_part, fs, ps, L, S, N1, P, staged);
   return int(cudaGetLastError());
 }
 
@@ -1049,12 +1219,13 @@ template <typename T, int K>
 int launch_ll_grad_slab(const int* pc, const T* Pm, const T* Q, const T* tips, const T* freqs,
                         const T* props, const T* w, T* E, T* U, T* ll_part, T* grad_part, int B,
                         int L, int S, int N1, int P, cudaStream_t st) {
-  const size_t smem = shared_bytes<T>(S, N1, K, N1, 1);
+  int staged;
+  const size_t smem = slab_shared_bytes<T>(S, N1, K, N1, 1, &staged);
   cudaError_t err = prepare(generic_ll_grad_slab_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
   generic_ll_grad_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(
-      pc, Pm, Q, tips, freqs, props, w, E, U, ll_part, grad_part, L, S, N1, P);
+      pc, Pm, Q, tips, freqs, props, w, E, U, ll_part, grad_part, L, S, N1, P, staged);
   return int(cudaGetLastError());
 }
 
@@ -1081,12 +1252,13 @@ template <typename T, int K>
 int launch_dp_slab(const int* pc, const T* Pm, const T* tips, const T* freqs, const T* props,
                    const T* w, T* E, T* M, T* U, T* dp_part, T* root_part, int fs, int ps, int B,
                    int L, int S, int N1, int P, cudaStream_t st) {
-  const size_t smem = shared_bytes<T>(S, N1, K, 3 * 16 * K, 4 + K);
+  int staged;
+  const size_t smem = slab_shared_bytes<T>(S, N1, K, 3 * 16 * K, 4 + K, &staged);
   cudaError_t err = prepare(generic_dp_slab_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
   generic_dp_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(
-      pc, Pm, tips, freqs, props, w, E, M, U, dp_part, root_part, fs, ps, L, S, N1, P);
+      pc, Pm, tips, freqs, props, w, E, M, U, dp_part, root_part, fs, ps, L, S, N1, P, staged);
   return int(cudaGetLastError());
 }
 
@@ -1124,14 +1296,29 @@ int launch_dp(const int* pc, const T* Pm, const T* tips, const T* freqs, const T
 
 template <typename T>
 int ll_entry(const void* pc, const void* Pm, const void* tips, const void* freqs,
-             const void* props, const void* w, void* E, void* ll_part, int fs, int ps, int B,
-             int L, int S, int N1, int K, int P, void* stream) {
+             const void* props, const void* w, void* ll_part, int fs, int ps, int B, int L,
+             int S, int N1, int K, int P, int W, int smem, int walk, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define LSBN_CALL(KK)                                                                         \
-  launch_ll<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(Pm),                   \
-                   static_cast<const T*>(tips), static_cast<const T*>(freqs),                 \
-                   static_cast<const T*>(props), static_cast<const T*>(w), static_cast<T*>(E), \
-                   static_cast<T*>(ll_part), fs, ps, B, L, S, N1, P, st)
+#define LSBN_CALL(KK)                                                                   \
+  launch_ll<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(Pm),             \
+                   static_cast<const T*>(tips), static_cast<const T*>(freqs),           \
+                   static_cast<const T*>(props), static_cast<const T*>(w),              \
+                   static_cast<T*>(ll_part), fs, ps, B, L, S, N1, P, W, smem, walk, st)
+  LSBN_DISPATCH_K(K, LSBN_CALL)
+#undef LSBN_CALL
+}
+
+template <typename T>
+int ll_slab_entry(const void* pc, const void* Pm, const void* tips, const void* freqs,
+                  const void* props, const void* w, void* E, void* ll_part, int fs, int ps,
+                  int B, int L, int S, int N1, int K, int P, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+#define LSBN_CALL(KK)                                                                      \
+  launch_ll_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(Pm),           \
+                        static_cast<const T*>(tips), static_cast<const T*>(freqs),         \
+                        static_cast<const T*>(props), static_cast<const T*>(w),            \
+                        static_cast<T*>(E), static_cast<T*>(ll_part), fs, ps, B, L, S, N1, \
+                        P, st)
   LSBN_DISPATCH_K(K, LSBN_CALL)
 #undef LSBN_CALL
 }
@@ -1213,18 +1400,40 @@ const char* lsbn_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// K5 on chip: the plan's warps a block and shared-memory bytes come from the
+// caller (ops/pruning_vjp.py ll_onchip_plan), and each warp walks `walk`
+// tiles.
 int lsbn_generic_ll_f32(const void* pc, const void* Pm, const void* tips, const void* freqs,
-                        const void* props, const void* w, void* E, void* ll_part, int fs, int ps,
-                        int B, int L, int S, int N1, int K, int P, void* stream) {
-  return ll_entry<float>(pc, Pm, tips, freqs, props, w, E, ll_part, fs, ps, B, L, S, N1, K, P,
-                         stream);
+                        const void* props, const void* w, void* ll_part, int fs, int ps, int B,
+                        int L, int S, int N1, int K, int P, int W, int smem, int walk,
+                        void* stream) {
+  return ll_entry<float>(pc, Pm, tips, freqs, props, w, ll_part, fs, ps, B, L, S, N1, K, P, W,
+                         smem, walk, stream);
 }
 
 int lsbn_generic_ll_f64(const void* pc, const void* Pm, const void* tips, const void* freqs,
-                        const void* props, const void* w, void* E, void* ll_part, int fs, int ps,
-                        int B, int L, int S, int N1, int K, int P, void* stream) {
-  return ll_entry<double>(pc, Pm, tips, freqs, props, w, E, ll_part, fs, ps, B, L, S, N1, K, P,
-                          stream);
+                        const void* props, const void* w, void* ll_part, int fs, int ps, int B,
+                        int L, int S, int N1, int K, int P, int W, int smem, int walk,
+                        void* stream) {
+  return ll_entry<double>(pc, Pm, tips, freqs, props, w, ll_part, fs, ps, B, L, S, N1, K, P, W,
+                          smem, walk, stream);
+}
+
+// K5's slab route (tile kThreads), for trees beyond the plan.
+int lsbn_generic_ll_slab_f32(const void* pc, const void* Pm, const void* tips,
+                             const void* freqs, const void* props, const void* w, void* E,
+                             void* ll_part, int fs, int ps, int B, int L, int S, int N1, int K,
+                             int P, void* stream) {
+  return ll_slab_entry<float>(pc, Pm, tips, freqs, props, w, E, ll_part, fs, ps, B, L, S, N1, K,
+                              P, stream);
+}
+
+int lsbn_generic_ll_slab_f64(const void* pc, const void* Pm, const void* tips,
+                             const void* freqs, const void* props, const void* w, void* E,
+                             void* ll_part, int fs, int ps, int B, int L, int S, int N1, int K,
+                             int P, void* stream) {
+  return ll_slab_entry<double>(pc, Pm, tips, freqs, props, w, E, ll_part, fs, ps, B, L, S, N1,
+                               K, P, stream);
 }
 
 // K4 on chip: the plan's tile TP and shared-memory bytes come from the

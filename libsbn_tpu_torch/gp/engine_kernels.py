@@ -45,6 +45,13 @@ the dtype and the DAG's sizes. A DAG where not even one pattern fits takes
 the slab route, K7's first design over device-memory PLVs (a thread per
 pattern), counted as ``populate_plvs_slab``. The route follows from the
 shapes alone.
+
+K8 on the card runs a block of SWEEP_WARPS warps per edge over the edge's
+A and B rows and w staged once in shared memory, evaluating f at c and d
+together and summing the warps' partials in a fixed order;
+``golden_sweep_plan`` checks that the rows fit. Longer rows take the slab
+route, K8's first design (a warp per edge over device-memory rows), counted
+as ``golden_sweep_slab``.
 """
 
 from __future__ import annotations
@@ -66,12 +73,16 @@ INVPHI = (math.sqrt(5.0) - 1.0) / 2.0
 
 # Launch counts of the CUDA kernels and call counts of their twins, so a run
 # can show which one it took. reset_counters() sets them all to 0.
-LAUNCHES = {"populate_plvs": 0, "populate_plvs_slab": 0, "golden_sweep": 0}
+LAUNCHES = {"populate_plvs": 0, "populate_plvs_slab": 0, "golden_sweep": 0,
+            "golden_sweep_slab": 0}
 TWIN_CALLS = {"populate_plvs": 0, "golden_sweep": 0}
 
 # Patterns a tile of the on-chip K7 holds at most: a lane per (pattern,
 # state), one warp.
 POPULATE_TILE = 8
+# Warps a block of the main K8, which sweeps one edge (csrc/gp_engine.cu
+# kSweepWarps).
+SWEEP_WARPS = 8
 
 PLV_KEYS = ("p", "phat", "phattilde", "rhat", "r", "rtilde", "ls_p", "ls_phat",
             "ls_phattilde", "ls_rhat", "ls_r", "ls_rtilde")
@@ -448,8 +459,28 @@ def _populate_plvs_launch(streams: EdgeStreams, q, P, tips, plan):
     return _plv_dict(N, p, PH, rhat, RB, lsp, lsPH, lsrhat, lsRB)
 
 
+def golden_sweep_bytes(itemsize, S):
+    """Shared-memory bytes of the main K8 for rows of S patterns, as
+    csrc/gp_engine.cu golden_sweep_bytes carves them: the edge's A and B
+    rows and w (3 S values), then two buffers of SWEEP_WARPS pairs of warp
+    sums."""
+    return itemsize * (3 * S + 2 * 2 * SWEEP_WARPS)
+
+
+def golden_sweep_plan(dtype, S):
+    """Shared-memory bytes of the main K8 (a block per edge, its rows staged
+    in shared memory) for rows of S patterns, or None when they do not fit
+    in SHARED_LIMIT (float32: beyond 19,360 patterns, float64: 9,674), and
+    the rows take the slab route."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    need = golden_sweep_bytes(itemsize, S)
+    return need if need <= SHARED_LIMIT else None
+
+
 def golden_sweep_cuda(A, B, w, cur_log_bl):
-    """K8 on the card: (E,) new log branch lengths (see golden_sweep)."""
+    """K8 on the card: (E,) new log branch lengths (see golden_sweep). A
+    block per edge over rows staged in shared memory when golden_sweep_plan
+    fits, else the slab route."""
     dt, dev = _working(A)
     _check([("A", A, None), ("B", B, None), ("w", w, None),
             ("cur_log_bl", cur_log_bl, None)], dt, dev)
@@ -460,13 +491,26 @@ def golden_sweep_cuda(A, B, w, cur_log_bl):
                          f"{tuple(cur_log_bl.shape)}")
     if E < 1 or S < 1:
         raise ValueError(f"need E >= 1 edges and S >= 1 patterns, got {E}, {S}")
+    return _golden_sweep_launch(A, B, w, cur_log_bl, golden_sweep_plan(dt, S))
+
+
+def _golden_sweep_launch(A, B, w, cur_log_bl, plan):
+    """K8 with ``plan`` (shared bytes), or its slab route when plan is
+    None; inputs checked by the caller."""
+    dt, dev = A.dtype, A.device
+    E, S = A.shape
     lib = _kernels.load("gp_engine")
     out = torch.empty((E,), dtype=dt, device=dev)
-    fn = (lib.lsbn_gp_golden_sweep_f32 if dt == torch.float32
-          else lib.lsbn_gp_golden_sweep_f64)
+    if plan is None:
+        key, name, extra = "golden_sweep_slab", "lsbn_gp_golden_sweep_slab", ()
+    else:
+        key, name, extra = "golden_sweep", "lsbn_gp_golden_sweep", (plan,)
+    fn = getattr(lib, f"{name}_{'f32' if dt == torch.float32 else 'f64'}")
     with torch.cuda.device(dev):
         rc = fn(A.data_ptr(), B.data_ptr(), w.data_ptr(), cur_log_bl.data_ptr(),
-                out.data_ptr(), E, S, torch.cuda.current_stream().cuda_stream)
-    _kernels.check(lib, rc, "GP golden-section sweep kernel")
-    LAUNCHES["golden_sweep"] += 1
+                out.data_ptr(), E, S, *extra,
+                torch.cuda.current_stream().cuda_stream)
+    _kernels.check(lib, rc, "GP golden-section sweep kernel"
+                   + (" (slab route)" if plan is None else ""))
+    LAUNCHES[key] += 1
     return out

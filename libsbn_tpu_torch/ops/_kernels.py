@@ -72,9 +72,12 @@ def _bind_generic(lib):
     lib.lsbn_generic_max_k.restype = _I32
     lib.lsbn_generic_max_k.argtypes = []
     for dt in ("f32", "f64"):
-        # pc, P, tips, freqs, props, w, E, ll_part; fs, ps, B, L, S, N1, K,
-        # P; stream
-        _sig(lib, f"lsbn_generic_ll_{dt}", 8, 8)
+        # pc, P, tips, freqs, props, w, ll_part; fs, ps, B, L, S, N1, K, P,
+        # warps a block, shared bytes, tiles a warp walks; stream
+        _sig(lib, f"lsbn_generic_ll_{dt}", 7, 11)
+        # The slab route: pc, P, tips, freqs, props, w, E, ll_part; fs, ps,
+        # B, L, S, N1, K, P; stream
+        _sig(lib, f"lsbn_generic_ll_slab_{dt}", 8, 8)
         # pc, P, Q, tips, freqs, props, w, ll_part, grad_part; B, L, S, N1,
         # K, P, tile, shared bytes, tiles a block walks; stream
         _sig(lib, f"lsbn_generic_ll_grad_{dt}", 9, 9)
@@ -99,8 +102,10 @@ def _bind_gp(lib):
         # The slab route: rootward, leafward, roots, q, P, tips, the 8
         # outputs; n_rw, n_lw, n_roots, E, N, L, S; stream
         _sig(lib, f"lsbn_gp_populate_slab_{dt}", 14, 7)
-        # A, B, w, cur, out; E, S; stream
-        _sig(lib, f"lsbn_gp_golden_sweep_{dt}", 5, 2)
+        # A, B, w, cur, out; E, S, shared bytes; stream
+        _sig(lib, f"lsbn_gp_golden_sweep_{dt}", 5, 3)
+        # The slab route: A, B, w, cur, out; E, S; stream
+        _sig(lib, f"lsbn_gp_golden_sweep_slab_{dt}", 5, 2)
 
 
 # One library per source, csrc/<name>.cu, with its C signatures.

@@ -18,14 +18,22 @@ shared as (4,) and (K,): the per-tree rows let the engine get every tree's
 model gradient from one launch. tips and weights are data: they get no
 gradient here.
 
-K6 runs a lane per (pattern, rate category), a tile of 32 // K patterns a
-warp, and keeps the tile's pruning state in shared memory
-(``dp_onchip_plan`` checks from (dtype, K, S, L) that it fits); each block
-walks the tiles of DP_SPAN patterns, adding its dP into one partial per
-(tree, chunk of tiles). A tree beyond the plan (or more than 65,535 chunks
-of patterns) takes the slab route, K6's first design over (B, N1, 4K, P)
-scratch, counted as ``ll_dp_generic_slab``. The route follows from the
-shapes alone.
+K5 runs a lane per (pattern, rate category), a tile of 32 // K patterns a
+warp, and keeps each lane's E rows in shared memory; the W warps of a block
+take different tiles of one tree and share one staged copy of its matrices
+(``ll_onchip_plan`` chooses W from (dtype, K, S, L)). Each warp walks the
+tiles of LL_SPAN patterns, and a block writes one LL partial per (tree,
+chunk of tiles). A tree where not even one warp's tile fits (or more than
+65,535 chunks of patterns) takes the slab route, K5's first design over a
+(B, N1, 4K, P) E slab, counted as ``ll_generic_slab``.
+
+K6 runs K5's lane layout, one warp a block, and keeps the tile's pruning
+state (E and U rows) in shared memory (``dp_onchip_plan`` checks from
+(dtype, K, S, L) that it fits); each block walks the tiles of DP_SPAN
+patterns, adding its dP into one partial per (tree, chunk of tiles). A
+tree beyond the plan (or more than 65,535 chunks of patterns) takes the
+slab route, K6's first design over (B, N1, 4K, P) scratch, counted as
+``ll_dp_generic_slab``. The routes follow from the shapes alone.
 """
 
 from __future__ import annotations
@@ -42,11 +50,23 @@ from .pruning_generic import (
 
 # Launch counts of the CUDA kernels and call counts of their twins, so a run
 # can show which one it took. reset_counters() sets them all to 0.
-LAUNCHES = {"ll_generic": 0, "ll_dp_generic": 0, "ll_dp_generic_slab": 0}
+LAUNCHES = {"ll_generic": 0, "ll_generic_slab": 0, "ll_dp_generic": 0,
+            "ll_dp_generic_slab": 0}
 TWIN_CALLS = {"ll_generic": 0, "ll_dp_generic": 0}
 # Patterns each block of the on-chip K6 walks, in tiles of 32 // K (one warp
 # a block).
 DP_SPAN = 128
+# Patterns each warp of the on-chip K5 walks, in tiles of 32 // K, and the
+# most warps a block of it holds (csrc/pruning_generic.cu kMaxLlWarps).
+LL_SPAN = 128
+LL_WARPS = 8
+# One Hopper SM: the shared memory its blocks share, what each block
+# reserves of it, and the most blocks and warps it holds at once (CUDA
+# programming guide, compute capability 9.0).
+SM_SHARED = 233_472
+BLOCK_RESERVED = 1_024
+SM_BLOCKS = 32
+SM_WARPS = 64
 
 
 def reset_counters():
@@ -152,17 +172,96 @@ def ll_dp_generic_plain(post_children, P, tips, freqs, props, weights, *,
 # -- CUDA kernels (csrc/pruning_generic.cu) ------------------------------------
 
 
+def ll_onchip_bytes(itemsize, K, S, L, W):
+    """Shared-memory bytes of the on-chip K5 with W warps (a tile of
+    32 // K patterns each, a lane per pattern and category), as
+    csrc/pruning_generic.cu ll_onchip_bytes carves them: the tree's N1 K
+    4x4 matrices, each warp's 32 lanes' 4 values of the E rows of the S - 1
+    internal nodes below the root, one LL sum a warp, freqs and props, and
+    the schedule row (int32)."""
+    N1 = L + S + 1
+    values = N1 * K * 16 + W * (S - 1) * 4 * 32 + W + 4 + K
+    return itemsize * values + 4 * 3 * S
+
+
+def sm_warps(W, need):
+    """Warps a Hopper SM holds at once of blocks of W warps that take
+    ``need`` bytes of shared memory each."""
+    blocks = min(SM_BLOCKS, SM_WARPS // W, SM_SHARED // (need + BLOCK_RESERVED))
+    return W * blocks
+
+
+def ll_onchip_plan(dtype, K, S, L):
+    """(W, shared bytes) of the on-chip K5 for a tree of L leaves and S
+    combine steps: the largest W <= LL_WARPS warps a block whose state fits
+    in SHARED_LIMIT and gives an SM at least as many warps as W = 1 (W = 1
+    when only one warp fits), or None when not even one warp's tile fits
+    (the slab route)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    one = ll_onchip_bytes(itemsize, K, S, L, 1)
+    if one > SHARED_LIMIT:
+        return None
+    floor = sm_warps(1, one)
+    for W in range(LL_WARPS, 0, -1):
+        need = ll_onchip_bytes(itemsize, K, S, L, W)
+        if need <= SHARED_LIMIT and sm_warps(W, need) >= floor:
+            return W, need
+
+
 def ll_generic_cuda(post_children, P, tips, freqs, props, weights, *, root_id):
-    """K5 on the card: (B,) log likelihoods."""
+    """K5 on the card: (B,) log likelihoods. On chip when the plan fits,
+    else the slab route."""
     dims, (freqs, fs), (props, ps) = check_inputs(
         post_children, P, tips, weights, freqs, props, root_id)
     B, L, S, N1, K, n_pat = dims
-    dt, dev = tips.dtype, tips.device
     lib = load_checked(K)
+    plan = ll_onchip_plan(tips.dtype, K, S, L)
+    args = (post_children, P, tips, freqs, props, weights, fs, ps)
+    if plan is None or ll_chunks(n_pat, K, plan[0]) > MAX_TILES:
+        return _ll_generic_slab(lib, dims, *args)
+    return _ll_generic_onchip(lib, dims, *args, plan)
+
+
+def ll_chunks(n_pat, K, W):
+    """Blocks per tree of the on-chip K5 (the grid's y) for n_pat patterns:
+    each of its W warps walks the tiles of LL_SPAN patterns."""
+    tile = 32 // K
+    return -(-n_pat // (W * -(-LL_SPAN // tile) * tile))
+
+
+def _ll_generic_onchip(lib, dims, post_children, P, tips, freqs, props,
+                       weights, fs, ps, plan):
+    """K5 on chip with ``plan`` (W warps a block, shared bytes); inputs
+    checked by the caller, freqs and props with their tree strides fs, ps."""
+    B, L, S, N1, K, n_pat = dims
+    W, smem = plan
+    dt, dev = tips.dtype, tips.device
+    walk = -(-LL_SPAN // (32 // K))  # tiles a warp walks
+    ll_part = torch.empty((B, ll_chunks(n_pat, K, W)), dtype=dt, device=dev)
+    fn = lib.lsbn_generic_ll_f32 if dt == torch.float32 else lib.lsbn_generic_ll_f64
+    with torch.cuda.device(dev):
+        rc = fn(
+            post_children.data_ptr(), P.data_ptr(), tips.data_ptr(),
+            freqs.data_ptr(), props.data_ptr(), weights.data_ptr(),
+            ll_part.data_ptr(), fs, ps, *dims, W, smem, walk,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _kernels.check(lib, rc, "generic LL kernel")
+    LAUNCHES["ll_generic"] += 1
+    return ll_part.sum(dim=1)
+
+
+def _ll_generic_slab(lib, dims, post_children, P, tips, freqs, props, weights,
+                     fs, ps):
+    """K5's slab route (inputs checked by the caller; freqs and props with
+    their tree strides fs, ps, as ``check_inputs`` gives them)."""
+    B, L, S, N1, K, n_pat = dims
+    dt, dev = tips.dtype, tips.device
     tiles = -(-n_pat // lib.lsbn_generic_tile())
     E = torch.empty((B, N1, 4 * K, n_pat), dtype=dt, device=dev)
     ll_part = torch.empty((B, tiles), dtype=dt, device=dev)
-    fn = lib.lsbn_generic_ll_f32 if dt == torch.float32 else lib.lsbn_generic_ll_f64
+    fn = (lib.lsbn_generic_ll_slab_f32 if dt == torch.float32
+          else lib.lsbn_generic_ll_slab_f64)
     with torch.cuda.device(dev):
         rc = fn(
             post_children.data_ptr(), P.data_ptr(), tips.data_ptr(),
@@ -170,8 +269,8 @@ def ll_generic_cuda(post_children, P, tips, freqs, props, weights, *, root_id):
             E.data_ptr(), ll_part.data_ptr(), fs, ps, *dims,
             torch.cuda.current_stream().cuda_stream,
         )
-    _kernels.check(lib, rc, "generic LL kernel")
-    LAUNCHES["ll_generic"] += 1
+    _kernels.check(lib, rc, "generic LL kernel (slab route)")
+    LAUNCHES["ll_generic_slab"] += 1
     return ll_part.sum(dim=1)
 
 

@@ -418,11 +418,13 @@ def test_generic_kernels_match_twins_on_card(data, dtype, K):
 
 
 # K6 beyond its on-chip plan (the slab route: the 256-taxon tree at float64,
-# or float32 K >= 4), where the plan still fits on that tree (float32
-# K <= 3), and on DS1 at K that leave lanes idle (5) or fill the most shared
-# memory (float64 K = 8).
+# or float32 K >= 4; at float64 K = 8 the tree's matrices exceed a block's
+# shared memory and the slab route reads them from device memory), where
+# the plan still fits on that tree (float32 K <= 3), and on DS1 at K that
+# leave lanes idle (5) or fill the most shared memory (float64 K = 8).
 K6_ROUTE_CASES = [("big", torch.float32, 4, "slab"),
                   ("big", torch.float64, 1, "slab"),
+                  ("big", torch.float64, 8, "slab"),
                   ("big", torch.float32, 1, "onchip"),
                   ("big", torch.float32, 3, "onchip"),
                   ("ds1", torch.float32, 5, "onchip"),
@@ -456,11 +458,13 @@ def test_k6_routes_match_twin_on_card(data, dtype, K, route):
 
 
 # K4 beyond its on-chip plan (the slab route: the 256-taxon tree at float64,
-# or float32 K >= 3), where the plan still fits on that tree (float32
-# K <= 2), and on DS1 at the config-2 model, at K that leave lanes idle (5)
-# or fill the most shared memory (float64 K = 8).
+# or float32 K >= 3; at float64 K = 8 with the matrices in device memory),
+# where the plan still fits on that tree (float32 K <= 2), and on DS1 at
+# the config-2 model, at K that leave lanes idle (5) or fill the most shared
+# memory (float64 K = 8).
 K4_ROUTE_CASES = [("big", torch.float32, 4, "slab"),
                   ("big", torch.float64, 1, "slab"),
+                  ("big", torch.float64, 8, "slab"),
                   ("big", torch.float32, 3, "slab"),
                   ("big", torch.float32, 1, "onchip"),
                   ("big", torch.float32, 2, "onchip"),
@@ -521,6 +525,78 @@ def test_onchip_k4_adds_only_chunk_partials():
     assert onchip < 5e7 and slab > 1e9, (onchip, slab)
 
 
+# K5 on chip on DS1 at K = 1, 4 and 8 (the route the GTR path takes), and
+# where its plan holds only one warp a block (the 256-taxon tree at float32
+# K <= 3); beyond the plan (the 256-taxon tree at float32 K >= 4 and at
+# float64), the slab route, which at float32 K = 8 and float64 K >= 4 reads
+# the tree's matrices from device memory.
+K5_ROUTE_CASES = ([("ds1", dt, K, "onchip") for dt in (torch.float32, torch.float64)
+                   for K in (1, 4, 8)]
+                  + [("big", torch.float32, 1, "onchip"),
+                     ("big", torch.float32, 3, "onchip")]
+                  + [("big", dt, K, "slab") for dt in (torch.float32, torch.float64)
+                     for K in (4, 8)]
+                  + [("big", torch.float64, 1, "slab")])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,dtype,K,route", K5_ROUTE_CASES)
+def test_k5_routes_match_twin_on_card(data, dtype, K, route):
+    """K5 against its twin, with shared freqs and props and with one row per
+    tree, where ll_onchip_plan fits (on chip) and where it refuses the
+    shapes (the slab route), at the tolerances of TOL; the counters show the
+    route taken. On DS1 the slab route, called directly, is held to the twin
+    too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pc, P, _, tips, freqs, props, w, r = _generic_inputs(data, dtype, K)
+    B, L, S = pc.shape[0], tips.shape[0], pc.shape[1]
+    plan = pruning_vjp.ll_onchip_plan(dtype, K, S, L)
+    assert (plan is None) == (route == "slab")
+    rows = (freqs * torch.linspace(0.9, 1.1, B, dtype=dtype,
+                                   device="cuda")[:, None]).contiguous()
+    ll_rtol, ll_atol = TOL[dtype][0]
+    key = "ll_generic_slab" if route == "slab" else "ll_generic"
+    lib = pruning_vjp.load_checked(K)
+    dims = (B, L, S, r + 2, K, tips.shape[2])
+    for f, p, strides in ((freqs, props, (0, 0)),
+                          (rows, props.expand(B, K).contiguous(), (4, K))):
+        args = (pc, P, tips, f, p, w)
+        pruning_vjp.reset_counters()
+        got = [pruning_vjp.ll_generic_cuda(*args, root_id=r)]
+        torch.cuda.synchronize()
+        assert pruning_vjp.LAUNCHES[key] == 1
+        assert sum(pruning_vjp.LAUNCHES.values()) == 1
+        if data == "ds1":
+            got.append(pruning_vjp._ll_generic_slab(lib, dims, *args, *strides))
+        want = pruning_vjp.ll_generic_plain(*args, root_id=r).cpu().numpy()
+        assert np.all(np.isfinite(want))
+        for g in got:
+            np.testing.assert_allclose(g.cpu().numpy(), want, rtol=ll_rtol,
+                                       atol=ll_atol)
+
+
+@pytest.mark.cuda
+def test_onchip_k5_adds_only_chunk_partials():
+    """At the JAX bench's config 2 shapes (256 DS1.100_topologies trees,
+    f32, GTR + Weibull+4), one on-chip K5 call adds its per-(tree, chunk)
+    LL partials, (256, 1) floats, and their sum: under 1 MB, where the slab
+    route adds its (B, N1, 4K, P) E scratch (about 811 MB)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pc, P, _, tips, freqs, props, w, r = _generic_inputs("ds1", torch.float32, 4)
+    reps = 256 // pc.shape[0] + 1
+    pc, P = pc.repeat(reps, 1, 1)[:256].contiguous(), P.repeat(reps, 1, 1, 1, 1)[:256].contiguous()
+    args = (pc, P, tips, freqs, props, w)
+    pruning_vjp.reset_counters()
+    onchip = _added(lambda: pruning_vjp.ll_generic_cuda(*args, root_id=r))
+    assert pruning_vjp.LAUNCHES["ll_generic"] == 1
+    dims = (256, tips.shape[0], pc.shape[1], r + 2, 4, tips.shape[2])
+    lib = pruning_vjp.load_checked(4)
+    slab = _added(lambda: pruning_vjp._ll_generic_slab(lib, dims, *args, 0, 0))
+    assert onchip < 1e6 and slab > 5e8, (onchip, slab)
+
+
 def _gtr_instance(device, count=10):
     inst = libsbn_tpu_torch.UnrootedInstance("gtr")
     inst.read_newick_file(f"{DATA}/DS1.100_topologies.nwk")
@@ -554,8 +630,8 @@ def test_gtr_engine_on_card_matches_cpu():
     torch.cuda.synchronize()
     assert pruning_generic.LAUNCHES == {"ll_grad_generic": 1,
                                         "ll_grad_generic_slab": 0}
-    assert pruning_vjp.LAUNCHES == {"ll_generic": 2, "ll_dp_generic": 1,
-                                    "ll_dp_generic_slab": 0}
+    assert pruning_vjp.LAUNCHES == {"ll_generic": 2, "ll_generic_slab": 0,
+                                    "ll_dp_generic": 1, "ll_dp_generic_slab": 0}
     for m in (pruning_jc, pruning_generic, pruning_vjp):
         assert not any(m.TWIN_CALLS.values())
     np.testing.assert_allclose(got_ll, want_ll, rtol=1e-12)
@@ -616,6 +692,101 @@ def test_gp_kernels_match_twins_on_card(data, dtype):
     assert obj_gap <= (1e-12 if f64 else 1e-5), obj_gap
     if f64:
         assert lb_gap <= 1e-6, lb_gap
+
+
+# K8 against its twin (engine_kernels.sweep_disagreement): the largest
+# objective gap over |f| + sum(w), and the largest log-branch-length gap on
+# edges that are not flat (None: not held, float32 resolves the minimiser
+# only to about its square root of eps), as chip_smoke.py's GP_TWIN_TOL.
+SWEEP_TOL = {torch.float64: (1e-12, 1e-6), torch.float32: (1e-5, None)}
+
+
+def _sweep_inputs(data, dtype):
+    """K8's inputs on the card at seeded branch lengths, from K7's PLVs:
+    (A, B, w, current log branch lengths)."""
+    eng = _gp_instance(data, "cuda", dtype).get_engine()
+    bl = eng._tensor(np.random.default_rng(0).uniform(
+        0.01, 0.3, eng.branch_lengths.size))
+    plvs = engine_kernels.populate_plvs_cuda(
+        eng._edge_streams(), eng._tensor(eng.q),
+        _jc69_transition(bl).contiguous(), eng._tips)
+    A, B = engine_kernels.sweep_stats(plvs, eng._pa, eng._ch, eng._rot)
+    return (A.contiguous(), B.contiguous(), eng._w,
+            torch.log(bl[eng._g]).contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["main", "slab"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("data", ["hello", "fluA"])
+def test_k8_routes_match_twin_on_card(data, dtype, route):
+    """K8's main design (a block per edge over staged rows, the route its
+    plan takes on hello and fluA) and its slab route (the first design,
+    called directly) against the twin, by sweep_disagreement at
+    SWEEP_TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = _sweep_inputs(data, dtype)
+    plan = engine_kernels.golden_sweep_plan(dtype, args[0].shape[1])
+    assert plan is not None
+    engine_kernels.reset_counters()
+    if route == "main":
+        got = engine_kernels.golden_sweep_cuda(*args)
+    else:
+        got = engine_kernels._golden_sweep_launch(*args, None)
+    torch.cuda.synchronize()
+    key = "golden_sweep_slab" if route == "slab" else "golden_sweep"
+    assert engine_kernels.LAUNCHES[key] == 1
+    assert sum(engine_kernels.LAUNCHES.values()) == 1
+    want = engine_kernels.golden_sweep_twin(*args)
+    obj_gap, lb_gap, _ = engine_kernels.sweep_disagreement(*args[:3], got, want)
+    obj_tol, lb_tol = SWEEP_TOL[dtype]
+    assert torch.isfinite(got).all()
+    assert obj_gap <= obj_tol, obj_gap
+    if lb_tol is not None:
+        assert lb_gap <= lb_tol, lb_gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k8_repeats_bit_for_bit(dtype):
+    """Two launches of the main K8 on fluA's rows give the same bits: its
+    warp sums are added in a fixed order, with no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    args = _sweep_inputs("fluA", dtype)
+    first = engine_kernels.golden_sweep_cuda(*args)
+    second = engine_kernels.golden_sweep_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,S", [(torch.float32, 19_361), (torch.float64, 9_675)])
+def test_k8_rows_beyond_the_plan_take_the_slab_route(dtype, S):
+    """Rows of one pattern more than golden_sweep_plan holds take the slab
+    route, held to the twin by sweep_disagreement at SWEEP_TOL; seeded
+    rows A, B > 0 and weights, 4 edges."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    assert engine_kernels.golden_sweep_plan(dtype, S) is None
+    rng = np.random.default_rng(0)
+    A, B = (torch.as_tensor(rng.uniform(0.01, 1.0, (4, S)), dtype=dtype,
+                            device="cuda") for _ in range(2))
+    w = torch.as_tensor(rng.integers(1, 5, S), dtype=dtype, device="cuda")
+    cur = torch.as_tensor(np.log(rng.uniform(0.01, 0.3, 4)), dtype=dtype,
+                          device="cuda")
+    engine_kernels.reset_counters()
+    got = engine_kernels.golden_sweep_cuda(A, B, w, cur)
+    torch.cuda.synchronize()
+    assert engine_kernels.LAUNCHES == {"populate_plvs": 0, "populate_plvs_slab": 0,
+                                       "golden_sweep": 0, "golden_sweep_slab": 1}
+    want = engine_kernels.golden_sweep_twin(A, B, w, cur)
+    obj_gap, lb_gap, _ = engine_kernels.sweep_disagreement(A, B, w, got, want)
+    obj_tol, lb_tol = SWEEP_TOL[dtype]
+    assert obj_gap <= obj_tol, obj_gap
+    if lb_tol is not None:
+        assert lb_gap <= lb_tol, lb_gap
 
 
 @pytest.mark.cuda
@@ -688,7 +859,7 @@ def test_k7_slab_route_matches_twin_on_card(dtype):
     got = engine_kernels.populate_plvs_cuda(*args)
     torch.cuda.synchronize()
     assert engine_kernels.LAUNCHES == {"populate_plvs": 0, "populate_plvs_slab": 1,
-                                       "golden_sweep": 0}
+                                       "golden_sweep": 0, "golden_sweep_slab": 0}
     want = engine_kernels.populate_plvs_twin(*args)
     f64 = dtype == torch.float64
     for k in engine_kernels.PLV_KEYS:

@@ -239,8 +239,8 @@ def test_cpu_tensors_route_to_generic_twins(kernel_data):
             call()
     assert pruning_generic.LAUNCHES == {"ll_grad_generic": 0,
                                         "ll_grad_generic_slab": 0}
-    assert pruning_vjp.LAUNCHES == {"ll_generic": 0, "ll_dp_generic": 0,
-                                    "ll_dp_generic_slab": 0}
+    assert pruning_vjp.LAUNCHES == {"ll_generic": 0, "ll_generic_slab": 0,
+                                    "ll_dp_generic": 0, "ll_dp_generic_slab": 0}
 
 
 # -- the engine and the instance ------------------------------------------------

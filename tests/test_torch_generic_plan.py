@@ -1,11 +1,13 @@
-"""The on-chip K4's and K6's shared-memory plans and their routing on the
-CPU.
+"""The on-chip K4's, K5's and K6's shared-memory plans and their routing on
+the CPU.
 
 K4 (ops/pruning_generic.py ll_grad_generic_cuda, csrc/pruning_generic.cu
-generic_ll_grad_kernel) and K6 (ops/pruning_vjp.py ll_dp_generic_cuda,
+generic_ll_grad_kernel), K5 (ops/pruning_vjp.py ll_generic_cuda,
+generic_ll_kernel) and K6 (ops/pruning_vjp.py ll_dp_generic_cuda,
 generic_dp_kernel) run a lane per (pattern, rate category) and keep a tile
 of 32 // K patterns' pruning state in shared memory when
-``ll_grad_onchip_plan`` / ``dp_onchip_plan`` says it fits, and take their
+``ll_grad_onchip_plan`` / ``ll_onchip_plan`` / ``dp_onchip_plan`` says it
+fits (K5 with W warps a block sharing the tree's matrices), and take their
 slab routes otherwise. These tests hold each plan to the bytes the CUDA
 source carves, written out again here, at the DS1 shapes the GTR path runs
 (27 taxa, 25 combine steps) and on the 256-taxon tree that chip_smoke.py
@@ -57,6 +59,76 @@ def _cu_ll_grad_onchip_bytes(itemsize, K, S, L):
     N1, TP = L + S + 1, 32 // K
     values = N1 * K * 16 + K * 16 + (S - 1) * 4 * 32 + N1 * TP + 4 + K
     return itemsize * values + 4 * 3 * S
+
+
+def _cu_ll_onchip_bytes(itemsize, K, S, L, W):
+    """csrc/pruning_generic.cu ll_onchip_bytes, written out again for W
+    warps of a tile of 32 // K patterns each: the tree's matrices (N1 K 16),
+    4 slot values per node for each of a warp's 32 lanes, for every warp
+    (W (S - 1) 4 32), one LL sum a warp (W), freqs and props (4 + K), and
+    the int32 schedule row (3S)."""
+    N1 = L + S + 1
+    values = N1 * K * 16 + W * (S - 1) * 4 * 32 + W + 4 + K
+    return itemsize * values + 4 * 3 * S
+
+
+def _sm_warps(W, need):
+    """Warps of W-warp blocks of ``need`` shared bytes a Hopper SM holds: at
+    most 32 blocks and 64 warps, and 233,472 bytes of shared memory of which
+    each block reserves 1,024 more."""
+    return W * min(32, 64 // W, 233_472 // (need + 1_024))
+
+
+# (dtype, K, the W K5's plan takes at DS1): the largest W <= 8 whose state
+# fits a block and gives an SM at least as many warps as W = 1; at float64
+# K = 8 eight warps' E rows would need 251,340 bytes, so seven.
+K5_DS1_PLANS = [(torch.float32, 1, 8), (torch.float32, 4, 8),
+                (torch.float32, 8, 8), (torch.float64, 1, 8),
+                (torch.float64, 4, 8), (torch.float64, 8, 7)]
+
+
+@pytest.mark.parametrize("dtype,K,W", K5_DS1_PLANS)
+def test_k5_plan_fits_ds1(dtype, K, W):
+    """At DS1 the plan takes W warps a block in exactly the bytes the source
+    carves; more warps would not fit or would give an SM fewer warps than
+    one warp a block does."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    want = _cu_ll_onchip_bytes(itemsize, K, *DS1, W)
+    assert pruning_vjp.ll_onchip_bytes(itemsize, K, *DS1, W) == want
+    assert pruning_vjp.ll_onchip_plan(dtype, K, *DS1) == (W, want)
+    assert want <= pruning_vjp.SHARED_LIMIT
+    floor = _sm_warps(1, _cu_ll_onchip_bytes(itemsize, K, *DS1, 1))
+    assert _sm_warps(W, want) >= floor
+    for more in range(W + 1, pruning_vjp.LL_WARPS + 1):
+        need = _cu_ll_onchip_bytes(itemsize, K, *DS1, more)
+        assert need > pruning_vjp.SHARED_LIMIT or _sm_warps(more, need) < floor
+
+
+def test_k5_plan_at_config_2():
+    """The JAX bench's config 2 (float32, Weibull+4): 13,568 bytes of
+    matrices and 12,288 of E rows a warp; one warp a block gives an SM 8
+    warps, W = 8 gives 2 blocks of 8 in 112,236 bytes each."""
+    need = pruning_vjp.ll_onchip_bytes(4, 4, *DS1, 8)
+    assert pruning_vjp.ll_onchip_plan(torch.float32, 4, *DS1) == (8, need)
+    assert need == 112_236
+    assert _sm_warps(1, _cu_ll_onchip_bytes(4, 4, *DS1, 1)) == 8
+    assert _sm_warps(8, need) == pruning_vjp.sm_warps(8, need) == 16
+
+
+@pytest.mark.parametrize("K", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_plan_on_the_big_tree(dtype, K):
+    """On the 256-taxon tree one warp's E rows take 129,536 bytes at
+    float32: float32 K <= 3 fits one warp a block (W = 1) and no more;
+    float32 K >= 4 and all of float64 fit no warp and take the slab route."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    one = _cu_ll_onchip_bytes(itemsize, K, *BIG, 1)
+    plan = pruning_vjp.ll_onchip_plan(dtype, K, *BIG)
+    if dtype == torch.float32 and K <= 3:
+        assert plan == (1, one) and one <= pruning_vjp.SHARED_LIMIT
+        assert _cu_ll_onchip_bytes(itemsize, K, *BIG, 2) > pruning_vjp.SHARED_LIMIT
+    else:
+        assert plan is None and one > pruning_vjp.SHARED_LIMIT
 
 
 @pytest.mark.parametrize("K", range(1, 9))
@@ -173,3 +245,22 @@ def test_k4_cpu_tensors_reach_only_the_twin(dtype, K):
                                              root_id=r)
     assert pruning_generic.LAUNCHES == {"ll_grad_generic": 0,
                                         "ll_grad_generic_slab": 0}
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k5_cpu_tensors_reach_only_the_twin(dtype, K):
+    """The generic LL on CPU tensors, without a backward, calls K5's twin
+    only, never a kernel of either route, and the K5 wrapper refuses CPU
+    tensors before it chooses a route."""
+    pc, P, tips, freqs, props, w, r = _hello_inputs(dtype, K)
+    pruning_vjp.reset_counters()
+    ll = pruning_vjp.log_likelihoods_generic(pc, P, tips, freqs, props, w,
+                                             root_id=r)
+    assert ll.dtype == dtype and ll.shape == (pc.shape[0],)
+    assert torch.isfinite(ll).all()
+    assert pruning_vjp.TWIN_CALLS == {"ll_generic": 1, "ll_dp_generic": 0}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pruning_vjp.ll_generic_cuda(pc, P, tips, freqs, props, w, root_id=r)
+    assert pruning_vjp.LAUNCHES == {"ll_generic": 0, "ll_generic_slab": 0,
+                                    "ll_dp_generic": 0, "ll_dp_generic_slab": 0}

@@ -1,4 +1,5 @@
-"""The on-chip K7's shared-memory plan and its routing on the CPU.
+"""The on-chip K7's and the main K8's shared-memory plans and their routing
+on the CPU.
 
 K7 (gp/engine_kernels.py populate_plvs_cuda, csrc/gp_engine.cu
 gp_populate_kernel) runs a lane per (pattern, state) and keeps a tile of up
@@ -8,9 +9,18 @@ slab route. These tests hold the plan to the bytes the CUDA source carves,
 written out again here, at the shapes of hello and fluA (the GP bench's
 DAG), and at DAGs large enough to be refused; they hold the streams' group
 and level offsets, by which the kernel's warps share a level out, to the
-levels; and they check that CPU tensors reach only K7's twin. The twin
-itself is held against libsbn_tpu in tests/test_torch_gp_kernels.py, the
-kernel against the twin on a card in tests/test_torch_cuda.py.
+levels; and they check that CPU tensors reach only K7's twin.
+
+K8 (gp/engine_kernels.py golden_sweep_cuda, csrc/gp_engine.cu
+gp_golden_sweep_kernel) runs a block per edge over the edge's rows staged
+in shared memory when ``golden_sweep_plan`` says they fit, and the slab
+route (a warp per edge over device-memory rows) otherwise; the tests hold
+that plan to the source's bytes at hello, fluA and rows it refuses, and
+check that CPU tensors reach only K8's twin.
+
+The twins themselves are held against libsbn_tpu in
+tests/test_torch_gp_kernels.py, the kernels against the twins on a card in
+tests/test_torch_cuda.py.
 """
 
 import os
@@ -43,6 +53,13 @@ def _cu_populate_onchip_bytes(itemsize, N, E, T_rw, T_lw, R, TP):
     values = 16 * E + E + 4 * 6 * N * TP + 6 * N * TP
     ints = 5 * T_rw + 5 * T_lw + 2 * R + 2 * (T_rw + 1) + 2 * (T_lw + 1)
     return itemsize * values + 4 * ints
+
+
+def _cu_golden_sweep_bytes(itemsize, S):
+    """csrc/gp_engine.cu golden_sweep_bytes, written out again: the edge's A
+    and B rows and w (3 S values), and two buffers of 8 warps' pairs of
+    sums (2 2 8 values)."""
+    return itemsize * (3 * S + 2 * 2 * 8)
 
 
 def _engine(data):
@@ -158,4 +175,64 @@ def test_cpu_tensors_reach_only_the_twin(dtype):
     assert engine_kernels.TWIN_CALLS["populate_plvs"] == 1
     with pytest.raises(ValueError, match="CUDA tensors"):
         engine_kernels.populate_plvs_cuda(*args)
+    assert not any(engine_kernels.LAUNCHES.values())
+
+
+# (data, its patterns): the rows K8 sweeps have one value a pattern.
+SWEEP_DATA = [("hello", 15), ("fluA", 238)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("data,S", SWEEP_DATA)
+def test_sweep_plan_fits_hello_and_flua(data, S, dtype):
+    """hello's and fluA's rows fit the main K8 in exactly the bytes the
+    source carves (fluA float32: 2,984 bytes, 2,856 of them the rows)."""
+    eng = _engine(data)
+    assert eng._tips.shape[2] == eng._w.shape[0] == S
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    want = _cu_golden_sweep_bytes(itemsize, S)
+    assert engine_kernels.golden_sweep_bytes(itemsize, S) == want
+    assert engine_kernels.golden_sweep_plan(dtype, S) == want <= LIMIT
+    if data == "fluA" and dtype == torch.float32:
+        assert want == 2_984
+
+
+# The longest rows that still fit, and one pattern more: float32 fits
+# S <= 19,360 patterns, float64 S <= 9,674.
+SWEEP_EDGES = [(torch.float32, 19_360), (torch.float64, 9_674)]
+
+
+@pytest.mark.parametrize("dtype,S", SWEEP_EDGES)
+@pytest.mark.parametrize("beyond", [False, True], ids=["last_fit", "refused"])
+def test_sweep_plan_refuses_rows_beyond_shared_memory(dtype, S, beyond):
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    need = _cu_golden_sweep_bytes(itemsize, S + beyond)
+    plan = engine_kernels.golden_sweep_plan(dtype, S + beyond)
+    if beyond:
+        assert plan is None and need > LIMIT
+    else:
+        assert plan == need <= LIMIT
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sweep_cpu_tensors_reach_only_the_twin(dtype):
+    """golden_sweep on CPU tensors calls K8's twin, never a kernel of either
+    route, and the K8 wrapper refuses CPU tensors before it chooses a
+    route."""
+    eng = _engine("hello")
+    bl = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.01, 0.3, eng.branch_lengths.size), dtype=dtype)
+    plvs = engine_kernels.populate_plvs_twin(
+        eng._edge_streams(), torch.as_tensor(eng.q, dtype=dtype),
+        _jc69_transition(bl).contiguous(), eng._tips.to(dtype))
+    A, B = engine_kernels.sweep_stats(plvs, eng._pa, eng._ch, eng._rot)
+    args = (A.contiguous(), B.contiguous(), eng._w.to(dtype),
+            torch.log(bl[eng._g]).contiguous())
+    engine_kernels.reset_counters()
+    out = engine_kernels.golden_sweep(*args)
+    assert out.dtype == dtype and out.shape == args[3].shape
+    assert torch.isfinite(out).all()
+    assert engine_kernels.TWIN_CALLS == {"populate_plvs": 0, "golden_sweep": 1}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        engine_kernels.golden_sweep_cuda(*args)
     assert not any(engine_kernels.LAUNCHES.values())
