@@ -75,12 +75,33 @@ Phases, each of which raises on failure:
      bench's GP config (fluA, f32,
      run_branch_ascent(1e-2, 10) from the same starting lengths each run)
      on both routes, in ms per ascent, with device time per ascent and the
-     device's idle share as in phase 6.
+     device's idle share as in phase 6;
+  10. rooted time trees: RootedInstance on the card, fluA (dates from the
+     taxon names, strict clock at 0.001), float64, against the physher and
+     phylotorch goldens (JC69 LL, log-det-Jacobian and the 68 ratio and
+     root-height gradients; Weibull+4 at shape 0.1, LL and shape gradient;
+     GTR, LL and the 8 substitution gradients) and the clock gradient
+     against the card's own f64 central difference, with the counters
+     showing K1 (the hand route), K2, K3, K5 and K6 launched and no twin
+     called, on a run that ends with the JAX bench's flua_rooted_gradients
+     (fluA tiled to 256, ratios perturbed by U(0.95, 1.05) from
+     default_rng(0), JC69, float32): the hand route (K1) against the
+     autograd route (K2 + K3) and against the f64 hand route; after the
+     counters are read, every kernel of the path against its twin on the
+     path's own inputs: K1, K2 and K3 on the f64 instance (on chip), on the
+     f64 Weibull+4 instance (the slab route) and on the batch at f32 and
+     f64, K5 and K6 on the f64 GTR instance; then, after phase 9's
+     timings, K1 timed beside its twin on the f32 batch with its bound,
+     and rooted_phylo_gradients (both routes) and rooted_log_likelihoods
+     from host arrays with device time, idle share, peak memory and
+     gradient evaluations per second.
 The last lines are the {"kernels": [...]} report (each kernel's launches
-on its path, its error against its twin, its time, its twin's, and its
+on its paths, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the float32 peak and its inputs and
-outputs at the HBM rate), the card's `nvidia-smi` name and power limit, and
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+outputs at the HBM rate; K1 has two entries, the first counting the
+unrooted paths, the second the rooted batch and path), the card's
+`nvidia-smi` name and power limit, and {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 import json
@@ -336,6 +357,40 @@ GP_FLUA_TOL = {torch.float64: 1e-7, torch.float32: 1e-2}
 # K8 against its twin, the largest objective gap over |f| + sum(w) and the
 # largest log-branch-length gap on edges that are not flat
 # (engine_kernels.sweep_disagreement).
+# Rooted time trees on fluA at a strict clock of 0.001: the physher and
+# phylotorch goldens (the reference's rooted_sbn_instance.hpp tests, as the
+# JAX package's tests/test_rooted_likelihood.py pins them), and their
+# tolerances there, (rtol, atol).
+CLOCK_RATE = 0.001
+ROOTED_LL = -4777.616349
+ROOTED_LDJ = -9.25135166
+ROOTED_RATIO_GRADIENTS = np.array([
+    -0.593654, 6.441290, 11.202945, 5.173924, -0.904631, 2.731402, 3.157131,
+    7.082914, 10.305417, 13.988206, 20.709336, 48.897993, 99.164949, 130.205747,
+    17.314019, 21.033290, -1.336335, 12.259822, 22.887291, 27.176564, 47.487426,
+    3.637276, 12.955169, 15.315953, 83.254605, -3.806996, 105.385095, 4.874023,
+    22.754466, 6.036534, 25.651478, 29.535185, 29.598789, 1.817247, 10.598685,
+    76.259248, 56.481423, 10.679778, 6.587179, 3.330556, -4.622247, 33.417304,
+    63.415767, 188.809515, 23.540875, 17.421076, 1.222568, 22.372012, 34.239511,
+    3.486115, 4.098873, 13.200954, 19.726890, 96.808738, 4.240029, 7.414585,
+    48.871694, 3.488516, 82.969065, 9.009334, 8.032474, 3.981016, 6.543650,
+    53.702423, 37.835952, 2.840831, 7.517186, 19.936861,
+])
+ROOTED_WEIBULL_LL = -4618.2062529058  # shape 0.1
+ROOTED_WEIBULL_SHAPE_GRADIENT = -5.231329
+ROOTED_GTR_RATES = [0.05, 0.1, 0.15, 0.20, 0.25, 0.25]
+ROOTED_GTR_FREQS = [0.1, 0.2, 0.3, 0.4]
+ROOTED_GTR_LL = -5221.438941335706
+ROOTED_GTR_GRADIENTS = np.array([
+    49.06451538, 151.83105912, 26.40235659, -8.25135661,
+    75.29759338, 352.56545247, 90.07046995, 30.12301652,
+])
+ROOTED_TOL = {"ll": (0.0, 1e-4), "grad": (0.0, 1e-4), "gtr": (0.0, 1e-3),
+              "shape": (0.0, 1e-3), "clock": (1e-3, 0.0)}
+# The hand route against the autograd route in f32 (the JAX package's
+# tests/test_pallas.py:496-499).
+ROUTES_F32_TOL = (1e-3, 0.1)
+B_ROOTED = 256  # the JAX bench's flua_rooted_gradients
 GP_TWIN_TOL = {
     torch.float64: {"plv": (1e-12, 1e-300), "ls": (1e-12, 1e-12),
                     "obj": 1e-12, "lb": 1e-6},
@@ -634,38 +689,13 @@ def phase_generic_vs_twin():
             if k_g[:, r:].any():
                 raise AssertionError("K4: root or ones-slot rows not zero")
             t_ll, t_g = pruning_generic.ll_grad_generic_plain(*args, root_id=r)
-            args2 = (d["pc"], P, d["tips"], freqs, props, d["w"])
             tag = f"{str(dtype)[6:]} GTR {site}"
-            pruning_vjp.reset_counters()
-            k5 = pruning_vjp.ll_generic_cuda(*args2, root_id=r)
-            torch.cuda.synchronize()
-            if pruning_vjp.LAUNCHES["ll_generic"] != 1:
-                raise AssertionError(f"K5 {tag}: not on chip "
-                                     f"({pruning_vjp.LAUNCHES})")
-            t5 = pruning_vjp.ll_generic_plain(*args2, root_id=r)
-            pruning_vjp.reset_counters()
-            k6 = pruning_vjp.ll_dp_generic_cuda(*args2, root_id=r)
-            torch.cuda.synchronize()
-            if pruning_vjp.LAUNCHES["ll_dp_generic"] != 1:
-                raise AssertionError(f"K6 {tag}: not on chip "
-                                     f"({pruning_vjp.LAUNCHES})")
-            t6 = pruning_vjp.ll_dp_generic_plain(*args2, root_id=r)
             e4 = max(
                 close(f"K4 LL {tag}", k_ll.cpu(), t_ll.cpu(), tol["ll"]),
                 close(f"K4 grad {tag}", k_g[:, :r].cpu(), t_g[:, :r].cpu(),
                       tol["grad"]),
             )
-            W = pruning_vjp.ll_onchip_plan(dtype, props.shape[0], d["pc"].shape[1],
-                                           d["tips"].shape[0])[0]
-            e5 = close(f"K5 LL {tag}, on chip, {W} warps a block", k5.cpu(),
-                       t5.cpu(), tol["ll"])
-            if k6[0][:, r:].any():
-                raise AssertionError("K6: root or ones-slot rows not zero")
-            e6 = max(
-                close(f"K6 {name} {tag}", k.cpu(), t.cpu(), tol["grad"])
-                for name, k, t in zip(("dP", "dfreqs", "dprops"), k6, t6)
-            )
-            del k6, t6
+            e5, e6 = k5_k6_vs_twins(d, dtype, (P, freqs, props), tag)
             if dtype == torch.float32 and site == "weibull+4":
                 # the timed case's model
                 errs = {"ll_grad_generic": e4, "ll_generic": e5,
@@ -674,6 +704,39 @@ def phase_generic_vs_twin():
     k4_slab_vs_twin()
     k5_slab_vs_twin()
     return errs
+
+
+def k5_k6_vs_twins(d, dtype, model, tag):
+    """K5 and K6 on chip against their twins on d's inputs and ``model`` =
+    (P, freqs, props) from generic_inputs, at TWIN_TOL; returns their max
+    abs errors."""
+    tol = TWIN_TOL[dtype]
+    r = d["root_id"]
+    P, freqs, props = model
+    args = (d["pc"], P, d["tips"], freqs, props, d["w"])
+    pruning_vjp.reset_counters()
+    k5 = pruning_vjp.ll_generic_cuda(*args, root_id=r)
+    torch.cuda.synchronize()
+    if pruning_vjp.LAUNCHES["ll_generic"] != 1:
+        raise AssertionError(f"K5 {tag}: not on chip ({pruning_vjp.LAUNCHES})")
+    t5 = pruning_vjp.ll_generic_plain(*args, root_id=r)
+    pruning_vjp.reset_counters()
+    k6 = pruning_vjp.ll_dp_generic_cuda(*args, root_id=r)
+    torch.cuda.synchronize()
+    if pruning_vjp.LAUNCHES["ll_dp_generic"] != 1:
+        raise AssertionError(f"K6 {tag}: not on chip ({pruning_vjp.LAUNCHES})")
+    t6 = pruning_vjp.ll_dp_generic_plain(*args, root_id=r)
+    W = pruning_vjp.ll_onchip_plan(dtype, props.shape[0], d["pc"].shape[1],
+                                   d["tips"].shape[0])[0]
+    e5 = close(f"K5 LL {tag}, on chip, {W} warps a block", k5.cpu(),
+               t5.cpu(), tol["ll"])
+    if k6[0][:, r:].any():
+        raise AssertionError("K6: root or ones-slot rows not zero")
+    e6 = max(
+        close(f"K6 {name} {tag}", k.cpu(), t.cpu(), tol["grad"])
+        for name, k, t in zip(("dP", "dfreqs", "dprops"), k6, t6)
+    )
+    return e5, e6
 
 
 def k5_slab_vs_twin():
@@ -1762,6 +1825,224 @@ def phase_gp_timing(smi, runs=5):
     return out, bounds
 
 
+def rooted_instance(spec, dtype):
+    """RootedInstance on the card: fluA, dates from the taxon names, every
+    branch at CLOCK_RATE."""
+    inst = lt.RootedInstance("fluA")
+    inst.read_newick_file(f"{DATA}/fluA.tree")
+    inst.read_fasta_file(f"{DATA}/fluA.fa")
+    inst.parse_dates_from_taxon_names(True)
+    inst.set_clock_rates(CLOCK_RATE)
+    inst.prepare_for_phylo_likelihood(spec, device=DEV, dtype=dtype)
+    return inst
+
+
+def rooted_args(inst):
+    """The engine's arguments for an instance's trees: (sched, bounds,
+    ratios, rates, params), the arrays on the host."""
+    return (inst._batched_schedule(), *inst._time_tree_arrays(),
+            inst.phylo_model_params)
+
+
+def rooted_kernel_inputs(eng, sched, bounds, ratios, rates):
+    """The pruning kernels' inputs on a rooted path, as jc69_vs_twins and
+    generic_inputs take them: the rate-scaled branch lengths with the root
+    and ones slots, in the engine's dtype (no kernel launches)."""
+    a = eng._rooted_inputs(sched, bounds, ratios, rates)
+    _, bl = eng._rooted_branch_lengths(a, a["ratios"])
+    return {"pc": a["pc"], "bl": eng._bl_padded2(bl * a["rates"]),
+            "tips": eng.tips, "w": eng.weights, "root_id": a["root_id"]}
+
+
+def rooted_kernels_vs_twins(jc_cases, gtr_d):
+    """Every kernel launch of the rooted path against its twin at the
+    path's shapes, at TWIN_TOL: K1, K2 and K3 on each (d, dtype, K, tag) of
+    ``jc_cases`` (on chip, or the slab route where the plan says so), K5
+    and K6 on the GTR instance's inputs. Returns the errors of the f32
+    B_ROOTED batch."""
+    errs = None
+    for d, dtype, K, tag in jc_cases:
+        e = jc69_vs_twins(d, dtype, K, tag)
+        if dtype == torch.float32:
+            errs = e  # the timed case
+    model = generic_inputs(gtr_d, torch.float64, "constant",
+                           ROOTED_GTR_RATES, ROOTED_GTR_FREQS)
+    k5_k6_vs_twins(gtr_d, torch.float64, (model[0], *model[2:]),
+                   "rooted fluA, float64 GTR")
+    return errs
+
+
+def clock_finite_difference(eps=1e-7):
+    """d LL / d clock rate on fluA by a central difference of the f64 LLs
+    on the card (K2)."""
+    inst = rooted_instance(lt.PhyloModelSpec("JC69", "constant", "strict"),
+                           torch.float64)
+    sched, bounds, ratios, rates, params = rooted_args(inst)
+    eng = inst.engine
+
+    def ll(r):
+        return float(eng.rooted_log_likelihoods(sched, bounds, ratios, r,
+                                                params, True)[0][0])
+
+    return (ll(rates + eps) - ll(rates - eps)) / (2 * eps)
+
+
+def phase_rooted_path():
+    """The rooted time-tree entry points on the card against the goldens, in
+    f64, then every kernel of the path against its twin on the path's
+    inputs; returns (the launch counts, the f32 batch's twin errors)."""
+    print("[10] rooted time trees: RootedInstance on cuda, fluA, float64, "
+          "vs the physher and phylotorch goldens")
+    clock_fd = clock_finite_difference()
+    reset_counters()
+    f64, tol = torch.float64, ROOTED_TOL
+    inst = rooted_instance(lt.PhyloModelSpec("JC69", "constant", "strict"), f64)
+    jc_cases = [(rooted_kernel_inputs(inst.engine, *rooted_args(inst)[:4]), f64, 1,
+                 "rooted fluA, float64 K=1")]
+    lls, ldjs = inst.engine.rooted_log_likelihoods(*rooted_args(inst), True)
+    close("fluA rooted LL vs physher", lls.cpu(), [ROOTED_LL], tol["ll"])
+    close("fluA log-det-Jacobian vs physher", ldjs.cpu(), [ROOTED_LDJ],
+          tol["ll"])
+    close("fluA log_likelihoods() = LL + ldj", inst.log_likelihoods(),
+          [ROOTED_LL + ROOTED_LDJ], tol["ll"])
+    g = inst.phylo_gradients()
+    r = g["ratios_root_height"]
+    if r.device.type != torch.device(DEV).type or r.shape != (1, 68):
+        raise AssertionError(f"ratio gradients on {r.device}, shape {r.shape}")
+    close("fluA LL of phylo_gradients vs physher", g["log_likelihood"].cpu(),
+          [ROOTED_LL], tol["ll"])
+    close("fluA ratio and root-height gradients vs physher", r[0].cpu(),
+          ROOTED_RATIO_GRADIENTS, tol["grad"])
+    close("fluA clock gradient vs f64 central difference",
+          g["clock_model"][0].cpu(), [clock_fd], tol["clock"])
+    inst = rooted_instance(lt.PhyloModelSpec("JC69", "weibull+4", "strict"),
+                           f64)
+    inst.phylo_model_params["site"]["shape"] = torch.tensor(
+        0.1, dtype=f64, device=DEV)
+    jc_cases.append((rooted_kernel_inputs(inst.engine, *rooted_args(inst)[:4]),
+                     f64, 4, "rooted fluA, float64 Weibull+4 at shape 0.1"))
+    lls, ldjs = inst.engine.rooted_log_likelihoods(*rooted_args(inst), True)
+    close("fluA Weibull+4 LL vs physher", lls.cpu(), [ROOTED_WEIBULL_LL],
+          tol["ll"])
+    close("fluA Weibull+4 shape gradient vs physher",
+          inst.phylo_gradients()["site_model"].cpu(),
+          [ROOTED_WEIBULL_SHAPE_GRADIENT], tol["shape"])
+    inst = rooted_instance(lt.PhyloModelSpec("GTR", "constant", "strict"), f64)
+    inst.phylo_model_params["substitution"] = {
+        "rates": torch.tensor(ROOTED_GTR_RATES, dtype=f64, device=DEV),
+        "frequencies": torch.tensor(ROOTED_GTR_FREQS, dtype=f64, device=DEV),
+    }
+    gtr_d = rooted_kernel_inputs(inst.engine, *rooted_args(inst)[:4])
+    lls, ldjs = inst.engine.rooted_log_likelihoods(*rooted_args(inst), True)
+    close("fluA GTR LL vs phylotorch", lls.cpu(), [ROOTED_GTR_LL], tol["gtr"])
+    close("fluA GTR log-det-Jacobian", ldjs.cpu(), [ROOTED_LDJ], tol["ll"])
+    g = inst.phylo_gradients()
+    close("fluA GTR LL of phylo_gradients vs phylotorch",
+          g["log_likelihood"].cpu(), [ROOTED_GTR_LL], tol["gtr"])
+    close("fluA GTR substitution gradients vs phylotorch",
+          g["substitution_model"][0].cpu(), ROOTED_GTR_GRADIENTS, tol["gtr"])
+    jc_cases += rooted_routes_f32()
+    launches = launch_counts("rooted path", ["ll_grad_jc69", "ll_jc69",
+                                             "ll_dea_jc69", "ll_generic",
+                                             "ll_dp_generic"])
+    return launches, rooted_kernels_vs_twins(jc_cases, gtr_d)
+
+
+def rooted_routes_f32():
+    """flua_rooted_gradients at float32 on the card: the hand route (K1)
+    against the autograd route (K2 + K3) and against the f64 hand route.
+    Returns the kernels' inputs of both engines as jc69_vs_twins cases."""
+    print(f"  flua_rooted_gradients: fluA x {B_ROOTED}, JC69, float32")
+    sp, sched, bounds, ratios, rates = rooted_batch()
+    spec = lt.PhyloModelSpec("JC69", "constant", "strict")
+    args = (sched, bounds, ratios, rates, default_parameters(spec, device=DEV))
+    eng = LikelihoodEngine(sp, spec, dtype=torch.float32, device=DEV)
+    hand = eng.rooted_phylo_gradients(*args)
+    auto = eng._rooted_phylo_gradients_autograd(*args, True)
+    ref_eng = LikelihoodEngine(sp, spec, dtype=torch.float64, device=DEV)
+    ref = ref_eng.rooted_phylo_gradients(*args)
+    for key in ("log_likelihood", "ratios_root_height", "clock_model"):
+        close(f"f32 hand route vs autograd route (K2 + K3), {key}",
+              hand[key].cpu(), auto[key].cpu(), ROUTES_F32_TOL)
+        gate = GOLDEN_TOL[torch.float32]["ll" if key == "log_likelihood"
+                                         else "grad"]
+        close(f"f32 hand route vs f64 hand route, {key}", hand[key].cpu(),
+              ref[key].cpu(), gate)
+    return [(rooted_kernel_inputs(e, *args[:4]), e.dtype, 1,
+             f"rooted fluA x {B_ROOTED}, {str(e.dtype)[6:]} K=1")
+            for e in (eng, ref_eng)]
+
+
+def rooted_batch():
+    """The JAX bench's flua_rooted_gradients inputs: fluA tiled to B_ROOTED
+    trees, ratios perturbed by U(0.95, 1.05) from default_rng(0) and
+    clipped to [1e-4, 1 - 1e-4], every branch at CLOCK_RATE: (site
+    patterns, sched, bounds, ratios, rates), the arrays on the host."""
+    tops, bls, ttm = newick.parse_newick_file(f"{DATA}/fluA.tree")
+    coll = RootedTreeCollection([RootedTree(t, b) for t, b in zip(tops, bls)],
+                                ttm)
+    coll.parse_dates_from_taxon_names(True)
+    sp = SitePattern(Alignment.read_fasta(f"{DATA}/fluA.fa"), ttm)
+    tree = coll.trees[0]
+    sched = schedule.schedules_of_topologies([tree.topology] * B_ROOTED)
+    bounds = np.tile(tree.node_bounds, (B_ROOTED, 1))
+    ratios = np.tile(tree.height_ratios, (B_ROOTED, 1))
+    rates = np.full((B_ROOTED, tree.node_count() - 1), CLOCK_RATE)
+    rng = np.random.default_rng(0)
+    ratios[:, :-1] = np.clip(
+        ratios[:, :-1] * rng.uniform(0.95, 1.05, ratios[:, :-1].shape),
+        1e-4, 1 - 1e-4)
+    return sp, sched, bounds, ratios, rates
+
+
+def phase_rooted_timing(smi, calls=10):
+    """flua_rooted_gradients at float32: K1 timed beside its twin on the
+    rooted batch (phase 10 held the two to each other), with its bound; the
+    entry points from host arrays. Returns ((ms, twin ms), (bound ms,
+    bound_by)) of K1 on this batch."""
+    print(f"  flua_rooted_gradients timing: fluA x {B_ROOTED}, JC69, float32 "
+          f"({smi})")
+    sp, sched, bounds, ratios, rates = rooted_batch()
+    spec = lt.PhyloModelSpec("JC69", "constant", "strict")
+    args = (sched, bounds, ratios, rates, default_parameters(spec, device=DEV))
+    eng = LikelihoodEngine(sp, spec, dtype=torch.float32, device=DEV)
+    # K1 on the rooted batch's rate-scaled branch lengths.
+    d = rooted_kernel_inputs(eng, *args[:4])
+    ea, one, _ = kernel_inputs(d, torch.float32, 1)
+    a1 = (d["pc"], ea, one, one, d["tips"], d["w"])
+    r = d["root_id"]
+    k_out = pruning_jc.ll_grad_jc69_cuda(*a1, root_id=r)
+    key = "ll_grad_jc69 (rooted fluA)"
+    times = time_pairs({key: (
+        lambda: pruning_jc.ll_grad_jc69_cuda(*a1, root_id=r),
+        lambda: pruning_jc.ll_grad_jc69_plain(*a1, root_id=r))}, B_ROOTED,
+        plain_reps=(5, 5))[key]
+    L, _, P = eng.tips.shape
+    b = bound(jc69_ops("ll_grad", B_ROOTED, L, d["pc"].shape[1], 1, P), a1,
+              k_out)
+    print(f"  K1, rooted fluA batch: bound {b[0]:.5f} ms ({b[1]}), "
+          f"{b[0] / times[0]:.2%} of it")
+    entries = (
+        ("rooted_phylo_gradients (hand route: K1 + the heights adjoint)",
+         lambda: eng.rooted_phylo_gradients(*args)),
+        ("_rooted_phylo_gradients_autograd (K2 + K3 through the sweeps)",
+         lambda: eng._rooted_phylo_gradients_autograd(*args, True)),
+        ("rooted_log_likelihoods (K2)",
+         lambda: eng.rooted_log_likelihoods(*args)),
+    )
+    for what, fn in entries:
+        reset_counters()
+        fn()
+        torch.cuda.synchronize()
+        per_call = {k: v for m in COUNTED for k, v in m.LAUNCHES.items() if v}
+        line, peak = host_and_device(fn, calls)
+        med = float(re.search(r"median ([\d.]+) ms", line).group(1))
+        print(f"  {what}, B = {B_ROOTED} from host arrays: {line}; peak "
+              f"{peak:.3f} GiB; {B_ROOTED / med * 1e3:.0f} evals/s; kernel "
+              f"launches per call {per_call}")
+    return times, b
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -1769,13 +2050,20 @@ def main():
     errs.update(phase_generic_vs_twin())
     errs.update(phase_gp_vs_twin())
     runs = [phase_main_path(), phase_gtr_path(), phase_vbpi(), phase_gp_path()]
+    rooted_launches, rooted_errs = phase_rooted_path()
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    # K1's rooted launches stand in its second entry below; every other
+    # kernel's entry counts every path.
+    for k, n in rooted_launches.items():
+        if k != "ll_grad_jc69":
+            launches[k] += n
     times, bounds = phase_timing(smi)
     time_vbpi(smi)
     for phase in (phase_generic_timing, phase_gp_timing):
         t, b = phase(smi)
         times.update(t)
         bounds.update(b)
+    rooted_times, rooted_bound = phase_rooted_timing(smi)
     # No single PyTorch call computes any of these functions (each is a
     # pruning recursion or a golden-section search): library_ms is null.
     report = [
@@ -1786,6 +2074,16 @@ def main():
          "bound_by": bounds[k["key"]][1], "library_ms": None}
         for k in KERNELS
     ]
+    # K1's second case: the rooted batch of phase 10, with the launches of
+    # the rooted path alone.
+    report.insert(1, {
+        "name": "jc69_ll_grad (K1), rooted fluA B = 256", "route": "cuda",
+        "source": JC_SOURCE, "replaces": KERNELS[0]["replaces"],
+        "launches": rooted_launches["ll_grad_jc69"],
+        "max_abs_err": rooted_errs["ll_grad_jc69"],
+        "ms": rooted_times[0], "plain_ms": rooted_times[1],
+        "bound_ms": rooted_bound[0], "bound_by": rooted_bound[1],
+        "library_ms": None})
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

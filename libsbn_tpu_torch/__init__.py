@@ -3,7 +3,8 @@
 The second package beside ``libsbn_tpu`` (the JAX reference, which it never
 imports): the same host layer (parsing, site patterns, schedules, the SBN
 support and sampler), the same JC69 and GTR likelihood, branch- and
-model-gradient paths for unrooted trees, the VBPI trainer
+model-gradient paths for unrooted trees and rooted time trees
+(``RootedInstance``), the VBPI trainer
 (``vi.JitVBPI``) and generalized pruning over the subsplit DAG
 (``gp.GPInstance``), with hand-written CUDA kernels for NVIDIA Hopper
 (``csrc/``, built with nvcc at first use) and plain PyTorch twins of those
@@ -22,20 +23,26 @@ from .core.tree import (  # noqa: E402
     RootedTree, RootedTreeCollection, UnrootedTree, UnrootedTreeCollection,
 )
 from .gp.instance import GPInstance  # noqa: E402
-from .instance import UnrootedInstance  # noqa: E402
+from .instance import (  # noqa: E402
+    RootedInstance, UnrootedInstance, ratio_gradient_of_height_gradient,
+)
 from .models.phylo_model import PhyloModelSpec  # noqa: E402
 from .sbn.support import PSPIndexer  # noqa: E402
 
 # The reference's module names (pylibsbn.cpp), as libsbn_tpu exposes them.
+rooted_instance = RootedInstance
 unrooted_instance = UnrootedInstance
 gp_instance = GPInstance
 PhyloModelSpecification = PhyloModelSpec
 
 __all__ = [
+    "RootedInstance",
     "UnrootedInstance",
     "PhyloModelSpec",
     "PhyloModelSpecification",
+    "rooted_instance",
     "unrooted_instance",
+    "ratio_gradient_of_height_gradient",
     "GPInstance",
     "gp_instance",
     "PSPIndexer",

@@ -4,8 +4,8 @@ A copy of libsbn_tpu.core.tree (the reference's src/{tree,unrooted_tree,
 rooted_tree,generic_tree_collection,rooted_tree_collection}.*): host-side
 numpy containers pairing a Topology with branch lengths (indexed by node
 id) and, for rooted time trees, node heights / height-ratio state. The
-rooted trees serve generalized pruning (``gp/``); their time-tree methods
-wait for the rooted likelihood (ROADMAP queue 1, item 7).
+rooted trees serve generalized pruning (``gp/``) and the time-tree
+likelihood (``instance/rooted.py``).
 
 The height-ratio parameterization (rooted_tree.hpp:19-24): for internal node
 n with parent p, ratio = (h_n - bound_n) / (h_p - bound_n), where bound_n is

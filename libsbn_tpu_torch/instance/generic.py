@@ -105,6 +105,23 @@ class GenericSBNInstance:
     def train_expectation_maximization(self, *args, **kwargs):
         raise NotImplementedError(EM_TODO)
 
+    def pretty_indexer(self) -> List[str]:
+        return self.sbn_support.pretty_indexer()
+
+    def normalized_sbn_parameters(self) -> np.ndarray:
+        """The SBN parameters as probabilities, normalised within each
+        block (rootsplits, then each parent subsplit's children)."""
+        seg = self.sbn_support.segment_ids()
+        num_segments = int(seg.max(initial=0)) + 1
+        return torch.exp(sbn_probability.probability_normalize_in_log(
+            torch.as_tensor(np.asarray(self.sbn_parameters, np.float64)),
+            torch.as_tensor(seg), num_segments,
+        )).numpy()
+
+    def pretty_indexed_sbn_parameters(self):
+        return list(zip(self.pretty_indexer(),
+                        self.normalized_sbn_parameters()))
+
     # -- sampling ------------------------------------------------------------
     def set_seed(self, seed: int):
         self._seed = seed

@@ -1,4 +1,5 @@
-"""The likelihood engine: batched likelihoods and gradients of unrooted trees.
+"""The likelihood engine: batched likelihoods and gradients of unrooted
+trees and of rooted time trees.
 
 The counterpart of libsbn_tpu/models/engine.py. A whole tree collection
 evaluates in one kernel launch per call. Routes, by model and device (a
@@ -14,19 +15,31 @@ PyTorch twins; float32 or float64 either way):
     (ops/pruning_vjp.py) for all trees' substitution and site gradients;
   * rescale=False, any model: the scan engine ops/pruning.py on the
     engine's device (the JAX engine's use_pallas route ignores rescale; this
-    one does not).
+    one does not);
+  * rooted time trees: heights from height ratios by the sweeps of
+    ops/heights.py, then the routes above on the rate-scaled branch
+    lengths. ``rooted_log_likelihoods``: K2 (JC69), K5 (GTR) or the scan
+    engine. ``rooted_phylo_gradients``: JC69 with rescaling takes one K1
+    launch and the hand adjoint of the heights (``_rooted_phylo_gradients_
+    hand``); every other model takes autograd of the summed LL and
+    log-det-Jacobian through the sweeps and K5 + K6 or the scan engine
+    (``_rooted_phylo_gradients_autograd``, which also runs JC69 on K2 + K3).
 
 Gradient conventions (PhyloGradient parity, tree_gradient.hpp):
 ``"branch_lengths"`` is d LL / d b_e over non-root node ids 0..root_id-1,
 the trifurcating layout with 2n-3 real edges; ``"substitution_model"`` is
 (B, 8), each tree's gradient in stick-breaking space, the rates block (5)
 then the frequencies block (3); ``"site_model"`` is the (B,) column
-d LL_b / d Weibull shape. Model gradients come from one autograd pass over
-per-tree copies of the parameters, so each row is that tree's own (the JAX
-engine's jacrev rows, models/engine.py:511-551).
+d LL_b / d Weibull shape; ``"ratios_root_height"`` is (B, L-1),
+d (LL + log|Jacobian|) / d (height ratios, root height); ``"clock_model"``
+is d LL / d clock rate, (B, 1) under a strict clock, per branch (B, N-1)
+otherwise. Model gradients come from one autograd pass over per-tree copies
+of the parameters, so each row is that tree's own (the JAX engine's jacrev
+rows, models/engine.py:511-551). The rooted gradient dict reports the LL
+without the Jacobian, as the reference's does.
 
-Per-tree parameter rows and rooted trees raise NotImplementedError naming
-their ROADMAP item.
+Per-tree parameter rows raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import torch
 from ..models.phylo_model import (
     PhyloModelSpec, check_spec, site_tensors, substitution_tensors,
 )
+from ..ops import heights as heights_ops
 from ..ops import pruning, pruning_generic, pruning_jc, pruning_vjp
 from ..ops import site_model as site_ops
 from ..ops import substitution as subst_ops
@@ -48,12 +62,11 @@ PER_TREE_TODO = (
     "per-tree model parameters are not ported yet (ROADMAP queue 1, item 5: "
     "the per-tree parameter matrix)"
 )
-ROOTED_TODO = "rooted time trees are not ported yet (ROADMAP queue 1, item 7)"
 
 
 class LikelihoodEngine:
-    """Likelihoods and gradients for collections of unrooted trees over one
-    alignment, on one device."""
+    """Likelihoods and gradients for collections of unrooted trees and of
+    rooted time trees over one alignment, on one device."""
 
     def __init__(
         self,
@@ -146,10 +159,16 @@ class LikelihoodEngine:
             rates.to(dt),
         )
 
-    def _generic_lls(self, pc, bl_padded, Q, freqs, rates, props, root_id):
-        """(B,) LLs from explicit transition matrices, differentiable in Q,
-        freqs, rates and props: K5/K6 with rescaling, the scan engine
-        without."""
+    def _lls(self, pc, bl_padded, model, root_id):
+        """(B,) LLs from padded branch lengths (B, N1), differentiable in
+        them and in the model tensors: K2/K3 (JC69 with rescaling), K5/K6
+        (GTR with rescaling), the scan engine without rescaling."""
+        freqs, Q, rates, props = model
+        if self._matrix_free():
+            return pruning_jc.log_likelihoods_jc69(
+                pc, bl_padded, self.tips, self.weights, root_id=root_id,
+                rates=rates, props=props,
+            )
         dt = self.dtype
         P = self._node_P(Q, freqs, rates, bl_padded)
         if not self.rescale:
@@ -169,15 +188,9 @@ class LikelihoodEngine:
         """(B,) log likelihoods; branch_lengths: (B, N)."""
         if per_tree:
             raise NotImplementedError(PER_TREE_TODO)
-        pc = self._post_children(sched)
-        bl = self._bl_padded(branch_lengths)
-        freqs, Q, rates, props = self._model(params)
-        if self._matrix_free():
-            return pruning_jc.log_likelihoods_jc69(
-                pc, bl, self.tips, self.weights, root_id=sched.root_id,
-                rates=rates.to(self.dtype), props=props.to(self.dtype),
-            )
-        return self._generic_lls(pc, bl, Q, freqs, rates, props, sched.root_id)
+        return self._lls(self._post_children(sched),
+                         self._bl_padded(branch_lengths), self._model(params),
+                         sched.root_id)
 
     def branch_gradients(
         self, sched: BatchedSchedule, branch_lengths, params, per_tree=False
@@ -211,12 +224,14 @@ class LikelihoodEngine:
             sched, branch_lengths, params, per_tree=per_tree
         )
         out = {"log_likelihood": lls, "branch_lengths": bgrads}
-        out.update(self._model_param_gradients(sched, branch_lengths, params))
+        out.update(self._model_param_gradients(
+            sched, self._bl_padded(branch_lengths), params))
         return out
 
-    def _model_param_gradients(self, sched: BatchedSchedule, branch_lengths,
+    def _model_param_gradients(self, sched: BatchedSchedule, bl_padded,
                                params):
-        """Per-tree substitution (stick space) and site gradients, float64.
+        """Per-tree substitution (stick space) and site gradients, float64,
+        at padded branch lengths (B, N1) (rate-scaled for time trees).
 
         The summed LL is differentiated with respect to per-tree copies of
         the parameters, y (B, 8) in stick space and the Weibull shape (B,),
@@ -255,16 +270,8 @@ class LikelihoodEngine:
                     shapes, self.spec.site_category_count(), device=dev)
             else:
                 rates, props = site_tensors(self.spec, params, device=dev)
-            pc = self._post_children(sched)
-            bl = self._bl_padded(branch_lengths)
-            if self._matrix_free():
-                lls = pruning_jc.log_likelihoods_jc69(
-                    pc, bl, self.tips, self.weights, root_id=sched.root_id,
-                    rates=rates, props=props,
-                )
-            else:
-                lls = self._generic_lls(pc, bl, Q, freqs, rates, props,
-                                        sched.root_id)
+            lls = self._lls(self._post_children(sched), bl_padded.detach(),
+                            (freqs, Q, rates, props), sched.root_id)
             grads = torch.autograd.grad(lls.sum(), inputs)
         out = {}
         if gtr:
@@ -273,8 +280,152 @@ class LikelihoodEngine:
             out["site_model"] = grads[-1]
         return out
 
-    def rooted_log_likelihoods(self, *args, **kwargs):
-        raise NotImplementedError(ROOTED_TODO)
+    # -- rooted time trees --------------------------------------------------
+    def _height_iters(self, sched: BatchedSchedule) -> int:
+        """The deepest internal node's depth over the batch: the number of
+        sweeps the heights fixed point needs. Cached on the schedule object,
+        so it dies with it and a deeper collection is never served a
+        shallower count."""
+        cached = getattr(sched, "_height_iters_cache", None)
+        if cached is None:
+            pn = np.asarray(sched.pre_internal_node)
+            pp = np.asarray(sched.pre_internal_parent)
+            rows = np.arange(pn.shape[0])
+            depth = np.zeros((pn.shape[0], sched.node_count), np.int64)
+            for j in range(pn.shape[1]):  # preorder: parents come first
+                depth[rows, pn[:, j]] = depth[rows, pp[:, j]] + 1
+            cached = max(1, int(depth.max(initial=0)))
+            object.__setattr__(sched, "_height_iters_cache", cached)
+        return cached
 
-    def rooted_phylo_gradients(self, *args, **kwargs):
-        raise NotImplementedError(ROOTED_TODO)
+    @staticmethod
+    def _bl_padded2(bl):
+        """Rooted branch lengths (B, N-1) with the root and ones-slot zeros
+        appended: (B, N + 1)."""
+        return torch.nn.functional.pad(bl, (0, 2))
+
+    def _rooted_inputs(self, sched, bounds, ratios, rates):
+        """The schedule's index arrays and the time-tree arrays on the
+        device, the arrays in the working dtype."""
+        def upload(x, dtype):
+            return torch.as_tensor(x, device=self.device).to(dtype)
+
+        return {
+            "pc": self._post_children(sched),
+            "pre_node": upload(sched.pre_internal_node, torch.int64),
+            "pre_parent": upload(sched.pre_internal_parent, torch.int64),
+            "parent": upload(sched.parent, torch.int64),
+            "bounds": upload(bounds, self.dtype),
+            "ratios": upload(ratios, self.dtype),
+            "rates": upload(rates, self.dtype),
+            "n_iters": self._height_iters(sched),
+            "leaf_count": sched.leaf_count,
+            "root_id": sched.root_id,
+        }
+
+    def _rooted_branch_lengths(self, a, ratios):
+        """(heights (B, N), branch lengths (B, N-1)) of the time trees."""
+        h = heights_ops.node_heights_from_ratios(
+            ratios, a["bounds"], a["leaf_count"], a["pre_node"],
+            a["pre_parent"], n_iters=a["n_iters"])
+        return h, heights_ops.branch_lengths_from_heights(h, a["parent"])
+
+    def _rooted_parts(self, a, ratios, rates, model):
+        """((B,) LLs, (B,) log-det-Jacobians, (B, N-1) rate-scaled branch
+        lengths), differentiable in ratios, rates and the model tensors."""
+        h, bl = self._rooted_branch_lengths(a, ratios)
+        bl_scaled = bl * rates
+        lls = self._lls(a["pc"], self._bl_padded2(bl_scaled), model,
+                        a["root_id"])
+        ldjs = heights_ops.log_det_jacobian(h, a["bounds"], a["parent"],
+                                            a["leaf_count"])
+        return lls, ldjs, bl_scaled
+
+    def rooted_log_likelihoods(
+        self, sched: BatchedSchedule, bounds, ratios, rates, params,
+        return_parts: bool = False, per_tree: bool = False,
+    ):
+        """(B,) LL + log-det-Jacobian of rooted time trees
+        (fat_beagle.cpp:96-104), or the pair with return_parts.
+
+        bounds: (B, N) node bounds; ratios: (B, L-1) height ratios with the
+        root height last; rates: (B, N-1) per-branch clock rates."""
+        if per_tree:
+            raise NotImplementedError(PER_TREE_TODO)
+        a = self._rooted_inputs(sched, bounds, ratios, rates)
+        lls, ldjs, _ = self._rooted_parts(a, a["ratios"], a["rates"],
+                                          self._model(params))
+        if return_parts:
+            return lls, ldjs
+        return lls + ldjs
+
+    def rooted_phylo_gradients(
+        self, sched: BatchedSchedule, bounds, ratios, rates, params,
+        strict_clock: bool = True, per_tree: bool = False,
+    ):
+        """Gradient dict of rooted time trees: ``log_likelihood`` (without
+        the Jacobian), ``ratios_root_height``, ``clock_model`` and the model
+        gradients. JC69 with rescaling takes the hand route (one K1 launch),
+        every other model autograd."""
+        if per_tree:
+            raise NotImplementedError(PER_TREE_TODO)
+        route = (self._rooted_phylo_gradients_hand if self._matrix_free()
+                 else self._rooted_phylo_gradients_autograd)
+        return route(sched, bounds, ratios, rates, params, strict_clock)
+
+    def _rooted_gradient_dict(self, sched, lls, dratios, drates, bl_scaled,
+                              params, strict_clock):
+        out = {
+            "log_likelihood": lls,
+            "ratios_root_height": dratios,
+            "clock_model": (drates.sum(-1, keepdim=True) if strict_clock
+                            else drates),
+        }
+        # The Jacobian does not depend on the model: its gradients are the
+        # LL's at the rate-scaled branch lengths.
+        out.update(self._model_param_gradients(
+            sched, self._bl_padded2(bl_scaled), params))
+        return out
+
+    def _rooted_phylo_gradients_hand(
+        self, sched, bounds, ratios, rates, params, strict_clock
+    ):
+        """JC69 rooted gradients by the hand chain rule: one K1 launch on
+        the rate-scaled branch lengths gives the LL and its branch gradient,
+        then ops/heights.py's adjoint of the heights (the BEAST recursions
+        of rooted_gradient_transforms.cpp:17-162, as sweeps) gives the
+        ratio and clock gradients."""
+        a = self._rooted_inputs(sched, bounds, ratios, rates)
+        h, bl = self._rooted_branch_lengths(a, a["ratios"])
+        bl_scaled = bl * a["rates"]
+        _, _, site_rates, props = self._model(params)
+        lls, g_scaled = pruning_jc.log_likelihood_and_branch_gradient_jc69(
+            a["pc"], self._bl_padded2(bl_scaled), self.tips, self.weights,
+            root_id=a["root_id"], rates=site_rates, props=props,
+        )
+        dratios, drates, _ = (
+            heights_ops.ratio_and_rate_gradients_from_branch_gradient(
+                g_scaled, a["ratios"], a["bounds"], a["rates"],
+                a["leaf_count"], a["pre_node"], a["pre_parent"], a["parent"],
+                a["n_iters"], heights=h,
+            ))
+        return self._rooted_gradient_dict(sched, lls, dratios, drates,
+                                          bl_scaled, params, strict_clock)
+
+    def _rooted_phylo_gradients_autograd(
+        self, sched, bounds, ratios, rates, params, strict_clock
+    ):
+        """Rooted gradients by autograd of sum(LL + log-det-Jacobian) with
+        respect to (ratios, rates), through the heights sweeps and the LL's
+        backward (K5 + K6, K2 + K3 for JC69, or the scan engine); the trees
+        are independent, so the sum's gradient is each tree's own."""
+        a = self._rooted_inputs(sched, bounds, ratios, rates)
+        model = self._model(params)
+        with torch.enable_grad():
+            r = a["ratios"].detach().requires_grad_(True)
+            k = a["rates"].detach().requires_grad_(True)
+            lls, ldjs, bl_scaled = self._rooted_parts(a, r, k, model)
+            dratios, drates = torch.autograd.grad((lls + ldjs).sum(), (r, k))
+        return self._rooted_gradient_dict(
+            sched, lls.detach(), dratios, drates, bl_scaled.detach(), params,
+            strict_clock)

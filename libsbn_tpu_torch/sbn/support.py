@@ -2,8 +2,7 @@
 dense lowering used by the device code.
 
 A copy of libsbn_tpu.sbn.support (the reference's src/sbn_support.hpp and
-psp_indexer.{hpp,cpp}), without the rooted support: rooted trees are ROADMAP
-queue 1, item 7.
+psp_indexer.{hpp,cpp}).
 
 The support is host-side; its dense artifacts are:
   * ``segment_ids`` (G,): normalization segment of each parameter (segment 0
@@ -163,6 +162,16 @@ class UnrootedSBNSupport(SBNSupport):
         if handle is None:
             return None
         return handle.representations(parent_vectors, self.gpcsp_count)
+
+
+class RootedSBNSupport(SBNSupport):
+    rooted = True
+
+    def _rootsplit_counter(self, topology_counter):
+        return maps.rooted_rootsplit_counter_of(topology_counter)
+
+    def _pcsp_counter(self, topology_counter):
+        return maps.rooted_pcsp_counter_of(topology_counter)
 
 
 class PSPIndexer:

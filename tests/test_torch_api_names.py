@@ -22,6 +22,11 @@ from libsbn_tpu_torch.gp import GPInstance
 
 torch.set_num_threads(1)
 
+ROOTED_TREE_NAMES = [
+    "parent_id_vector", "initialize_time_tree_using_height_ratios",
+    "example", "of_parent_id_vector", "branch_lengths", "height_ratios",
+    "node_heights", "node_bounds", "rates",
+]
 PSP_INDEXER_NAMES = ["details"]
 GENERIC_INSTANCE_NAMES = [
     "get_phylo_model_params", "get_phylo_model_param_block_map",
@@ -31,6 +36,10 @@ GENERIC_INSTANCE_NAMES = [
     "read_sbn_parameters_from_csv", "calculate_sbn_probabilities",
     "log_likelihoods", "set_rescaling", "phylo_gradients",
     "read_newick_file", "read_nexus_file", "tree_collection",
+]
+ROOTED_INSTANCE_NAMES = [
+    "unconditional_subsplit_probabilities_to_csv", "set_dates_to_be_constant",
+    "parse_dates_from_taxon_names", "parse_dates_from_csv",
 ]
 UNROOTED_INSTANCE_NAMES = [
     "train_expectation_maximization", "sample_trees",
@@ -65,18 +74,17 @@ VIP_SURFACE = {
 }
 
 # ROADMAP queue 1 item -> {table: names the port still lacks}.
+OWED_GENERIC = [
+    "get_phylo_model_params", "get_phylo_model_param_block_map",
+    "resize_phylo_model_params", "print_status", "sbn_parameters_to_csv",
+    "read_sbn_parameters_from_csv", "calculate_sbn_probabilities",
+    "set_rescaling",
+]
 OWED = {
     5: {  # SBN EM, collection probabilities and the instance surface
-        "generic": [
-            "get_phylo_model_params", "get_phylo_model_param_block_map",
-            "resize_phylo_model_params", "print_status",
-            "sbn_parameters_to_csv", "read_sbn_parameters_from_csv",
-            "calculate_sbn_probabilities", "set_rescaling",
-        ],
+        "generic": OWED_GENERIC,
         "unrooted": ["make_indexer_representations", "split_counters"],
-    },
-    7: {  # rooted time trees
-        "module": ["rooted_instance", "ratio_gradient_of_height_gradient"],
+        "rooted": OWED_GENERIC,
     },
     10: {  # the vip layer
         "vip": [f"{module}.{name}" for module, names in VIP_SURFACE.items()
@@ -89,6 +97,15 @@ def _unrooted(data_dir):
     inst = libsbn_tpu_torch.unrooted_instance("names")
     inst.read_newick_file(f"{data_dir}/hello.nwk")
     inst.read_fasta_file(f"{data_dir}/hello.fasta")
+    inst.process_loaded_trees()
+    return inst
+
+
+def _rooted(data_dir):
+    inst = libsbn_tpu_torch.rooted_instance("names")
+    inst.read_newick_file(f"{data_dir}/fluA.tree")
+    inst.read_fasta_file(f"{data_dir}/fluA.fa")
+    inst.parse_dates_from_taxon_names(True)
     inst.process_loaded_trees()
     return inst
 
@@ -112,6 +129,10 @@ def _missing(table, data_dir):
         "module": lambda: (libsbn_tpu_torch, MODULE_NAMES),
         "generic": lambda: (_unrooted(data_dir), GENERIC_INSTANCE_NAMES),
         "unrooted": lambda: (_unrooted(data_dir), UNROOTED_INSTANCE_NAMES),
+        "rooted": lambda: (_rooted(data_dir),
+                           GENERIC_INSTANCE_NAMES + ROOTED_INSTANCE_NAMES),
+        "rooted_tree": lambda: (_rooted(data_dir).tree_collection.trees[0],
+                                ROOTED_TREE_NAMES),
         "gp": lambda: (libsbn_tpu_torch.gp_instance(), GP_INSTANCE_NAMES),
         "psp_indexer": lambda: (_unrooted(data_dir).psp_indexer,
                                 PSP_INDEXER_NAMES),
@@ -119,7 +140,8 @@ def _missing(table, data_dir):
     return [n for n in names if not hasattr(obj, n)]
 
 
-TABLES = ["module", "generic", "unrooted", "gp", "psp_indexer", "vip"]
+TABLES = ["module", "generic", "unrooted", "rooted", "rooted_tree", "gp",
+          "psp_indexer", "vip"]
 
 
 @pytest.mark.parametrize("table", TABLES)
@@ -130,9 +152,9 @@ def test_port_lacks_exactly_the_owed_names(table, data_dir):
 
 
 def test_owed_names_belong_to_open_items():
-    """OWED names only the items still open (5, 7, 10), only the tables
+    """OWED names only the items still open (5, 10), only the tables
     above, and no name twice."""
-    assert set(OWED) == {5, 7, 10}
+    assert set(OWED) == {5, 10}
     names = [(t, n) for item in OWED.values() for t, ns in item.items()
              for n in ns]
     assert {t for t, _ in names} <= set(TABLES)
@@ -141,13 +163,19 @@ def test_owed_names_belong_to_open_items():
 
 def test_module_factories_are_the_classes():
     """The reference's factory names are the instance classes themselves,
-    and the top level exports PSPIndexer (sbn/support.py)."""
+    and the top level exports PSPIndexer (sbn/support.py) and
+    ratio_gradient_of_height_gradient (instance/rooted.py)."""
+    from libsbn_tpu_torch.instance import rooted
     from libsbn_tpu_torch.sbn.support import PSPIndexer
 
     assert libsbn_tpu_torch.unrooted_instance is libsbn_tpu_torch.UnrootedInstance
+    assert libsbn_tpu_torch.rooted_instance is libsbn_tpu_torch.RootedInstance
+    assert (libsbn_tpu_torch.ratio_gradient_of_height_gradient
+            is rooted.ratio_gradient_of_height_gradient)
     assert libsbn_tpu_torch.gp_instance is GPInstance
     assert libsbn_tpu_torch.PSPIndexer is PSPIndexer
-    assert {"gp_instance", "PSPIndexer"} <= set(libsbn_tpu_torch.__all__)
+    assert {"gp_instance", "PSPIndexer", "rooted_instance", "RootedInstance",
+            "ratio_gradient_of_height_gradient"} <= set(libsbn_tpu_torch.__all__)
     spec = libsbn_tpu_torch.PhyloModelSpecification(
         substitution="JC69", site="weibull+4", clock="strict")
     assert spec.site_category_count() == 4

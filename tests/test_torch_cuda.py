@@ -894,3 +894,96 @@ def test_onchip_k7_adds_only_its_outputs():
     want = _added(lambda: [torch.empty(x, dtype=torch.float32, device="cuda")
                            for x in shapes])
     assert added == want >= sum(np.prod(x) * 4 for x in shapes), (added, want)
+
+
+def _rooted_instance(device, dtype, sub, site, batch=4):
+    """RootedInstance on fluA (dates from the taxon names, clock rate
+    0.001), its one tree tiled to ``batch`` with the ratios perturbed by
+    U(0.95, 1.05) from default_rng(0): (instance, the engine's arguments)."""
+    inst = libsbn_tpu_torch.RootedInstance("fluA")
+    inst.read_newick_file(f"{DATA}/fluA.tree")
+    inst.read_fasta_file(f"{DATA}/fluA.fa")
+    inst.parse_dates_from_taxon_names(True)
+    inst.set_clock_rates(0.001)
+    inst.prepare_for_phylo_likelihood(
+        libsbn_tpu_torch.PhyloModelSpec(sub, site, "strict"), device=device,
+        dtype=dtype)
+    f64 = dict(dtype=torch.float64, device=device)
+    if sub == "GTR":
+        inst.phylo_model_params["substitution"] = {
+            "rates": torch.tensor([0.05, 0.1, 0.15, 0.2, 0.25, 0.25], **f64),
+            "frequencies": torch.tensor([0.1, 0.2, 0.3, 0.4], **f64),
+        }
+    if site != "constant":
+        inst.phylo_model_params["site"]["shape"] = torch.tensor(0.1, **f64)
+    bounds, ratios, rates = (np.repeat(x, batch, axis=0)
+                             for x in inst._time_tree_arrays())
+    rng = np.random.default_rng(0)
+    ratios[:, :-1] = np.clip(
+        ratios[:, :-1] * rng.uniform(0.95, 1.05, ratios[:, :-1].shape),
+        1e-4, 1 - 1e-4)
+    sched = schedule.schedules_of_topologies(
+        [inst.tree_collection.trees[0].topology] * batch)
+    return inst, (sched, bounds, ratios, rates, inst.phylo_model_params)
+
+
+# route -> (substitution, the engine method, {kernel: launches per call} at
+# K = 1 and at K = 4 (Weibull+4 adds the shape gradient's K2 + K3)).
+ROOTED_ROUTES = {
+    "hand": ("JC69", "rooted_phylo_gradients",
+             ({"ll_grad_jc69": 1}, {"ll_grad_jc69": 1, "ll_jc69": 1,
+                                     "ll_dea_jc69": 1})),
+    "autograd_jc69": ("JC69", "_rooted_phylo_gradients_autograd",
+                      ({"ll_jc69": 1, "ll_dea_jc69": 1},
+                       {"ll_jc69": 2, "ll_dea_jc69": 2})),
+    "autograd_gtr": ("GTR", "rooted_phylo_gradients",
+                     ({"ll_generic": 2, "ll_dp_generic": 2},) * 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("route", sorted(ROOTED_ROUTES))
+def test_rooted_engine_on_card_matches_cpu(route, dtype, K):
+    """The rooted engine on fluA x 4 perturbed trees on the card against the
+    same on the CPU (the kernels' twins), at the kernels' tolerances: the
+    LLs + ldjs of rooted_log_likelihoods and every gradient of each route.
+    The route is read from the launch counters: its kernels, on chip or
+    on their slab routes (f64 K = 4 exceeds K1-K3's plan), and no twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    sub, method, launches = ROOTED_ROUTES[route]
+    site = "constant" if K == 1 else "weibull+4"
+    cpu, cpu_args = _rooted_instance("cpu", dtype, sub, site)
+    card, card_args = _rooted_instance("cuda", dtype, sub, site)
+    extra = () if method == "rooted_phylo_gradients" else (True,)
+    want = getattr(cpu.engine, method)(*cpu_args, *extra)
+    want_ll = cpu.engine.rooted_log_likelihoods(*cpu_args)
+    for m in (pruning_jc, pruning_generic, pruning_vjp):
+        m.reset_counters()
+    got = getattr(card.engine, method)(*card_args, *extra)
+    torch.cuda.synchronize()
+    counts = {k: v for m in (pruning_jc, pruning_generic, pruning_vjp)
+              for k, v in m.LAUNCHES.items()}
+    onchip = pruning_jc.onchip_plan(dtype, K, 68, 69) is not None
+    took = {}
+    for key, count in counts.items():
+        if count:
+            base = key.replace("_slab", "")
+            took[base] = took.get(base, 0) + count
+            if key.endswith("_slab"):
+                assert not onchip and sub == "JC69", key
+    assert took == launches[K > 1], counts
+    for m in (pruning_jc, pruning_generic, pruning_vjp):
+        assert not any(m.TWIN_CALLS.values())
+    got_ll = card.engine.rooted_log_likelihoods(*card_args)
+    ll_tol, grad_tol = TOL[dtype]
+    np.testing.assert_allclose(got_ll.cpu().numpy(), want_ll.numpy(),
+                               rtol=ll_tol[0], atol=ll_tol[1])
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].device.type == "cuda"
+        tol = ll_tol if key == "log_likelihood" else grad_tol
+        np.testing.assert_allclose(got[key].cpu().numpy(), want[key].numpy(),
+                                   rtol=tol[0], atol=tol[1], err_msg=key)

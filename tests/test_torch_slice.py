@@ -121,8 +121,8 @@ def test_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import libsbn_tpu_torch\n"
-        "from libsbn_tpu_torch.instance import generic, unrooted\n"
-        "from libsbn_tpu_torch.ops import _kernels, pruning_jc\n"
+        "from libsbn_tpu_torch.instance import generic, rooted, unrooted\n"
+        "from libsbn_tpu_torch.ops import _kernels, heights, pruning_jc\n"
         "from libsbn_tpu_torch.ops import pruning, pruning_generic, pruning_vjp\n"
         "from libsbn_tpu_torch.ops import substitution, transforms\n"
         "from libsbn_tpu_torch.sbn import gradients, probability, sampling\n"
@@ -147,8 +147,8 @@ def _ds1(data_dir, site="constant"):
 
 
 @pytest.mark.parametrize("path", [
-    "per_tree", "rooted", "tree_count_option", "vbpi_mesh", "gp_streamed",
-    "gp_mesh", "em",
+    "per_tree", "tree_count_option", "vbpi_mesh", "gp_streamed", "gp_mesh",
+    "em",
 ])
 def test_unported_paths_raise(data_dir, path):
     """Paths not on this slice raise NotImplementedError naming their
@@ -175,8 +175,6 @@ def test_unported_paths_raise(data_dir, path):
             inst = _ds1(data_dir)
             inst.process_loaded_trees()
             inst.train_expectation_maximization(0.0, 10)
-        elif path == "rooted":
-            _ds1(data_dir).engine.rooted_log_likelihoods()
         else:
             _ds1(data_dir).prepare_for_phylo_likelihood(
                 PhyloModelSpec(), tree_count_option=3)
