@@ -94,12 +94,41 @@ Phases, each of which raises on failure:
      timings, K1 timed beside its twin on the f32 batch with its bound,
      and rooted_phylo_gradients (both routes) and rooted_log_likelihoods
      from host arrays with device time, idle share, peak memory and
-     gradient evaluations per second.
+     gradient evaluations per second;
+  11. the vip path (after [10], before the timing phases): after reference
+     runs on the CPU (device="cpu", the kernels' twins), with the counters
+     at 0: (a) EM on DS1.100_topologies on the card, (0, 23) and (0.5,
+     100), against the zcrabbit goldens of tests/golden_sbn.py and the CPU
+     reference, and run twice, equal bit for bit; (b) GTR + Weibull+4 rows per tree on DS1.subsampled_10,
+     float64, log_likelihoods (K5) and phylo_gradients (the scan engine for
+     the branch gradients, K5 + K6 for the model's) against the CPU at rel
+     1e-10, each call's route read from the counters; (c) the Burrito
+     (DS1.subsampled_10.t burn-in 0.1, DS1.fasta, lognormal, the simple
+     optimizer, 10 particles, seed 0, float64): JC69 split for 5 steps (K1
+     and K2), GTR + Weibull+4 split for 2 (K4 and K5), JC69 psp for 2,
+     each ELBO trace against the CPU reference at rel 1e-9; (d)
+     vi.benchmark.fixed on DS1 (20 steps, 10 particles, the final ELBO over
+     10,000 particles: one K2 launch at B = 10,000) with its gradient time
+     and final ELBO; (f) the
+     vip-torch command (benchmark --step-count 2 --particle-count 4) on a
+     hello directory (on DS1 its own 10,000-particle ELBO would add 43 s of
+     host work); the counters show K1, K2, K4 and K5 launched and no twin
+     called; then (e) K1-K3 at the inputs of one more JC69 Burrito step
+     (B = 10), K4-K6 at one more GTR step's, K2 on the first 1,000 rows
+     of a 10,000-particle ELBO estimate's batch (the Burrito keeps its last
+     engine call's schedule and branch lengths) against their twins at
+     TWIN_TOL, and the timings: that B = 10,000 engine.log_likelihoods
+     call with its device time and the memory it adds, K2 at B = 10,000
+     beside its twin in chunks of 1,000 and its bound, a gradient step and
+     a 10-particle ELBO estimate with device time and idle share.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its paths, its error against its twin, its time, its twin's, and its
-bound: the larger of its operations at the float32 peak and its inputs and
-outputs at the HBM rate; K1 has two entries, the first counting the
-unrooted paths, the second the rooted batch and path), the card's
+bound: the larger of its operations at the peak of their type (float64's
+for a float64 launch, float32's otherwise) and its inputs and outputs at
+the HBM rate; K1 has two entries, the first counting the
+unrooted and vip paths, the second the rooted batch and path; K2 has two,
+the first counting every path but the vip path, the second the vip path's
+launches with the B = 10,000 launch's time and bound), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -133,7 +162,7 @@ from libsbn_tpu_torch.ops import (  # noqa: E402
 )
 from libsbn_tpu_torch.ops import substitution, transforms  # noqa: E402
 from libsbn_tpu_torch.ops.site_model import weibull_rates  # noqa: E402
-from libsbn_tpu_torch.vi import JitVBPI  # noqa: E402
+from libsbn_tpu_torch.vi import Burrito, JitVBPI, benchmark, cli  # noqa: E402
 
 # Golden numbers (the reference's unrooted_sbn_instance.hpp tests, as
 # pinned by the JAX package's tests/test_likelihood.py).
@@ -309,9 +338,11 @@ B = 512  # trees per launch (the JAX bench's headline batch)
 KS = (1, 4, 8)  # rate categories of K1-K3 against their twins
 BIG_TAXA = 256  # the synthetic tree beyond shared memory
 GP_BIG_TAXA = 600  # the synthetic rooted tree beyond K7's plan (1,199 nodes)
-# One H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, HBM3,
-# and the SMs' shared memory (132 SMs x 128 B per cycle at 1.755 GHz).
+# One H100 SXM (NVIDIA's data sheet): float32 and float64 outside the tensor
+# cores, HBM3, and the SMs' shared memory (132 SMs x 128 B per cycle at
+# 1.755 GHz).
 PEAK_F32 = 67e12  # operations / s
+PEAK_F64 = 34e12  # operations / s
 HBM_RATE = 3.35e12  # bytes / s
 SMEM_RATE = 132 * 128 * 1.755e9  # bytes / s
 B_GTR = 256  # the JAX bench's config 2 (DS1.100_topologies tiled)
@@ -1153,25 +1184,29 @@ def time_pairs(calls, n_trees, plain_reps=(7, 10)):
     return out
 
 
-def nbytes(*items):
-    """Bytes of the tensors in items (nested in tuples, lists and dicts),
-    each counted once."""
-    total = 0
+def tensors(*items):
+    """The tensors in items, nested in tuples, lists and dicts."""
     for x in items:
         if isinstance(x, torch.Tensor):
-            total += x.numel() * x.element_size()
+            yield x
         elif isinstance(x, dict):
-            total += nbytes(*x.values())
+            yield from tensors(*x.values())
         elif isinstance(x, (tuple, list)):
-            total += nbytes(*x)
-    return total
+            yield from tensors(*x)
+
+
+def nbytes(*items):
+    """Bytes of the tensors in items, each counted once."""
+    return sum(x.numel() * x.element_size() for x in tensors(*items))
 
 
 def bound(ops, inputs, outputs):
     """(ms, "operations" or "bytes"): the least time of the work on this
-    card, the larger of its operations at the float32 peak and its inputs
+    card, the larger of its operations at the peak of the type it computes
+    in (float64's when an output is float64, else float32's) and its inputs
     read once and outputs written once at the HBM rate."""
-    t_ops = ops / PEAK_F32 * 1e3
+    f64 = any(x.dtype == torch.float64 for x in tensors(outputs))
+    t_ops = ops / (PEAK_F64 if f64 else PEAK_F32) * 1e3
     t_bytes = nbytes(inputs, outputs) / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -2043,6 +2078,360 @@ def phase_rooted_timing(smi, calls=10):
     return times, b
 
 
+# The vip path of [11]: the Burrito at the JAX bench's config 5 size (DS1,
+# 10 particles) in float64, and vi.benchmark.fixed's defaults.
+VIP_STEPS = 5
+VIP_FIXED_STEPS = 20
+FINAL_ELBO_PARTICLES = 10_000  # fixed's default final_elbo_particle_count
+K2_TWIN_ROWS = 1_000  # the twin's share of the B = 10,000 batch
+# The Burrito's ELBO traces on the card against the CPU's (same seed, same
+# host draws): rel 1e-9, the parity gate of the CPU tests against
+# libsbn_tpu; per-tree GTR rows on the card against the CPU: rel 1e-10. EM
+# on the card against the CPU: the trees' probabilities at the goldens'
+# atol 1e-12 and the scores at rtol 1e-12 ((rtol, atol) for close); the log
+# parameters at rel 1e-12 (rel_close, the measure that holds the port to
+# libsbn_tpu on the CPU): the card sums each slot in another fixed order
+# than the CPU, and EM(0, 23) carries that rounding along directions the
+# trees do not determine.
+VIP_TRACE_REL = 1e-9
+PER_TREE_REL = 1e-10
+EM_CARD_TOL = {"probs": (0.0, 1e-12), "scores": (1e-12, 0.0),
+               "params": 1e-12}
+
+
+def sbn_goldens():
+    """The zcrabbit EM goldens of tests/golden_sbn.py, a file of plain
+    lists, read as data."""
+    import ast
+
+    with open(os.path.join(REPO, "tests", "golden_sbn.py")) as f:
+        tree = ast.parse(f.read())
+    return {node.targets[0].id: np.array(ast.literal_eval(node.value))
+            for node in tree.body if isinstance(node, ast.Assign)}
+
+
+def rel_close(name, got, want, rel):
+    """Assert |got - want| <= rel (|want| + max |want|) elementwise (the CPU
+    tests' "rel" against libsbn_tpu); return the max abs error."""
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    if got.shape != want.shape or not np.all(np.isfinite(got)):
+        raise AssertionError(f"{name}: shape {got.shape} / non-finite values")
+    scale = np.abs(want) + np.max(np.abs(want))
+    worst = float(np.max(np.abs(got - want) / scale))
+    if worst > rel:
+        raise AssertionError(f"{name}: {worst:.3e} of the scale > rel {rel}")
+    err = float(np.max(np.abs(got - want)))
+    print(f"  ok  {name}: max abs err {err:.3e}, {worst:.3e} of the scale "
+          f"(rel {rel})")
+    return err
+
+
+def vip_counts():
+    """Every kernel's launches and twin's calls, and the scan engine's
+    calls (``scan_ll``, ``scan_ll_grad``), as one dict."""
+    out = {k: v for m in COUNTED for k, v in m.LAUNCHES.items()}
+    out.update({f"twin_{k}": v for m in COUNTED
+                for k, v in m.TWIN_CALLS.items()})
+    out.update({f"scan_{k}": v for k, v in pruning.CALLS.items()})
+    return out
+
+
+def counted_call(what, fn, want):
+    """fn() with the counts it adds checked: exactly ``want`` (a dict of
+    counts) beyond what it left at zero. Returns fn's result."""
+    before = vip_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    added = {k: v - before[k] for k, v in vip_counts().items()
+             if v != before[k]}
+    print(f"  {what}: adds {added}")
+    if added != want:
+        raise AssertionError(f"{what}: the calls took {added}, not {want}")
+    return out
+
+
+def vip_burrito(device, spec=("JC69", "constant", "strict"),
+                branch_model="split"):
+    """The Burrito of [11]: DS1.subsampled_10.t (burn in 0.1) with
+    DS1.fasta, split or psp / lognormal, the simple optimizer, 10
+    particles, seed 0, float64, on ``device``."""
+    return Burrito(
+        mcmc_nexus_path=f"{DATA}/DS1.subsampled_10.t", burn_in_fraction=0.1,
+        fasta_path=f"{DATA}/DS1.fasta",
+        phylo_model_specification=lt.PhyloModelSpec(*spec),
+        branch_model_name=branch_model, scalar_model_name="lognormal",
+        optimizer_name="simple", particle_count=PARTICLES, seed=0,
+        device=device, dtype=torch.float64)
+
+
+VIP_RUNS = (  # (tag, model, branch model, steps)
+    ("JC69 split", ("JC69", "constant", "strict"), "split", VIP_STEPS),
+    ("GTR + Weibull+4 split", ("GTR", "weibull+4", "strict"), "split", 2),
+    ("JC69 psp", ("JC69", "constant", "strict"), "psp", 2),
+)
+
+
+def em_runs(device):
+    """EM(0, 23) and EM(0.5, 100) on DS1.100_topologies on ``device``:
+    {(alpha, iterations): (scores, parameters, probabilities, seconds)}."""
+    inst = lt.UnrootedInstance("charlie")
+    inst.read_newick_file(f"{DATA}/DS1.100_topologies.nwk")
+    inst.process_loaded_trees()
+    out = {}
+    for alpha, iters in ((0.0, 23), (0.5, 100)):
+        t0 = time.perf_counter()
+        scores = inst.train_expectation_maximization(alpha, iters,
+                                                     device=device)
+        seconds = time.perf_counter() - t0
+        out[(alpha, iters)] = (scores, inst.sbn_parameters.copy(),
+                               inst.calculate_sbn_probabilities(), seconds)
+    return out
+
+
+def per_tree_instance(device):
+    """DS1.subsampled_10 with DS1.fasta, GTR + Weibull+4, float64, with a
+    parameter matrix whose rows differ (frequencies, exchangeabilities and
+    shapes from default_rng(7))."""
+    inst = lt.UnrootedInstance("per tree")
+    inst.read_nexus_file(f"{DATA}/DS1.subsampled_10.t")
+    inst.read_fasta_file(f"{DATA}/DS1.fasta")
+    inst.prepare_for_phylo_likelihood(
+        lt.PhyloModelSpec("GTR", "weibull+4", "strict"), device=device,
+        dtype=torch.float64)
+    blocks = inst.get_phylo_model_param_block_map()
+    rng = np.random.default_rng(7)
+    blocks["frequencies"][:] = rng.dirichlet(np.full(4, 20.0), size=10)
+    blocks["GTR rates"][:] = rng.dirichlet(np.full(6, 20.0), size=10)
+    blocks["Weibull shape"][:, 0] = rng.uniform(0.3, 2.0, 10)
+    return inst
+
+
+def vip_fixed_dir(tmp, name, trees):
+    """A directory ``name`` holding ``name``_out.t (a copy of data/trees)
+    and ``name``.fasta, as vi.benchmark.fixed reads them."""
+    import shutil
+
+    d = os.path.join(tmp, name)
+    os.mkdir(d)
+    shutil.copy(f"{DATA}/{trees}", os.path.join(d, f"{name}_out.t"))
+    shutil.copy(f"{DATA}/{name}.fasta", os.path.join(d, f"{name}.fasta"))
+    return d
+
+
+def burrito_kernel_inputs(burro):
+    """The pruning kernels' inputs of the Burrito's last engine call: the d
+    dict of jc69_vs_twins, the engine, and its model tensors (freqs, Q,
+    rates, props)."""
+    eng = burro.inst._get_engine()
+    sched = burro.last_schedule
+    d = {"pc": eng._post_children(sched),
+         "bl": eng._bl_padded(burro.last_branch_lengths), "tips": eng.tips,
+         "w": eng.weights, "root_id": sched.root_id}
+    return d, eng, eng._model(burro.inst.phylo_model_params)
+
+
+def phase_vip(smi):
+    """[11] The vip path on the card: EM, per-tree GTR rows, the Burrito,
+    vi.benchmark.fixed and the vip-torch command; then every kernel of the
+    path against its twin on the path's own inputs, and its timings.
+    Returns (launch counts of the card path, {key: max abs error}, the
+    B = 10,000 K2 entry's numbers)."""
+    import tempfile
+
+    print("[11] vip path: EM, per-tree rows, the Burrito and "
+          "vi.benchmark.fixed on cuda")
+    t_phase = time.perf_counter()
+    goldens = sbn_goldens()
+    # Reference runs on the CPU (the kernels' twins), before the path's
+    # counters are set to 0.
+    print("  reference runs on the CPU (device=\"cpu\")")
+    em_cpu = em_runs("cpu")
+    pt_cpu = per_tree_instance("cpu")
+    pt_cpu_ll, pt_cpu_g = pt_cpu.log_likelihoods(), pt_cpu.phylo_gradients()
+    traces_cpu = {}
+    for tag, spec, bm, steps in VIP_RUNS:
+        burro = vip_burrito("cpu", spec, bm)
+        burro.gradient_steps(steps)
+        traces_cpu[tag] = burro.elbo_trace
+
+    reset_counters()
+    pruning.reset_counters()
+    # (a) EM on the card, twice: every sum in a fixed order, so the second
+    # run repeats the first bit for bit.
+    em_card = em_runs(DEV)
+    em_again = em_runs(DEV)
+    for (alpha, iters), key, atol in (((0.0, 23), "EXPECTED_EM_0_23", 1e-12),
+                                      ((0.5, 100), "EXPECTED_EM_05_100",
+                                       1e-5)):
+        scores, params, probs, seconds = em_card[(alpha, iters)]
+        print(f"  EM({alpha}, {iters}) on the card: {seconds:.3f} s")
+        close(f"EM({alpha}, {iters}) on the card vs zcrabbit", probs,
+              goldens[key], (0.0, atol))
+        for got, want in zip(em_again[(alpha, iters)][:3], (scores, params,
+                                                            probs)):
+            if not np.array_equal(got, want):
+                raise AssertionError(f"EM({alpha}, {iters}): a second run on "
+                                     "the card differs from the first")
+        print(f"  ok  EM({alpha}, {iters}): a second run on the card equal "
+              "bit for bit")
+        cpu_scores, cpu_params, cpu_probs, _ = em_cpu[(alpha, iters)]
+        close(f"EM({alpha}, {iters}) probabilities, card vs CPU reference",
+              probs, cpu_probs, EM_CARD_TOL["probs"])
+        close(f"EM({alpha}, {iters}) scores, card vs CPU reference", scores,
+              cpu_scores, EM_CARD_TOL["scores"])
+        rel_close(f"EM({alpha}, {iters}) log parameters, card vs CPU "
+                  "reference", params, cpu_params, EM_CARD_TOL["params"])
+    # (b) Per-tree GTR rows on the card: the LLs keep K5, the branch
+    # gradients take the scan engine, the model gradients K5 + K6.
+    pt = per_tree_instance(DEV)
+    ll = counted_call("per-tree log_likelihoods", pt.log_likelihoods,
+                      {"ll_generic": 1})
+    g = counted_call("per-tree phylo_gradients", pt.phylo_gradients,
+                     {"scan_ll_grad": 1, "ll_generic": 1, "ll_dp_generic": 1})
+    rel_close("per-tree LLs, card vs CPU reference", ll, pt_cpu_ll,
+              PER_TREE_REL)
+    for key in pt_cpu_g:
+        rel_close(f"per-tree {key}, card vs CPU reference", g[key].cpu(),
+                  pt_cpu_g[key], PER_TREE_REL)
+    # (c) The Burrito on the card.
+    burros = {}
+    for tag, spec, bm, steps in VIP_RUNS:
+        jc = spec[0] == "JC69"
+        want = ({"ll_grad_jc69": steps, "ll_jc69": steps} if jc
+                else {"ll_grad_generic": steps, "ll_generic": steps})
+        burro = burros[tag] = vip_burrito(DEV, spec, bm)
+        counted_call(f"Burrito {tag}, {steps} gradient_steps",
+                     lambda: burro.gradient_steps(steps), want)
+        rel_close(f"Burrito {tag} ELBO trace, card vs CPU reference",
+                  burro.elbo_trace, traces_cpu[tag], VIP_TRACE_REL)
+    # (d) vi.benchmark.fixed on DS1 with its default final ELBO (one K2
+    # launch at B = 10,000), then (f) the command line on hello: the
+    # command's final ELBO is over 10,000 particles too, which on DS1 is
+    # 43 s of host work (sampling and lowering topologies in Python; the
+    # second card run of this phase), so the command runs on hello's 4
+    # taxa.
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = vip_fixed_dir(tmp, "DS1", "DS1.subsampled_10.t")
+        t0 = time.perf_counter()
+        details, _, fitting = counted_call(
+            f"fixed(DS1), {VIP_FIXED_STEPS} steps and a {FINAL_ELBO_PARTICLES}"
+            "-particle final ELBO",
+            lambda: benchmark.fixed(
+                data_dir, branch_model_name="split",
+                scalar_model_name="lognormal", optimizer_name="simple",
+                step_count=VIP_FIXED_STEPS, particle_count=PARTICLES),
+            {"ll_grad_jc69": VIP_FIXED_STEPS,
+             "ll_jc69": VIP_FIXED_STEPS + 1})
+        fixed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rc = cli.main(["benchmark", "--step-count", "2", "--particle-count",
+                       "4", vip_fixed_dir(tmp, "hello", "hello_out.t")])
+        cli_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"vip-torch benchmark returned {rc}")
+    if not np.isfinite(details["final_elbo"]):
+        raise AssertionError(f"fixed's final ELBO is {details['final_elbo']}")
+    print(f"  fixed(DS1, step_count={VIP_FIXED_STEPS}, particle_count="
+          f"{PARTICLES}): {fixed_s:.1f} s; gradient_time "
+          f"{details['gradient_time']:.4f} s, "
+          f"{details['gradient_time'] / VIP_FIXED_STEPS * 1e3:.3f} ms per "
+          f"gradient step (host clock, its ELBO estimate included); final "
+          f"ELBO over {FINAL_ELBO_PARTICLES} particles "
+          f"{details['final_elbo']:.4f}; vb_sample "
+          f"{fitting['vb_sample'].shape}")
+    print(f"  vip-torch benchmark --step-count 2 --particle-count 4 (hello):"
+          f" rc {rc}, {cli_s:.1f} s")
+    launches = launch_counts("vip path", ["ll_grad_jc69", "ll_jc69",
+                                          "ll_grad_generic", "ll_generic"])
+
+    # (e) Every kernel of the path against its twin on the path's inputs:
+    # one more gradient step of each Burrito gives its step's inputs, and a
+    # 10,000-particle ELBO estimate, as fixed's last call, the B = 10,000
+    # batch.
+    errs = {}
+    jc_burro = burros["JC69 split"]
+    jc_burro.gradient_step()
+    d, _, _ = burrito_kernel_inputs(jc_burro)
+    errs.update(jc69_vs_twins(d, torch.float64, 1,
+                              f"vip step B = {PARTICLES}, float64"))
+    burros["GTR + Weibull+4 split"].gradient_step()
+    d, eng, (freqs, Q, rates, props) = burrito_kernel_inputs(
+        burros["GTR + Weibull+4 split"])
+    dt = torch.float64
+    P = eng._node_P(Q, freqs, rates, d["bl"]).contiguous()
+    Qs = (Q.to(dt)[None] * rates.to(dt)[:, None, None]).contiguous()
+    args = (d["pc"], P, Qs, d["tips"], freqs.to(dt), props.to(dt), d["w"])
+    r = d["root_id"]
+    k_ll, k_g = pruning_generic.ll_grad_generic_cuda(*args, root_id=r)
+    t_ll, t_g = pruning_generic.ll_grad_generic_plain(*args, root_id=r)
+    tag = f"vip GTR + Weibull+4 step B = {PARTICLES}, float64"
+    errs["ll_grad_generic"] = max(
+        close(f"K4 LL {tag}", k_ll.cpu(), t_ll.cpu(), TWIN_TOL[dt]["ll"]),
+        close(f"K4 grad {tag}", k_g[:, :r].cpu(), t_g[:, :r].cpu(),
+              TWIN_TOL[dt]["grad"]))
+    errs["ll_generic"], _ = k5_k6_vs_twins(
+        d, dt, (P, freqs.to(dt), props.to(dt)), tag)
+    t0 = time.perf_counter()
+    jc_burro.estimate_elbo(FINAL_ELBO_PARTICLES)
+    elbo10k_s = time.perf_counter() - t0
+    d, eng, _ = burrito_kernel_inputs(jc_burro)
+    b10k, r = d["pc"].shape[0], d["root_id"]
+    ea, _, one = kernel_inputs(d, dt, 1)
+    a2 = (d["pc"], ea, one, d["tips"], d["w"])
+    n = K2_TWIN_ROWS
+    rows = (d["pc"][:n].contiguous(), ea[:n].contiguous(), one, d["tips"],
+            d["w"])
+    full = pruning_jc.ll_jc69_cuda(*a2, root_id=r)
+    part = pruning_jc.ll_jc69_cuda(*rows, root_id=r)
+    if not torch.isfinite(full).all():
+        raise AssertionError(f"K2 at B = {b10k}: non-finite LLs")
+    errs["ll_jc69"] = close(
+        f"K2 on the first {n} rows of the B = {b10k} batch vs twin",
+        part.cpu(), pruning_jc.ll_jc69_plain(*rows, root_id=r).cpu(),
+        TWIN_TOL[dt]["ll"])
+    close(f"K2 at B = {b10k}: its first {n} rows vs the B = {n} launch",
+          full[:n].cpu(), part.cpu(), TWIN_TOL[dt]["ll"])
+
+    # Timings: the B = 10,000 engine.log_likelihoods call on the estimate's
+    # own schedule and branch lengths; K2 at B = 10,000 against the twin
+    # over the same rows in chunks of K2_TWIN_ROWS; a gradient step and an
+    # ELBO estimate from the host with device time and idle share.
+    def call10k():
+        return eng.log_likelihoods(jc_burro.last_schedule,
+                                   jc_burro.last_branch_lengths,
+                                   jc_burro.inst.phylo_model_params)
+
+    line, peak = host_and_device(call10k, 3)
+    mb10k = call_memory(call10k)
+    print(f"  estimate_elbo({b10k}) on DS1: {elbo10k_s:.1f} s (host clock); "
+          f"its engine.log_likelihoods call, B = {b10k}, float64 ({smi}): "
+          f"{line}; adds {mb10k:.2f} MB, peak {peak:.3f} GiB")
+    chunks = [tuple(x[i:i + n].contiguous() if j in (0, 1) else x
+                    for j, x in enumerate(a2)) for i in range(0, b10k, n)]
+    k2_ms = min(time_ms(lambda: pruning_jc.ll_jc69_cuda(*a2, root_id=r)),
+                time_ms(lambda: pruning_jc.ll_jc69_cuda(*a2, root_id=r)))
+    plain_ms = time_ms(lambda: [pruning_jc.ll_jc69_plain(*c, root_id=r)
+                                for c in chunks], reps=2, inner=1)
+    L, _, Pn = d["tips"].shape
+    k2_bound = bound(jc69_ops("ll", b10k, L, d["pc"].shape[1], 1, Pn), a2,
+                     full)
+    k2_mem = call_memory(lambda: pruning_jc.ll_jc69_cuda(*a2, root_id=r))
+    print(f"  K2 at B = {b10k}, float64 ({smi}): {k2_ms:.4f} ms (CUDA "
+          f"events), twin in {b10k // n} chunks of {n} {plain_ms:.2f} ms; "
+          f"bound {k2_bound[0]:.4f} ms ({k2_bound[1]}, float64 peak), "
+          f"{k2_bound[0] / k2_ms:.2%} of it; one launch adds {k2_mem:.2f} MB")
+    burro = vip_burrito(DEV)
+    for what, fn in (("Burrito.gradient_step", burro.gradient_step),
+                     (f"Burrito.estimate_elbo({PARTICLES})",
+                      lambda: burro.estimate_elbo(PARTICLES))):
+        line, peak = host_and_device(fn, 10)
+        print(f"  {what}, DS1, {PARTICLES} particles, float64 ({smi}): "
+              f"{line}; peak {peak:.3f} GiB")
+    print(f"[11] took {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs, (k2_ms, plain_ms, k2_bound)
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -2051,11 +2440,15 @@ def main():
     errs.update(phase_gp_vs_twin())
     runs = [phase_main_path(), phase_gtr_path(), phase_vbpi(), phase_gp_path()]
     rooted_launches, rooted_errs = phase_rooted_path()
+    vip_launches, vip_errs, vip_k2 = phase_vip(smi)
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
-    # K1's rooted launches stand in its second entry below; every other
-    # kernel's entry counts every path.
+    # K1's rooted launches stand in its second entry below and K2's vip
+    # launches in its second; every other kernel's entry counts every path.
     for k, n in rooted_launches.items():
         if k != "ll_grad_jc69":
+            launches[k] += n
+    for k, n in vip_launches.items():
+        if k != "ll_jc69":
             launches[k] += n
     times, bounds = phase_timing(smi)
     time_vbpi(smi)
@@ -2084,6 +2477,18 @@ def main():
         "ms": rooted_times[0], "plain_ms": rooted_times[1],
         "bound_ms": rooted_bound[0], "bound_by": rooted_bound[1],
         "library_ms": None})
+    # K2's second case: the B = 10,000 launch of vi.benchmark.fixed's final
+    # ELBO, with the launches of the vip path alone; its twin time is the
+    # twin over the same rows in chunks of K2_TWIN_ROWS, its error the
+    # first chunk's.
+    report.insert(3, {
+        "name": f"jc69_ll (K2), vip final ELBO B = {FINAL_ELBO_PARTICLES} "
+                "f64", "route": "cuda", "source": JC_SOURCE,
+        "replaces": KERNELS[1]["replaces"],
+        "launches": vip_launches["ll_jc69"],
+        "max_abs_err": vip_errs["ll_jc69"], "ms": vip_k2[0],
+        "plain_ms": vip_k2[1], "bound_ms": vip_k2[2][0],
+        "bound_by": vip_k2[2][1], "library_ms": None})
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,16 +2,19 @@
 
 The second package beside ``libsbn_tpu`` (the JAX reference, which it never
 imports): the same host layer (parsing, site patterns, schedules, the SBN
-support and sampler), the same JC69 and GTR likelihood, branch- and
-model-gradient paths for unrooted trees and rooted time trees
-(``RootedInstance``), the VBPI trainer
-(``vi.JitVBPI``) and generalized pruning over the subsplit DAG
-(``gp.GPInstance``), with hand-written CUDA kernels for NVIDIA Hopper
+support and sampler, SA and EM training), the same JC69 and GTR
+likelihood, branch- and model-gradient paths for unrooted trees and rooted
+time trees (``RootedInstance``), with per-tree parameter rows, the vip
+layer (``vi.Burrito``, its models, optimizers, checkpoints, benchmark and
+the ``vip-torch`` command) beside the device VBPI step (``vi.JitVBPI``),
+and generalized pruning over the subsplit DAG (``gp.GPInstance``), with
+hand-written CUDA kernels for NVIDIA Hopper
 (``csrc/``, built with nvcc at first use) and plain PyTorch twins of those
 kernels that run on the CPU.
 
 Nothing here sets global state at import. The entry points
 (``prepare_for_phylo_likelihood``, ``LikelihoodEngine``,
+``train_expectation_maximization``, ``vi.Burrito``,
 ``GPInstance.make_engine``, ``GPEngine``) compute on the CUDA card unless
 the caller passes ``device="cpu"``, and raise when there is no card
 (``utils/device.py``); dtypes are explicit on every constructor.

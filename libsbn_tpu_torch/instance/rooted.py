@@ -80,19 +80,22 @@ class RootedInstance(GenericSBNInstance):
         """(trees,) pruning log likelihoods of the trees' branch lengths,
         without rate scaling or the height Jacobian
         (RootedSBNInstance::UnrootedLogLikelihoods), on the host."""
+        params, per_tree = self._compute_params()
         lls = self._get_engine().log_likelihoods(
-            self._batched_schedule(), self.branch_length_matrix(),
-            self.phylo_model_params,
+            self._batched_schedule(), self.branch_length_matrix(), params,
+            per_tree=per_tree,
         )
         return lls.cpu().numpy()
 
     def log_likelihoods(self) -> np.ndarray:
         """(trees,) LL + log-det-Jacobian of the height transform
-        (fat_beagle.cpp LogLikelihood(RootedTree)), on the host."""
+        (fat_beagle.cpp LogLikelihood(RootedTree)), on the host; each tree
+        with its own row of the parameter matrix where rows differ."""
         bounds, ratios, rates = self._time_tree_arrays()
+        params, per_tree = self._compute_params()
         lls = self._get_engine().rooted_log_likelihoods(
-            self._batched_schedule(), bounds, ratios, rates,
-            self.phylo_model_params,
+            self._batched_schedule(), bounds, ratios, rates, params,
+            per_tree=per_tree,
         )
         return lls.cpu().numpy()
 
@@ -103,9 +106,10 @@ class RootedInstance(GenericSBNInstance):
         engine's device."""
         bounds, ratios, rates = self._time_tree_arrays()
         strict = all(t.rate_count == 1 for t in self.tree_collection.trees)
+        params, per_tree = self._compute_params()
         return self._get_engine().rooted_phylo_gradients(
-            self._batched_schedule(), bounds, ratios, rates,
-            self.phylo_model_params, strict_clock=strict,
+            self._batched_schedule(), bounds, ratios, rates, params,
+            strict_clock=strict, per_tree=per_tree,
         )
 
     # -- subsplit probabilities ----------------------------------------------

@@ -10,7 +10,10 @@ import torch
 
 from ..core.tree import UnrootedTree, UnrootedTreeCollection
 from ..sbn import gradients as sbn_gradients
+from ..sbn import maps
+from ..sbn import probability as sbn_probability
 from ..sbn.support import UnrootedSBNSupport
+from ..utils.device import DEFAULT_DEVICE, compute_device
 from .generic import GenericSBNInstance
 
 
@@ -18,6 +21,47 @@ class UnrootedInstance(GenericSBNInstance):
     support_class = UnrootedSBNSupport
     collection_class = UnrootedTreeCollection
     rooted = False
+
+    # -- training ------------------------------------------------------------
+    def train_expectation_maximization(
+        self, alpha: float, max_iter: int, score_epsilon: float = 0.0,
+        progress: bool = False, *, device=DEFAULT_DEVICE,
+    ) -> np.ndarray:
+        """EM training of the SBN parameters (sbn_probability.cpp
+        ExpectationMaximization) in float64 on ``device``: the card unless
+        the caller passes device="cpu". Stores a writable float64 numpy
+        copy of the parameters and returns the score history."""
+        self._check_support()
+        reps, counts = self._dense_counter()
+        dev = compute_device(device)
+        params, score_history = sbn_probability.expectation_maximization(
+            torch.as_tensor(reps, device=dev),
+            counts,
+            torch.as_tensor(self.sbn_support.segment_ids(), device=dev),
+            self.sbn_support.gpcsp_count,
+            alpha=alpha, max_iter=max_iter, score_epsilon=score_epsilon,
+            progress=progress,
+        )
+        self.sbn_parameters = params.cpu().numpy().copy()
+        self._sampler = None
+        return score_history
+
+    def split_counters(self):
+        """(rootsplit counter, PCSP counter) as string-keyed maps, recomputed
+        from the loaded trees (unrooted_sbn_instance.cpp SplitCounters)."""
+        counter = self.tree_collection.topology_counter()
+        rootsplits = {
+            b.to_string(): c
+            for b, c in maps.unrooted_rootsplit_counter_of(counter).items()
+        }
+        pcsps = {
+            parent.to_string(): {
+                child.to_string(): c for child, c in children.items()
+            }
+            for parent, children in maps.unrooted_pcsp_counter_of(
+                counter).items()
+        }
+        return rootsplits, pcsps
 
     # -- sampling ------------------------------------------------------------
     def sample_trees(self, count: int):
@@ -48,22 +92,26 @@ class UnrootedInstance(GenericSBNInstance):
 
     # -- likelihoods ---------------------------------------------------------
     def log_likelihoods(self) -> np.ndarray:
-        """(trees,) log likelihoods of the loaded trees, on the host."""
+        """(trees,) log likelihoods of the loaded trees, on the host; each
+        tree with its own row of the parameter matrix where rows differ."""
         engine = self._get_engine()
+        params, per_tree = self._compute_params()
         lls = engine.log_likelihoods(
-            self._batched_schedule(), self.branch_length_matrix(),
-            self.phylo_model_params,
+            self._batched_schedule(), self.branch_length_matrix(), params,
+            per_tree=per_tree,
         )
         return lls.cpu().numpy()
 
     def phylo_gradients(self):
         """Gradient dict (``log_likelihood``, ``branch_lengths``,
         ``substitution_model`` for GTR and ``site_model`` for Weibull
-        models) of tensors on the engine's device."""
+        models) of tensors on the engine's device; each tree with its own
+        row of the parameter matrix where rows differ."""
         engine = self._get_engine()
+        params, per_tree = self._compute_params()
         return engine.phylo_gradients(
-            self._batched_schedule(), self.branch_length_matrix(),
-            self.phylo_model_params,
+            self._batched_schedule(), self.branch_length_matrix(), params,
+            per_tree=per_tree,
         )
 
     # -- topology gradients (the VBPI hot path) ------------------------------

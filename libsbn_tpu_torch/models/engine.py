@@ -38,8 +38,17 @@ of the parameters, so each row is that tree's own (the JAX engine's jacrev
 rows, models/engine.py:511-551). The rooted gradient dict reports the LL
 without the Jacobian, as the reference's does.
 
-Per-tree parameter rows raise NotImplementedError naming their ROADMAP
-item.
+Per-tree parameters (``per_tree=True``: every tensor of the parameter dict
+has a leading tree axis, one row per tree, the reference's per-tree
+parameter matrix, fat_beagle.hpp:144) become per-tree model tensors: Q and
+freqs (B, ...) for GTR, category rates (B, K) for Weibull models.
+K2/K3 and K5/K6 take them, so ``log_likelihoods``,
+``rooted_log_likelihoods`` and the model gradients keep their kernels. K1
+and K4 take shared model tensors only, so per-tree ``branch_gradients``
+(and the branch gradients of ``phylo_gradients``) run the scan engine
+ops/pruning.py with per-tree matrices, and per-tree
+``rooted_phylo_gradients`` takes the autograd route; ``pruning.CALLS``
+counts the scan engine's calls as the kernel modules count their launches.
 """
 
 from __future__ import annotations
@@ -57,11 +66,6 @@ from ..ops import substitution as subst_ops
 from ..ops import transforms
 from ..ops.schedule import BatchedSchedule
 from ..utils.device import DEFAULT_DEVICE, compute_device
-
-PER_TREE_TODO = (
-    "per-tree model parameters are not ported yet (ROADMAP queue 1, item 5: "
-    "the per-tree parameter matrix)"
-)
 
 
 class LikelihoodEngine:
@@ -132,9 +136,20 @@ class LikelihoodEngine:
         """JC69 with rescaling takes the matrix-free kernels K1-K3."""
         return self.spec.substitution == "JC69" and self.rescale
 
+    @staticmethod
+    def _check_per_tree(params, B):
+        """Raise ValueError unless every tensor of per-tree ``params`` leads
+        with the B trees (shared parameters are never taken as rows)."""
+        for leaf in (v for d in params.values() for v in d.values()):
+            shape = tuple(torch.as_tensor(leaf).shape)
+            if shape[:1] != (B,):
+                raise ValueError(f"per_tree parameters must lead with the {B} "
+                                 f"trees, got shape {shape}")
+
     def _model(self, params):
         """(freqs (4,), Q (4, 4), rates (K,), props (K,)) in float64 on the
-        engine's device."""
+        engine's device; for per-tree parameters (leading tree axis) GTR's
+        freqs and Q are (B, 4) and (B, 4, 4) and Weibull rates (B, K)."""
         freqs, Q = substitution_tensors(self.spec, params, device=self.device)
         rates, props = site_tensors(self.spec, params, device=self.device)
         return freqs, Q, rates, props
@@ -185,23 +200,36 @@ class LikelihoodEngine:
     def log_likelihoods(
         self, sched: BatchedSchedule, branch_lengths, params, per_tree=False
     ):
-        """(B,) log likelihoods; branch_lengths: (B, N)."""
+        """(B,) log likelihoods; branch_lengths: (B, N). per_tree: each
+        tree with its own parameter row, on the same kernels (K2, K5)."""
+        pc = self._post_children(sched)
         if per_tree:
-            raise NotImplementedError(PER_TREE_TODO)
-        return self._lls(self._post_children(sched),
-                         self._bl_padded(branch_lengths), self._model(params),
-                         sched.root_id)
+            self._check_per_tree(params, pc.shape[0])
+        return self._lls(pc, self._bl_padded(branch_lengths),
+                         self._model(params), sched.root_id)
 
     def branch_gradients(
         self, sched: BatchedSchedule, branch_lengths, params, per_tree=False
     ):
-        """(lls (B,), grads (B, N-1)) — the linear-time two-pass scheme."""
-        if per_tree:
-            raise NotImplementedError(PER_TREE_TODO)
+        """(lls (B,), grads (B, N-1)) — the linear-time two-pass scheme: K1
+        (JC69) or K4 (GTR) with rescaling, the scan engine without. K1 and
+        K4 take shared model tensors only, so per_tree (each tree with its
+        own parameter row) runs the scan engine with per-tree matrices,
+        counted in ``pruning.CALLS``."""
         dt = self.dtype
         pc = self._post_children(sched)
+        B = pc.shape[0]
         bl = self._bl_padded(branch_lengths)
         freqs, Q, rates, props = self._model(params)
+        if per_tree:
+            self._check_per_tree(params, B)
+            P = self._node_P(Q, freqs, rates, bl)
+            Qb = (Q if Q.dim() == 3 else Q.expand(B, 4, 4)).to(dt)
+            rb = (rates if rates.dim() == 2 else rates.expand(B, -1)).to(dt)
+            return pruning.log_likelihood_and_branch_gradient(
+                pc, P, Qb[:, None] * rb[:, :, None, None], self.tips,
+                freqs.to(dt), props.to(dt), self.weights,
+                root_id=sched.root_id, rescale=self.rescale)
         if self._matrix_free():
             return pruning_jc.log_likelihood_and_branch_gradient_jc69(
                 pc, bl, self.tips, self.weights, root_id=sched.root_id,
@@ -238,7 +266,8 @@ class LikelihoodEngine:
         so each tree's Q, freqs and category rates depend on its own copy
         and each row is that tree's gradient; both blocks come from one
         forward and one backward launch (K5 + K6 for GTR, K2 + K3 for JC69
-        with rescaling, the scan engine without)."""
+        with rescaling, the scan engine without). Per-tree parameters
+        (leading tree axis) start each copy from the tree's own row."""
         gtr = self.spec.substitution == "GTR"
         weibull = self.spec.site.startswith("weibull")
         if not (gtr or weibull):
@@ -254,7 +283,7 @@ class LikelihoodEngine:
                         p["rates"], dtype=torch.float64, device=dev)),
                     transforms.stick_breaking_inverse(torch.as_tensor(
                         p["frequencies"], dtype=torch.float64, device=dev)),
-                ])
+                ], dim=-1)
                 y = y0.detach().expand(B, 8).clone().requires_grad_(True)
                 inputs.append(y)
                 freqs = transforms.stick_breaking(y[:, 5:])
@@ -349,10 +378,11 @@ class LikelihoodEngine:
         (fat_beagle.cpp:96-104), or the pair with return_parts.
 
         bounds: (B, N) node bounds; ratios: (B, L-1) height ratios with the
-        root height last; rates: (B, N-1) per-branch clock rates."""
-        if per_tree:
-            raise NotImplementedError(PER_TREE_TODO)
+        root height last; rates: (B, N-1) per-branch clock rates. per_tree:
+        each tree with its own parameter row, on the same kernels."""
         a = self._rooted_inputs(sched, bounds, ratios, rates)
+        if per_tree:
+            self._check_per_tree(params, a["pc"].shape[0])
         lls, ldjs, _ = self._rooted_parts(a, a["ratios"], a["rates"],
                                           self._model(params))
         if return_parts:
@@ -365,11 +395,15 @@ class LikelihoodEngine:
     ):
         """Gradient dict of rooted time trees: ``log_likelihood`` (without
         the Jacobian), ``ratios_root_height``, ``clock_model`` and the model
-        gradients. JC69 with rescaling takes the hand route (one K1 launch),
-        every other model autograd."""
+        gradients. JC69 with rescaling and shared parameters takes the hand
+        route (one K1 launch); every other model, and per_tree parameters
+        (K1 takes shared rates only), autograd (K2 + K3, K5 + K6 or the
+        scan engine)."""
         if per_tree:
-            raise NotImplementedError(PER_TREE_TODO)
-        route = (self._rooted_phylo_gradients_hand if self._matrix_free()
+            self._check_per_tree(params,
+                                 np.asarray(sched.post_children).shape[0])
+        route = (self._rooted_phylo_gradients_hand
+                 if self._matrix_free() and not per_tree
                  else self._rooted_phylo_gradients_autograd)
         return route(sched, bounds, ratios, rates, params, strict_clock)
 

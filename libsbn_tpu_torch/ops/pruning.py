@@ -29,6 +29,15 @@ from __future__ import annotations
 
 import torch
 
+# Calls of the two entry points, so a run can show that it took this engine
+# (the kernel modules count their launches the same way).
+CALLS = {"ll": 0, "ll_grad": 0}
+
+
+def reset_counters():
+    for name in CALLS:
+        CALLS[name] = 0
+
 
 def node_transition_matrices(evec, ivec, evals, branch_lengths, rates):
     """P = V exp(Λ b r) V^-1 for every node slot and rate category.
@@ -184,6 +193,7 @@ def log_likelihoods(post_children, P, tips, freqs, props, weights, *,
             f"P must cover N1 = root_id + 2 = {root_id + 2} slots (root + "
             f"ones slot); got {P.shape[1]}"
         )
+    CALLS["ll"] += 1
     return _LogLikelihood.apply(P, tips, freqs, props, weights, post_children,
                                 root_id, rescale)
 
@@ -197,6 +207,7 @@ def log_likelihood_and_branch_gradient(
     per tree (B, K, 4, 4). The gradient covers node ids 0..root_id-1."""
     if P.shape[1] != root_id + 2:
         raise ValueError(f"P must cover N1 = root_id + 2 = {root_id + 2} slots")
+    CALLS["ll_grad"] += 1
     B = P.shape[0]
     M, logscale = _postorder_m(post_children, P, tips, rescale)
     E = _evolved_of(P, M)

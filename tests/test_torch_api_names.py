@@ -5,11 +5,10 @@ extracted from the reference's Python bindings (pylibsbn.cpp) and the vip
 package. They are copied here as data: this file imports neither JAX nor
 that module, so it also runs where only the port is installed.
 
-The port is built slice by slice, so some names are still owed. ``OWED``
-lists each by the ROADMAP queue 1 item that brings it; every table must
-lack exactly its owed names. A name that a landed item adds must leave
-``OWED`` with it, and a name that goes missing fails the test, so the list
-can only shrink.
+The port was built slice by slice; ``OWED`` listed the names still owed by
+the ROADMAP queue 1 item that brings each, and every table had to lack
+exactly its owed names. It is empty now: every table must be whole, so a
+name that goes missing fails the test.
 """
 
 import importlib
@@ -73,24 +72,10 @@ VIP_SURFACE = {
     "sgd_server": ["SGD_Server"],
 }
 
-# ROADMAP queue 1 item -> {table: names the port still lacks}.
-OWED_GENERIC = [
-    "get_phylo_model_params", "get_phylo_model_param_block_map",
-    "resize_phylo_model_params", "print_status", "sbn_parameters_to_csv",
-    "read_sbn_parameters_from_csv", "calculate_sbn_probabilities",
-    "set_rescaling",
-]
-OWED = {
-    5: {  # SBN EM, collection probabilities and the instance surface
-        "generic": OWED_GENERIC,
-        "unrooted": ["make_indexer_representations", "split_counters"],
-        "rooted": OWED_GENERIC,
-    },
-    10: {  # the vip layer
-        "vip": [f"{module}.{name}" for module, names in VIP_SURFACE.items()
-                for name in names],
-    },
-}
+# ROADMAP queue 1 item -> {table: names the port still lacks}. Items 5 (the
+# instance surface and EM) and 10 (the vip layer) were the last to owe
+# names; the port now has every table whole.
+OWED = {}
 
 
 def _unrooted(data_dir):
@@ -152,13 +137,14 @@ def test_port_lacks_exactly_the_owed_names(table, data_dir):
 
 
 def test_owed_names_belong_to_open_items():
-    """OWED names only the items still open (5, 10), only the tables
-    above, and no name twice."""
-    assert set(OWED) == {5, 10}
-    names = [(t, n) for item in OWED.values() for t, ns in item.items()
-             for n in ns]
-    assert {t for t, _ in names} <= set(TABLES)
-    assert len(names) == len(set(names))
+    """No item owes a name any more: OWED is empty, and the vip surface
+    covers every module of the reference's vip package, mapped to
+    libsbn_tpu_torch.vi.*."""
+    assert OWED == {}
+    assert _missing_vip() == []
+    assert set(VIP_SURFACE) == {
+        "benchmark", "branch_models", "burrito", "cli", "optimizers",
+        "priors", "sbn_model", "scalar_models", "sgd_server"}
 
 
 def test_module_factories_are_the_classes():

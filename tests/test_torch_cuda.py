@@ -1,6 +1,7 @@
 """The CUDA kernels of libsbn_tpu_torch against their plain PyTorch twins,
-the VBPI step, the GTR engine path and the GP fit on the card against the
-same on the CPU.
+the VBPI step, the GTR engine path, the GP fit, the rooted engine and the
+vip layer (the Burrito, EM, per-tree parameter rows, K2 at 10,000 trees) on
+the card against the same on the CPU.
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so that it also runs on a machine with the card and no JAX installed:
@@ -987,3 +988,171 @@ def test_rooted_engine_on_card_matches_cpu(route, dtype, K):
         tol = ll_tol if key == "log_likelihood" else grad_tol
         np.testing.assert_allclose(got[key].cpu().numpy(), want[key].numpy(),
                                    rtol=tol[0], atol=tol[1], err_msg=key)
+
+
+# -- the vip layer on the card ------------------------------------------------
+
+
+def _burrito(device, data, branch_model="split"):
+    """A Burrito (lognormal, the simple optimizer, seed 0, float64) on
+    ``device``: hello (3 particles) or DS1.subsampled_10 (burn in 0.1, 10
+    particles)."""
+    from libsbn_tpu_torch.vi import Burrito
+
+    tree, fasta, burn_in, particles = {
+        "hello": ("hello_out.t", "hello.fasta", 0.0, 3),
+        "DS1": ("DS1.subsampled_10.t", "DS1.fasta", 0.1, 10)}[data]
+    return Burrito(
+        mcmc_nexus_path=f"{DATA}/{tree}", burn_in_fraction=burn_in,
+        fasta_path=f"{DATA}/{fasta}",
+        phylo_model_specification=libsbn_tpu_torch.PhyloModelSpec(
+            "JC69", "constant", "strict"),
+        branch_model_name=branch_model, scalar_model_name="lognormal",
+        optimizer_name="simple", particle_count=particles, seed=0,
+        device=device, dtype=torch.float64)
+
+
+def _rel_close(got, want, rel):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = np.abs(want) + np.max(np.abs(want))
+    assert np.all(np.abs(got - want) <= rel * scale), np.max(
+        np.abs(got - want) / scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch_model", ["split", "psp"])
+@pytest.mark.parametrize("data", ["hello", "DS1"])
+def test_burrito_on_card_matches_cpu(data, branch_model):
+    """Five gradient steps of the Burrito on the card (K1 and K2) against
+    the same seed on the CPU (their twins): the ELBO traces, q-params and
+    SBN parameters at rel 1e-9; the card run launches K1 and K2 and calls
+    no twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cpu = _burrito("cpu", data, branch_model)
+    cpu.gradient_steps(5)
+    card = _burrito("cuda", data, branch_model)
+    pruning_jc.reset_counters()
+    card.gradient_steps(5)
+    torch.cuda.synchronize()
+    assert pruning_jc.LAUNCHES["ll_grad_jc69"] == 5
+    assert pruning_jc.LAUNCHES["ll_jc69"] == 5
+    assert not any(pruning_jc.TWIN_CALLS.values())
+    _rel_close(card.elbo_trace, cpu.elbo_trace, 1e-9)
+    _rel_close(card.scalar_model.q_params, cpu.scalar_model.q_params, 1e-9)
+    _rel_close(card.inst.sbn_parameters, cpu.inst.sbn_parameters, 1e-9)
+
+
+@pytest.mark.cuda
+def test_em_on_card_matches_goldens():
+    """EM on the card against the zcrabbit goldens (tests/golden_sbn.py:
+    atol 1e-12, EM(0.5, 100) at 1e-5); a second run on the card equal bit
+    for bit (every sum in a fixed order); and against EM on the CPU: the
+    trees' probabilities at atol 1e-12, the scores at rtol 1e-12, the log
+    parameters at rel 1e-12 (|card - cpu| <= 1e-12 (|cpu| + max |cpu|),
+    the measure that holds the port to libsbn_tpu on the CPU: the card sums
+    each slot in another fixed order than the CPU, and EM(0, 23) carries
+    that rounding along directions the trees do not determine)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from golden_sbn import EXPECTED_EM_0_23, EXPECTED_EM_05_100
+
+    insts = []
+    for _ in range(3):
+        inst = libsbn_tpu_torch.UnrootedInstance("charlie")
+        inst.read_newick_file(f"{DATA}/DS1.100_topologies.nwk")
+        inst.process_loaded_trees()
+        insts.append(inst)
+    card, again, cpu = insts
+    for alpha, iters, golden, atol in ((0.0, 23, EXPECTED_EM_0_23, 1e-12),
+                                       (0.5, 100, EXPECTED_EM_05_100, 1e-5)):
+        scores = card.train_expectation_maximization(alpha, iters)
+        np.testing.assert_allclose(card.calculate_sbn_probabilities(), golden,
+                                   atol=atol)
+        np.testing.assert_array_equal(
+            again.train_expectation_maximization(alpha, iters), scores)
+        np.testing.assert_array_equal(again.sbn_parameters,
+                                      card.sbn_parameters)
+        want = cpu.train_expectation_maximization(alpha, iters, device="cpu")
+        np.testing.assert_allclose(card.calculate_sbn_probabilities(),
+                                   cpu.calculate_sbn_probabilities(),
+                                   atol=1e-12)
+        np.testing.assert_allclose(scores, want, rtol=1e-12)
+        _rel_close(card.sbn_parameters, cpu.sbn_parameters, 1e-12)
+
+
+@pytest.mark.cuda
+def test_per_tree_gtr_rows_on_card_match_cpu():
+    """GTR + Weibull+4 with a parameter row per tree (DS1.subsampled_10,
+    float64) on the card against the CPU, rel 1e-10: the LLs on K5, the
+    branch gradients on the scan engine, the model gradients on K5 + K6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from libsbn_tpu_torch.ops import pruning
+
+    out = []
+    for device in ("cpu", "cuda"):
+        inst = libsbn_tpu_torch.UnrootedInstance("per tree")
+        inst.read_nexus_file(f"{DATA}/DS1.subsampled_10.t")
+        inst.read_fasta_file(f"{DATA}/DS1.fasta")
+        inst.prepare_for_phylo_likelihood(
+            libsbn_tpu_torch.PhyloModelSpec("GTR", "weibull+4", "strict"),
+            device=device)
+        blocks = inst.get_phylo_model_param_block_map()
+        rng = np.random.default_rng(7)
+        blocks["frequencies"][:] = rng.dirichlet(np.full(4, 20.0), size=10)
+        blocks["GTR rates"][:] = rng.dirichlet(np.full(6, 20.0), size=10)
+        blocks["Weibull shape"][:, 0] = rng.uniform(0.3, 2.0, 10)
+        for m in (pruning, pruning_generic, pruning_vjp):
+            m.reset_counters()
+        out.append((inst.log_likelihoods(), inst.phylo_gradients()))
+    torch.cuda.synchronize()
+    assert pruning_vjp.LAUNCHES["ll_generic"] == 2
+    assert pruning_vjp.LAUNCHES["ll_dp_generic"] == 1
+    assert pruning.CALLS["ll_grad"] == 1
+    assert not pruning_generic.LAUNCHES["ll_grad_generic"]
+    (cpu_ll, cpu_g), (card_ll, card_g) = out
+    _rel_close(card_ll, cpu_ll, 1e-10)
+    for key in cpu_g:
+        assert card_g[key].device.type == "cuda"
+        _rel_close(card_g[key].cpu(), cpu_g[key], 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_at_ten_thousand_trees(dtype):
+    """K2 at B = 10,000 (vi.benchmark.fixed's final ELBO: DS1's ten trees
+    tiled, branch lengths perturbed by a seeded U(0.8, 1.2)): finite, on
+    chip, and equal to ten B = 1,000 launches at the twin tolerance; the
+    first thousand also against the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, _, rates, props, tips, w, r = _inputs("ds1", dtype, 1)
+    tops, bls, _ = newick.parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
+    sched = schedule.schedules_of_topologies(tops * 1000)
+    rng = np.random.default_rng(2)
+    bl = np.tile(np.stack(bls), (1000, 1))
+    bl = np.pad(bl * rng.uniform(0.8, 1.2, bl.shape), ((0, 0), (0, 1)))
+    pc = torch.as_tensor(sched.post_children, dtype=torch.int32).cuda()
+    ea = pruning_jc.exp_factors(torch.as_tensor(bl).cuda(), rates, dtype)
+    pruning_jc.reset_counters()
+    full = pruning_jc.ll_jc69_cuda(pc, ea, props, tips, w, root_id=r)
+    parts = torch.cat([
+        pruning_jc.ll_jc69_cuda(pc[i:i + 1000].contiguous(),
+                                ea[i:i + 1000].contiguous(), props, tips, w,
+                                root_id=r)
+        for i in range(0, 10_000, 1000)])
+    torch.cuda.synchronize()
+    assert pruning_jc.LAUNCHES["ll_jc69"] == 11
+    assert full.shape == (10_000,) and torch.isfinite(full).all()
+    (rtol, atol), _ = TOL[dtype]
+    np.testing.assert_allclose(full.cpu().numpy(), parts.cpu().numpy(),
+                               rtol=rtol, atol=atol)
+    twin = pruning_jc.ll_jc69_plain(pc[:1000].contiguous(),
+                                    ea[:1000].contiguous(), props, tips, w,
+                                    root_id=r)
+    np.testing.assert_allclose(full[:1000].cpu().numpy(), twin.cpu().numpy(),
+                               rtol=rtol, atol=atol)

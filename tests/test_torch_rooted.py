@@ -441,8 +441,12 @@ def test_clock_gradients_vs_finite_differences(data_dir):
 
 
 def test_per_tree_still_raises(data_dir):
+    """per_tree=True (ported with the parameter matrix, ROADMAP item 5;
+    tests/test_torch_param_matrix.py holds its rows to libsbn_tpu) still
+    raises when the parameters lack the leading tree axis: it never treats
+    shared parameters as rows."""
     pi = _instances(data_dir, "jc69")[1]
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="lead with the 1 trees"):
         pi.engine.rooted_log_likelihoods(*_port_parts(pi),
                                          pi.phylo_model_params, per_tree=True)
 

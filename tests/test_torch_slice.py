@@ -151,19 +151,38 @@ def _ds1(data_dir, site="constant"):
     "em",
 ])
 def test_unported_paths_raise(data_dir, path):
-    """Paths not on this slice raise NotImplementedError naming their
-    ROADMAP item; none falls back to anything."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if path == "per_tree":
-            inst = _ds1(data_dir)
+    """Paths not on the port yet raise NotImplementedError naming their
+    ROADMAP item; none falls back to anything. The per-tree parameters,
+    tree_count_option and EM came with item 5: a per-tree call whose
+    parameters lack the tree axis, and a parameter matrix with fewer rows
+    than trees, raise ValueError; EM runs on the device it is given."""
+    if path == "per_tree":
+        inst = _ds1(data_dir)
+        with pytest.raises(ValueError, match="lead with the 10 trees"):
             inst.engine.log_likelihoods(
                 inst._batched_schedule(), inst.branch_length_matrix(),
                 inst.phylo_model_params, per_tree=True)
-        elif path == "vbpi_mesh":
+        return
+    if path == "tree_count_option":
+        inst = _ds1(data_dir)
+        inst.prepare_for_phylo_likelihood(
+            PhyloModelSpec(), tree_count_option=3, device="cpu")
+        assert inst.get_phylo_model_params().shape == (3, 1)
+        with pytest.raises(ValueError, match="rows < 10 trees"):
+            inst.log_likelihoods()
+        return
+    if path == "em":
+        inst = _ds1(data_dir)
+        inst.process_loaded_trees()
+        scores = inst.train_expectation_maximization(0.0, 10, device="cpu")
+        assert scores.shape == (10,) and np.all(np.diff(scores) > -1e-9)
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if path == "vbpi_mesh":
             inst = _ds1(data_dir)
             inst.process_loaded_trees()
             JitVBPI(inst, particle_count=4, mesh=object())
-        elif path.startswith("gp_"):
+        else:
             inst = GPInstance()
             inst.read_fasta_file(f"{data_dir}/hello.fasta")
             inst.read_newick_file(f"{data_dir}/hello_rooted.nwk")
@@ -171,13 +190,6 @@ def test_unported_paths_raise(data_dir, path):
                 inst.make_engine(mesh=object())
             inst.make_engine(device="cpu")
             inst.get_engine().run_branch_ascent_streamed(1e-6, 10, 16)
-        elif path == "em":
-            inst = _ds1(data_dir)
-            inst.process_loaded_trees()
-            inst.train_expectation_maximization(0.0, 10)
-        else:
-            _ds1(data_dir).prepare_for_phylo_likelihood(
-                PhyloModelSpec(), tree_count_option=3)
 
 
 def test_cuda_device_is_the_callers_choice(data_dir):
