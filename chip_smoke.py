@@ -67,15 +67,22 @@ Phases, each of which raises on failure:
      (K7 + K8) in f64 the hello marginal and gradient goldens and the fluA
      fit run_branch_ascent(1e-6, 100) against libsbn_tpu's pinned optimum;
      the same fit on the level route on the card (the f64 oracle); the f32
-     kernel route's fit within 1e-2 of the optimum; the counters show K7 and
-     K8 launched and no twin called;
+     kernel route's fit within 1e-2 of the optimum; the streamed ascent
+     run_branch_ascent_streamed(1e-6, 100, 100) (fluA's 238 patterns in
+     three chunks, the last padded at weight 0, K7 a chunk, Newton on the
+     host) in f64
+     with A and B in host RAM and in an np.memmap, within 1e-7 of the
+     optimum and of the level route's fit, and in f32 within 1e-2; the
+     counters show K7 and K8 launched and no twin called; then K7 against
+     its twin on the last chunk's own inputs (S = 100), f64 and f32;
   9. GP timing: K7 and K8 against their twins per launch on fluA, float32,
      and K7 and K8 each beside its slab route in turns, each with its share
      of the bound and the SM clock (nvidia-smi) before and after; the JAX
      bench's GP config (fluA, f32,
      run_branch_ascent(1e-2, 10) from the same starting lengths each run)
      on both routes, in ms per ascent, with device time per ascent and the
-     device's idle share as in phase 6;
+     device's idle share as in phase 6, and the streamed ascent
+     run_branch_ascent_streamed(1e-2, 10, 100) the same way;
   10. rooted time trees: RootedInstance on the card, fluA (dates from the
      taxon names, strict clock at 0.001), float64, against the physher and
      phylotorch goldens (JC69 LL, log-det-Jacobian and the 68 ratio and
@@ -121,6 +128,19 @@ Phases, each of which raises on failure:
      call with its device time and the memory it adds, K2 at B = 10,000
      beside its twin in chunks of 1,000 and its bound, a gradient step and
      a 10-particle ELBO estimate with device time and idle share.
+  12. forest mode (after [11]): DS1.100_topologies under R = 8
+     split-keyed length sets (U(0.8, 1.2) from default_rng(0) times the
+     per-split mean lengths, the JAX bench's forest_shared_ds1_100): the
+     f64 forest against the per-tree engine on the card (one K1 launch of
+     R T trees, before the path's counters are set to 0) at rel 1e-9; the
+     f32 forest with bf16 gathers against f64 within the bench's gate on the
+     first set (every set's error printed); the f64 split gradient against
+     the per-tree gradients summed onto splits, twice, equal bit for bit;
+     20 f32 Adam steps of forest_branch_ascent rising; then the full path,
+     ll_only and the split gradient timed (host-clock median, device time,
+     launches, idle share, peak memory, evals/s), and ll_only and the
+     split gradient on a 1,000-tree SBN-sampled support; the forest runs
+     torch ops only: the counters show no kernel, twin or scan-engine call.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its paths, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the peak of their type (float64's
@@ -139,6 +159,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -160,7 +181,7 @@ from libsbn_tpu_torch.models.phylo_model import default_parameters  # noqa: E402
 from libsbn_tpu_torch.ops import (  # noqa: E402
     _kernels, pruning, pruning_generic, pruning_jc, pruning_vjp, schedule,
 )
-from libsbn_tpu_torch.ops import substitution, transforms  # noqa: E402
+from libsbn_tpu_torch.ops import forest, substitution, transforms  # noqa: E402
 from libsbn_tpu_torch.ops.site_model import weibull_rates  # noqa: E402
 from libsbn_tpu_torch.vi import Burrito, JitVBPI, benchmark, cli  # noqa: E402
 
@@ -384,6 +405,7 @@ GP_HELLO_BL = [0.0, 0.22, 0.113, 0.15, 0.1]
 GP_GRADIENT = (-4.806671945, -0.6109379521)
 GP_FLUA = -4337.885058592
 GP_FLUA_TOL = {torch.float64: 1e-7, torch.float32: 1e-2}
+GP_CHUNK = 100  # the streamed ascent's chunk: fluA's 238 patterns in 3
 # K7 against its twin, (rtol, atol) of the PLVs and of the log-scales;
 # K8 against its twin, the largest objective gap over |f| + sum(w) and the
 # largest log-branch-length gap on edges that are not flat
@@ -1125,10 +1147,11 @@ def time_ms(fn, reps=7, inner=10):
     return statistics.median(times)
 
 
-def host_and_device(fn, calls):
+def host_and_device(fn, calls, evals=None):
     """(line, peak GiB) for an entry point called from the host: the median
     and least host-clock ms of ``calls`` synchronised calls after two
-    warm-ups, with the peak device memory over them; then, over ``calls``
+    warm-ups, with the peak device memory over them (and, given ``evals``
+    evaluations a call, evals / median per second); then, over ``calls``
     more under torch.profiler, the device ms per call summed over the
     device's kernels and copies, and their number per call. The device's
     idle share is 1 - device ms / the unprofiled median, since the profiler
@@ -1161,9 +1184,10 @@ def host_and_device(fn, calls):
     device = (f"device time {dev_ms:.3f} ms per call in {count:.0f} kernels "
               f"and copies, the device idle {1 - dev_ms / med:.1%} of the "
               "median" if us > 0 else "device time not measured")
+    rate = "" if evals is None else f", {evals / med * 1e3:.1f} evals/s"
     return (f"median {med:.3f} ms (min {min(times):.3f}, {calls} calls, host "
-            f"clock, synchronised); {device} (torch.profiler, {calls} more "
-            "calls)"), peak
+            f"clock, synchronised{rate}); {device} (torch.profiler, {calls} "
+            "more calls)"), peak
 
 
 def time_pairs(calls, n_trees, plain_reps=(7, 10)):
@@ -1791,10 +1815,68 @@ def phase_gp_path():
               inst.dag.node_count() - 1, 0), GP_GRADIENT, (0.0, 1e-6))
     gp_fit(torch.float64, use_kernels=True)
     gp_fit(torch.float32, use_kernels=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        streamed = {"host RAM": gp_streamed_fit(torch.float64),
+                    "np.memmap": gp_streamed_fit(torch.float64, tmp)}
+        if os.listdir(tmp):
+            raise AssertionError(f"the streamed ascent left {os.listdir(tmp)}")
+    f32 = gp_streamed_fit(torch.float32)
     launches = launch_counts("GP path", ["populate_plvs", "golden_sweep"],
                              ["populate_plvs_slab", "golden_sweep_slab"])
-    gp_fit(torch.float64, use_kernels=False)
+    level = gp_fit(torch.float64, use_kernels=False)
+    for where, (marginal, _) in streamed.items():
+        close(f"fluA streamed fit ({where}) vs the card's in-memory level-"
+              "route fit, f64", marginal, level, (0.0, GP_FLUA_TOL[torch.float64]))
+    # K7 on the last chunk's own inputs (38 patterns and 62 copies of the
+    # last) at the fitted lengths, against its twin.
+    for dtype, eng in ((torch.float64, streamed["host RAM"][1]),
+                       (torch.float32, f32[1])):
+        k7_vs_twin(eng._edge_streams(), eng._tensor(eng.q),
+                   _jc69_transition(eng._tensor(eng.branch_lengths)).contiguous(),
+                   gp_chunk_tips(eng, -1), dtype,
+                   f"fluA last streamed chunk (S = {GP_CHUNK}) "
+                   f"{str(dtype)[6:]}", "populate_plvs")
     return launches
+
+
+def gp_chunk_tips(eng, c):
+    """The tips (L, 4, GP_CHUNK) of chunk c of the streamed ascent on the
+    engine's device: the last chunk padded with copies of the last
+    pattern, as the engine pads it."""
+    tips = np.asarray(eng.tips)
+    pad = -tips.shape[-1] % GP_CHUNK
+    tips = np.pad(tips, ((0, 0), (0, 0), (0, pad)), mode="edge")
+    chunks = np.split(tips, tips.shape[-1] // GP_CHUNK, axis=-1)
+    return eng._tensor(np.ascontiguousarray(chunks[c]))
+
+
+def gp_streamed_fit(dtype, memmap_dir=None, tol=1e-6, max_iter=100):
+    """run_branch_ascent_streamed(tol, max_iter, GP_CHUNK) on fluA on the
+    kernel route, its A and B in host RAM or under ``memmap_dir``, against
+    libsbn_tpu's optimum; fails unless every chunk of every statistics
+    refresh, and finalize's full-width populate, launched K7 and K8 did not
+    launch. Returns (marginal, engine)."""
+    eng = gp_instance("fluA.fa", "fluA.tree", dtype).get_engine()
+    before = dict(engine_kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    marginal, sweeps = eng.run_branch_ascent_streamed(
+        tol, max_iter, GP_CHUNK, memmap_dir=memmap_dir)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    added = {k: v - before[k] for k, v in engine_kernels.LAUNCHES.items()}
+    chunks = -(-eng.patterns // GP_CHUNK)
+    k7 = added["populate_plvs"] - 1  # less finalize's full-width populate
+    if (k7 < chunks * (sweeps + 1) or k7 % chunks
+            or added["golden_sweep"] or added["golden_sweep_slab"]
+            or added["populate_plvs_slab"]):
+        raise AssertionError(f"streamed fit: launches {added} for {chunks} "
+                             f"chunks and {sweeps} sweeps")
+    where = "host RAM" if memmap_dir is None else "np.memmap"
+    close(f"fluA streamed fit ({tol}, {max_iter}, pattern_chunk={GP_CHUNK}), "
+          f"A and B in {where}, {str(dtype)[6:]} ({sweeps} sweeps, "
+          f"{k7 // chunks} statistics refreshes of {chunks} chunks, "
+          f"{seconds:.2f} s)", marginal, GP_FLUA, (0.0, GP_FLUA_TOL[dtype]))
+    return marginal, eng
 
 
 def sm_clock():
@@ -1857,6 +1939,18 @@ def phase_gp_timing(smi, runs=5):
         route = "kernel route (K7 + K8)" if use_kernels else "level route"
         print(f"  run_branch_ascent(1e-2, 10), {route}, per ascent: {line}; "
               f"{sweeps} sweeps, marginal {marginal:.6f}")
+    eng = gp_instance("fluA.fa", "fluA.tree", torch.float32).get_engine()
+    bl0 = eng.branch_lengths.copy()
+
+    def streamed():
+        eng.branch_lengths = bl0.copy()
+        return eng.run_branch_ascent_streamed(1e-2, 10, GP_CHUNK)
+
+    line, _ = host_and_device(streamed, runs)
+    marginal, sweeps = streamed()
+    print(f"  run_branch_ascent_streamed(1e-2, 10, {GP_CHUNK}), kernel route "
+          f"(K7 per chunk, Newton on the host), per ascent: {line}; {sweeps} "
+          f"sweeps, marginal {marginal:.6f}")
     return out, bounds
 
 
@@ -2237,8 +2331,6 @@ def phase_vip(smi):
     path against its twin on the path's own inputs, and its timings.
     Returns (launch counts of the card path, {key: max abs error}, the
     B = 10,000 K2 entry's numbers)."""
-    import tempfile
-
     print("[11] vip path: EM, per-tree rows, the Burrito and "
           "vi.benchmark.fixed on cuda")
     t_phase = time.perf_counter()
@@ -2431,8 +2523,183 @@ def phase_vip(smi):
     print(f"[11] took {time.perf_counter() - t_phase:.1f} s")
     return launches, errs, (k2_ms, plain_ms, k2_bound)
 
+FOREST_R = 8  # length sets a call (bench.py config_forest)
+FOREST_SAMPLED = 1000  # trees of the SBN-sampled support
+FOREST_PER_TREE_REL = 1e-9  # the f64 forest against the per-tree K1 engine
+# The f32 forest with bf16 gathers against the f64 forest: the bench's
+# gate (bench.py:683-692), (rtol, atol).
+FOREST_GATE = {"ll": (1e-5, 0.5), "grad": (2e-2, 0.5)}
+FOREST_ASCENT_STEPS = 20
+
+
+def forest_ds1_100():
+    """DS1.100_topologies (polished) and DS1: (topologies, their forest,
+    build seconds, the (T, N-1) split id of each tree's edges, the
+    per-split mean lengths, the site pattern)."""
+    tops, bls, ttm = newick.parse_newick_file(f"{DATA}/DS1.100_topologies.nwk")
+    for t in tops:
+        t.polish()
+    t0 = time.perf_counter()
+    fs = forest.build_forest(tops)
+    build_s = time.perf_counter() - t0
+    split_ids = np.zeros((len(tops), fs.node_count - 1), np.int64)
+    for ti, top in enumerate(tops):
+        for node in top.postorder():
+            if node.id != top.id:
+                split_ids[ti, node.id] = fs.split_of_clade[
+                    forest._clade_mask(node)]
+    # Split-keyed lengths: the per-split mean of the observed lengths
+    # (HotStartBranchLengths, gp_engine.cpp:363-394).
+    observed = np.stack(bls)[:, :fs.node_count - 1]
+    sums, counts = np.zeros(fs.n_splits), np.zeros(fs.n_splits)
+    np.add.at(sums, split_ids, observed)
+    np.add.at(counts, split_ids, 1)
+    sp = SitePattern(Alignment.read_fasta(f"{DATA}/DS1.fasta"), ttm)
+    return tops, fs, build_s, split_ids, sums / np.maximum(counts, 1), sp
+
+
+def forest_per_tree(tops, split_ids, bl_sets, sp):
+    """(lls (R, T), grads (R, T, N-1)) of every tree under each length set
+    through the port's per-tree engine on the card: LikelihoodEngine
+    branch_gradients, JC69, float64 (one K1 launch, R T trees)."""
+    R, T = bl_sets.shape[0], len(tops)
+    spec = lt.PhyloModelSpec("JC69", "constant", "strict")
+    engine = LikelihoodEngine(sp, spec, dtype=torch.float64, device=DEV)
+    bl = np.zeros((R, T, split_ids.shape[1] + 1))
+    bl[:, :, :-1] = bl_sets[:, split_ids]
+    lls, grads = engine.branch_gradients(
+        schedule.schedules_of_topologies(tops * R), bl.reshape(R * T, -1),
+        default_parameters(spec, device=DEV))
+    return (lls.reshape(R, T).cpu().numpy(),
+            grads.reshape(R, T, -1).cpu().numpy())
+
+
+def phase_forest(smi, calls=10):
+    """[12] Forest mode on the card: DS1.100_topologies under R = 8
+    split-keyed length sets, U(0.8, 1.2) from default_rng(0) times the
+    per-split means, as the JAX bench's forest_shared_ds1_100; correctness
+    against the per-tree engine (K1) and the bench's gate, then timings,
+    then the SBN-sampled 1,000-tree support. The forest runs torch ops and
+    no kernel of this package: the counters show no launch and no twin."""
+    print("[12] forest: DS1.100_topologies, split-keyed lengths, R = "
+          f"{FOREST_R}, on cuda")
+    t_phase = time.perf_counter()
+    tops, fs, build_s, split_ids, means, sp = forest_ds1_100()
+    T = len(tops)
+    rng = np.random.default_rng(0)
+    bl_sets = (means[None, :] * rng.uniform(0.8, 1.2, (FOREST_R, fs.n_splits))
+               ).astype(np.float32)
+    print(f"  build_forest: {build_s:.3f} s (host); forest_stats "
+          f"{forest.forest_stats(fs)}")
+    # The per-tree reference, before the path's counters are set to 0.
+    ref_ll, ref_g = forest_per_tree(tops, split_ids, bl_sets.astype(np.float64),
+                                    sp)
+
+    def dev(a, dt):
+        return torch.as_tensor(np.asarray(a), device=DEV).to(dt)
+
+    f64, f32 = torch.float64, torch.float32
+    tips64, w64, bl64 = (dev(x, f64) for x in (sp.tip_partials(), sp.weights,
+                                               bl_sets))
+    tips32, w32, bl32 = (dev(x, f32) for x in (sp.tip_partials(), sp.weights,
+                                               bl_sets))
+    reset_counters()
+    pruning.reset_counters()
+    ll64, g64 = forest.forest_jc_log_likelihoods_and_gradients(
+        fs, bl64, tips64, w64, dtype=f64)
+    rel_close("forest LLs, f64, vs the per-tree engine (K1)", ll64.cpu(),
+              ref_ll, FOREST_PER_TREE_REL)
+    rel_close("forest gradients, f64, vs the per-tree engine (K1)", g64.cpu(),
+              ref_g, FOREST_PER_TREE_REL)
+    ll32, g32 = forest.forest_jc_log_likelihoods_and_gradients(
+        fs, bl32, tips32, w32, gather_dtype=torch.bfloat16)
+    # The bench holds the first length set to its gate; the others are
+    # reported: bf16 rounding of near-uniform partials (lengths near 1)
+    # leaves a few entries of some sets outside it, in libsbn_tpu too.
+    close("forest LLs of the first length set, f32 with bf16 gathers, vs "
+          "f64 (bench gate)", ll32[0].cpu(), ll64[0].cpu(), FOREST_GATE["ll"])
+    close("forest gradients of the first length set, f32 with bf16 gathers, "
+          "vs f64 (bench gate)", g32[0].cpu(), g64[0].cpu(),
+          FOREST_GATE["grad"])
+    g64_cpu, g32_cpu = (g.double().cpu().numpy() for g in (g64, g32))
+    gap = np.abs(g32_cpu - g64_cpu)
+    rtol, atol = FOREST_GATE["grad"]
+    outside = (gap > atol + rtol * np.abs(g64_cpu)).sum(axis=(1, 2))
+    ll_gap = np.abs(ll32.double().cpu().numpy() - ll64.cpu().numpy())
+    print("      every set, bf16 gathers: largest relative gradient error per "
+          f"set {np.round(np.max(gap / np.abs(g64_cpu), axis=(1, 2)), 5)}, "
+          f"entries outside the gradient gate per set {outside} of "
+          f"{g64_cpu[0].size}; largest LL gap {ll_gap.max():.3e}")
+    split = [forest.forest_jc_weighted_ll_and_split_gradient(
+        fs, bl64, tips64, w64, dtype=f64) for _ in range(2)]
+    want = np.zeros((FOREST_R, fs.n_splits))
+    for r in range(FOREST_R):
+        np.add.at(want[r], split_ids, ref_g[r])
+    rel_close("split gradient, f64, vs the per-tree gradients summed onto "
+              "splits", split[0][1].cpu(), want, FOREST_PER_TREE_REL)
+    if not (torch.equal(split[0][0], split[1][0])
+            and torch.equal(split[0][1], split[1][1])):
+        raise AssertionError("the split gradient differs between two runs")
+    print("  ok  split gradient: a second run equal bit for bit")
+    _, _, trace = forest.forest_branch_ascent(
+        fs, means, tips32, w32, steps=FOREST_ASCENT_STEPS)
+    trace = trace.cpu().numpy()
+    if not (np.all(np.isfinite(trace)) and trace[-1] > trace[0]):
+        raise AssertionError(f"forest_branch_ascent trace {trace}")
+    print(f"  ok  forest_branch_ascent, {FOREST_ASCENT_STEPS} Adam steps, "
+          f"f32: objective {trace[0]:.4f} -> {trace[-1]:.4f}")
+
+    print(f"  timings, f32, R = {FOREST_R} x T = {T} ({smi}):")
+    timed = {
+        "full path (LL + per-tree gradients, bf16 gathers)":
+            lambda: forest.forest_jc_log_likelihoods_and_gradients(
+                fs, bl32, tips32, w32, gather_dtype=torch.bfloat16),
+        "ll_only": lambda: forest.forest_jc_log_likelihoods_and_gradients(
+            fs, bl32, tips32, w32, ll_only=True),
+        "split gradient": lambda: forest.forest_jc_weighted_ll_and_split_gradient(
+            fs, bl32, tips32, w32),
+    }
+    for what, fn in timed.items():
+        line, peak = host_and_device(fn, calls, evals=FOREST_R * T)
+        print(f"    {what}: {line}; peak {peak:.3f} GiB")
+
+    inst = lt.UnrootedInstance("forest-sampled")
+    inst.read_newick_file(f"{DATA}/DS1.100_topologies.nwk")
+    inst.process_loaded_trees()
+    inst.train_simple_average()
+    inst.sample_trees(FOREST_SAMPLED)
+    tops_s = [t.topology for t in inst.tree_collection.trees]
+    t0 = time.perf_counter()
+    fs_s = forest.build_forest(tops_s)
+    build_s = time.perf_counter() - t0
+    print(f"  SBN-sampled support: build_forest {build_s:.3f} s (host); "
+          f"forest_stats {forest.forest_stats(fs_s)}")
+    bl_s = dev(np.random.default_rng(1).uniform(
+        0.02, 0.2, (FOREST_R, fs_s.n_splits)), f32)
+    for what, fn in (
+            ("ll_only", lambda: forest.forest_jc_log_likelihoods_and_gradients(
+                fs_s, bl_s, tips32, w32, ll_only=True)),
+            ("split gradient",
+             lambda: forest.forest_jc_weighted_ll_and_split_gradient(
+                 fs_s, bl_s, tips32, w32))):
+        ll_s = fn()[0]
+        if not torch.isfinite(ll_s).all() or ll_s.shape != (FOREST_R,
+                                                            FOREST_SAMPLED):
+            raise AssertionError(f"sampled support {what}: {ll_s.shape}")
+        line, peak = host_and_device(fn, calls, evals=FOREST_R * FOREST_SAMPLED)
+        print(f"    {what}, R = {FOREST_R} x T = {FOREST_SAMPLED}: {line}; "
+              f"peak {peak:.3f} GiB")
+    torch.cuda.synchronize()
+    counts = vip_counts()
+    print(f"  forest path: launches, twin and scan-engine calls {counts}")
+    if any(counts.values()):
+        raise AssertionError("the forest path ran a kernel, twin or the scan "
+                             "engine")
+    print(f"[12] took {time.perf_counter() - t_phase:.1f} s")
+
 
 def main():
+    t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
     errs = phase_kernel_vs_twin()
@@ -2441,6 +2708,7 @@ def main():
     runs = [phase_main_path(), phase_gtr_path(), phase_vbpi(), phase_gp_path()]
     rooted_launches, rooted_errs = phase_rooted_path()
     vip_launches, vip_errs, vip_k2 = phase_vip(smi)
+    phase_forest(smi)
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
     # K1's rooted launches stand in its second entry below and K2's vip
     # launches in its second; every other kernel's entry counts every path.
@@ -2489,6 +2757,8 @@ def main():
         "max_abs_err": vip_errs["ll_jc69"], "ms": vip_k2[0],
         "plain_ms": vip_k2[1], "bound_ms": vip_k2[2][0],
         "bound_by": vip_k2[2][1], "library_ms": None})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
+          "included")
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

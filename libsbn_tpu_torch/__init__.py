@@ -7,7 +7,8 @@ likelihood, branch- and model-gradient paths for unrooted trees and rooted
 time trees (``RootedInstance``), with per-tree parameter rows, the vip
 layer (``vi.Burrito``, its models, optimizers, checkpoints, benchmark and
 the ``vip-torch`` command) beside the device VBPI step (``vi.JitVBPI``),
-and generalized pruning over the subsplit DAG (``gp.GPInstance``), with
+generalized pruning over the subsplit DAG (``gp.GPInstance``, in memory
+or streamed by pattern chunks) and forest mode (``ops.forest``), with
 hand-written CUDA kernels for NVIDIA Hopper
 (``csrc/``, built with nvcc at first use) and plain PyTorch twins of those
 kernels that run on the CPU.

@@ -31,6 +31,8 @@ Substitution model: JC69, matching gp_engine.hpp:144-155.
 
 from __future__ import annotations
 
+import os
+import tempfile
 from typing import Dict
 
 import numpy as np
@@ -44,10 +46,6 @@ from .engine_kernels import MAX_LOG_BL, MIN_LOG_BL
 
 DEFAULT_BRANCH_LENGTH = 0.1
 NEWTON_ITERS = 64  # cap on the Newton-bisection iterations of one sweep
-STREAMED_TODO = (
-    "run_branch_ascent_streamed is not ported yet (ROADMAP queue 1, item 9b: "
-    "the pattern-chunked ascent)"
-)
 MESH_TODO = (
     "mesh= is not ported yet (ROADMAP queue 1, item 11: torch.distributed)"
 )
@@ -169,15 +167,16 @@ class GPEngine:
             for lv in self.leafward_levels
         ]
 
-    def _populate_levels(self, bl, q):
+    def _populate_levels(self, bl, q, tips=None):
         """The level route: the 12-entry PLV dict with per-node scalar
         log-scales. Within a level, the edges into one PLV row align their
         scales to the smallest child scale (scatter_reduce amin) and
         accumulate with index_add_; the finished node's PLV is divided by
-        its max over states and patterns."""
+        its max over states and patterns. ``tips`` (L, 4, S) defaults to
+        the engine's, all patterns."""
         N = self.dag.node_count()
         L = self.dag.taxon_count
-        tips = self._tips
+        tips = self._tips if tips is None else tips
         S = tips.shape[-1]
         dt, dev = bl.dtype, bl.device
         inf = float("inf")
@@ -236,14 +235,16 @@ class GPEngine:
             self._streams = engine_kernels.edge_streams(self, self.device)
         return self._streams
 
-    def _populate(self, bl, q):
+    def _populate(self, bl, q, tips=None):
         """The PLV dict for branch lengths bl (E,) and SBN parameters q (E,),
-        tensors on the device in the working dtype, by the engine's route."""
+        tensors on the device in the working dtype, by the engine's route,
+        over ``tips`` (L, 4, S; default: the engine's, all patterns)."""
+        tips = self._tips if tips is None else tips
         if self.use_kernels:
             return engine_kernels.populate_plvs(
                 self._edge_streams(), q, _jc69_transition(bl).contiguous(),
-                self._tips)
-        return self._populate_levels(bl, q)
+                tips)
+        return self._populate_levels(bl, q, tips)
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), device=self.device).to(self.dtype)
@@ -319,14 +320,207 @@ class GPEngine:
         )
 
     # -- coordinate ascent ----------------------------------------------------
-    def _marginal_of_plvs(self, plvs, q):
+    def _marginal_of_plvs(self, plvs, q, w=None):
         """Marginal log likelihood (a 0-dim tensor) from populated PLVs
-        (root rows only -- skips the full (E, S) likelihood rows)."""
+        (root rows only -- skips the full (E, S) likelihood rows), under
+        pattern weights ``w`` (default: the engine's)."""
         per_site = torch.logsumexp(self._root_rows(plvs, q), dim=0)
-        return torch.sum(per_site * self._w)
+        return torch.sum(per_site * (self._w if w is None else w))
 
-    def run_branch_ascent_streamed(self, *args, **kwargs):
-        raise NotImplementedError(STREAMED_TODO)
+    def run_branch_ascent_streamed(
+        self, tol: float, max_iter: int, pattern_chunk: int,
+        memmap_dir: str | None = None, finalize: bool = True,
+        rtol: float = 0.0,
+    ):
+        """EstimateBranchLengths with PLVs that never fully materialize on
+        the device: the pattern axis streams through in chunks of
+        ``pattern_chunk``, so device memory is O(nodes x chunk) instead of
+        O(nodes x patterns). This is the capacity role of the reference's
+        disk-mmapped PLV arena (mmapped_plv.hpp:19-47, gp_instance.cpp:32):
+        the device holds one chunk's PLVs, populated by the engine's route
+        (K7 on the kernel route), and the per-edge Newton statistics (A, B)
+        live in host RAM, or in a disk-backed np.memmap under
+        ``memmap_dir``, removed at the end.
+
+        The sweep is the JAX package's: a safeguarded Newton-bisection per
+        edge on the host over chunk-accumulated derivatives, reject-if-worse
+        against chunk-accumulated objectives, and the step damped by halves
+        down to 1/64 until the marginal does not fall; whatever the route,
+        never K8's golden section. Exactness: populate is independent per
+        pattern, the Newton derivative phi = sum_s w B/(A+uB) is
+        scale-invariant per pattern, and the per-chunk scale constants
+        cancel in reject-if-worse, so a streamed fit matches the in-memory
+        Newton ascent (the level route) to float tolerance. The last chunk
+        is padded with copies of the last pattern at zero weight. ``finalize``
+        repopulates at full width and computes the likelihood rows.
+        Returns (marginal, sweeps)."""
+        if pattern_chunk < 1:
+            raise ValueError(f"pattern_chunk must be >= 1, got {pattern_chunk}")
+        dt = np.float64 if self.dtype == torch.float64 else np.float32
+        S = self.patterns
+        C = -(-S // pattern_chunk)
+        Sp = C * pattern_chunk
+        tips = np.asarray(self.tips, dt)
+        w = np.asarray(self.weights, dt)
+        if Sp != S:
+            # Pad with copies of the last pattern at weight 0: all-ones tips
+            # (the JAX package's padding) dwarf the real patterns' partials,
+            # and the level route's one log-scale per node then underflows
+            # them (a 600-taxon tree: a marginal of -inf).
+            tips = np.pad(tips, ((0, 0), (0, 0), (0, Sp - S)), mode="edge")
+            w = np.concatenate([w, np.zeros(Sp - S, dt)])
+        tips_c = np.ascontiguousarray(np.moveaxis(
+            tips.reshape(*tips.shape[:-1], C, pattern_chunk), -2, 0))
+        w_c = w.reshape(C, pattern_chunk)  # (C, L, 4, chunk), (C, chunk)
+        E = len(self.e_gpcsp)
+        tmp = None
+        if memmap_dir is not None:
+            tmp = tempfile.NamedTemporaryFile(
+                dir=memmap_dir, suffix=".gp_ab", delete=False)
+            tmp.close()
+            AB = np.memmap(tmp.name, dtype=dt, mode="w+", shape=(2, E, Sp))
+        else:
+            AB = np.empty((2, E, Sp), dt)
+        try:
+            cur, sweeps, self.branch_lengths = self._streamed_ascent(
+                AB, tips_c, w_c, tol, max_iter, rtol)
+        finally:
+            if tmp is not None:
+                del AB
+                os.unlink(tmp.name)
+        if finalize:
+            # Materialize full-width PLVs and rows for downstream consumers;
+            # skip (finalize=False) when they would not fit on the device.
+            self.populate_plvs()
+            self.compute_likelihoods()
+        return cur, sweeps
+
+    def _streamed_ascent(self, AB, tips_c, w_c, tol, max_iter, rtol):
+        """The chunked ascent of run_branch_ascent_streamed over the (2, E,
+        C chunk) statistics array AB; returns (marginal, sweeps, branch
+        lengths)."""
+        dt = AB.dtype
+        C, chunk = w_c.shape
+        E = AB.shape[1]
+        q = self._tensor(self.q)
+
+        def chunk_of(array, c):
+            return torch.as_tensor(array[c], device=self.device)
+
+        def refresh_ab(bl_np):
+            """A and B of every chunk into AB at branch lengths bl_np; the
+            marginal, summed over the chunks."""
+            blt = self._tensor(bl_np)
+            total = 0.0
+            for c in range(C):
+                w_chunk = chunk_of(w_c, c)
+                plvs = self._populate(blt, q, chunk_of(tips_c, c))
+                A, B = engine_kernels.sweep_stats(plvs, self._pa, self._ch,
+                                                  self._rot)
+                m = self._marginal_of_plvs(plvs, q, w_chunk)
+                sl = slice(c * chunk, (c + 1) * chunk)
+                AB[0, :, sl] = A.cpu().numpy()
+                AB[1, :, sl] = B.cpu().numpy()
+                total += float(m)
+            return total
+
+        def chunk_ab(c):
+            sl = slice(c * chunk, (c + 1) * chunk)
+            return (torch.as_tensor(AB[0, :, sl], device=self.device),
+                    torch.as_tensor(AB[1, :, sl], device=self.device),
+                    chunk_of(w_c, c)[None, :])
+
+        def acc_phi(u):
+            """(phi, dphi) per edge at u (E,), summed over the chunks on the
+            device in chunk order."""
+            ut = torch.as_tensor(np.asarray(u, dt), device=self.device)
+            phi = torch.zeros(E, dtype=self.dtype, device=self.device)
+            dphi = torch.zeros_like(phi)
+            for c in range(C):
+                A, B, wc = chunk_ab(c)
+                denom = A + ut[:, None] * B
+                ratio = torch.where(denom > 0, B / denom,
+                                    torch.zeros_like(denom))
+                phi += torch.sum(wc * ratio, dim=-1)
+                dphi += -torch.sum(wc * ratio * ratio, dim=-1)
+            return phi.cpu().numpy(), dphi.cpu().numpy()
+
+        def acc_obj(u):
+            """Per-edge negative log likelihood at u (E,), summed over the
+            chunks; padded patterns (weight 0) add nothing."""
+            ut = torch.as_tensor(np.asarray(u, dt), device=self.device)
+            obj = torch.zeros(E, dtype=self.dtype, device=self.device)
+            for c in range(C):
+                A, B, wc = chunk_ab(c)
+                lik = A + ut[:, None] * B
+                obj += -torch.sum(
+                    torch.where(wc > 0, torch.log(lik),
+                                torch.zeros_like(lik)) * wc, dim=-1)
+            return obj.cpu().numpy()
+
+        c_jc = 4.0 / 3.0
+
+        def u_of(log_bl):
+            return np.exp(-c_jc * np.exp(log_bl))
+
+        ulo = u_of(MAX_LOG_BL)
+        uhi = u_of(MIN_LOG_BL)
+        tol_u = 1e-12 if dt == np.float64 else 1e-7
+        g = np.asarray(self.e_gpcsp)
+
+        def newton_sweep(bl_np):
+            phi_lo, _ = acc_phi(np.full(E, ulo))
+            phi_hi, _ = acc_phi(np.full(E, uhi))
+            at_max = phi_lo <= 0  # f decreasing everywhere: b at MAX_LOG_BL
+            at_min = phi_hi >= 0  # f increasing everywhere: b at MIN_LOG_BL
+            u = np.clip(u_of(np.log(bl_np[g])), ulo, uhi)
+            lo = np.full(E, ulo)
+            hi = np.full(E, uhi)
+            active = ~(at_max | at_min)
+            for _ in range(NEWTON_ITERS):
+                if not active.any():
+                    break
+                phi, dphi = acc_phi(u)
+                lo = np.where(phi > 0, u, lo)
+                hi = np.where(phi < 0, u, hi)
+                step = np.where(dphi < 0, phi / np.where(dphi < 0, dphi, 1), 0)
+                u_newton = u - step
+                inside = (u_newton > lo) & (u_newton < hi)
+                u_next = np.where(inside, u_newton, 0.5 * (lo + hi))
+                moved = np.abs(u_next - u)
+                u = np.where(active, u_next, u)
+                active = active & (moved > tol_u * np.maximum(u, tol_u))
+            u_best = np.where(at_max, ulo, np.where(at_min, uhi, u))
+            best_log = np.clip(
+                np.log(-np.log(u_best) / c_jc), MIN_LOG_BL, MAX_LOG_BL)
+            current_log = np.log(bl_np[g])
+            keep = acc_obj(u_of(best_log)) < acc_obj(u_of(current_log))
+            out = bl_np.copy()
+            out[g] = np.exp(np.where(keep, best_log, current_log))
+            return out
+
+        bl = np.asarray(self.branch_lengths, np.float64)
+        cur = refresh_ab(bl)
+        sweeps = 0
+        for _ in range(max_iter):
+            proposed = newton_sweep(bl)
+            sweeps += 1
+            m = refresh_ab(proposed)
+            alpha, trial = 1.0, proposed
+            while m < cur and alpha > 1.0 / 64:
+                alpha /= 2.0
+                trial = np.exp(
+                    (1 - alpha) * np.log(np.maximum(bl, 1e-300))
+                    + alpha * np.log(np.maximum(proposed, 1e-300)))
+                m = refresh_ab(trial)
+            if m < cur:
+                refresh_ab(bl)  # restore A and B for the current lengths
+                break
+            improved_enough = abs(m - cur) >= tol + rtol * abs(cur)
+            bl, cur = trial, m
+            if not improved_enough:
+                break
+        return float(cur), sweeps, bl
 
     def run_branch_ascent(self, tol: float, max_iter: int, rtol: float = 0.0):
         """EstimateBranchLengths on the device; returns (marginal, sweeps).

@@ -191,6 +191,13 @@ def site_tensors(
     raise ValueError(f"Site model not known: {spec.site}")
 
 
+def clock_rate(spec: PhyloModelSpec, params: Dict):
+    """The strict clock's rate parameter, or 1 without a clock."""
+    if spec.clock == "strict":
+        return params["clock"]["rate"]
+    return torch.tensor(1.0, dtype=torch.float64)
+
+
 def model_tensors(
     spec: PhyloModelSpec, params: Dict, *, dtype=torch.float64, device="cpu"
 ):

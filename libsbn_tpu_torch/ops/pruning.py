@@ -198,6 +198,16 @@ def log_likelihoods(post_children, P, tips, freqs, props, weights, *,
                                 root_id, rescale)
 
 
+def log_likelihood(sched, P, tips, freqs, props, weights, rescale: bool = True):
+    """Log likelihood (a 0-dim tensor) of one tree, differentiable as
+    log_likelihoods is. sched: the tree's ops/schedule.py PruningSchedule;
+    P: (N+1, K, 4, 4) node transition matrices with N = root_id + 1; tips:
+    (L, 4, P); freqs: (4,); props: (K,); weights: (P,)."""
+    pc = torch.as_tensor(sched.post_children, device=P.device).long()
+    return log_likelihoods(pc[None], P[None], tips, freqs, props, weights,
+                           root_id=sched.root_id, rescale=rescale)[0]
+
+
 def log_likelihood_and_branch_gradient(
     post_children, P, Q_scaled, tips, freqs, props, weights, *, root_id,
     rescale: bool = True,

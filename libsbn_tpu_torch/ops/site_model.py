@@ -33,3 +33,19 @@ def weibull_rates(shape, category_count: int, *, dtype=torch.float64,
         (category_count,), 1.0 / category_count, dtype=dtype, device=device
     )
     return rates, props
+
+
+def weibull_rate_gradient(shape, category_count: int, *, dtype=torch.float64,
+                          device="cpu"):
+    """Analytic d rates / d shape (K,), as site_model.cpp computes it, for
+    parity tests (the engine's gradients come from autograd of
+    weibull_rates)."""
+    shape = torch.as_tensor(shape, dtype=dtype, device=device)
+    i = torch.arange(category_count, dtype=dtype, device=device)
+    quantile = (2.0 * i + 1.0) / (2.0 * category_count)
+    base = -torch.log1p(-quantile)
+    raw = torch.pow(base, 1.0 / shape)
+    draw = -raw * torch.log(base) / (shape * shape)
+    mean = torch.mean(raw)
+    dmean = torch.mean(draw)
+    return (draw * mean - raw * dmean) / (mean * mean)

@@ -1,7 +1,8 @@
 """The CUDA kernels of libsbn_tpu_torch against their plain PyTorch twins,
-the VBPI step, the GTR engine path, the GP fit, the rooted engine and the
-vip layer (the Burrito, EM, per-tree parameter rows, K2 at 10,000 trees) on
-the card against the same on the CPU.
+the VBPI step, the GTR engine path, the GP fit (in memory and streamed),
+the rooted engine, the vip layer (the Burrito, EM, per-tree parameter rows,
+K2 at 10,000 trees) and forest mode on the card against the same on the
+CPU.
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so that it also runs on a machine with the card and no JAX installed:
@@ -25,7 +26,7 @@ from libsbn_tpu_torch.gp.engine import _jc69_transition
 from libsbn_tpu_torch.io import newick
 from libsbn_tpu_torch.io.fasta import Alignment
 from libsbn_tpu_torch.ops import (
-    pruning_generic, pruning_jc, pruning_vjp, schedule, substitution,
+    forest, pruning_generic, pruning_jc, pruning_vjp, schedule, substitution,
 )
 from libsbn_tpu_torch.ops.site_model import weibull_rates
 from libsbn_tpu_torch.vi import JitVBPI
@@ -1156,3 +1157,142 @@ def test_k2_at_ten_thousand_trees(dtype):
                                     root_id=r)
     np.testing.assert_allclose(full[:1000].cpu().numpy(), twin.cpu().numpy(),
                                rtol=rtol, atol=atol)
+
+
+# -- forest mode and the streamed GP ascent -----------------------------------
+
+
+def _ds1_100_forest():
+    """DS1.100_topologies' forest, DS1's tips and weights as numpy, and two
+    seeded split-keyed length sets."""
+    tops, _, ttm = newick.parse_newick_file(f"{DATA}/DS1.100_topologies.nwk")
+    fs = forest.build_forest(tops)
+    sp = SitePattern(Alignment.read_fasta(f"{DATA}/DS1.fasta"), ttm)
+    bl = np.random.default_rng(7).uniform(0.02, 0.2, (2, fs.n_splits))
+    return fs, sp.tip_partials(), sp.weights, bl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "unfused", "ll_only", "generic"])
+def test_forest_on_card_matches_cpu(path):
+    """The f64 forest on DS1.100 (two length sets) on the card and on the
+    CPU, from the same numpy inputs: LLs and per-tree gradients at rel
+    1e-10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    fs, tips, w, bl = _ds1_100_forest()
+    out = []
+    for device in ("cpu", "cuda"):
+        if path == "generic":
+            freqs, evec, ivec, evals = substitution.jc69_eigen(device=device)
+            one = torch.ones(1, dtype=torch.float64, device=device)
+            ll, g = forest.forest_log_likelihoods_and_gradients(
+                fs, bl, evec, ivec, evals, substitution.jc69_q(device=device)[None],
+                tips, freqs, one, one, w, device=device)
+        else:
+            ll, g = forest.forest_jc_log_likelihoods_and_gradients(
+                fs, bl, tips, w, dtype=torch.float64, device=device,
+                fused=path == "fused", ll_only=path == "ll_only")
+        assert ll.device.type == device
+        out.append([x.cpu().numpy() for x in (ll, g) if x is not None])
+    for got, want in zip(out[1], out[0]):
+        np.testing.assert_allclose(got, want, rtol=1e-10,
+                                   atol=1e-10 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_forest_split_gradient_repeats_bit_for_bit(dtype):
+    """The split gradient on the card (autograd through the LL-only forest:
+    its gathers' backward sums in a fixed order) twice, equal bit for bit;
+    at f64 within rel 1e-10 of the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    fs, tips, w, bl = _ds1_100_forest()
+    args = [torch.as_tensor(x).to(dtype).cuda() for x in (bl, tips, w)]
+    runs = [forest.forest_jc_weighted_ll_and_split_gradient(
+        fs, *args, dtype=dtype) for _ in range(2)]
+    assert runs[0][1].device.type == "cuda"
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    if dtype == torch.float64:
+        _, want = forest.forest_jc_weighted_ll_and_split_gradient(
+            fs, bl, tips, w, dtype=dtype, device="cpu")
+        np.testing.assert_allclose(runs[0][1].cpu().numpy(), want.numpy(),
+                                   rtol=1e-10,
+                                   atol=1e-10 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_streamed_ascent_on_card_matches_level_route():
+    """run_branch_ascent_streamed(1e-6, 100, 100) on fluA, f64, on the kernel
+    route (K7 a chunk: 238 patterns in three chunks, the last padded) lands
+    within 1e-7 of the in-memory level-route fit on the card and of
+    libsbn_tpu's optimum; K7 launched, K8 and the twins did not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    level = _gp_instance("fluA", "cuda", use_kernels=False).get_engine()
+    m_level, _ = level.run_branch_ascent(1e-6, 100)
+    eng = _gp_instance("fluA", "cuda").get_engine()
+    assert eng.use_kernels
+    engine_kernels.reset_counters()
+    m, sweeps = eng.run_branch_ascent_streamed(1e-6, 100, 100)
+    torch.cuda.synchronize()
+    k7 = engine_kernels.LAUNCHES["populate_plvs"] - 1  # less finalize's
+    assert k7 >= 3 * (sweeps + 1) and k7 % 3 == 0
+    assert engine_kernels.LAUNCHES["golden_sweep"] == 0
+    assert sum(engine_kernels.TWIN_CALLS.values()) == 0
+    assert abs(m - m_level) < 1e-7 and abs(m - -4337.885058592) < 1e-7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("width", [100, 7, 33])
+def test_k7_at_chunk_widths_matches_twin(width, dtype):
+    """K7 on fluA over a chunk of ``width`` patterns (no multiple of 32;
+    the on-chip plan does not depend on the width) against its twin, at
+    the tolerances of test_gp_kernels_match_twins_on_card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    eng = _gp_instance("fluA", "cuda", dtype).get_engine()
+    bl = eng._tensor(np.random.default_rng(0).uniform(
+        0.01, 0.3, eng.branch_lengths.size))
+    args = (eng._edge_streams(), eng._tensor(eng.q),
+            _jc69_transition(bl).contiguous(),
+            eng._tips[..., 50:50 + width].contiguous())
+    engine_kernels.reset_counters()
+    got = engine_kernels.populate_plvs_cuda(*args)
+    torch.cuda.synchronize()
+    assert engine_kernels.LAUNCHES["populate_plvs"] == 1
+    want = engine_kernels.populate_plvs_twin(*args)
+    f64 = dtype == torch.float64
+    for k in engine_kernels.PLV_KEYS:
+        assert got[k].shape[-1] == width
+        if k.startswith("ls_"):
+            rtol, atol = (1e-12, 1e-12) if f64 else (1e-5, 1e-4)
+        else:
+            rtol, atol = (1e-12, 1e-300) if f64 else (1e-5, 1e-6)
+        np.testing.assert_allclose(got[k].cpu().numpy(), want[k].cpu().numpy(),
+                                   rtol=rtol, atol=atol, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_streamed_chunks_beyond_the_plan_take_the_slab_route():
+    """K7's plan depends on the DAG, not on the chunk width: on the 600-taxon
+    synthetic tree (_synthetic_gp), beyond the plan at f64, every chunk of
+    the streamed ascent takes K7's slab route, and the fit lands where the
+    level route's streamed fit does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    eng = _synthetic_gp(600, 200)
+    engine_kernels.reset_counters()
+    m, sweeps = eng.run_branch_ascent_streamed(1e-2, 3, 64, finalize=False)
+    torch.cuda.synchronize()
+    assert engine_kernels.LAUNCHES["populate_plvs"] == 0
+    slab = engine_kernels.LAUNCHES["populate_plvs_slab"]
+    assert slab >= 4 * (sweeps + 1) and slab % 4 == 0
+    level = _synthetic_gp(600, 200)
+    level.use_kernels = False
+    m_level, sweeps_level = level.run_branch_ascent_streamed(
+        1e-2, 3, 64, finalize=False)
+    assert sweeps == sweeps_level and abs(m - m_level) < 1e-7 * abs(m_level)

@@ -155,7 +155,9 @@ def test_unported_paths_raise(data_dir, path):
     ROADMAP item; none falls back to anything. The per-tree parameters,
     tree_count_option and EM came with item 5: a per-tree call whose
     parameters lack the tree axis, and a parameter matrix with fewer rows
-    than trees, raise ValueError; EM runs on the device it is given."""
+    than trees, raise ValueError; EM runs on the device it is given. The
+    streamed GP ascent came with item 9b: on hello it lands where the
+    in-memory ascent does."""
     if path == "per_tree":
         inst = _ds1(data_dir)
         with pytest.raises(ValueError, match="lead with the 10 trees"):
@@ -170,6 +172,21 @@ def test_unported_paths_raise(data_dir, path):
         assert inst.get_phylo_model_params().shape == (3, 1)
         with pytest.raises(ValueError, match="rows < 10 trees"):
             inst.log_likelihoods()
+        return
+    if path == "gp_streamed":
+        fits = []
+        for streamed in (False, True):
+            inst = GPInstance()
+            inst.read_fasta_file(f"{data_dir}/hello.fasta")
+            inst.read_newick_file(f"{data_dir}/hello_rooted.nwk")
+            inst.make_engine(device="cpu")
+            eng = inst.get_engine()
+            fits.append(eng.run_branch_ascent_streamed(1e-6, 10, 4) if streamed
+                        else eng.run_branch_ascent(1e-6, 10))
+            fits[-1] += (eng.branch_lengths.copy(),)
+        (m0, s0, bl0), (m1, s1, bl1) = fits
+        assert s1 == s0 and abs(m1 - m0) < 1e-9
+        np.testing.assert_allclose(bl1, bl0, rtol=1e-10)
         return
     if path == "em":
         inst = _ds1(data_dir)
@@ -186,10 +203,7 @@ def test_unported_paths_raise(data_dir, path):
             inst = GPInstance()
             inst.read_fasta_file(f"{data_dir}/hello.fasta")
             inst.read_newick_file(f"{data_dir}/hello_rooted.nwk")
-            if path == "gp_mesh":
-                inst.make_engine(mesh=object())
-            inst.make_engine(device="cpu")
-            inst.get_engine().run_branch_ascent_streamed(1e-6, 10, 16)
+            inst.make_engine(mesh=object())
 
 
 def test_cuda_device_is_the_callers_choice(data_dir):
