@@ -141,12 +141,34 @@ Phases, each of which raises on failure:
      launches, idle share, peak memory, evals/s), and ll_only and the
      split gradient on a 1,000-tree SBN-sampled support; the forest runs
      torch ops only: the counters show no kernel, twin or scan-engine call.
+  13. the parallel layer and the helpers (after [12]): two ranks of
+     libsbn_tpu_torch/parallel/multihost_demo.py on the card with gloo
+     (NCCL refuses two ranks on one GPU) and one rank with nccl, started
+     first, each JitVBPI(mesh=global_mesh()) at config 5's width (DS1, 10
+     particles, float32, 3 steps); meanwhile, with the counters at 0, the
+     path: the dp-sharded K1 wrapper on the headline batch (float32 and
+     float64) and the K4 wrapper at config 2 over make_mesh(2, dp=2,
+     devices=[cuda:0, cuda:0]), and run_branch_ascent(1e-2, 10) on fluA
+     over sp = 2 and 4 shards of the card (float64, float32; 238 patterns
+     padded to 240 at sp = 4); then each wrapper against the unsharded
+     call (bit for bit, or within TWIN_TOL with the largest difference
+     printed), each GP fit against the unsharded kernel route's (1e-7 f64,
+     1e-2 f32), a torch.profiler trace of one K1 launch that must name
+     jc69_ll_grad_kernel, PhaseTimer(sync=True) over K1, and the native CPU
+     baseline at dtype_bits=64 against the card's f64 K1 (rel 1e-10); the
+     ranks' states bit-identical across ranks, each rank's K1 launched once
+     a step, and within the f32 gates of one process on the card fed the
+     ranks' samples concatenated; then dp = 1 against dp = 2 on the one
+     card (the cost of the split, not scaling) and the baseline's f32
+     evals/s on all cores (bench.py's loop) beside the card's, with the
+     host CPU.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its paths, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the peak of their type (float64's
 for a float64 launch, float32's otherwise) and its inputs and outputs at
-the HBM rate; K1 has two entries, the first counting the
-unrooted and vip paths, the second the rooted batch and path; K2 has two,
+the HBM rate; K1 has two entries, the first counting the unrooted, vip
+and parallel paths (the ranks' launches of [13] included), the second the
+rooted batch and path; K2 has two,
 the first counting every path but the vip path, the second the vip path's
 launches with the B = 10,000 launch's time and bound), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}.
@@ -183,7 +205,10 @@ from libsbn_tpu_torch.ops import (  # noqa: E402
 )
 from libsbn_tpu_torch.ops import forest, substitution, transforms  # noqa: E402
 from libsbn_tpu_torch.ops.site_model import weibull_rates  # noqa: E402
+from libsbn_tpu_torch.parallel.sharding import make_mesh  # noqa: E402
+from libsbn_tpu_torch.utils import cpu_baseline, profiling  # noqa: E402
 from libsbn_tpu_torch.vi import Burrito, JitVBPI, benchmark, cli  # noqa: E402
+from libsbn_tpu_torch.vi.jit_step import vbpi_train_step  # noqa: E402
 
 # Golden numbers (the reference's unrooted_sbn_instance.hpp tests, as
 # pinned by the JAX package's tests/test_likelihood.py).
@@ -2698,6 +2723,336 @@ def phase_forest(smi, calls=10):
     print(f"[12] took {time.perf_counter() - t_phase:.1f} s")
 
 
+# [13] the parallel layer and the helpers.
+DIST_STEPS = 3
+RANK_TIMEOUT_S = 300
+# A distributed f32 VBPI job against one process fed the ranks' samples,
+# (rtol, atol): the f32 gates of BASELINE.md for the metrics (LLs rtol 1e-5,
+# atol 0.5); for the parameters the gradient gate's rtol 2e-2 with atol
+# 2 lr x steps, since Adam's first steps move an entry by about lr sign(g)
+# and a summation-order difference can flip the sign of a gradient entry
+# near zero.
+DIST_F32_TOL = {"metrics": (1e-5, 0.5), "params": (2e-2, 2e-3 * DIST_STEPS)}
+BASELINE_REL = 1e-10  # the native f64 baseline against the card's f64 K1
+
+
+def spawn_ranks(tmp, tag, world, backend, extra):
+    """Start ``world`` ranks of parallel/multihost_demo.py on the card with
+    a file:// rendezvous under tmp; returns (processes, their .npz
+    paths)."""
+    env = dict(os.environ, LIBSBN_COORDINATOR=f"file://{tmp}/{tag}_store",
+               LIBSBN_NUM_PROCESSES=str(world), OMP_NUM_THREADS="1")
+    procs, outs = [], []
+    for rank in range(world):
+        outs.append(os.path.join(tmp, f"{tag}_rank{rank}.npz"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "libsbn_tpu_torch.parallel.multihost_demo",
+             "--out", outs[-1], "--backend", backend, *extra],
+            cwd=REPO, env=dict(env, LIBSBN_PROCESS_ID=str(rank)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs, outs
+
+
+def collect_ranks(tag, procs, outs):
+    """Wait for the ranks (RANK_TIMEOUT_S each), fail unless each exits 0
+    with its MULTIHOST_OK line; returns their .npz contents."""
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0 or "MULTIHOST_OK" not in log:
+            raise AssertionError(f"{tag}: a rank failed (rc {p.returncode}):"
+                                 f"\n{log[-3000:]}")
+        print("  " + next(l for l in log.splitlines() if "MULTIHOST_OK" in l))
+    return [dict(np.load(o)) for o in outs]
+
+
+def replay_ranks(ranks, dtype):
+    """One process on the card fed the ranks' samples concatenated in rank
+    order, DIST_STEPS vbpi_train_steps from the initial state; returns
+    (metrics (steps, 2), state)."""
+    jv = JitVBPI(bench_instance(DEV, dtype), particle_count=PARTICLES, seed=0,
+                 dtype=dtype)
+    for name, key in (("q_params", "init_q_params"),
+                      ("sbn_params", "init_sbn_params")):
+        if not np.array_equal(getattr(jv.state, name).cpu().numpy(),
+                              ranks[0][key]):
+            raise AssertionError(f"the ranks started from another {name}")
+    state, metrics = jv.state, []
+    for step in range(DIST_STEPS):
+        ints = tuple(np.concatenate([r[k][step] for r in ranks])
+                     for k in ("post_children", "branch_rep", "reps",
+                               "touched"))
+        eps = np.concatenate([r["eps"][step] for r in ranks])
+        state, m = vbpi_train_step(
+            state, jv.statics, jv.optimizer, *jv._device_put(ints, eps), 1.0,
+            jv.tips, jv.weights, jv.segment_ids)
+        metrics.append([float(m["mean_ll"]), float(m["elbo_like"])])
+    return np.array(metrics), state
+
+
+def check_ranks(tag, ranks, dtype):
+    """The ranks' replicated state bit-identical, each rank's K1 launched
+    once a step and no twin called, and the state within DIST_F32_TOL of
+    one process fed their samples; returns the ranks' K1 launches."""
+    for key in ("q_params", "sbn_params", "adam_q_mu", "adam_sbn_nu",
+                "metrics"):
+        if not all(np.array_equal(r[key], ranks[0][key]) for r in ranks):
+            raise AssertionError(f"{tag}: {key} differs between the ranks")
+    sums = [float(np.sum(r["sbn_params"], dtype=np.float64)) for r in ranks]
+    print(f"  ok  {tag}: {len(ranks)} ranks ({ranks[0]['backend']}, "
+          f"{ranks[0]['device']}) bit-identical; sbn_params checksums {sums}")
+    k1 = 0
+    for r in ranks:
+        launches, twins = json.loads(str(r["launches"])), json.loads(
+            str(r["twin_calls"]))
+        if launches["ll_grad_jc69"] != DIST_STEPS or any(twins.values()):
+            raise AssertionError(f"{tag}: rank launches {launches}, twin "
+                                 f"calls {twins}")
+        k1 += launches["ll_grad_jc69"]
+    metrics, state = replay_ranks(ranks, dtype)
+    close(f"{tag}: metrics vs one process on the ranks' samples",
+          ranks[0]["metrics"], metrics, DIST_F32_TOL["metrics"])
+    for name in ("q_params", "sbn_params"):
+        close(f"{tag}: {name} vs one process on the ranks' samples",
+              ranks[0][name], getattr(state, name).cpu(),
+              DIST_F32_TOL["params"])
+    return k1
+
+
+def gp_sp_fit(dtype, sp):
+    """run_branch_ascent(1e-2, 10) on fluA, from the default lengths:
+    unsharded (sp = 0) or over sp shards of the card; (marginal, sweeps)."""
+    inst = GPInstance()
+    inst.read_fasta_file(f"{DATA}/fluA.fa")
+    inst.read_newick_file(f"{DATA}/fluA.tree")
+    if sp:
+        inst.make_engine(dtype=dtype, mesh=make_mesh(
+            sp, dp=1, sp=sp, devices=[DEV] * sp))
+    else:
+        inst.make_engine(dtype=dtype, device=DEV)
+    return inst.get_engine().run_branch_ascent(1e-2, 10)
+
+
+def bitwise_or_close(name, got, want, tol):
+    """Bit for bit, or else within tol with the largest difference printed
+    (the per-tile partial sums of K1 and K4, torch.sum over a tile axis,
+    may reduce in another order for another batch shape); returns the max
+    abs error."""
+    got, want = got.cpu(), want.cpu()
+    if torch.equal(got, want):
+        print(f"  ok  {name}: equal bit for bit")
+        return 0.0
+    err = close(name, got, want, tol)
+    print(f"      (not bit for bit: largest difference {err:.3e})")
+    return err
+
+
+def headline_schedule():
+    """The up-pass arrays of load_ds1's 512-tree batch, for the native
+    baseline: (up_node, up_parent, up_sibs, leaf count)."""
+    tops, _, _ = newick.parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
+    sched = schedule.schedules_of_topologies(tops)
+    reps = B // len(tops) + 1
+    return (tuple(np.tile(a, (reps,) + (1,) * (a.ndim - 1))[:B]
+                  for a in (sched.up_node, sched.up_parent, sched.up_sibs))
+            + (sched.leaf_count,))
+
+
+def baseline_evals_per_s(args):
+    """bench.py's native_baseline_ll_grad (bench.py:222-240): evals/s of
+    the f32 baseline on all cores, the best of four 1-second loops after a
+    warm-up."""
+    def run():
+        return cpu_baseline.eval_batch(*args, threads=0, dtype_bits=32)
+    run()
+    best = 0.0
+    for _ in range(4):
+        t0, iters = time.time(), 0
+        while time.time() - t0 < 1.0:
+            run()
+            iters += 1
+        best = max(best, B * iters / (time.time() - t0))
+    return best
+
+
+def trace_one_k1():
+    """device_trace around one K1 launch on the headline batch (f32): the
+    trace's file name, the kernel names in it that contain
+    jc69_ll_grad_kernel, and whether it holds the annotated span."""
+    d = load_ds1(torch.float32)
+    args = (d["pc"], pruning_jc.exp_factors(
+        d["bl"], torch.ones(1, device=DEV), torch.float32),
+        torch.ones(1, device=DEV), torch.ones(1, device=DEV), d["tips"],
+        d["w"])
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.device_trace(logdir):
+            with profiling.annotate("K1 launch"):
+                pruning_jc.ll_grad_jc69_cuda(*args, root_id=d["root_id"])
+        (trace,) = os.listdir(logdir)
+        with open(os.path.join(logdir, trace)) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    return (trace, sorted({n for n in names if "jc69_ll_grad_kernel" in n}),
+            "K1 launch" in names)
+
+
+def host_cpu():
+    with open("/proc/cpuinfo") as f:
+        model = next((line.split(":", 1)[1].strip() for line in f
+                      if line.startswith("model name")), "unknown")
+    return f"{model}, {os.cpu_count()} logical cores"
+
+
+def phase_parallel(smi):
+    """[13] the parallel layer and the helpers on the one card; returns the
+    launch counts of its path (the sharded K1 and K4 wrappers, the ranks'
+    K1 launches and the GP fits on sp meshes)."""
+    print("[13] parallel layer and helpers: dp wrappers over [cuda:0, "
+          "cuda:0], distributed VBPI, GP on an sp mesh, profiling and the "
+          "CPU baseline")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="lsbn_ranks_")
+    extra = ["--trees", f"{DATA}/DS1.subsampled_10.t", "--fasta",
+             f"{DATA}/DS1.fasta", "--particles", str(PARTICLES), "--steps",
+             str(DIST_STEPS), "--dtype", "float32"]
+    print("  two ranks on one card take gloo: NCCL refuses two ranks on one "
+          "GPU; the one-rank job takes nccl")
+    jobs = {"gloo x 2": spawn_ranks(tmp, "gloo", 2, "gloo", extra),
+            "nccl x 1": spawn_ranks(tmp, "nccl", 1, "nccl", extra)}
+    # The trace runs in a process of its own: in this one, torch.profiler
+    # has recorded the earlier phases, and a later small trace sometimes
+    # lacks some or all of its device events (seen after [12]'s sessions).
+    tracer = subprocess.Popen(
+        [sys.executable, "-c", "import json, chip_smoke; "
+         "print(json.dumps(chip_smoke.trace_one_k1()))"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    mesh = make_mesh(2, dp=2, devices=[DEV, DEV])
+    d32, d64 = load_ds1(torch.float32), load_ds1(torch.float64)
+    for d in (d32, d64):
+        d["bl"][:, d["root_id"]:] = 0.0  # the root and ones slots
+    dg = load_ds1_100(torch.float32)
+    P, Qs, freqs, props = generic_inputs(
+        dg, torch.float32, "weibull+4",
+        rates6=substitution.DEFAULT_GTR_RATES.tolist(),
+        freqs=substitution.DEFAULT_FREQS.tolist(), shape=BENCH_SHAPE)
+    a4 = (dg["pc"], P, Qs, dg["tips"], freqs, props, dg["w"])
+
+    def k1(d, m=None):
+        args = (d["pc"], d["bl"], d["tips"], d["w"])
+        if m is None:
+            return pruning_jc.log_likelihood_and_branch_gradient_jc69(
+                *args, root_id=d["root_id"])
+        return pruning_jc.log_likelihood_and_branch_gradient_jc69_sharded(
+            m, *args, root_id=d["root_id"])
+
+    def k4(m=None):
+        if m is None:
+            return pruning_generic.log_likelihood_and_branch_gradient_generic(
+                *a4, root_id=dg["root_id"])
+        return pruning_generic.log_likelihood_and_branch_gradient_generic_sharded(
+            m, *a4, root_id=dg["root_id"])
+
+    # The path: the dp wrappers and the GP fits on sp meshes.
+    reset_counters()
+    got = {"K1 f32": k1(d32, mesh), "K1 f64": k1(d64, mesh), "K4 f32": k4(mesh)}
+    fits = {(dt, sp): gp_sp_fit(dt, sp) for dt in (torch.float64,
+                                                    torch.float32)
+            for sp in (2, 4)}
+    launches = launch_counts("parallel path", ["ll_grad_jc69",
+                                               "ll_grad_generic",
+                                               "populate_plvs",
+                                               "golden_sweep"])
+    launches = dict(launches)
+
+    # Then each against its unsharded counterpart.
+    for (tag, (ll, g)), want in zip(got.items(), (k1(d32), k1(d64), k4())):
+        tol = TWIN_TOL[ll.dtype]
+        bitwise_or_close(f"{tag} dp = 2 vs dp = 1, LLs", ll, want[0],
+                         tol["ll"])
+        bitwise_or_close(f"{tag} dp = 2 vs dp = 1, gradients", g, want[1],
+                         tol["grad"])
+    for dt in (torch.float64, torch.float32):
+        want, sweeps = gp_sp_fit(dt, 0)
+        for sp in (2, 4):
+            m, s = fits[(dt, sp)]
+            close(f"GP fluA {str(dt)[6:]} sp = {sp} ({sweeps} / {s} sweeps) "
+                  "vs the unsharded kernel route", m, want,
+                  (0.0, GP_FLUA_TOL[dt]))
+
+    # Helpers: a trace of one K1 launch, PhaseTimer, the CPU baseline.
+    try:
+        out, err = tracer.communicate(timeout=RANK_TIMEOUT_S)
+    finally:
+        tracer.kill()
+        tracer.wait()
+    if tracer.returncode != 0:
+        raise AssertionError(f"the trace process failed:\n{err[-3000:]}")
+    trace, kernel_names, span = json.loads(out.strip().splitlines()[-1])
+    if not kernel_names or not span:
+        raise AssertionError(f"the trace {trace} names no jc69_ll_grad_kernel "
+                             "or lacks the annotated span")
+    print(f"  ok  device_trace (a process of its own): {trace} names "
+          f"{kernel_names[0][:60]} and the annotated span")
+    k1_args = (d32["pc"], pruning_jc.exp_factors(
+        d32["bl"], torch.ones(1, device=DEV), torch.float32),
+        torch.ones(1, device=DEV), torch.ones(1, device=DEV), d32["tips"],
+        d32["w"])
+    timer = profiling.PhaseTimer(sync=True)
+    for _ in range(20):
+        timer.time_fn(f"K1 f32 B = {B}", pruning_jc.ll_grad_jc69_cuda,
+                      *k1_args, root_id=d32["root_id"])
+    print(f"  PhaseTimer(sync=True): {timer.report()} (host clock, "
+          "synchronised, launch included)")
+    up = headline_schedule()
+    base_args = (d64["pc"].cpu().numpy(), *up[:3],
+                 d64["bl"].cpu().numpy(), d64["tips"].cpu().numpy(),
+                 d64["w"].cpu().numpy(), up[3])
+    b_ll, b_g = cpu_baseline.eval_batch(*base_args, threads=0, dtype_bits=64)
+    ll64, g64 = got["K1 f64"]
+    r = d64["root_id"]
+    rel_ll = float(np.max(np.abs(b_ll - ll64.cpu().numpy())
+                          / np.abs(ll64.cpu().numpy())))
+    g64 = g64.cpu().numpy()
+    rel_g = float(np.max(np.abs(b_g[:, :r] - g64)) / np.max(np.abs(g64)))
+    if max(rel_ll, rel_g) > BASELINE_REL:
+        raise AssertionError(f"the CPU baseline vs the card's f64 K1: LLs "
+                             f"{rel_ll:.3e}, gradients {rel_g:.3e}")
+    print(f"  ok  CPU baseline (dtype_bits=64) vs the card's f64 K1, B = {B}: "
+          f"LLs {rel_ll:.3e} per tree, gradients {rel_g:.3e} of the largest "
+          f"|g| (rel {BASELINE_REL})")
+
+    # The distributed jobs, started first, ran beside the checks above.
+    for tag, job in jobs.items():
+        ranks = collect_ranks(tag, *job)
+        launches["ll_grad_jc69"] += check_ranks(tag, ranks, torch.float32)
+
+    # Timings, after the ranks have left the card.
+    cpu_rate = baseline_evals_per_s(base_args)
+    print(f"  timings ({smi}; host {host_cpu()}):")
+    dp1 = {}
+    for tag, one, two in ((f"K1 f32 B = {B}", lambda: k1(d32),
+                           lambda: k1(d32, mesh)),
+                          ("K4 config 2 f32", k4, lambda: k4(mesh))):
+        t1a, t2a = time_ms(one), time_ms(two)
+        t2b, t1b = time_ms(two), time_ms(one)
+        dp1[tag] = min(t1a, t1b)
+        print(f"    {tag}: dp = 1 {t1a:.4f} / {t1b:.4f} ms, dp = 2 on the "
+              f"one card {t2a:.4f} / {t2b:.4f} ms: the cost of the split "
+              "(two launches of half the trees on one card), not scaling")
+    card_rate = B / dp1[f"K1 f32 B = {B}"] * 1e3
+    print(f"    headline denominator: the native CPU baseline (f32, all "
+          f"cores, bench.py's loop) {cpu_rate:.1f} evals/s; the card's K1 "
+          f"wrapper (f32, dp = 1) {card_rate:.1f} evals/s, "
+          f"{card_rate / cpu_rate:.1f}x")
+    print(f"[13] took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -2709,6 +3064,7 @@ def main():
     rooted_launches, rooted_errs = phase_rooted_path()
     vip_launches, vip_errs, vip_k2 = phase_vip(smi)
     phase_forest(smi)
+    runs.append(phase_parallel(smi))
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
     # K1's rooted launches stand in its second entry below and K2's vip
     # launches in its second; every other kernel's entry counts every path.

@@ -26,11 +26,26 @@ broadcasts either log-scale form. State follows the JAX package:
 ``branch_lengths`` and ``q`` are numpy attributes that callers may assign;
 the PLVs stay tensors on the engine's device.
 
+A mesh with an "sp" axis (``mesh=``, parallel/sharding.py) splits the
+pattern axis over its sp devices: each shard is an engine over its own
+patterns, resident on its device, padded to equal widths with copies of
+the last pattern at weight 0 (as the streamed ascent pads). Population is
+independent per pattern, so each shard populates on its own (K7 a shard
+on the kernel route); the marginal is the sum of the shards' marginals,
+and a sweep gathers the shards' per-edge rows A and B (E x S, far smaller
+than the PLVs) onto the first device and sweeps there once (K8 on the
+kernel route). ``run_branch_ascent`` and ``populate_plvs`` run on the
+shards; the PLVs they leave in ``plvs`` are the shards' gathered onto the
+first device with per-(node, pattern) log-scales, for the calls that read
+them (likelihood rows, hybrid marginals, single-edge derivatives), and the
+streamed ascent runs on the first device.
+
 Substitution model: JC69, matching gp_engine.hpp:144-155.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import tempfile
 from typing import Dict
@@ -40,15 +55,13 @@ import torch
 
 from ..core.site_pattern import SitePattern
 from ..ops import substitution
+from ..parallel.sharding import check_mesh, pad_to_multiple, pattern_sharding
 from ..utils.device import DEFAULT_DEVICE, compute_device
 from . import engine_kernels
 from .engine_kernels import MAX_LOG_BL, MIN_LOG_BL
 
 DEFAULT_BRANCH_LENGTH = 0.1
 NEWTON_ITERS = 64  # cap on the Newton-bisection iterations of one sweep
-MESH_TODO = (
-    "mesh= is not ported yet (ROADMAP queue 1, item 11: torch.distributed)"
-)
 
 
 def _jc69_evolve(bl, v):
@@ -91,8 +104,10 @@ class GPEngine:
         use_kernels="auto",
         mesh=None,
     ):
+        """mesh: a parallel.sharding.Mesh whose devices take the place of
+        ``device``; its sp axis splits the patterns (module docstring)."""
         if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
+            device = check_mesh(mesh).first_device
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
         device = compute_device(device)
@@ -132,17 +147,43 @@ class GPEngine:
         self.e_rot = np.asarray([e[2] for e in edges], dtype=bool)
         self.e_gpcsp = np.asarray([e[3] for e in edges], dtype=np.int32)
         self.plvs: Dict[str, torch.Tensor] = {}
+        self._upload(device, self.tips, self.weights)
+        self._shards = [self]
+        sp = 1 if mesh is None else mesh.shape["sp"]
+        if sp > 1:
+            tips, _ = pad_to_multiple(self.tips, sp, axis=-1)
+            w = np.concatenate([self.weights,
+                                np.zeros(tips.shape[-1] - self.patterns)])
+            sharding = pattern_sharding(mesh)
+            self._shards = [
+                self._shard(d, t, x) for d, t, x in zip(
+                    sharding.devices, sharding.split(tips),
+                    sharding.split(w))]
+
+    def _upload(self, device, tips, weights):
+        """The engine's tensors on ``device``: tips (L, 4, S) and weights
+        (S,) in the working dtype, and the DAG's index tensors."""
 
         def t(a, dt=torch.long):
-            return torch.as_tensor(np.asarray(a), device=device).to(dt)
+            return torch.as_tensor(a, device=device).to(dt)
 
-        self._tips = t(self.tips, dtype)
-        self._w = t(self.weights, dtype)
+        self.device = device
+        self._tips = t(tips, self.dtype)
+        self._w = t(weights, self.dtype)
         self._pa, self._ch = t(self.e_parent), t(self.e_child)
         self._rot, self._g = t(self.e_rot, torch.bool), t(self.e_gpcsp)
         self._ri, self._rg = t(self.root_ids), t(self.root_gpcsps)
         self._build_level_tensors()
         self._streams = None  # K7's edge streams, built at first use
+
+    def _shard(self, device, tips, weights):
+        """A shallow copy of this engine over one pattern shard, its
+        tensors on ``device``."""
+        shard = copy.copy(self)
+        shard.patterns = tips.shape[-1]
+        shard._upload(device, tips, weights)
+        shard._shards = [shard]
+        return shard
 
     # -- PLV population ------------------------------------------------------
     def _build_level_tensors(self):
@@ -249,9 +290,57 @@ class GPEngine:
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a), device=self.device).to(self.dtype)
 
+    # -- pattern shards (a mesh's sp axis; one shard, the engine, otherwise) --
+    def _populate_shards(self, bl, q):
+        """Each shard's PLV dict at bl and q (tensors on the first device),
+        populated on the shard's device."""
+        return [s._populate(bl.to(s.device), q.to(s.device))
+                for s in self._shards]
+
+    def _marginal_of_shards(self, plvs, q):
+        """The marginal (a 0-dim tensor on the first device) of the shards'
+        PLVs: their marginals added in shard order."""
+        total = None
+        for s, p in zip(self._shards, plvs):
+            m = s._marginal_of_plvs(p, q.to(s.device)).to(self.device)
+            total = m if total is None else total + m
+        return total
+
+    def _sweep_shards(self, plvs, bl):
+        """New branch lengths from one sweep against the shards' frozen
+        PLVs: their rows A and B gathered onto the first device without the
+        padding (weight 0, so it adds nothing to a sweep's sums, and the
+        sweep then sums the unsharded sweep's terms in its order), one
+        sweep there."""
+        rows = [engine_kernels.sweep_stats(p, s._pa, s._ch, s._rot)
+                for s, p in zip(self._shards, plvs)]
+        if len(rows) == 1:
+            A, B = rows[0]
+        else:
+            A, B = (torch.cat([r[i].to(self.device) for r in rows],
+                              dim=-1)[:, :self.patterns] for i in (0, 1))
+        return self._sweep_rows(A, B, self._w, bl)
+
+    def _gathered(self, plvs):
+        """The shards' PLV dicts as one on the first device, without the
+        padding: log-scales per (node, pattern), the level route's per-node
+        ones broadcast over their shard's patterns."""
+        if len(plvs) == 1:
+            return plvs[0]
+        out = {}
+        for key in plvs[0]:
+            parts = []
+            for s, p in zip(self._shards, plvs):
+                x = p[key]
+                if x.dim() == 1:
+                    x = x[:, None].expand(-1, s.patterns)
+                parts.append(x.to(self.device))
+            out[key] = torch.cat(parts, dim=-1)[..., :self.patterns]
+        return out
+
     def populate_plvs(self):
-        plvs = self._populate(self._tensor(self.branch_lengths),
-                              self._tensor(self.q))
+        plvs = self._gathered(self._populate_shards(
+            self._tensor(self.branch_lengths), self._tensor(self.q)))
         self.plvs = plvs
         # PLV sanitization (the reference asserts finiteness per op,
         # gp_engine.cpp:298-300): one device-side check, one scalar read.
@@ -537,21 +626,21 @@ class GPEngine:
         q = self._tensor(self.q)
         floor = 1e-300 if dt == torch.float64 else 1e-30
         bl = self._tensor(self.branch_lengths)
-        plvs = self._populate(bl, q)
-        cur = self._marginal_of_plvs(plvs, q)
+        plvs = self._populate_shards(bl, q)
+        cur = self._marginal_of_shards(plvs, q)
         sweeps, done = 0, False
         while sweeps < max_iter and not done:
-            proposed = self._sweep(plvs, bl)
+            proposed = self._sweep_shards(plvs, bl)
             log_prev = torch.log(torch.clamp_min(bl, floor))
             log_prop = torch.log(torch.clamp_min(proposed, floor))
             alpha, trial = 1.0, proposed
-            plvs_t = self._populate(trial, q)
-            m = self._marginal_of_plvs(plvs_t, q)
+            plvs_t = self._populate_shards(trial, q)
+            m = self._marginal_of_shards(plvs_t, q)
             while bool(m < cur) and alpha > 1.0 / 64:
                 alpha /= 2
                 trial = torch.exp((1 - alpha) * log_prev + alpha * log_prop)
-                plvs_t = self._populate(trial, q)
-                m = self._marginal_of_plvs(plvs_t, q)
+                plvs_t = self._populate_shards(trial, q)
+                m = self._marginal_of_shards(plvs_t, q)
             improved = bool(m >= cur)
             done = (not improved) or bool(
                 torch.abs(m - cur) < tol + rtol * torch.abs(cur))
@@ -559,7 +648,7 @@ class GPEngine:
                 bl, plvs, cur = trial, plvs_t, m
             sweeps += 1
         self.branch_lengths = bl.cpu().numpy()
-        self.plvs = plvs
+        self.plvs = self._gathered(plvs)
         # `done` tells tolerance-met from cap-hit: sweeps == max_iter alone
         # cannot (a fit can converge on exactly the last sweep).
         self.last_ascent_converged = done or sweeps < max_iter
@@ -570,21 +659,26 @@ class GPEngine:
     def _sweep(self, plvs, bl):
         """New branch lengths (E_total,) from one sweep over all edges
         against frozen PLVs, by the engine's route."""
-        if self.use_kernels:
-            return self._golden_sweep(plvs, bl)
-        return self._newton_sweep(plvs, bl)
-
-    def _golden_sweep(self, plvs, bl):
-        """The kernel route's sweep: K8's golden-section search per edge."""
         A, B = engine_kernels.sweep_stats(plvs, self._pa, self._ch, self._rot)
+        return self._sweep_rows(A, B, self._w, bl)
+
+    def _sweep_rows(self, A, B, w, bl):
+        """One sweep by the engine's route from the per-edge rows A and B
+        (E, S) under pattern weights w (S,)."""
+        if self.use_kernels:
+            return self._golden_sweep(A, B, w, bl)
+        return self._newton_sweep(A, B, w, bl)
+
+    def _golden_sweep(self, A, B, w, bl):
+        """The kernel route's sweep: K8's golden-section search per edge."""
         new_log = engine_kernels.golden_sweep(
-            A.contiguous(), B.contiguous(), self._w,
+            A.contiguous(), B.contiguous(), w,
             torch.log(bl[self._g]).contiguous())
         out = bl.clone()
         out[self._g] = torch.exp(new_log)
         return out
 
-    def _newton_sweep(self, plvs, bl):
+    def _newton_sweep(self, A, Bc, w, bl):
         """The level route's sweep: one vectorized derivative-driven sweep
         over all edges.
 
@@ -600,8 +694,6 @@ class GPEngine:
         stopped do not move, so ending the loop when none is active gives
         the same u as running all NEWTON_ITERS iterations."""
         g = self._g
-        A, Bc = engine_kernels.sweep_stats(plvs, self._pa, self._ch, self._rot)
-        w = self._w
         dt = bl.dtype
         c_jc = 4.0 / 3.0
 

@@ -66,7 +66,11 @@ class GPInstance:
         use_kernels: "auto" takes the kernel route (K7 populate, K8 golden
         sweep) on a CUDA device and the level route (torch ops, Newton
         sweep) on the CPU; True or False chooses (True on the CPU runs the
-        kernels' twins). mesh= raises (ROADMAP item 11)."""
+        kernels' twins). mesh: a parallel.sharding.Mesh whose devices take
+        the place of ``device``; an "sp" axis of more than one device
+        splits the site patterns over them (gp/engine.py). Under a global
+        mesh (parallel.distributed.global_mesh) every rank fits on its own
+        sp devices, so the ranks hold the same fit."""
         if self.alignment is None or self.tree_collection is None:
             raise RuntimeError("Please load both fasta and newick files.")
         site_pattern = SitePattern(

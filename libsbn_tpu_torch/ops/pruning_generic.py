@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.sharding import Sharding, map_shards
 from . import _kernels
 from .pruning import per_tree
 from .pruning_jc import MAX_TILES, SHARED_LIMIT
@@ -68,6 +69,23 @@ def log_likelihood_and_branch_gradient_generic(
     ll, grad = fn(post_children, P, Q_scaled, tips, freqs, props, weights,
                   root_id=root_id)
     return ll, grad[:, :root_id]
+
+
+def log_likelihood_and_branch_gradient_generic_sharded(
+    mesh, post_children, P, Q_scaled, tips, freqs, props, weights, *,
+    root_id, axis="dp",
+):
+    """K4 over a mesh: the tree batch (post_children and P) split over mesh
+    axis ``axis``, each shard on its device through
+    log_likelihood_and_branch_gradient_generic (the kernel on a card, the
+    twin on the CPU), Q_scaled, tips, freqs, props and weights replicated;
+    returns (ll (B,), grad (B, root_id)) on the mesh's first device in
+    tree order. Each tree is independent, so the split does not change a
+    tree's result."""
+    return map_shards(
+        Sharding(mesh, 0, axis), log_likelihood_and_branch_gradient_generic,
+        (post_children, P), (Q_scaled, tips, freqs, props, weights),
+        root_id=root_id)
 
 
 # -- plain PyTorch twins ------------------------------------------------------

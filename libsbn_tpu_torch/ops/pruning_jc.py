@@ -47,6 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.sharding import Sharding, map_shards
 from . import _kernels
 
 # Launch counts of the CUDA kernels and call counts of their twins, so a run
@@ -124,6 +125,22 @@ def log_likelihood_and_branch_gradient_jc69(
     ll, grad = fn(post_children, ea, rates, props, tips, weights,
                   root_id=root_id)
     return ll, grad[:, :root_id]
+
+
+def log_likelihood_and_branch_gradient_jc69_sharded(
+    mesh, post_children, bl_padded, tips, weights, *, root_id, rates=None,
+    props=None, axis="dp",
+):
+    """K1 over a mesh: the tree batch split over mesh axis ``axis``, each
+    shard on its device through log_likelihood_and_branch_gradient_jc69
+    (the kernel on a card, the twin on the CPU), the model constants
+    replicated; returns (ll (B,), grad (B, root_id)) on the mesh's first
+    device in tree order. Each tree is independent, so the split does not
+    change a tree's result."""
+    return map_shards(
+        Sharding(mesh, 0, axis), log_likelihood_and_branch_gradient_jc69,
+        (post_children, bl_padded), (tips, weights), root_id=root_id,
+        rates=rates, props=props)
 
 
 class _LogLikelihoodsJC69(torch.autograd.Function):

@@ -142,12 +142,17 @@ def topology_gradients(
     touched,
     log_f,
     use_vimco: bool = True,
+    rows=None,
 ):
     """Σ_j factor_j ∇_φ log q(τ_j) over particles (TopologyGradients).
 
     sbn_parameters: (G,) unnormalized log params; segment_ids: (G,);
     reps: (T, E, R) integer; touched: (T, E, Sm) integer (dummy segment =
-    num_segments); log_f: (T,). All on one device. Returns (G,)."""
+    num_segments); log_f: (T,). All on one device. Returns (G,).
+    rows: a slice of log_f's particles that reps and touched hold (by
+    default all of them): the factors, which need every particle's log f,
+    are taken over log_f and the sum over the rows' particles alone, so
+    that a rank of a distributed step gives its share of the sum."""
     segment_ids = segment_ids.long()
     reps = reps.long()
     normalized = probability_normalize_in_log(
@@ -160,6 +165,8 @@ def topology_gradients(
         if use_vimco
         else multiplicative_factors(log_f)
     )
+    if rows is not None:
+        factors = factors[rows]
     # Weight per rooting: factor_j * P_ρ / q_j.
     w = factors[:, None] * torch.exp(log_rho - log_q[:, None])  # (T, E)
     return _weighted_scatters(sbn_parameters, normalized, reps,

@@ -18,7 +18,11 @@ default) and PSP (three summed component variables per branch, ICLR 2019),
 selected with ``branch_model=``: both run the same step with C = 1 or 3
 component rows in branch_rep.
 
-Not on this slice: a device mesh (``mesh=``, ROADMAP queue 1, item 11).
+A mesh (``mesh=``, parallel/sharding.py) splits the particle axis: over
+the dp devices of a local mesh through K1's sharded wrapper, and over the
+ranks of a torch.distributed job with a global mesh
+(parallel/distributed.py), where the step makes explicit the collectives
+that XLA inserts into the JAX package's step.
 """
 
 from __future__ import annotations
@@ -33,14 +37,13 @@ from ..core.topology import Topology
 from ..io import native
 from ..ops import pruning, pruning_jc, substitution
 from ..ops import schedule as schedule_ops
+from ..parallel import distributed
+from ..parallel.sharding import check_mesh
 from ..sbn import gradients as sbn_gradients
 from ..sbn import probability as sbn_probability
 from ..sbn.sampling import NativeSBNSampler
 
 PRIOR_RATE = 10.0
-MESH_TODO = (
-    "mesh= is not ported yet (ROADMAP queue 1, item 11: torch.distributed)"
-)
 
 
 class AdamState(NamedTuple):
@@ -182,8 +185,17 @@ def vbpi_train_step(
     tips,  # (L, 4, patterns)
     weights,  # (patterns,)
     segment_ids,  # (G,) int64
+    mesh=None,
 ):
-    """One full VBPI gradient step. Returns (new_state, metrics)."""
+    """One full VBPI gradient step. Returns (new_state, metrics).
+
+    mesh: None for one device. A Mesh splits the particles over its dp
+    devices through K1's sharded wrapper (the unrescaled scan engine runs
+    on the first device). A distributed mesh (distributed.global_mesh)
+    holds this rank's particles: the step gathers every rank's LLs and
+    log f, which the VIMCO baselines and the metrics need, and all-reduces
+    the scalar and SBN gradient sums, so every rank takes the same update:
+    the psums that XLA inserts into the JAX package's step."""
     q_params, sbn_params, opt_state = state
     P_count, C, B = branch_rep.shape
 
@@ -194,9 +206,14 @@ def vbpi_train_step(
     # or the unrescaled scan engine).
     if statics.rescale:
         bl_padded = torch.nn.functional.pad(theta, (0, 2))  # root + ones slots
-        lls, bgrads = pruning_jc.log_likelihood_and_branch_gradient_jc69(
-            post_children, bl_padded, tips, weights, root_id=statics.root_id,
-        )
+        args = (post_children, bl_padded, tips, weights)
+        if mesh is None:
+            lls, bgrads = pruning_jc.log_likelihood_and_branch_gradient_jc69(
+                *args, root_id=statics.root_id)
+        else:
+            lls, bgrads = (
+                pruning_jc.log_likelihood_and_branch_gradient_jc69_sharded(
+                    mesh, *args, root_id=statics.root_id))
     else:
         P, Qs, freqs, props = _scan_inputs(theta)
         lls, bgrads = pruning.log_likelihood_and_branch_gradient(
@@ -224,11 +241,23 @@ def vbpi_train_step(
         sbn_params, segment_ids, statics.num_segments, reps, mu, sigma, theta
     )
 
-    # 5. VIMCO topology gradient.
+    # Across ranks: every particle's LL and log f, in rank order.
+    rows = None
+    if mesh is not None and mesh.distributed:
+        both = distributed.gather_rows(torch.stack([lls, log_f], dim=1), mesh)
+        lls, log_f = both[:, 0], both[:, 1]
+        rows = slice(mesh.rank * P_count, (mesh.rank + 1) * P_count)
+
+    # 5. VIMCO topology gradient (over this rank's particles).
     sbn_grad = sbn_gradients.topology_gradients(
         sbn_params, segment_ids, statics.num_segments, reps, touched, log_f,
-        use_vimco=statics.use_vimco,
+        use_vimco=statics.use_vimco, rows=rows,
     )
+    if rows is not None:
+        flat = distributed.all_reduce_sum(
+            torch.cat([scalar_grad.reshape(-1), sbn_grad]), mesh)
+        scalar_grad = flat[:2 * V].reshape(V, 2)
+        sbn_grad = flat[2 * V:]
 
     # 6. Ascent step (Adam descends, so negate).
     (q_params, sbn_params), opt_state = optimizer.update(
@@ -263,18 +292,29 @@ def vbpi_log_f(state: VBPIState, statics: VBPIStatics, post_children,
 
 class JitVBPI:
     """Host driver around vbpi_train_step for an UnrootedInstance with a
-    split-lognormal or PSP branch model, on one device.
+    split-lognormal or PSP branch model.
 
     device: where the step runs; the engine's device unless the caller names
-    another. dtype: float64 unless the caller names float32. Host randomness
-    is numpy's default_rng(seed + 7919 * rank) with rank 0, as in the JAX
-    package, so both sample the same topologies and normals for a seed."""
+    another. mesh: a parallel.sharding.Mesh, in place of ``device``; the
+    step's state lives on its first device. A local mesh splits each
+    step's particles over its dp devices. A global mesh
+    (parallel.distributed.global_mesh, from every rank) makes
+    particle_count the global batch: each rank samples its
+    particle_count / world_size particles and the step combines the ranks'
+    sums, so the replicated parameters stay bit-identical across ranks.
+    dtype: float64 unless the caller names float32. Host randomness is
+    numpy's default_rng(seed + 7919 * rank), as in the JAX package, so both
+    sample the same topologies and normals for a seed."""
 
     def __init__(self, inst, particle_count: int, mesh=None, use_vimco=True,
                  scalar_lr=1e-3, sbn_lr=1e-3, dtype=torch.float64, seed=0,
                  rescale=True, branch_model: str = "split", device=None):
         if mesh is not None:
-            raise NotImplementedError(MESH_TODO)
+            check_mesh(mesh)
+            if device is not None:
+                raise ValueError("pass mesh= or device=, not both: the "
+                                 "mesh's first device holds the state")
+            device = mesh.first_device
         if branch_model not in ("split", "psp"):
             raise ValueError(f"branch_model must be split or psp, got "
                              f"{branch_model!r}")
@@ -290,16 +330,23 @@ class JitVBPI:
             )
         self.inst = inst
         self.particle_count = particle_count
+        self.mesh = mesh
+        self.local_particle_count = (
+            particle_count if mesh is None
+            else distributed.local_particle_count(mesh, particle_count))
         self.device = device
         self.dtype = dtype
-        # seed + 7919 * rank in the JAX package; one process here, rank 0.
-        self.rng = np.random.default_rng(seed)
+        # Decorrelated per-rank sampling streams, as in the JAX package.
+        rank = 0 if mesh is None else mesh.rank
+        self.rng = np.random.default_rng(seed + 7919 * rank)
         self._artifact_cache = {}
         self._pending_sample = None
         self._params_copy = (None, None, None)
         # The topology sampler of the last batch: "native" (the C++ bulk
         # sampler) or "python" (sbn/sampling.py SBNSampler).
         self.last_sampler = None
+        # The host samples (ints, eps) of the last step(), this rank's.
+        self.last_batch = None
 
         segment_ids = inst.sbn_support.segment_ids()
         self.segment_ids = torch.as_tensor(segment_ids, dtype=torch.long,
@@ -450,7 +497,7 @@ class JitVBPI:
         and lower them to step inputs: (ints, eps) with ints the four int32
         arrays (post_children, branch_rep, reps, touched) stacked over
         particles and eps (P, B) standard normals."""
-        count = self.particle_count if count is None else count
+        count = self.local_particle_count if count is None else count
         artifacts = self._sample_artifacts(sbn_params_np, count)
         ints = tuple(np.stack(column) for column in zip(*artifacts))
         eps = self.rng.standard_normal((count, ints[1].shape[-1]))
@@ -515,12 +562,17 @@ class JitVBPI:
         return (post_children,) + tuple(a.long() for a in out[1:]) + (eps,)
 
     # -- steps -----------------------------------------------------------------
+    def _check_single_process(self, what):
+        if self.mesh is not None and self.mesh.distributed:
+            raise RuntimeError(f"{what} is single-process; a distributed "
+                               "mesh takes step()")
+
     def _dispatch(self, inputs, beta):
         post_children, branch_rep, reps, touched, eps = inputs
         self.state, metrics = vbpi_train_step(
             self.state, self.statics, self.optimizer, post_children,
             branch_rep, reps, touched, eps, beta, self.tips, self.weights,
-            self.segment_ids,
+            self.segment_ids, mesh=self.mesh,
         )
         self._start_params_copy()
         return metrics
@@ -530,6 +582,7 @@ class JitVBPI:
         step. Returns the metrics as 0-dim tensors on the device."""
         self._pending_sample = None  # see step_many: bound overlap staleness
         ints, eps = self._host_sample()
+        self.last_batch = (ints, eps)
         return self._dispatch(self._device_put(ints, eps), beta)
 
     def step_many(self, n_steps: int, beta=1.0):
@@ -538,7 +591,8 @@ class JitVBPI:
         JAX package's one-dispatch window is); branch sampling and every
         update use live parameters. beta may be a scalar or a (n_steps,)
         annealing schedule. Returns metrics stacked over steps, (n_steps,)
-        tensors."""
+        tensors. Single-process."""
+        self._check_single_process("step_many")
         # A batch pre-sampled by step_overlapped would be arbitrarily stale
         # by the time a later step_overlapped call consumed it; drop it so
         # staleness stays bounded at one dispatch.
@@ -560,7 +614,9 @@ class JitVBPI:
         in-flight device step (double buffering): batch t+1 is lowered on
         the host while the device runs step t, from the parameters before
         step t (one dispatch of staleness). The first call primes the
-        pipeline synchronously, so it equals step() for the same seed."""
+        pipeline synchronously, so it equals step() for the same seed.
+        Single-process."""
+        self._check_single_process("step_overlapped")
         if self._pending_sample is None:
             self._pending_sample = self._host_sample()  # pipeline fill
         ints, eps = self._pending_sample
@@ -574,14 +630,21 @@ class JitVBPI:
     # -- evaluation ------------------------------------------------------------
     def log_f_values(self, particle_count: int) -> np.ndarray:
         """(particle_count,) per-particle log f at the current parameters
-        (no update), on the host."""
-        ints, eps = self._host_sample(count=particle_count)
+        (no update), on the host. Under a distributed mesh particle_count
+        is global: each rank evaluates its share and every rank returns all
+        of them, in rank order."""
+        count = (particle_count if self.mesh is None
+                 else distributed.local_particle_count(self.mesh,
+                                                       particle_count))
+        ints, eps = self._host_sample(count=count)
         post_children, branch_rep, reps, _, eps = self._device_put(ints, eps)
         with torch.no_grad():
             logf = vbpi_log_f(
                 self.state, self.statics, post_children, branch_rep, reps,
                 eps, self.tips, self.weights, self.segment_ids,
             )
+            if self.mesh is not None:
+                logf = distributed.gather_rows(logf, self.mesh)
         return logf.cpu().numpy()
 
     def estimate_elbo(self, particle_count: int) -> float:

@@ -72,6 +72,25 @@ VIP_SURFACE = {
     "sgd_server": ["SGD_Server"],
 }
 
+# The public names of libsbn_tpu's parallel layer and its profiling and
+# CPU-baseline helpers, by module of the port (ROADMAP items 11 and 12): the
+# modules keep their libsbn_tpu paths; the two dp-sharded kernel wrappers
+# (libsbn_tpu/ops/pruning_pallas_jc.py:705, ops/pruning_pallas.py:417) sit
+# beside the port's unsharded K1 and K4 wrappers.
+PARALLEL_SURFACE = {
+    "parallel.sharding": [
+        "make_mesh", "particle_sharding", "pattern_sharding", "replicated",
+        "shard_particle_batch", "pad_to_multiple"],
+    "parallel.distributed": [
+        "initialize", "global_mesh", "local_particle_count",
+        "from_process_local"],
+    "utils.profiling": ["device_trace", "annotate", "PhaseTimer"],
+    "utils.cpu_baseline": ["eval_batch", "eval_batch_ll_pk"],
+    "ops.pruning_jc": ["log_likelihood_and_branch_gradient_jc69_sharded"],
+    "ops.pruning_generic": [
+        "log_likelihood_and_branch_gradient_generic_sharded"],
+}
+
 # ROADMAP queue 1 item -> {table: names the port still lacks}. Items 5 (the
 # instance surface and EM) and 10 (the vip layer) were the last to owe
 # names; the port now has every table whole.
@@ -95,21 +114,29 @@ def _rooted(data_dir):
     return inst
 
 
-def _missing_vip():
+def _missing_in(package, surface):
+    """The names of ``surface`` ({module: names}) that the modules under
+    ``package`` lack, as "module.name"."""
     missing = []
-    for module, names in VIP_SURFACE.items():
+    for module, names in surface.items():
         try:
-            mod = importlib.import_module(f"libsbn_tpu_torch.vi.{module}")
+            mod = importlib.import_module(f"{package}.{module}")
         except ModuleNotFoundError:
             mod = None
         missing += [f"{module}.{n}" for n in names if not hasattr(mod, n)]
     return missing
 
 
+def _missing_vip():
+    return _missing_in("libsbn_tpu_torch.vi", VIP_SURFACE)
+
+
 def _missing(table, data_dir):
     """The names of ``table`` that the port lacks, in the table's order."""
     if table == "vip":
         return _missing_vip()
+    if table == "parallel":
+        return _missing_in("libsbn_tpu_torch", PARALLEL_SURFACE)
     obj, names = {
         "module": lambda: (libsbn_tpu_torch, MODULE_NAMES),
         "generic": lambda: (_unrooted(data_dir), GENERIC_INSTANCE_NAMES),
@@ -126,7 +153,7 @@ def _missing(table, data_dir):
 
 
 TABLES = ["module", "generic", "unrooted", "rooted", "rooted_tree", "gp",
-          "psp_indexer", "vip"]
+          "psp_indexer", "vip", "parallel"]
 
 
 @pytest.mark.parametrize("table", TABLES)

@@ -1,8 +1,9 @@
 """The CUDA kernels of libsbn_tpu_torch against their plain PyTorch twins,
 the VBPI step, the GTR engine path, the GP fit (in memory and streamed),
 the rooted engine, the vip layer (the Burrito, EM, per-tree parameter rows,
-K2 at 10,000 trees) and forest mode on the card against the same on the
-CPU.
+K2 at 10,000 trees), forest mode and the parallel layer (the dp-sharded K1
+and K4 wrappers, JitVBPI on a local mesh, GP on an sp mesh, two shards of
+one card each) on the card against the same on the CPU.
 
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so that it also runs on a machine with the card and no JAX installed:
@@ -29,6 +30,7 @@ from libsbn_tpu_torch.ops import (
     forest, pruning_generic, pruning_jc, pruning_vjp, schedule, substitution,
 )
 from libsbn_tpu_torch.ops.site_model import weibull_rates
+from libsbn_tpu_torch.parallel.sharding import make_mesh
 from libsbn_tpu_torch.vi import JitVBPI
 
 torch.set_num_threads(1)
@@ -1296,3 +1298,102 @@ def test_streamed_chunks_beyond_the_plan_take_the_slab_route():
     m_level, sweeps_level = level.run_branch_ascent_streamed(
         1e-2, 3, 64, finalize=False)
     assert sweeps == sweeps_level and abs(m - m_level) < 1e-7 * abs(m_level)
+
+
+def _two_shards():
+    """A dp = 2 mesh of the one card, twice."""
+    return make_mesh(2, dp=2, devices=["cuda:0", "cuda:0"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sharded_k1_k4_match_local_on_card(dtype):
+    """The dp wrappers of K1 (DS1 x 10, then x 64) and K4 (three
+    DS1.100_topologies trees at Weibull+4) over two shards of the card: two
+    launches each, no twin, results on the card within the twin tolerance
+    of the unsharded launch (each tree is independent; the per-tile sums
+    may reduce in another order for another batch size)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    (ll_tol, g_tol) = TOL[dtype]
+    pc, ea, rates, props, tips, w, r = _inputs("ds1", dtype, 1)
+    tops, bls, _ = newick.parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
+    bl = torch.as_tensor(np.pad(np.stack(bls), ((0, 0), (0, 1)))).to(
+        dtype).cuda()
+    pc10 = torch.as_tensor(schedule.schedules_of_topologies(tops).post_children,
+                           dtype=torch.int32).cuda()
+    for reps in (1, 7):
+        pcb, blb = pc10.repeat(reps, 1, 1)[:64], bl.repeat(reps, 1)[:64]
+        pruning_jc.reset_counters()
+        got = pruning_jc.log_likelihood_and_branch_gradient_jc69_sharded(
+            _two_shards(), pcb, blb, tips, w, root_id=r)
+        torch.cuda.synchronize()
+        assert pruning_jc.LAUNCHES["ll_grad_jc69"] == 2
+        assert sum(pruning_jc.TWIN_CALLS.values()) == 0
+        want = pruning_jc.log_likelihood_and_branch_gradient_jc69(
+            pcb, blb, tips, w, root_id=r)
+        for a, b, (rtol, atol) in zip(got, want, (ll_tol, g_tol)):
+            assert a.device.type == "cuda"
+            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                       rtol=rtol, atol=atol)
+    *args, r4 = _generic_inputs("ds1", dtype, 4)
+    pruning_generic.reset_counters()
+    got = pruning_generic.log_likelihood_and_branch_gradient_generic_sharded(
+        _two_shards(), *args, root_id=r4)
+    torch.cuda.synchronize()
+    assert pruning_generic.LAUNCHES["ll_grad_generic"] == 2
+    want = pruning_generic.log_likelihood_and_branch_gradient_generic(
+        *args, root_id=r4)
+    for a, b, (rtol, atol) in zip(got, want, (ll_tol, g_tol)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_local_mesh_vbpi_on_card_matches_unsharded():
+    """Two f64 VBPI steps on DS1 with the particles over two shards of the
+    card against the unsharded trainer, as test_vbpi_step_on_card_matches_cpu
+    holds the card to the CPU; two K1 launches a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    one = JitVBPI(_ds1_instance("cuda"), particle_count=10, seed=0)
+    two = JitVBPI(_ds1_instance("cuda"), particle_count=10, seed=0,
+                  mesh=_two_shards())
+    for _ in range(2):
+        want = one.step()
+        pruning_jc.reset_counters()
+        got = two.step()
+        torch.cuda.synchronize()
+        assert pruning_jc.LAUNCHES["ll_grad_jc69"] == 2
+        for name in ("mean_ll", "elbo_like"):
+            np.testing.assert_allclose(float(got[name]), float(want[name]),
+                                       rtol=1e-9, atol=1e-10)
+        for name in ("q_params", "sbn_params"):
+            np.testing.assert_allclose(
+                getattr(two.state, name).cpu().numpy(),
+                getattr(one.state, name).cpu().numpy(), rtol=1e-9, atol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sp", [2, 4])
+def test_gp_sp_mesh_on_card(sp):
+    """fluA's 238 patterns over sp shards of the card (sp = 4 pads them to
+    240), f64 kernel route: the fit (1e-6, 100) within 1e-7 of the
+    unsharded kernel route's, K7 launched per shard and K8 once a sweep
+    on the gathered rows, no twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    want = _gp_instance("fluA", "cuda").get_engine().run_branch_ascent(
+        1e-6, 100)[0]
+    inst = GPInstance()
+    inst.read_fasta_file(f"{DATA}/fluA.fa")
+    inst.read_newick_file(f"{DATA}/fluA.tree")
+    inst.make_engine(mesh=make_mesh(sp, dp=1, sp=sp,
+                                    devices=["cuda:0"] * sp))
+    engine_kernels.reset_counters()
+    got, sweeps = inst.get_engine().run_branch_ascent(1e-6, 100)
+    torch.cuda.synchronize()
+    assert abs(got - want) < 1e-7
+    assert engine_kernels.LAUNCHES["golden_sweep"] == sweeps
+    assert engine_kernels.LAUNCHES["populate_plvs"] % sp == 0
+    assert sum(engine_kernels.TWIN_CALLS.values()) == 0

@@ -173,7 +173,8 @@ def test_newton_sweep_matches_jax(data_dir, files):
     want = np.asarray(jeng._optimize_impl(jplvs, jnp.asarray(bl)))
     plvs = engine_kernels.plvs_from_numpy(
         {k: np.asarray(v) for k, v in jplvs.items()}, "cpu", torch.float64)
-    got = eng._newton_sweep(plvs, eng._tensor(bl)).numpy()
+    A, B = engine_kernels.sweep_stats(plvs, eng._pa, eng._ch, eng._rot)
+    got = eng._newton_sweep(A, B, eng._w, eng._tensor(bl)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-12)
     assert not np.array_equal(got, bl)
 

@@ -104,11 +104,11 @@ def test_golden_sweep_twin_matches_pallas(data_dir, files, dtype):
                                             interpret=True))
     plvs = engine_kernels.plvs_from_numpy(
         {k: np.asarray(v) for k, v in jplvs.items()}, "cpu", dtype)
+    A, B = engine_kernels.sweep_stats(plvs, eng._pa, eng._ch, eng._rot)
     engine_kernels.reset_counters()
-    got = eng._golden_sweep(plvs, eng._tensor(bl))
+    got = eng._golden_sweep(A, B, eng._w, eng._tensor(bl))
     assert engine_kernels.TWIN_CALLS["golden_sweep"] == 1
     assert not np.array_equal(got.numpy(), bl.astype(npdt))
-    A, B = engine_kernels.sweep_stats(plvs, eng._pa, eng._ch, eng._rot)
     g = eng._g
     obj_gap, lb_gap, _ = engine_kernels.sweep_disagreement(
         A, B, eng._w, torch.log(got[g]), torch.log(torch.as_tensor(want)[g]))

@@ -24,6 +24,7 @@ from libsbn_tpu_torch.models.phylo_model import (
 from libsbn_tpu_torch.gp import GPInstance
 from libsbn_tpu_torch.gp.engine import GPEngine
 from libsbn_tpu_torch.models.engine import LikelihoodEngine
+from libsbn_tpu_torch.parallel.sharding import make_mesh
 from libsbn_tpu_torch.vi import JitVBPI
 
 torch.set_num_threads(1)
@@ -151,13 +152,15 @@ def _ds1(data_dir, site="constant"):
     "em",
 ])
 def test_unported_paths_raise(data_dir, path):
-    """Paths not on the port yet raise NotImplementedError naming their
-    ROADMAP item; none falls back to anything. The per-tree parameters,
+    """The paths once not on the port, each now checked where it came in;
+    none falls back to anything. The per-tree parameters,
     tree_count_option and EM came with item 5: a per-tree call whose
     parameters lack the tree axis, and a parameter matrix with fewer rows
     than trees, raise ValueError; EM runs on the device it is given. The
     streamed GP ascent came with item 9b: on hello it lands where the
-    in-memory ascent does."""
+    in-memory ascent does. mesh= came with item 11: JitVBPI and the GP
+    engine on a mesh of one device give the unsharded result bit for bit,
+    and a mesh= that is not a Mesh raises TypeError naming it."""
     if path == "per_tree":
         inst = _ds1(data_dir)
         with pytest.raises(ValueError, match="lead with the 10 trees"):
@@ -194,16 +197,33 @@ def test_unported_paths_raise(data_dir, path):
         scores = inst.train_expectation_maximization(0.0, 10, device="cpu")
         assert scores.shape == (10,) and np.all(np.diff(scores) > -1e-9)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if path == "vbpi_mesh":
+    mesh = make_mesh(devices=["cpu"])
+    if path == "vbpi_mesh":
+        runs = []
+        for kw in ({}, {"mesh": mesh}):
             inst = _ds1(data_dir)
             inst.process_loaded_trees()
+            jv = JitVBPI(inst, particle_count=4, seed=1, **kw)
+            runs.append((jv.step(), jv.state))
+        (m0, st0), (m1, st1) = runs
+        assert all(torch.equal(m0[k], m1[k]) for k in m0)
+        assert torch.equal(st0.q_params, st1.q_params)
+        assert torch.equal(st0.sbn_params, st1.sbn_params)
+        with pytest.raises(TypeError, match="mesh must be .*Mesh, got object"):
             JitVBPI(inst, particle_count=4, mesh=object())
-        else:
-            inst = GPInstance()
-            inst.read_fasta_file(f"{data_dir}/hello.fasta")
-            inst.read_newick_file(f"{data_dir}/hello_rooted.nwk")
-            inst.make_engine(mesh=object())
+        return
+    fits = []
+    for kw in ({"device": "cpu"}, {"mesh": mesh}):
+        inst = GPInstance()
+        inst.read_fasta_file(f"{data_dir}/hello.fasta")
+        inst.read_newick_file(f"{data_dir}/hello_rooted.nwk")
+        inst.make_engine(**kw)
+        eng = inst.get_engine()
+        fits.append(eng.run_branch_ascent(1e-6, 10) + (eng.branch_lengths,))
+    assert fits[0][:2] == fits[1][:2]
+    np.testing.assert_array_equal(fits[0][2], fits[1][2])
+    with pytest.raises(TypeError, match="mesh must be .*Mesh, got object"):
+        inst.make_engine(mesh=object())
 
 
 def test_cuda_device_is_the_callers_choice(data_dir):
