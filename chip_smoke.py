@@ -49,7 +49,6 @@ Phases, each of which raises on failure:
      design) on the same inputs, in turns, with the device memory one call
      adds (fails at 50 MB) and the on-chip design's shared-memory traffic;
      engine.branch_gradients and engine.log_likelihoods from host arrays;
-     the VBPI step in ms per step (host clock, synchronised);
      K4, K5 and K6 against their twins at the JAX bench's config 2 (GTR +
      Weibull+4 at shape 0.5, B = 256, float32), K4 and K5 on chip beside
      their slab routes in turns with the memory one call adds (fails at
@@ -162,12 +161,28 @@ Phases, each of which raises on failure:
      card (the cost of the split, not scaling) and the baseline's f32
      evals/s on all cores (bench.py's loop) beside the card's, with the
      host CPU.
+  14. one dispatch per VBPI window (after [13]): with the counters at 0,
+     the DS1 soak (vi/soak.py: 20,000 JitVBPI steps of config 5 at f32,
+     step_many(20) on the graph route, beta annealed over 2,000 steps),
+     which must take one CUDA graph replay a window and K1 once a step
+     (and once for the capture's warm-up), with ELBO(100) finite and the
+     IW marginal(1000) above -6790; then at f32 and f64, split and PSP:
+     a window of 20 steps replayed from a state against
+     vbpi_train_steps_packed run eagerly from it (bit for bit: every sum
+     of a step has a fixed order), a second window's mean LL a step
+     against K1's twin at the states the steps start from (so K1 ran in
+     the graph and read the new inputs), step() (the K = 1 graph) against
+     one eager step, and a checkpoint restored into the captured trainer
+     against the eager route from it; each window one replay with K1 K
+     times; then step(), step_overlapped(), step_many(16) and
+     step_many(20) by each route (host clock, in turns), and each route's
+     device time and idle share traced in a fresh process.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its paths, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the peak of their type (float64's
 for a float64 launch, float32's otherwise) and its inputs and outputs at
-the HBM rate; K1 has two entries, the first counting the unrooted, vip
-and parallel paths (the ranks' launches of [13] included), the second the
+the HBM rate; K1 has two entries, the first counting the unrooted, vip,
+parallel and soak paths (the ranks' launches of [13] included), the second the
 rooted batch and path; K2 has two,
 the first counting every path but the vip path, the second the vip path's
 launches with the B = 10,000 launch's time and bound), the card's
@@ -208,7 +223,11 @@ from libsbn_tpu_torch.ops.site_model import weibull_rates  # noqa: E402
 from libsbn_tpu_torch.parallel.sharding import make_mesh  # noqa: E402
 from libsbn_tpu_torch.utils import cpu_baseline, profiling  # noqa: E402
 from libsbn_tpu_torch.vi import Burrito, JitVBPI, benchmark, cli  # noqa: E402
-from libsbn_tpu_torch.vi.jit_step import vbpi_train_step  # noqa: E402
+from libsbn_tpu_torch.vi import checkpoint, soak, step_graph  # noqa: E402
+from libsbn_tpu_torch.vi.jit_step import (  # noqa: E402
+    AdamState, VBPIState, _branch_lengths, pack_ints, unpack_ints,
+    vbpi_train_step, vbpi_train_step_packed, vbpi_train_steps_packed,
+)
 
 # Golden numbers (the reference's unrooted_sbn_instance.hpp tests, as
 # pinned by the JAX package's tests/test_likelihood.py).
@@ -1600,32 +1619,6 @@ def k6_onchip_vs_slab(d, a5, b_ms):
         lambda: pruning_vjp._ll_dp_generic_slab(
             lib, dims, pc, P, tips, (freqs, 0), (props, 0), w),
         b_ms, 128, f"Weibull+{K}")
-
-
-def time_vbpi(smi, steps=20):
-    """ms per VBPI step at the bench's configuration (host clock around
-    synchronised runs, after a warm-up)."""
-    print(f"  VBPI at P = {PARTICLES}, float32, DS1 ({smi}):")
-    jv = JitVBPI(bench_instance(DEV, torch.float32),
-                 particle_count=PARTICLES, seed=0, dtype=torch.float32)
-    runs = {
-        "step()": lambda: [jv.step() for _ in range(steps)],
-        "step_overlapped()": lambda: [jv.step_overlapped()
-                                      for _ in range(steps)],
-        "step_many(16)": lambda: [jv.step_many(16)
-                                  for _ in range(steps // 16 + 1)],
-    }
-    out = {}
-    for name, run in runs.items():
-        run()  # warm-up (and the topology cache)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n = len(run())
-        torch.cuda.synchronize()
-        per = 16 if name == "step_many(16)" else 1
-        out[name] = (time.perf_counter() - t0) * 1e3 / (n * per)
-        print(f"    {name}: {out[name]:.3f} ms per step")
-    return out
 
 
 def gp_instance(fasta, newick_file, dtype, use_kernels="auto"):
@@ -3052,6 +3045,250 @@ def phase_parallel(smi):
     print(f"[13] took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
+# [14] one dispatch per VBPI window and the soak.
+WINDOW = soak.WINDOW  # steps a window: the soak's step_many(20)
+GRAPH_CASES = [(dt, bm) for dt in (torch.float32, torch.float64)
+               for bm in ("split", "psp")]
+# The graph route against the eager route (vbpi_train_steps_packed) on the
+# same window from the same state: bit for bit. Both run the same kernels,
+# and every sum of a step has a fixed order (K1's tiles, torch's
+# reductions, fixed_order_scatter_add), so nothing may differ. A replayed
+# window's mean LL a step against K1's twin: TWIN_TOL["ll"].
+TRACE_WINDOWS = 5  # windows of 20 steps a traced run (and steps: 100)
+# The soak is held to the JAX package's own soak by the same protocol
+# (tools/soak_vbpi.py: f32, seed 0, 20,000 steps), run on the CPU: its
+# ELBO(100) and IW marginal(1000). The two packages draw the same host
+# randomness, so the estimates differ only by what 20,000 steps of
+# rounding leave in the state: within SOAK_TOL nats. The tool's own
+# assertion, marginal > soak.MARGINAL_FLOOR, comes from its TPU record and
+# is printed, met or not: the JAX package does not meet it on the CPU.
+SOAK_REFERENCE = {"elbo": -7067.92822265625, "marginal": -7035.755411528982}
+SOAK_TOL = 1.0
+
+
+def snapshot(state):
+    """A copy of a VBPIState's tensors."""
+    return VBPIState(state.q_params.clone(), state.sbn_params.clone(), tuple(
+        AdamState(st.mu.clone(), st.nu.clone(), st.count.clone())
+        for st in state.opt_state))
+
+
+def sample_window(jv, betas):
+    """One window of host samples as step_many draws it: (ints (K, P, ...),
+    eps (K, P, B), betas (K,))."""
+    K, P = len(betas), jv.particle_count
+    arts = jv._sample_artifacts(jv._host_params(), K * P)
+    ints = tuple(np.stack(c).reshape((K, P) + c[0].shape) for c in zip(*arts))
+    eps = jv.rng.standard_normal((K, P, ints[1].shape[-1]))
+    return ints, eps, np.asarray(betas, np.float64)
+
+
+def window_tensors(jv, ints, eps, betas):
+    """(packed (K, P, W), eps, betas) on the card, and the shapes."""
+    packed, shapes = pack_ints(ints)
+    return (torch.from_numpy(packed).to(DEV),
+            torch.as_tensor(eps, dtype=jv.dtype, device=DEV),
+            torch.as_tensor(betas, dtype=jv.dtype, device=DEV)), shapes
+
+
+def eager_window(jv, state, window):
+    """vbpi_train_steps_packed on a window, from ``state``, eagerly."""
+    (packed, eps, betas), shapes = window_tensors(jv, *window)
+    return vbpi_train_steps_packed(
+        state, jv.statics, jv.optimizer, packed, eps, betas, shapes, jv.tips,
+        jv.weights, jv.segment_ids)
+
+
+def bit_for_bit(name, got, want):
+    """Fail unless every tensor of got equals want's bit for bit."""
+    for i, (a, b) in enumerate(zip(step_graph.leaves(got),
+                                   step_graph.leaves(want), strict=True)):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(
+                f"{name}: tensor {i} differs, max abs "
+                f"{float((a.double() - b.double()).abs().max()):.3e}")
+    print(f"  ok  {name}: bit for bit")
+
+
+def replay_counts(what, fn, k1):
+    """fn() with the graph and K1 counters set to 0 first: fails unless it
+    was one replay, no capture, and ``k1`` K1 launches."""
+    step_graph.reset_counters()
+    pruning_jc.reset_counters()
+    out = fn()
+    torch.cuda.synchronize()
+    got = (dict(step_graph.COUNTS), pruning_jc.LAUNCHES["ll_grad_jc69"])
+    if got != ({"captures": 0, "replays": 1}, k1):
+        raise AssertionError(f"{what}: {got}, not one replay and {k1} K1")
+    print(f"  {what}: one replay, {k1} K1 launches")
+    return out
+
+
+def twin_mean_lls(jv, state, window):
+    """Per step of a window from ``state``: the mean LL by K1's twin at the
+    state the step starts from (the eager trajectory's)."""
+    (packed, eps, betas), shapes = window_tensors(jv, *window)
+    ones = torch.ones(1, dtype=jv.dtype, device=DEV)
+    out = []
+    for k in range(packed.shape[0]):
+        pc, branch_rep, _, _ = unpack_ints(packed[k], shapes)
+        _, _, theta = _branch_lengths(state.q_params, branch_rep, eps[k])
+        ea = pruning_jc.exp_factors(torch.nn.functional.pad(theta, (0, 2)),
+                                    ones, jv.dtype)
+        ll, _ = pruning_jc.ll_grad_jc69_plain(
+            pc, ea, ones, ones, jv.tips, jv.weights,
+            root_id=jv.statics.root_id)
+        out.append(ll.mean())
+        state, _ = vbpi_train_step_packed(
+            state, jv.statics, jv.optimizer, packed[k], eps[k], betas[k],
+            shapes, jv.tips, jv.weights, jv.segment_ids)
+    return torch.stack(out)
+
+
+def graph_checks(dtype, branch_model, tmp):
+    """The graph route of config 5 at dtype and branch_model against the
+    eager route and K1's twin (after the path's counters were read)."""
+    tag = f"{str(dtype)[6:]} {branch_model}"
+    jv = JitVBPI(bench_instance(DEV, dtype), particle_count=PARTICLES,
+                 seed=0, dtype=dtype, branch_model=branch_model)
+    jv.step_many(WINDOW)  # captures the K = 20 graph
+    buffers = step_graph.leaves(jv.state)
+    # 1. One window: the graph against vbpi_train_steps_packed eagerly.
+    start = snapshot(jv.state)
+    w1 = sample_window(jv, np.linspace(0.5, 1.0, WINDOW))
+    want_state, want = eager_window(jv, snapshot(start), w1)
+    got = replay_counts(f"{tag} step_many window", lambda: jv._window(*w1),
+                        WINDOW)
+    bit_for_bit(f"{tag} window of {WINDOW}, graph vs eager, state",
+                jv.state, want_state)
+    bit_for_bit(f"{tag} window of {WINDOW}, graph vs eager, metrics",
+                (got["mean_ll"], got["elbo_like"]),
+                (want["mean_ll"], want["elbo_like"]))
+    # 2. The same graph on a second window: its LLs are that window's.
+    start = snapshot(jv.state)
+    w2 = sample_window(jv, np.ones(WINDOW))
+    got2 = jv._window(*w2)
+    close(f"{tag} replayed window 2, mean LL a step vs K1's twin",
+          got2["mean_ll"].cpu(), twin_mean_lls(jv, start, w2).cpu(),
+          TWIN_TOL[dtype]["ll"])
+    if torch.equal(got2["mean_ll"], got["mean_ll"]):
+        raise AssertionError(f"{tag}: window 2 repeated window 1's LLs")
+    # 3. step() (the K = 1 graph) against one eager step on its inputs.
+    jv.step()  # captures the K = 1 graph
+    start = snapshot(jv.state)
+    m = replay_counts(f"{tag} step()", jv.step, 1)
+    ints, eps = jv.last_batch
+    want_state, want = eager_window(
+        jv, start, (tuple(a[None] for a in ints), eps[None], [1.0]))
+    bit_for_bit(f"{tag} step(), graph vs eager", (jv.state, m["mean_ll"],
+                                                  m["elbo_like"]),
+                (want_state, want["mean_ll"][0], want["elbo_like"][0]))
+    # A checkpoint restored into the captured trainer: the next replay
+    # starts from it.
+    path = os.path.join(tmp, f"{tag.replace(' ', '_')}.npz")
+    checkpoint.save_jit_state(jv, path)
+    saved = snapshot(jv.state)
+    jv.step_many(WINDOW)
+    checkpoint.restore_jit_state(jv, path)
+    if not all(a is b for a, b in zip(step_graph.leaves(jv.state), buffers)):
+        raise AssertionError(f"{tag}: the restore replaced the buffers")
+    bit_for_bit(f"{tag} restored state", jv.state, saved)
+    w3 = sample_window(jv, np.ones(WINDOW))
+    want_state, want = eager_window(jv, snapshot(saved), w3)
+    jv._window(*w3)
+    bit_for_bit(f"{tag} window after the restore, graph vs eager",
+                jv.state, want_state)
+
+
+def time_vbpi(smi, steps=40):
+    """ms per VBPI step at the bench's configuration by each route (host
+    clock around synchronised runs after a warm-up; routes in turns eager,
+    graph, graph, eager): {(route, call): [ms, ms]}."""
+    print(f"  VBPI at P = {PARTICLES}, float32, DS1, ms a step ({smi}):")
+    calls = {
+        "step()": (lambda jv: [jv.step() for _ in range(steps)], steps),
+        "step_overlapped()": (lambda jv: [jv.step_overlapped()
+                                          for _ in range(steps)], steps),
+        "step_many(16)": (lambda jv: [jv.step_many(16) for _ in range(3)], 48),
+        "step_many(20)": (lambda jv: [jv.step_many(20) for _ in range(2)], 40),
+    }
+    out = {}
+    for route in ("eager", "graph", "graph", "eager"):
+        jv = JitVBPI(bench_instance(DEV, torch.float32),
+                     particle_count=PARTICLES, seed=0, dtype=torch.float32,
+                     cuda_graphs=route == "graph")
+        for name, (run, n) in calls.items():
+            run(jv)  # warm-up (capture, and the topology cache)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(jv)
+            torch.cuda.synchronize()
+            out.setdefault((route, name), []).append(
+                (time.perf_counter() - t0) * 1e3 / n)
+    for (route, name), ms in out.items():
+        print(f"    {route} {name}: {ms[0]:.3f} / {ms[1]:.3f} ms a step")
+    return out
+
+
+def trace_vbpi(cuda_graphs):
+    """step() and step_many(20) of config 5 (f32) by one route, each with
+    host_and_device's line (a call: a step, or a window of 20 steps): run
+    in a fresh process (see trace_one_k1)."""
+    jv = JitVBPI(bench_instance(DEV, torch.float32), particle_count=PARTICLES,
+                 seed=0, dtype=torch.float32, cuda_graphs=cuda_graphs)
+    return {"step()": host_and_device(jv.step, 4 * TRACE_WINDOWS)[0],
+            "step_many(20)": host_and_device(lambda: jv.step_many(WINDOW),
+                                             TRACE_WINDOWS)[0]}
+
+
+def phase_graphs(smi):
+    """[14] the one-dispatch trainer and the soak; returns the launch
+    counts of its path (the soak)."""
+    print("[14] one dispatch per VBPI window: CUDA graphs over K1, and the "
+          "DS1 soak")
+    t_phase = time.perf_counter()
+    # The path: the soak, JitVBPI.step_many(20) on the graph route.
+    reset_counters()
+    step_graph.reset_counters()
+    result = soak.run(soak.CHECKED_STEPS)
+    launches = launch_counts("soak path", ["ll_grad_jc69", "ll_jc69"])
+    windows = result["steps"] // WINDOW
+    graphs = dict(step_graph.COUNTS)
+    print(f"  soak: {result['steps']} steps in {result['seconds']:.3f} s, "
+          f"{result['ms_per_step']:.4f} ms a step ({result['route']} route, "
+          f"{graphs['replays']} replays, {graphs['captures']} capture); "
+          f"ELBO({soak.ELBO_PARTICLES}) {result['elbo']:.3f}, IW marginal"
+          f"({soak.MARGINAL_PARTICLES}) {result['marginal']:.3f}; {smi}")
+    if (result["route"] != "graph"
+            or graphs != {"captures": 1, "replays": windows}
+            or launches["ll_grad_jc69"] != result["steps"] + 1):
+        raise AssertionError("the soak did not take one replay a window "
+                             "(K1: the steps and one warm-up)")
+    for name in ("elbo", "marginal"):
+        close(f"soak {name} vs the JAX package's soak on the CPU",
+              result[name], SOAK_REFERENCE[name], (0.0, SOAK_TOL))
+    met = result["marginal"] > soak.MARGINAL_FLOOR
+    print(f"  the JAX tool's assertion, IW marginal > {soak.MARGINAL_FLOOR} "
+          f"(from its TPU record): {'met' if met else 'not met'}; the JAX "
+          f"package on the CPU: {SOAK_REFERENCE['marginal']}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype, branch_model in GRAPH_CASES:
+            graph_checks(dtype, branch_model, tmp)
+    time_vbpi(smi)
+    # Device time and idle share, each route traced in a fresh process.
+    for route in ("eager", "graph"):
+        out = subprocess.run(
+            [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+             f"chip_smoke.trace_vbpi({route == 'graph'})))"],
+            cwd=REPO, capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
+        if out.returncode != 0:
+            raise AssertionError(f"trace of the {route} route failed:\n"
+                                 f"{out.stderr[-4000:]}")
+        for name, line in json.loads(out.stdout.splitlines()[-1]).items():
+            print(f"    {route} {name}: {line}")
+    print(f"[14] took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
 
 def main():
     t_start = time.perf_counter()
@@ -3065,6 +3302,7 @@ def main():
     vip_launches, vip_errs, vip_k2 = phase_vip(smi)
     phase_forest(smi)
     runs.append(phase_parallel(smi))
+    runs.append(phase_graphs(smi))
     launches = {k: sum(run[k] for run in runs) for k in runs[0]}
     # K1's rooted launches stand in its second entry below and K2's vip
     # launches in its second; every other kernel's entry counts every path.
@@ -3075,7 +3313,6 @@ def main():
         if k != "ll_jc69":
             launches[k] += n
     times, bounds = phase_timing(smi)
-    time_vbpi(smi)
     for phase in (phase_generic_timing, phase_gp_timing):
         t, b = phase(smi)
         times.update(t)

@@ -93,7 +93,7 @@ def main(argv=None):
     for group, st in zip(("q", "sbn"), jv.state.opt_state):
         out[f"adam_{group}_mu"] = st.mu.cpu().numpy()
         out[f"adam_{group}_nu"] = st.nu.cpu().numpy()
-        out[f"adam_{group}_count"] = st.count
+        out[f"adam_{group}_count"] = int(st.count)
     for i, name in enumerate(("post_children", "branch_rep", "reps",
                               "touched")):
         out[name] = np.stack([ints[i] for ints, _ in batches])

@@ -8,11 +8,12 @@ Dense formulation (eq:gradLogQ): for unrooted topology τ with rootings ρ,
 
   ∇ log q(τ)[i] = (1/q) Σ_ρ P_ρ ( 1[i ∈ rep_ρ] − p̄_i · 1[seg(i) touched by ρ] )
 
-which decomposes into two scatter-adds (``index_add_``): rooting
-probabilities onto the rep indices (term 1) and onto the touched
-normalization segments (term 2). The factors and gradients are plain tensor
-functions on the device of their inputs; on a CUDA device ``index_add_``
-sums in no fixed order.
+which decomposes into two scatter-adds: rooting probabilities onto the rep
+indices (term 1) and onto the touched normalization segments (term 2). The
+factors and gradients are plain tensor functions on the device of their
+inputs. The scatter-adds sum in a fixed order
+(probability.fixed_order_scatter_add), so a gradient repeats bit for bit
+on a card too, where ``index_add_``'s atomics would add in no fixed order.
 
 Host-side prep (``touched_segments_of``, numpy, as in the JAX package)
 computes, per rooting, which parameter blocks (segments) appear in
@@ -28,7 +29,9 @@ import math
 import numpy as np
 import torch
 
-from .probability import probability_normalize_in_log, with_sentinel
+from .probability import (
+    fixed_order_scatter_add, probability_normalize_in_log, with_sentinel,
+)
 from .support import SBNSupport
 
 
@@ -120,16 +123,26 @@ def touched_segments_of(
     return out.reshape(reps.shape[:-1] + (width,))
 
 
+def _sums_at(size, index, w, pad):
+    """(size,) sums of the per-rooting weights w at index (w.shape + (n,)),
+    each slot's terms in a fixed order (fixed_order_scatter_add). The
+    entries at ``pad`` (padding, whose sum nothing reads) each go to a slot
+    of their own past ``size``: gathered in one slot they would be one long
+    run of adds, which the sorted scatter makes serial on a card."""
+    index = index.reshape(-1)
+    spare = torch.arange(size, size + index.numel(), device=index.device)
+    index = torch.where(index == pad, spare, index)
+    src = w[..., None].expand(w.shape + (index.numel() // w.numel(),))
+    return fixed_order_scatter_add(
+        w.new_zeros((size + index.numel(),)), index, src.reshape(-1))[:size]
+
+
 def _weighted_scatters(params, normalized, reps, touched, w, segment_ids,
                        num_segments):
     """term1 - term2 of eq:gradLogQ for per-rooting weights w (reps.shape[:-1])."""
     G = params.shape[0]
-    term1 = params.new_zeros((G + 1,)).index_add_(
-        0, reps.reshape(-1), w[..., None].expand(reps.shape).reshape(-1)
-    )[:G]
-    touched_weight = params.new_zeros((num_segments + 1,)).index_add_(
-        0, touched.reshape(-1), w[..., None].expand(touched.shape).reshape(-1)
-    )
+    term1 = _sums_at(G, reps, w, G)
+    touched_weight = _sums_at(num_segments, touched, w, num_segments)
     term2 = torch.exp(normalized) * touched_weight[segment_ids]
     return term1 - term2
 

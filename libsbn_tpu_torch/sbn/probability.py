@@ -47,11 +47,14 @@ def segment_logsumexp(values, segment_ids, num_segments: int):
 
 
 def fixed_order_scatter_add(out, index, src):
-    """out[index[i]] += src[i], each slot's terms added in one fixed order:
-    on the CPU in the order of ``src`` (as index_add_ does), on a card in
-    the order of a stable sort of ``index`` (index_put_'s accumulate path),
-    so that a run repeats bit for bit there; index_add_ on a card adds with
-    atomics in no fixed order."""
+    """out[index[i]] += src[i] along dim 0, each slot's terms added in one
+    fixed order, so that a run repeats bit for bit: on the CPU in the order
+    of ``src`` (index_add_, a serial loop there; index_put_'s accumulate
+    path goes parallel on large inputs), on a card in the order of a stable
+    sort of ``index`` (index_put_'s accumulate path; index_add_ on a card
+    adds with atomics in no fixed order)."""
+    if out.device.type == "cpu":
+        return out.index_add_(0, index, src)
     return out.index_put_((index,), src, accumulate=True)
 
 

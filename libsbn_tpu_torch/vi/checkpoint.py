@@ -11,7 +11,8 @@ other:
     (particle count, VIMCO, the support's GPCSP count, checked on restore);
   * a JitVBPI's device state: ``leaf_<i>`` in the JAX VBPIState's leaf
     order, q_params, sbn_params, then (count, mu, nu) of the q_params
-    group's Adam and of the sbn_params group's.
+    group's Adam and of the sbn_params group's (count an int32 scalar in
+    the file, a 0-dim int32 tensor on the trainer's device in memory).
 The SBN-parameter CSV path stays on the instance
 (sbn_parameters_to_csv / read_sbn_parameters_from_csv).
 """
@@ -21,6 +22,7 @@ from __future__ import annotations
 import json
 
 import numpy as np
+import torch
 
 from .jit_step import AdamState, VBPIState
 
@@ -79,7 +81,7 @@ def restore_burrito(burro, path: str):
 def _jit_leaves(state: VBPIState):
     leaves = [state.q_params, state.sbn_params]
     for adam in state.opt_state:
-        leaves += [np.asarray(adam.count, np.int32), adam.mu, adam.nu]
+        leaves += [np.asarray(int(adam.count), np.int32), adam.mu, adam.nu]
     return leaves
 
 
@@ -102,9 +104,14 @@ def restore_jit_state(jv, path: str):
     def t(a):
         return jv._tensor(a)
 
+    def count(a):
+        return torch.tensor(int(a), dtype=torch.int32, device=jv.device)
+
+    # On a card's graph route the assignment copies into the buffers that
+    # the captured graphs read, so the next window starts from this state.
     jv.state = VBPIState(
         t(leaves[0]), t(leaves[1]),
-        tuple(AdamState(t(leaves[i + 1]), t(leaves[i + 2]), int(leaves[i]))
+        tuple(AdamState(t(leaves[i + 1]), t(leaves[i + 2]), count(leaves[i]))
               for i in (2, 5)),
     )
     return jv

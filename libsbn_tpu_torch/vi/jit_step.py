@@ -8,10 +8,20 @@ gradients (kernel K1, ops/pruning_jc.py), the eq:dLdPsi scalar gradients,
 the VIMCO topology gradients and an Adam update. The evaluation half
 (``vbpi_log_f``) takes the LL-only kernel K2. With ``rescale=False`` both
 halves run the scan engine ops/pruning.py instead, on any device, as the
-JAX package's step does. PyTorch runs eagerly, so
-``vbpi_train_step`` is a plain function of tensors; nothing in it copies to
-the host. On a CUDA device ``index_add_`` sums in no fixed order, so two
-runs of a step agree to rounding, not bit for bit.
+JAX package's step does. ``vbpi_train_step`` is a plain function of
+tensors; nothing in it copies to the host or reads the device from it, and
+its annealing ``beta`` and the Adam step ``count`` may be tensors on the
+device. Its scatter-adds sum in a fixed order
+(sbn/probability.py fixed_order_scatter_add), so a step repeats bit for bit
+on a card as on the CPU.
+
+The packed functions take the host's int32 step inputs packed by columns
+into one buffer, JitVBPI's layout: ``vbpi_train_step_packed`` (one step),
+``vbpi_train_steps_packed`` (K steps in order, the JAX package's lax.scan
+window) and ``vbpi_log_f_packed`` (the evaluation half). What the JAX
+package compiles into one XLA program per step or window, JitVBPI runs on
+a card as one captured CUDA graph of ``vbpi_train_steps_packed`` per
+window (vi/step_graph.py): one replay a window, K = 1 for ``step()``.
 
 Branch models: split-lognormal (one variable per split, the benchmark
 default) and PSP (three summed component variables per branch, ICLR 2019),
@@ -27,6 +37,7 @@ that XLA inserts into the JAX package's step.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -42,6 +53,7 @@ from ..parallel.sharding import check_mesh
 from ..sbn import gradients as sbn_gradients
 from ..sbn import probability as sbn_probability
 from ..sbn.sampling import NativeSBNSampler
+from . import step_graph
 
 PRIOR_RATE = 10.0
 
@@ -49,7 +61,7 @@ PRIOR_RATE = 10.0
 class AdamState(NamedTuple):
     mu: torch.Tensor
     nu: torch.Tensor
-    count: int
+    count: torch.Tensor  # 0-dim int32 on the parameters' device, as optax's
 
 
 class VBPIState(NamedTuple):
@@ -76,7 +88,9 @@ class Adam:
     """optax.adam per parameter group, as libsbn_tpu's make_optimizer
     builds it (optax.multi_transform of one adam per group): b1 0.9, b2
     0.999, eps 1e-8 added after the square root, bias correction, one state
-    per group. ``update`` descends: it returns params - lr * step."""
+    per group. ``update`` descends: it returns params - lr * step. The step
+    count is a 0-dim int32 tensor on the parameters' device, so an update
+    reads nothing from the host."""
 
     def __init__(self, learning_rates, b1=0.9, b2=0.999, eps=1e-8):
         self.learning_rates = tuple(learning_rates)
@@ -84,7 +98,8 @@ class Adam:
 
     def init(self, params):
         return tuple(
-            AdamState(torch.zeros_like(p), torch.zeros_like(p), 0)
+            AdamState(torch.zeros_like(p), torch.zeros_like(p),
+                      torch.zeros((), dtype=torch.int32, device=p.device))
             for p in params
         )
 
@@ -97,8 +112,11 @@ class Adam:
             mu = (1 - b1) * g + b1 * st.mu
             nu = (1 - b2) * (g ** 2) + b2 * st.nu
             count = st.count + 1
-            mu_hat = mu / (1 - b1 ** count)
-            nu_hat = nu / (1 - b2 ** count)
+            # optax's bias correction: 1 - decay ** count in float64, then
+            # the division in the moment's dtype.
+            c = count.to(torch.float64)
+            mu_hat = mu / (1 - b1 ** c).to(mu.dtype)
+            nu_hat = nu / (1 - b2 ** c).to(nu.dtype)
             step = mu_hat / (torch.sqrt(nu_hat) + self.eps)
             new_params.append(p + step * (-lr))
             new_state.append(AdamState(mu, nu, count))
@@ -123,8 +141,10 @@ def state_from_numpy(q_params, sbn_params, adam, *, device, dtype):
     def t(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
-    opt_state = tuple(AdamState(t(mu), t(nu), int(count))
-                      for mu, nu, count in adam)
+    opt_state = tuple(
+        AdamState(t(mu), t(nu), torch.tensor(int(count), dtype=torch.int32,
+                                             device=device))
+        for mu, nu, count in adam)
     return VBPIState(t(q_params), t(sbn_params), opt_state)
 
 
@@ -158,16 +178,27 @@ def _log_f_terms(sbn_params, segment_ids, num_segments, reps, mu, sigma,
     return log_prior - log_q_sbn - log_q_branch
 
 
+@functools.lru_cache(maxsize=None)
+def _jc69_constants(dtype, device):
+    """(freqs, evec, ivec, evals, Q (1, 4, 4), ones (1,)) of JC69, made once
+    per dtype and device: built from host lists, they could not be made
+    inside a CUDA graph capture."""
+    freqs, evec, ivec, evals = substitution.jc69_eigen(dtype=dtype,
+                                                       device=device)
+    return (freqs, evec, ivec, evals,
+            substitution.jc69_q(dtype=dtype, device=device)[None],
+            torch.ones(1, dtype=dtype, device=device))
+
+
 def _scan_inputs(theta):
     """The scan engine's JC69 inputs for branch lengths theta (P, B):
     per-tree transition matrices (P, B + 2, 1, 4, 4) over the padded
     lengths, the rate matrix (1, 4, 4), freqs and props."""
-    dt, dev = theta.dtype, theta.device
-    freqs, evec, ivec, evals = substitution.jc69_eigen(dtype=dt, device=dev)
-    ones = torch.ones(1, dtype=dt, device=dev)
+    freqs, evec, ivec, evals, Q, ones = _jc69_constants(theta.dtype,
+                                                        theta.device)
     P = pruning.node_transition_matrices(
         evec, ivec, evals, torch.nn.functional.pad(theta, (0, 2)), ones)
-    return P, substitution.jc69_q(dtype=dt, device=dev)[None], freqs, ones
+    return P, Q, freqs, ones
 
 
 def vbpi_train_step(
@@ -180,7 +211,7 @@ def vbpi_train_step(
     reps,  # (P, E, R) int64 unrooted indexer representations
     touched,  # (P, E, Sm) int64 touched segments
     eps,  # (P, B) standard normals
-    beta,  # annealing scalar
+    beta,  # annealing scalar: a float or a 0-dim tensor on the device
     # Constant model data:
     tips,  # (L, 4, patterns)
     weights,  # (patterns,)
@@ -227,12 +258,10 @@ def vbpi_train_step(
     g0 = dlogp * theta - (-1.0)
     g1 = dlogp * theta * eps - (-eps - 1.0 / sigma)
     V = q_params.shape[0]
-    occ = branch_rep.reshape(-1)
-    scalar_grad = torch.stack([
-        q_params.new_zeros((V,)).index_add_(
-            0, occ, g[:, None, :].expand(P_count, C, B).reshape(-1))
-        for g in (g0, g1)
-    ], dim=1)
+    g01 = torch.stack([g0, g1], dim=-1)[:, None]  # (P, 1, B, 2)
+    scalar_grad = sbn_probability.fixed_order_scatter_add(
+        q_params.new_zeros((V, 2)), branch_rep.reshape(-1),
+        g01.expand(P_count, C, B, 2).reshape(-1, 2))
     if statics.psp:
         scalar_grad[V - 1] = 0.0  # the sentinel row stays zero
 
@@ -290,6 +319,74 @@ def vbpi_log_f(state: VBPIState, statics: VBPIStatics, post_children,
                               reps, mu, sigma, theta)
 
 
+def pack_ints(ints):
+    """The host's int32 step inputs (post_children, branch_rep, reps,
+    touched), each with the same leading axes ((P,) or (K, P)), packed by
+    columns into one int32 array (*lead, W); returns it and the arrays'
+    per-particle shapes, which ``unpack_ints`` takes."""
+    lead = ints[0].shape[:-2]
+    n = int(np.prod(lead))
+    shapes = tuple(tuple(a.shape[len(lead):]) for a in ints)
+    packed = np.concatenate(
+        [np.ascontiguousarray(a, dtype=np.int32).reshape(n, -1)
+         for a in ints], axis=1,
+    )
+    return packed.reshape(lead + (packed.shape[1],)), shapes
+
+
+def unpack_ints(packed, shapes):
+    """The step's int inputs from a packed (..., W) int32 tensor, as
+    vbpi_train_step takes them: post_children int32 (contiguous, as K1 takes
+    it), branch_rep, reps and touched int64."""
+    lead = tuple(packed.shape[:-1])
+    out, offset = [], 0
+    for shp in shapes:
+        width = math.prod(shp)
+        out.append(packed[..., offset:offset + width].reshape(lead + shp))
+        offset += width
+    if offset != packed.shape[-1]:
+        raise ValueError(f"packed width {packed.shape[-1]} != {offset}, the "
+                         f"width of shapes {shapes}")
+    return (out[0].contiguous(),) + tuple(a.long() for a in out[1:])
+
+
+def vbpi_train_step_packed(state, statics, optimizer, packed, eps, beta,
+                           shapes, tips, weights, segment_ids, mesh=None):
+    """vbpi_train_step with its int32 inputs packed into ONE (P, W) buffer
+    (``pack_ints``; shapes: their per-particle shapes), unpacked as views on
+    the device. Returns (new_state, metrics)."""
+    return vbpi_train_step(
+        state, statics, optimizer, *unpack_ints(packed, shapes), eps, beta,
+        tips, weights, segment_ids, mesh=mesh)
+
+
+def vbpi_train_steps_packed(state, statics, optimizer, packed_k, eps_k, betas,
+                            shapes, tips, weights, segment_ids, mesh=None):
+    """K training steps in order, as the JAX package's lax.scan over steps:
+    step k reads packed_k[k] (P, W), eps_k[k] (P, B) and betas[k] (betas:
+    (K,), a tensor or a sequence of floats) and starts from the state the
+    step before it left. Returns (state, metrics stacked to (K,)). On a card
+    JitVBPI captures this function in one CUDA graph per window length, so
+    that a window is one dispatch."""
+    per_step = []
+    for k in range(packed_k.shape[0]):
+        state, metrics = vbpi_train_step_packed(
+            state, statics, optimizer, packed_k[k], eps_k[k], betas[k],
+            shapes, tips, weights, segment_ids, mesh=mesh)
+        per_step.append(metrics)
+    return state, {name: torch.stack([m[name] for m in per_step])
+                   for name in per_step[0]}
+
+
+def vbpi_log_f_packed(state, statics, packed, eps, shapes, tips, weights,
+                      segment_ids):
+    """vbpi_log_f (log f per particle at beta = 1, no update) from the
+    packed int32 inputs of vbpi_train_step_packed."""
+    post_children, branch_rep, reps, _ = unpack_ints(packed, shapes)
+    return vbpi_log_f(state, statics, post_children, branch_rep, reps, eps,
+                      tips, weights, segment_ids)
+
+
 class JitVBPI:
     """Host driver around vbpi_train_step for an UnrootedInstance with a
     split-lognormal or PSP branch model.
@@ -304,11 +401,22 @@ class JitVBPI:
     sums, so the replicated parameters stay bit-identical across ranks.
     dtype: float64 unless the caller names float32. Host randomness is
     numpy's default_rng(seed + 7919 * rank), as in the JAX package, so both
-    sample the same topologies and normals for a seed."""
+    sample the same topologies and normals for a seed.
+
+    Routes, chosen by configuration: on a CUDA device with no mesh (and
+    ``cuda_graphs`` left True) every window of steps is one replay of a
+    captured CUDA graph of vbpi_train_steps_packed (vi/step_graph.py; K = 1
+    for step() and step_overlapped(), K for step_many(K)), the counterpart
+    of the JAX package's one dispatch, for K1 and for the unrescaled scan
+    engine alike. The state then lives in the graphs' static buffers:
+    ``state`` returns them, and assigning it copies into them. A capture
+    or replay error raises. On the CPU, on a mesh, or with
+    ``cuda_graphs=False``, the steps run eagerly."""
 
     def __init__(self, inst, particle_count: int, mesh=None, use_vimco=True,
                  scalar_lr=1e-3, sbn_lr=1e-3, dtype=torch.float64, seed=0,
-                 rescale=True, branch_model: str = "split", device=None):
+                 rescale=True, branch_model: str = "split", device=None,
+                 cuda_graphs=True):
         if mesh is not None:
             check_mesh(mesh)
             if device is not None:
@@ -341,7 +449,12 @@ class JitVBPI:
         self.rng = np.random.default_rng(seed + 7919 * rank)
         self._artifact_cache = {}
         self._pending_sample = None
+        # The state's version, bumped by every update and assignment, and
+        # the (version, host buffer, event) of its sbn_params' copy.
+        self._version = 0
         self._params_copy = (None, None, None)
+        self._state = None
+        self.graphs = None
         # The topology sampler of the last batch: "native" (the C++ bulk
         # sampler) or "python" (sbn/sampling.py SBNSampler).
         self.last_sampler = None
@@ -378,6 +491,28 @@ class JitVBPI:
             psp=(branch_model == "psp"),
             rescale=rescale,
         )
+        if device.type == "cuda" and mesh is None and cuda_graphs:
+            self.graphs = step_graph.StepGraphs(
+                self._state, self._run_window_eagerly, device)
+
+    @property
+    def state(self) -> VBPIState:
+        """The training state; on the graph route the captured graphs'
+        static buffers, updated in place by each window."""
+        return self._state
+
+    @state.setter
+    def state(self, value):
+        dev = value.q_params.device
+        value = VBPIState(value.q_params, value.sbn_params, tuple(
+            AdamState(st.mu, st.nu, torch.as_tensor(st.count, dtype=torch.int32,
+                                                    device=dev))
+            for st in value.opt_state))
+        if self.graphs is None:
+            self._state = value
+        else:
+            self.graphs.assign(value)
+        self._version += 1
 
     def _tensor(self, a):
         return torch.as_tensor(np.array(a), dtype=self.dtype,
@@ -510,7 +645,8 @@ class JitVBPI:
     def _start_params_copy(self):
         """Start the device-to-host copy of the current sbn_params: into
         pinned memory without blocking on a card, so a later step's sampler
-        finds it there. One copy per state."""
+        finds it there; after a graph's replay, in order on the same stream.
+        One copy per version of the state."""
         p = self.state.sbn_params
         if p.device.type == "cuda":
             buf = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
@@ -519,12 +655,12 @@ class JitVBPI:
             event.record(torch.cuda.current_stream(p.device))
         else:
             buf, event = p.clone(), None
-        self._params_copy = (p, buf, event)
+        self._params_copy = (self._version, buf, event)
 
     def _current_params_copy(self):
-        """(source, host buffer, event) of the current sbn_params' one copy:
-        the one the step that made them started, or a new one."""
-        if self._params_copy[0] is not self.state.sbn_params:
+        """(version, host buffer, event) of the current sbn_params' one
+        copy: the one the step that made them started, or a new one."""
+        if self._params_copy[0] != self._version:
             self._start_params_copy()
         return self._params_copy
 
@@ -539,27 +675,20 @@ class JitVBPI:
         """The current sbn_params on the host."""
         return self._wait(self._current_params_copy())
 
-    def _device_put(self, ints, eps):
+    def _put_packed(self, ints, eps):
         """One host-to-device copy of the int32 arrays packed into a (P, W)
-        buffer, one of eps; then the step's views on the device:
-        (post_children int32, branch_rep, reps, touched int64, eps)."""
-        lead = ints[0].shape[:-2]  # (P,) or (K, P)
-        n = int(np.prod(lead))
-        shapes = [a.shape[len(lead):] for a in ints]
-        packed = np.concatenate(
-            [np.ascontiguousarray(a, dtype=np.int32).reshape(n, -1)
-             for a in ints], axis=1,
-        )
-        packed = torch.from_numpy(packed).to(self.device)
-        eps = torch.as_tensor(eps.astype(_numpy_dtype(self.dtype))).to(
-            self.device)
-        out, offset = [], 0
-        for shp in shapes:
-            width = int(np.prod(shp))
-            out.append(packed[:, offset:offset + width].reshape(lead + shp))
-            offset += width
-        post_children = out[0].contiguous()
-        return (post_children,) + tuple(a.long() for a in out[1:]) + (eps,)
+        buffer, one of eps: (packed, eps, shapes)."""
+        packed, shapes = pack_ints(ints)
+        eps = np.asarray(eps, _numpy_dtype(self.dtype))
+        return (torch.from_numpy(packed).to(self.device),
+                torch.from_numpy(eps).to(self.device), shapes)
+
+    def _device_put(self, ints, eps):
+        """The step's inputs on the device, as vbpi_train_step takes them:
+        (post_children int32, branch_rep, reps, touched int64, eps), views
+        of the packed buffer."""
+        packed, eps, shapes = self._put_packed(ints, eps)
+        return unpack_ints(packed, shapes) + (eps,)
 
     # -- steps -----------------------------------------------------------------
     def _check_single_process(self, what):
@@ -567,29 +696,52 @@ class JitVBPI:
             raise RuntimeError(f"{what} is single-process; a distributed "
                                "mesh takes step()")
 
-    def _dispatch(self, inputs, beta):
-        post_children, branch_rep, reps, touched, eps = inputs
-        self.state, metrics = vbpi_train_step(
-            self.state, self.statics, self.optimizer, post_children,
-            branch_rep, reps, touched, eps, beta, self.tips, self.weights,
-            self.segment_ids, mesh=self.mesh,
-        )
+    def _run_window_eagerly(self, state, packed_k, eps_k, betas, shapes):
+        return vbpi_train_steps_packed(
+            state, self.statics, self.optimizer, packed_k, eps_k, betas,
+            shapes, self.tips, self.weights, self.segment_ids, mesh=self.mesh)
+
+    def _window(self, ints_k, eps_k, betas):
+        """Steps over a window of K host samples: ints_k the four int32
+        arrays (K, P, ...), eps_k (K, P, B), betas (K,). The packed ints go
+        to the device in one copy, eps and betas in one more; then one
+        replay of the window's graph on the graph route, else
+        vbpi_train_steps_packed eagerly. Returns metrics stacked to (K,)."""
+        packed, shapes = pack_ints(ints_k)
+        floats = np.concatenate([np.ravel(eps_k), np.ravel(betas)]).astype(
+            _numpy_dtype(self.dtype))
+        if self.graphs is not None:
+            metrics = self.graphs.run(packed, floats, shapes, eps_k.shape)
+        else:
+            packed = torch.from_numpy(packed).to(self.device)
+            floats = torch.from_numpy(floats).to(self.device)
+            n = eps_k.size
+            self._state, metrics = self._run_window_eagerly(
+                self._state, packed, floats[:n].view(eps_k.shape),
+                floats[n:], shapes)
+        self._version += 1
         self._start_params_copy()
         return metrics
 
+    def _one_step(self, ints, eps, beta):
+        metrics = self._window(tuple(a[None] for a in ints), eps[None], [beta])
+        return {name: value[0] for name, value in metrics.items()}
+
     def step(self, beta: float = 1.0):
         """One gradient step: sample from the current parameters, then
-        step. Returns the metrics as 0-dim tensors on the device."""
+        step (a window of one). Returns the metrics as 0-dim tensors on the
+        device."""
         self._pending_sample = None  # see step_many: bound overlap staleness
         ints, eps = self._host_sample()
         self.last_batch = (ints, eps)
-        return self._dispatch(self._device_put(ints, eps), beta)
+        return self._one_step(ints, eps, beta)
 
     def step_many(self, n_steps: int, beta=1.0):
-        """n_steps gradient steps whose topologies are all sampled up front
-        from the SBN as of the call (up to n_steps - 1 updates stale, as the
-        JAX package's one-dispatch window is); branch sampling and every
-        update use live parameters. beta may be a scalar or a (n_steps,)
+        """n_steps gradient steps in ONE dispatch on the graph route (one
+        replay of the window's graph), whose topologies are all sampled up
+        front from the SBN as of the call (up to n_steps - 1 updates stale,
+        as the JAX package's window is); branch sampling and every update
+        use live parameters. beta may be a scalar or a (n_steps,)
         annealing schedule. Returns metrics stacked over steps, (n_steps,)
         tensors. Single-process."""
         self._check_single_process("step_many")
@@ -603,11 +755,7 @@ class JitVBPI:
                      for column in zip(*artifacts))
         eps_k = self.rng.standard_normal((K, P, ints[1].shape[-1]))
         betas = np.broadcast_to(np.asarray(beta, dtype=np.float64), (K,))
-        inputs = self._device_put(ints, eps_k)
-        metrics = [self._dispatch(tuple(a[k] for a in inputs), float(betas[k]))
-                   for k in range(K)]
-        return {name: torch.stack([m[name] for m in metrics])
-                for name in metrics[0]}
+        return self._window(ints, eps_k, betas)
 
     def step_overlapped(self, beta: float = 1.0):
         """One gradient step with host sampling overlapped against the
@@ -621,7 +769,7 @@ class JitVBPI:
             self._pending_sample = self._host_sample()  # pipeline fill
         ints, eps = self._pending_sample
         prev = self._current_params_copy()  # of the state before this step
-        metrics = self._dispatch(self._device_put(ints, eps), beta)
+        metrics = self._one_step(ints, eps, beta)
         # The previous step has finished by now (the device runs in order);
         # its parameters' copy was started when it was dispatched.
         self._pending_sample = self._host_sample_from(self._wait(prev))
@@ -637,11 +785,11 @@ class JitVBPI:
                  else distributed.local_particle_count(self.mesh,
                                                        particle_count))
         ints, eps = self._host_sample(count=count)
-        post_children, branch_rep, reps, _, eps = self._device_put(ints, eps)
+        packed, eps, shapes = self._put_packed(ints, eps)
         with torch.no_grad():
-            logf = vbpi_log_f(
-                self.state, self.statics, post_children, branch_rep, reps,
-                eps, self.tips, self.weights, self.segment_ids,
+            logf = vbpi_log_f_packed(
+                self.state, self.statics, packed, eps, shapes, self.tips,
+                self.weights, self.segment_ids,
             )
             if self.mesh is not None:
                 logf = distributed.gather_rows(logf, self.mesh)

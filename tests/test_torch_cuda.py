@@ -5,7 +5,9 @@ K2 at 10,000 trees), forest mode and the parallel layer (the dp-sharded K1
 and K4 wrappers, JitVBPI on a local mesh, GP on an sp mesh, two shards of
 one card each) on the card against the same on the CPU.
 
-These tests need a CUDA card and skip without one. The file imports no JAX,
+The VBPI trainer's graph route (one CUDA graph replay a window,
+vi/step_graph.py) is held to its eager route bit for bit, and a replay's
+LLs to K1's twin. These tests need a CUDA card and skip without one. The file imports no JAX,
 so that it also runs on a machine with the card and no JAX installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -31,7 +33,7 @@ from libsbn_tpu_torch.ops import (
 )
 from libsbn_tpu_torch.ops.site_model import weibull_rates
 from libsbn_tpu_torch.parallel.sharding import make_mesh
-from libsbn_tpu_torch.vi import JitVBPI
+from libsbn_tpu_torch.vi import JitVBPI, jit_step, step_graph
 
 torch.set_num_threads(1)
 
@@ -311,17 +313,19 @@ def test_vbpi_step_on_card_matches_cpu():
     rtol 1e-9 / atol 1e-8, since Adam's step lr g / (|g| + eps) passes a
     summation-order difference in a gradient entry near zero to the
     parameter times lr / eps = 1e5 (chip_smoke.py observed 7.1e-10 on
-    sbn_params). The card's step launches K1 and calls no twin."""
+    sbn_params). The card's step launches K1 and calls no twin: once a
+    step, and once more in the first, for the warm-up before its graph's
+    capture (the graph route, vi/step_graph.py)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cpu = JitVBPI(_ds1_instance("cpu"), particle_count=10, seed=0)
     card = JitVBPI(_ds1_instance("cuda"), particle_count=10, seed=0)
-    for _ in range(2):
+    for k in range(2):
         want = cpu.step()
         pruning_jc.reset_counters()
         got = card.step()
         torch.cuda.synchronize()
-        assert pruning_jc.LAUNCHES["ll_grad_jc69"] == 1
+        assert pruning_jc.LAUNCHES["ll_grad_jc69"] == (2 if k == 0 else 1)
         assert sum(pruning_jc.TWIN_CALLS.values()) == 0
         for name in ("mean_ll", "elbo_like"):
             np.testing.assert_allclose(float(got[name]), float(want[name]),
@@ -1397,3 +1401,218 @@ def test_gp_sp_mesh_on_card(sp):
     assert engine_kernels.LAUNCHES["golden_sweep"] == sweeps
     assert engine_kernels.LAUNCHES["populate_plvs"] % sp == 0
     assert sum(engine_kernels.TWIN_CALLS.values()) == 0
+
+
+# -- the VBPI graph route (vi/step_graph.py) ----------------------------------
+
+
+def _clone_state(state):
+    return jit_step.VBPIState(
+        state.q_params.clone(), state.sbn_params.clone(),
+        tuple(jit_step.AdamState(*(x.clone() for x in st))
+              for st in state.opt_state))
+
+
+def _window(jv, K, beta=1.0):
+    """K steps of host samples as step_many draws them: (ints (K, P, ...),
+    eps (K, P, B), betas (K,))."""
+    P = jv.particle_count
+    arts = jv._sample_artifacts(jv._host_params(), K * P)
+    ints = tuple(np.stack(c).reshape((K, P) + c[0].shape) for c in zip(*arts))
+    eps = jv.rng.standard_normal((K, P, ints[1].shape[-1]))
+    return ints, eps, np.full(K, beta)
+
+
+def _eager(jv, state, window):
+    """(state, metrics) of vbpi_train_steps_packed on a window, eagerly,
+    and the window's (packed, eps, betas) tensors and shapes."""
+    ints, eps, betas = window
+    packed, shapes = jit_step.pack_ints(ints)
+    inputs = (torch.from_numpy(packed).cuda(),
+              torch.as_tensor(eps, dtype=jv.dtype, device="cuda"),
+              torch.as_tensor(betas, dtype=jv.dtype, device="cuda"))
+    return jit_step.vbpi_train_steps_packed(
+        state, jv.statics, jv.optimizer, *inputs, shapes, jv.tips, jv.weights,
+        jv.segment_ids), inputs, shapes
+
+
+def _graph_trainer(dtype, branch_model="split", K=5):
+    """A config 5 JitVBPI on the card (DS1, 10 particles) that has taken
+    one window of K steps, so its K graph is captured."""
+    jv = JitVBPI(_ds1_instance("cuda"), particle_count=10, seed=0,
+                 dtype=dtype, branch_model=branch_model)
+    assert jv.graphs is not None
+    jv.step_many(K)
+    return jv
+
+
+def _assert_bit_for_bit(got, want):
+    for a, b in zip(step_graph.leaves(got), step_graph.leaves(want),
+                    strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("branch_model", ["split", "psp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_graph_route_matches_eager_on_card(dtype, branch_model):
+    """A window of 5 steps replayed from the trainer's state equals
+    vbpi_train_steps_packed run eagerly from the same state on the same
+    inputs bit for bit (state and metrics: every sum of a step has a
+    fixed order); the window is one replay with 5 K1 launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    jv = _graph_trainer(dtype, branch_model)
+    start = _clone_state(jv.state)
+    window = _window(jv, 5, beta=0.5)
+    (want_state, want), _, _ = _eager(jv, start, window)
+    step_graph.reset_counters()
+    pruning_jc.reset_counters()
+    got = jv._window(*window)
+    torch.cuda.synchronize()
+    assert step_graph.COUNTS == {"captures": 0, "replays": 1}
+    assert pruning_jc.LAUNCHES["ll_grad_jc69"] == 5
+    _assert_bit_for_bit(jv.state, want_state)
+    _assert_bit_for_bit((got["mean_ll"], got["elbo_like"]),
+                        (want["mean_ll"], want["elbo_like"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_graph_replay_reads_new_inputs_on_card(dtype):
+    """Replays of one graph on two windows: each window's mean LL a step
+    against K1's twin on that window's inputs, at the state each step
+    starts from (the eager trajectory, equal to the graph's), within the
+    kernel-vs-twin LL tolerance; the second window's LLs are not the
+    first's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    jv = _graph_trainer(dtype)
+    ones = torch.ones(1, dtype=dtype, device="cuda")
+    (ll_rtol, ll_atol), _ = TOL[dtype]
+    seen = []
+    for _ in range(2):
+        state = _clone_state(jv.state)
+        window = _window(jv, 5)
+        _, (packed, eps, betas), shapes = _eager(jv, state, window)
+        got = jv._window(*window)["mean_ll"]
+        want = []
+        for k in range(5):
+            pc, branch_rep, _, _ = jit_step.unpack_ints(packed[k], shapes)
+            _, _, theta = jit_step._branch_lengths(state.q_params, branch_rep,
+                                                   eps[k])
+            ea = pruning_jc.exp_factors(
+                torch.nn.functional.pad(theta, (0, 2)), ones, dtype)
+            ll, _ = pruning_jc.ll_grad_jc69_plain(
+                pc, ea, ones, ones, jv.tips, jv.weights,
+                root_id=jv.statics.root_id)
+            want.append(float(ll.mean()))
+            state, _ = jit_step.vbpi_train_step_packed(
+                state, jv.statics, jv.optimizer, packed[k], eps[k], betas[k],
+                shapes, jv.tips, jv.weights, jv.segment_ids)
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=ll_rtol,
+                                   atol=ll_atol)
+        seen.append(got.cpu().numpy())
+    assert not np.array_equal(seen[0], seen[1])
+
+
+@pytest.mark.cuda
+def test_graph_state_assignment_reaches_replay():
+    """Assigning JitVBPI.state after the capture copies into the graph's
+    buffers (the same tensors), and the next replay starts from it: equal
+    to the eager window from the assigned state bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    jv = _graph_trainer(torch.float64)
+    buffers = step_graph.leaves(jv.state)
+    q = torch.full_like(jv.state.q_params, 0.1)
+    q[:, 0] = -1.5
+    assigned = jit_step.init_state(q, jv.state.sbn_params.clone() * 0.5,
+                                   jv.optimizer)
+    jv.state = assigned
+    assert all(a is b for a, b in zip(step_graph.leaves(jv.state), buffers))
+    _assert_bit_for_bit(jv.state, assigned)
+    window = _window(jv, 5)
+    (want_state, _), _, _ = _eager(jv, assigned, window)
+    jv._window(*window)
+    _assert_bit_for_bit(jv.state, want_state)
+    assert int(jv.state.opt_state[0].count) == 5
+
+
+@pytest.mark.cuda
+def test_graph_shape_change_raises():
+    """The captured graphs have fixed shapes: a window of wider packed
+    ints, or a state of other shapes, raises and changes nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    jv = _graph_trainer(torch.float32)
+    before = _clone_state(jv.state)
+    ints, eps, betas = _window(jv, 5)
+    packed, shapes = jit_step.pack_ints(ints)
+    wider = np.concatenate([packed, packed[..., :1]], axis=-1)
+    floats = np.concatenate([eps.ravel(), betas]).astype(np.float32)
+    with pytest.raises(ValueError, match="fixed shapes"):
+        jv.graphs.run(wider, floats, shapes, eps.shape)
+    with pytest.raises(ValueError, match="shapes"):
+        jv.state = jit_step.init_state(jv.state.q_params[1:],
+                                       jv.state.sbn_params, jv.optimizer)
+    _assert_bit_for_bit(jv.state, before)
+    assert step_graph.COUNTS["captures"] >= 1
+
+
+_CAPTURE_FAILURE = """
+import json, torch
+from libsbn_tpu_torch.ops import pruning_jc
+from libsbn_tpu_torch.vi import JitVBPI, jit_step, step_graph
+import test_torch_cuda as t
+
+jv = JitVBPI(t._ds1_instance("cuda"), particle_count=10, seed=0,
+             dtype=torch.float32)
+before = [x.clone() for x in step_graph.leaves(jv.state)]
+step = jit_step.vbpi_train_step
+
+def syncing_step(*args, **kw):  # a host sync: illegal under capture
+    torch.cuda.synchronize()
+    return step(*args, **kw)
+
+jit_step.vbpi_train_step = syncing_step
+step_graph.reset_counters()
+pruning_jc.reset_counters()
+try:
+    jv.step_many(3)
+    error = None
+except RuntimeError as err:
+    error = str(err)
+torch.cuda.synchronize()
+print(json.dumps({
+    "error": error, "counts": step_graph.COUNTS,
+    "k1": pruning_jc.LAUNCHES["ll_grad_jc69"], "windows": len(jv.graphs.windows),
+    "unchanged": all(torch.equal(a, b) for a, b in
+                     zip(step_graph.leaves(jv.state), before))}))
+"""
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises():
+    """A capture that fails (here a host synchronisation inside the step,
+    which stream capture forbids) raises out of step_many, and nothing
+    falls back to an eager step: no replay, no graph kept, the state as it
+    was, K1 launched only by the warm-up. In a process of its own, so that
+    the failed capture touches no other test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here, os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", _CAPTURE_FAILURE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert got["error"], got
+    assert got["counts"] == {"captures": 0, "replays": 0}
+    assert got["windows"] == 0 and got["unchanged"]
+    assert got["k1"] == 1
