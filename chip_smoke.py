@@ -165,8 +165,10 @@ Phases, each of which raises on failure:
      the DS1 soak (vi/soak.py: 20,000 JitVBPI steps of config 5 at f32,
      step_many(20) on the graph route, beta annealed over 2,000 steps),
      which must take one CUDA graph replay a window and K1 once a step
-     (and once for the capture's warm-up), with ELBO(100) finite and the
-     IW marginal(1000) above -6790; then at f32 and f64, split and PSP:
+     (and once for the capture's warm-up), with ELBO(100) and the IW
+     marginal(1000) within SOAK_TOL of the JAX package's soak on the CPU
+     (the JAX tool's gate, the marginal above -6790, is printed, met or
+     not); then at f32 and f64, split and PSP:
      a window of 20 steps replayed from a state against
      vbpi_train_steps_packed run eagerly from it (bit for bit: every sum
      of a step has a fixed order), a second window's mean LL a step
@@ -177,13 +179,30 @@ Phases, each of which raises on failure:
      times; then step(), step_overlapped(), step_many(16) and
      step_many(20) by each route (host clock, in turns), and each route's
      device time and idle share traced in a fresh process.
+  15. the GP ascent and the rooted engine as CUDA graphs (after [14]):
+     with the counters at 0, the path: gp_ascent_flua (fluA, the kernel
+     route, float32 and float64, run_branch_ascent(1e-2, 10) and (1e-6,
+     100)) and flua_rooted_gradients (fluA x 256, JC69, float32 and
+     float64: rooted_phylo_gradients by the hand route and
+     rooted_log_likelihoods) by their graphs (gp/ascent_graph.py,
+     models/rooted_graph.py), as the engines run them by default on a
+     card; then each fit against the eager loop (cuda_graphs=False) bit for
+     bit (marginal, branch lengths, sweeps, the converged flag), a second
+     graphed ascent whose every K7 and K8 launch is a replay's and as many
+     as the eager loop's, the float64 (1e-6, 100) fit within 1e-7 of
+     libsbn_tpu's optimum; each rooted call against the eager call bit for
+     bit, twice each, a call one replay with K1 (K2 for the LLs) once, and
+     a replay at new ratios whose LLs match K1's twin on the eager route's
+     inputs; then host-clock ms a call by route (graph, eager, in turns;
+     the GP ascent on the kernel and the level route at float32), and each
+     call's device time and idle share traced in a fresh process.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its paths, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the peak of their type (float64's
 for a float64 launch, float32's otherwise) and its inputs and outputs at
 the HBM rate; K1 has two entries, the first counting the unrooted, vip,
 parallel and soak paths (the ranks' launches of [13] included), the second the
-rooted batch and path; K2 has two,
+rooted batch and path ([10] and [15]); K2 has two,
 the first counting every path but the vip path, the second the vip path's
 launches with the B = 10,000 launch's time and bound), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}.
@@ -209,10 +228,11 @@ sys.path.insert(0, REPO)
 import libsbn_tpu_torch as lt  # noqa: E402
 from libsbn_tpu_torch.core.site_pattern import SitePattern  # noqa: E402
 from libsbn_tpu_torch.core.tree import RootedTree, RootedTreeCollection  # noqa: E402
-from libsbn_tpu_torch.gp import GPInstance, engine_kernels  # noqa: E402
+from libsbn_tpu_torch.gp import GPInstance, ascent_graph, engine_kernels  # noqa: E402
 from libsbn_tpu_torch.gp.engine import _jc69_transition  # noqa: E402
 from libsbn_tpu_torch.io import newick  # noqa: E402
 from libsbn_tpu_torch.io.fasta import Alignment  # noqa: E402
+from libsbn_tpu_torch.models import rooted_graph  # noqa: E402
 from libsbn_tpu_torch.models.engine import LikelihoodEngine  # noqa: E402
 from libsbn_tpu_torch.models.phylo_model import default_parameters  # noqa: E402
 from libsbn_tpu_torch.ops import (  # noqa: E402
@@ -1621,12 +1641,14 @@ def k6_onchip_vs_slab(d, a5, b_ms):
         b_ms, 128, f"Weibull+{K}")
 
 
-def gp_instance(fasta, newick_file, dtype, use_kernels="auto"):
+def gp_instance(fasta, newick_file, dtype, use_kernels="auto",
+                cuda_graphs=True):
     """GPInstance on the card; "auto" is the kernel route there."""
     inst = GPInstance()
     inst.read_fasta_file(f"{DATA}/{fasta}")
     inst.read_newick_file(f"{DATA}/{newick_file}")
-    inst.make_engine(dtype=dtype, device=DEV, use_kernels=use_kernels)
+    inst.make_engine(dtype=dtype, device=DEV, use_kernels=use_kernels,
+                     cuda_graphs=cuda_graphs)
     return inst
 
 
@@ -1944,8 +1966,9 @@ def phase_gp_timing(smi, runs=5):
         onchip_vs_slab(key, calls[key][0], slab, bounds[key][0], 50, what)
         print(f"  SM clock after {key}: {sm_clock()}")
     for use_kernels in (True, False):
+        # The eager loop, as before the graphs; [15] times both.
         eng = gp_instance("fluA.fa", "fluA.tree", torch.float32,
-                          use_kernels).get_engine()
+                          use_kernels, cuda_graphs=False).get_engine()
         bl0 = eng.branch_lengths.copy()
 
         def ascent(eng=eng, bl0=bl0):
@@ -1954,7 +1977,8 @@ def phase_gp_timing(smi, runs=5):
 
         line, _ = host_and_device(ascent, runs)
         marginal, sweeps = ascent()
-        route = "kernel route (K7 + K8)" if use_kernels else "level route"
+        route = ("kernel route (K7 + K8)" if use_kernels
+                 else "level route") + ", eager"
         print(f"  run_branch_ascent(1e-2, 10), {route}, per ascent: {line}; "
               f"{sweeps} sweeps, marginal {marginal:.6f}")
     eng = gp_instance("fluA.fa", "fluA.tree", torch.float32).get_engine()
@@ -2152,7 +2176,9 @@ def phase_rooted_timing(smi, calls=10):
     sp, sched, bounds, ratios, rates = rooted_batch()
     spec = lt.PhyloModelSpec("JC69", "constant", "strict")
     args = (sched, bounds, ratios, rates, default_parameters(spec, device=DEV))
-    eng = LikelihoodEngine(sp, spec, dtype=torch.float32, device=DEV)
+    # The eager calls, as before the graphs; [15] times both.
+    eng = LikelihoodEngine(sp, spec, dtype=torch.float32, device=DEV,
+                           cuda_graphs=False)
     # K1 on the rooted batch's rate-scaled branch lengths.
     d = rooted_kernel_inputs(eng, *args[:4])
     ea, one, _ = kernel_inputs(d, torch.float32, 1)
@@ -3290,6 +3316,237 @@ def phase_graphs(smi):
     return launches
 
 
+# [15] the GP ascent and the rooted engine as replays of CUDA graphs.
+GP_GRAPH_CASES = [(dt, case) for dt in (torch.float32, torch.float64)
+                  for case in ((1e-2, 10), (1e-6, 100))]
+GRAPH_DTYPES = (torch.float32, torch.float64)
+GRAPH_RUNS = 5  # host-clock calls a route and turn; traced calls a route
+
+
+def gp_graph_engine(dtype, use_kernels=True, cuda_graphs=True):
+    """gp_ascent_flua's engine (fluA) on the card, by route."""
+    return gp_instance("fluA.fa", "fluA.tree", dtype, use_kernels,
+                       cuda_graphs).get_engine()
+
+
+def gp_ascent(eng, bl0, tol, max_iter):
+    """run_branch_ascent from bl0: (marginal, sweeps, converged, branch
+    lengths)."""
+    eng.branch_lengths = bl0.copy()
+    m, sweeps = eng.run_branch_ascent(tol, max_iter)
+    return m, sweeps, eng.last_ascent_converged, eng.branch_lengths.copy()
+
+
+def gp_graph_checks(dtype, case, eng, bl0, got):
+    """The graphed fit ``got`` against the eager loop from bl0, bit for bit;
+    a second graphed ascent whose every K7 and K8 launch is a replay's (the
+    phases' replays times their captured launches) and as many as the eager
+    loop's."""
+    tag = f"gp_ascent_flua {str(dtype)[6:]} run_branch_ascent{case}"
+    reset_counters()
+    want = gp_ascent(gp_graph_engine(dtype, cuda_graphs=False), bl0, *case)
+    eager = dict(engine_kernels.LAUNCHES)
+    if got[:3] != want[:3] or not np.array_equal(got[3], want[3]):
+        raise AssertionError(f"{tag}: graph {got[:3]} vs eager {want[:3]}")
+    print(f"  ok  {tag}: graph vs eager bit for bit (marginal {got[0]!r}, "
+          f"{got[1]} sweeps, converged {got[2]})")
+    phases = (eng.graphs.start, eng.graphs.propose, eng.graphs.damp,
+              eng.graphs.accept)
+    before = [g.replays for g in phases]
+    reset_counters()
+    ascent_graph.reset_counters()
+    again = gp_ascent(eng, bl0, *case)
+    torch.cuda.synchronize()
+    replayed = {}
+    for g, n in zip(phases, before):
+        for name, k in (g.counted[0] if g.counted else {}).items():
+            replayed[name] = replayed.get(name, 0) + (g.replays - n) * k
+    launches = {k: v for k, v in engine_kernels.LAUNCHES.items() if v}
+    if (again[:3] != got[:3] or launches != replayed
+            or launches != {k: v for k, v in eager.items() if v}
+            or ascent_graph.COUNTS["captures"]):
+        raise AssertionError(f"{tag}: {launches} launched, {replayed} by "
+                             f"replays, eager {eager}, {ascent_graph.COUNTS}")
+    print(f"  {tag}: {ascent_graph.COUNTS['replays']} replays, launches "
+          f"{launches}, each a replay's (the eager loop's: the same)")
+    return got[0]
+
+
+def rooted_graph_call(eng, args, hand, eager=False):
+    """The hand route's gradient dict, or rooted_log_likelihoods' parts, as
+    a flat list, the LLs first; eager turns the engine's graphs off for the
+    call."""
+    graphs = eng.graphs
+    if eager:
+        eng.graphs = None
+    try:
+        if hand:
+            out = eng.rooted_phylo_gradients(*args)
+            return [out["log_likelihood"]] + [
+                out[k] for k in sorted(out) if k != "log_likelihood"]
+        return list(eng.rooted_log_likelihoods(*args, return_parts=True))
+    finally:
+        eng.graphs = graphs
+
+
+def rooted_graph_checks(dtype, eng, args, got_hand, got_ll):
+    """flua_rooted_gradients at dtype: the graphed calls of the path
+    against the eager calls bit for bit, twice each; a call one replay
+    with K1 (K2 for the LLs) once; new ratios read, their LLs against K1's
+    twin on the eager route's own inputs. Returns the twin's error."""
+    tag = f"flua_rooted_gradients {str(dtype)[6:]}"
+    for hand, got in ((True, got_hand), (False, got_ll)):
+        what = f"{tag} {'hand route' if hand else 'LLs'}"
+        want = rooted_graph_call(eng, args, hand, eager=True)
+        again = rooted_graph_call(eng, args, hand, eager=True)
+        reset_counters()
+        rooted_graph.reset_counters()
+        second = rooted_graph_call(eng, args, hand)
+        torch.cuda.synchronize()
+        k = "ll_grad_jc69" if hand else "ll_jc69"
+        counts = (dict(rooted_graph.COUNTS),
+                  {n: v for n, v in pruning_jc.LAUNCHES.items() if v})
+        if counts != ({"captures": 0, "replays": 1}, {k: 1}):
+            raise AssertionError(f"{what}: {counts}, not one replay")
+        bit_for_bit(f"{what}, graph vs eager", got, want)
+        bit_for_bit(f"{what}, graph twice", second, got)
+        bit_for_bit(f"{what}, eager twice", again, want)
+    sched, bounds, ratios, rates, params = args
+    ratios = ratios.copy()
+    ratios[:, :-1] = np.clip(ratios[:, :-1] * 0.97, 1e-4, 1 - 1e-4)
+    args2 = (sched, bounds, ratios, rates, params)
+    replayed = rooted_graph_call(eng, args2, True)
+    d = rooted_kernel_inputs(eng, *args2[:4])
+    ea, one, _ = kernel_inputs(d, dtype, 1)
+    twin, _ = pruning_jc.ll_grad_jc69_plain(
+        d["pc"], ea, one, one, d["tips"], d["w"], root_id=d["root_id"])
+    if torch.equal(replayed[0], got_hand[0]):
+        raise AssertionError(f"{tag}: new ratios gave the old LLs")
+    return close(f"{tag} replay at new ratios, LLs vs K1's twin",
+                 replayed[0].cpu(), twin.cpu(), TWIN_TOL[dtype]["ll"])
+
+
+def rooted_graph_engine(dtype, cuda_graphs=True):
+    """flua_rooted_gradients' engine and arguments on the card."""
+    sp, sched, bounds, ratios, rates = rooted_batch()
+    spec = lt.PhyloModelSpec("JC69", "constant", "strict")
+    eng = LikelihoodEngine(sp, spec, dtype=dtype, device=DEV,
+                           cuda_graphs=cuda_graphs)
+    return eng, (sched, bounds, ratios, rates,
+                 default_parameters(spec, device=DEV))
+
+
+def graph_path_calls(level=True):
+    """{(what, route): call} of [15]'s timings at float32: gp_ascent_flua
+    (run_branch_ascent(1e-2, 10) from the same lengths) on the kernel route
+    and, with ``level``, the level route, and flua_rooted_gradients' hand
+    route and LLs, each by the graph route and eagerly."""
+    calls = {}
+    for graphs in (True, False):
+        route = "graph" if graphs else "eager"
+        for use_kernels in (True, False)[:1 + level]:
+            eng = gp_graph_engine(torch.float32, use_kernels, graphs)
+            bl0 = eng.branch_lengths.copy()
+            what = ("gp_ascent_flua, kernel route" if use_kernels
+                    else "gp_ascent_flua, level route")
+            calls[(what, route)] = (
+                lambda eng=eng, bl0=bl0: gp_ascent(eng, bl0, 1e-2, 10))
+        eng, args = rooted_graph_engine(torch.float32, graphs)
+        calls[("rooted_phylo_gradients (hand)", route)] = (
+            lambda eng=eng, args=args: eng.rooted_phylo_gradients(*args))
+        calls[("rooted_log_likelihoods", route)] = (
+            lambda eng=eng, args=args: eng.rooted_log_likelihoods(*args))
+    return calls
+
+
+def time_graph_paths(smi):
+    """Host-clock ms a call of each (what, route) of graph_path_calls,
+    synchronised, after a warm-up (the captures), in turns graph, eager,
+    eager, graph: {(what, route): [median, median]}."""
+    print(f"  [15] timings, float32, host clock ({smi}):")
+    calls = graph_path_calls()
+    for fn in calls.values():
+        fn()
+    out = {}
+    for route in ("graph", "eager", "eager", "graph"):
+        for (what, r), fn in calls.items():
+            if r != route:
+                continue
+            times = []
+            for _ in range(2 if "level" in what else GRAPH_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out.setdefault((what, route), []).append(statistics.median(times))
+    for (what, route), ms in out.items():
+        runs = 2 if "level" in what else GRAPH_RUNS
+        print(f"    {what}, {route}: {ms[0]:.3f} / {ms[1]:.3f} ms a call "
+              f"(median of {runs}, two turns)")
+    return out
+
+
+def trace_graph_paths():
+    """host_and_device's line for every call of graph_path_calls but the
+    level route's (a call: an ascent or a rooted call): run in a fresh
+    process (see trace_one_k1)."""
+    return {f"{what}, {route}": host_and_device(fn, GRAPH_RUNS)[0]
+            for (what, route), fn in graph_path_calls(level=False).items()}
+
+
+def phase_graph_paths(smi):
+    """[15] the GP ascent and the rooted engine by their CUDA graphs;
+    returns the launch counts of its path."""
+    print("[15] one replay per populate and per rooted call: CUDA graphs of "
+          "the GP ascent (K7/K8) and the rooted engine (K1/K2)")
+    t_phase = time.perf_counter()
+    # The path, with every counter at 0: the graph route of gp_ascent_flua
+    # and flua_rooted_gradients, as a user calls them.
+    reset_counters()
+    ascent_graph.reset_counters()
+    rooted_graph.reset_counters()
+    gp_runs, rooted_runs = {}, {}
+    for dtype, case in GP_GRAPH_CASES:
+        eng = gp_graph_engine(dtype)
+        bl0 = eng.branch_lengths.copy()
+        gp_runs[(dtype, case)] = (eng, bl0, gp_ascent(eng, bl0, *case))
+    for dtype in GRAPH_DTYPES:
+        eng, args = rooted_graph_engine(dtype)
+        rooted_runs[dtype] = (eng, args, rooted_graph_call(eng, args, True),
+                              rooted_graph_call(eng, args, False))
+    launches = launch_counts("graph paths", ["populate_plvs", "golden_sweep",
+                                             "ll_grad_jc69", "ll_jc69"])
+    graphs = (dict(ascent_graph.COUNTS), dict(rooted_graph.COUNTS))
+    print(f"  graph paths: GP phases {graphs[0]}, rooted programs {graphs[1]}")
+    if graphs[0]["replays"] < 1 or graphs[1] != {
+            "captures": 2 * len(GRAPH_DTYPES), "replays": 2 * len(GRAPH_DTYPES)}:
+        raise AssertionError("the graph paths did not replay their graphs")
+    # The checks, after the counters were read.
+    for (dtype, case), (eng, bl0, got) in gp_runs.items():
+        m = gp_graph_checks(dtype, case, eng, bl0, got)
+        if case == (1e-6, 100):
+            close(f"gp_ascent_flua {str(dtype)[6:]} graph fit vs libsbn_tpu's "
+                  "optimum", m, GP_FLUA, (0.0, GP_FLUA_TOL[dtype]))
+    for dtype, (eng, args, hand, ll) in rooted_runs.items():
+        rooted_graph_checks(dtype, eng, args, hand, ll)
+    print(f"  [15] path and checks: {time.perf_counter() - t_phase:.1f} s")
+    time_graph_paths(smi)
+    print(f"  [15] timings done: {time.perf_counter() - t_phase:.1f} s")
+    # Device time and idle share, traced in a fresh process.
+    out = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         "chip_smoke.trace_graph_paths()))"],
+        cwd=REPO, capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"trace of [15]'s calls failed:\n"
+                             f"{out.stderr[-4000:]}")
+    for name, line in json.loads(out.stdout.splitlines()[-1]).items():
+        print(f"    {name}: {line}")
+    print(f"[15] took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -3303,7 +3560,11 @@ def main():
     phase_forest(smi)
     runs.append(phase_parallel(smi))
     runs.append(phase_graphs(smi))
-    launches = {k: sum(run[k] for run in runs) for k in runs[0]}
+    graph_launches = phase_graph_paths(smi)
+    # [15]'s K1 launches are on the rooted batch: K1's second entry.
+    rooted_launches["ll_grad_jc69"] += graph_launches.pop("ll_grad_jc69")
+    runs.append(graph_launches)
+    launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     # K1's rooted launches stand in its second entry below and K2's vip
     # launches in its second; every other kernel's entry counts every path.
     for k, n in rooted_launches.items():

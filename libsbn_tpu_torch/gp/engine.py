@@ -40,6 +40,11 @@ first device with per-(node, pattern) log-scales, for the calls that read
 them (likelihood rows, hybrid marginals, single-edge derivatives), and the
 streamed ascent runs on the first device.
 
+On a card with a single shard (``cuda_graphs=True``, the default),
+``run_branch_ascent`` replays captured CUDA graphs of its phases
+(gp/ascent_graph.py), the counterpart of the JAX package's one-program
+ascent; ``cuda_graphs=False`` runs the eager host loop.
+
 Substitution model: JC69, matching gp_engine.hpp:144-155.
 """
 
@@ -57,7 +62,7 @@ from ..core.site_pattern import SitePattern
 from ..ops import substitution
 from ..parallel.sharding import check_mesh, pad_to_multiple, pattern_sharding
 from ..utils.device import DEFAULT_DEVICE, compute_device
-from . import engine_kernels
+from . import ascent_graph, engine_kernels
 from .engine_kernels import MAX_LOG_BL, MIN_LOG_BL
 
 DEFAULT_BRANCH_LENGTH = 0.1
@@ -73,11 +78,14 @@ def _jc69_evolve(bl, v):
             + (0.25 * (1.0 - e))[:, None, None] * v.sum(dim=1, keepdim=True))
 
 
-def _jc69_transition(bl):
+def _jc69_transition(bl, eigen=None):
     """(E,) branch lengths -> (E, 4, 4) JC69 transition matrices, the
-    exponential in f64 and cast back (BASELINE.md precision policy)."""
-    _, evec, ivec, evals = substitution.jc69_eigen(dtype=bl.dtype,
-                                                   device=bl.device)
+    exponential in f64 and cast back (BASELINE.md precision policy). eigen:
+    substitution.jc69_eigen in bl's dtype and device, made ahead (a CUDA
+    graph cannot copy its constants from the host)."""
+    if eigen is None:
+        eigen = substitution.jc69_eigen(dtype=bl.dtype, device=bl.device)
+    _, evec, ivec, evals = eigen
     expo = torch.exp(
         bl.to(torch.float64)[..., None] * evals.to(torch.float64)
     ).to(bl.dtype)
@@ -103,9 +111,12 @@ class GPEngine:
         device=DEFAULT_DEVICE,
         use_kernels="auto",
         mesh=None,
+        cuda_graphs=True,
     ):
         """mesh: a parallel.sharding.Mesh whose devices take the place of
-        ``device``; its sp axis splits the patterns (module docstring)."""
+        ``device``; its sp axis splits the patterns (module docstring).
+        cuda_graphs: on a CUDA device with one shard, run_branch_ascent
+        replays captured graphs of its phases; False runs it eagerly."""
         if mesh is not None:
             device = check_mesh(mesh).first_device
         if dtype not in (torch.float32, torch.float64):
@@ -133,6 +144,10 @@ class GPEngine:
         self.log_marginal_per_site = np.full(self.patterns, -np.inf)
         self.hybrid_marginal_log_likelihoods = np.full(E, -np.inf)
         self.last_ascent_converged = None
+        self.cuda_graphs = cuda_graphs
+        # The ascent's phase graphs (gp/ascent_graph.py), made at the first
+        # graphed ascent.
+        self.graphs = None
 
         self.rootward_levels, self.leafward_levels = dag.level_schedules()
         self.root_ids = np.asarray(dag.rootsplit_node_ids(), dtype=np.int32)
@@ -173,6 +188,7 @@ class GPEngine:
         self._pa, self._ch = t(self.e_parent), t(self.e_child)
         self._rot, self._g = t(self.e_rot, torch.bool), t(self.e_gpcsp)
         self._ri, self._rg = t(self.root_ids), t(self.root_gpcsps)
+        self._jc69 = substitution.jc69_eigen(dtype=self.dtype, device=device)
         self._build_level_tensors()
         self._streams = None  # K7's edge streams, built at first use
 
@@ -283,8 +299,8 @@ class GPEngine:
         tips = self._tips if tips is None else tips
         if self.use_kernels:
             return engine_kernels.populate_plvs(
-                self._edge_streams(), q, _jc69_transition(bl).contiguous(),
-                tips)
+                self._edge_streams(), q,
+                _jc69_transition(bl, self._jc69).contiguous(), tips)
         return self._populate_levels(bl, q, tips)
 
     def _tensor(self, a):
@@ -621,7 +637,14 @@ class GPEngine:
         marginal does not fall; stop when no damping helps or the gain is
         below ``tol + rtol*|marginal|`` (the reference's rule,
         gp_instance.cpp:129-175, is ``tol`` alone; ``rtol`` is for near-flat
-        surfaces). The host reads only the scalar comparisons."""
+        surfaces). The host reads only the scalar comparisons.
+
+        On a CUDA device with one shard and cuda_graphs, the same loop
+        replays captured graphs of its phases (gp/ascent_graph.py): about
+        one replay and one read of a flag buffer per populate."""
+        if (self.cuda_graphs and self.device.type == "cuda"
+                and len(self._shards) == 1):
+            return self._run_branch_ascent_graphed(tol, max_iter, rtol)
         dt = self.dtype
         q = self._tensor(self.q)
         floor = 1e-300 if dt == torch.float64 else 1e-30
@@ -655,19 +678,33 @@ class GPEngine:
         self.compute_likelihoods()
         return float(cur), sweeps
 
-    # -- branch optimization -------------------------------------------------
-    def _sweep(self, plvs, bl):
-        """New branch lengths (E_total,) from one sweep over all edges
-        against frozen PLVs, by the engine's route."""
-        A, B = engine_kernels.sweep_stats(plvs, self._pa, self._ch, self._rot)
-        return self._sweep_rows(A, B, self._w, bl)
+    def _run_branch_ascent_graphed(self, tol, max_iter, rtol):
+        """run_branch_ascent by replays of the phase graphs."""
+        if self.graphs is None or self.graphs.use_kernels != self.use_kernels:
+            self.graphs = ascent_graph.AscentGraphs(self)
+        g = self.graphs
+        cur, sweeps, done = g.run(self.branch_lengths, self.q, tol, max_iter,
+                                  rtol)
+        self.branch_lengths = g.bl.cpu().numpy()
+        self.plvs = {k: v.clone() for k, v in g.plvs.items()}
+        self.last_ascent_converged = done or sweeps < max_iter
+        self.compute_likelihoods()
+        return cur, sweeps
 
-    def _sweep_rows(self, A, B, w, bl):
+    # -- branch optimization -------------------------------------------------
+    def _sweep(self, plvs, bl, early_exit=True):
+        """New branch lengths (E_total,) from one sweep over all edges
+        against frozen PLVs, by the engine's route (early_exit: see
+        _newton_sweep)."""
+        A, B = engine_kernels.sweep_stats(plvs, self._pa, self._ch, self._rot)
+        return self._sweep_rows(A, B, self._w, bl, early_exit)
+
+    def _sweep_rows(self, A, B, w, bl, early_exit=True):
         """One sweep by the engine's route from the per-edge rows A and B
         (E, S) under pattern weights w (S,)."""
         if self.use_kernels:
             return self._golden_sweep(A, B, w, bl)
-        return self._newton_sweep(A, B, w, bl)
+        return self._newton_sweep(A, B, w, bl, early_exit)
 
     def _golden_sweep(self, A, B, w, bl):
         """The kernel route's sweep: K8's golden-section search per edge."""
@@ -678,7 +715,7 @@ class GPEngine:
         out[self._g] = torch.exp(new_log)
         return out
 
-    def _newton_sweep(self, A, Bc, w, bl):
+    def _newton_sweep(self, A, Bc, w, bl, early_exit=True):
         """The level route's sweep: one vectorized derivative-driven sweep
         over all edges.
 
@@ -692,7 +729,9 @@ class GPEngine:
         (gp_engine.cpp:244-266, 326-361; optimization.hpp:10-115).
         Reject-if-worse per edge, as in BrentOptimization. Edges that have
         stopped do not move, so ending the loop when none is active gives
-        the same u as running all NEWTON_ITERS iterations."""
+        the same u as running all NEWTON_ITERS iterations; early_exit=False
+        runs them all and reads nothing on the host, as a CUDA graph
+        must."""
         g = self._g
         dt = bl.dtype
         c_jc = 4.0 / 3.0
@@ -709,8 +748,8 @@ class GPEngine:
         def u_of(log_bl):
             return torch.exp(-c_jc * torch.exp(log_bl))
 
-        ulo = u_of(torch.tensor(MAX_LOG_BL, dtype=dt, device=bl.device))
-        uhi = u_of(torch.tensor(MIN_LOG_BL, dtype=dt, device=bl.device))
+        ulo = u_of(torch.full((), MAX_LOG_BL, dtype=dt, device=bl.device))
+        uhi = u_of(torch.full((), MIN_LOG_BL, dtype=dt, device=bl.device))
         E = g.shape[0]
         phi_lo, _ = phi_and_dphi(ulo.expand(E))
         phi_hi, _ = phi_and_dphi(uhi.expand(E))
@@ -721,7 +760,7 @@ class GPEngine:
         u = torch.clamp(u_of(torch.log(bl[g])), ulo, uhi)
         lo, hi = ulo.expand(E).clone(), uhi.expand(E).clone()
         for _ in range(NEWTON_ITERS):
-            if not bool(active.any()):
+            if early_exit and not bool(active.any()):
                 break
             phi, dphi = phi_and_dphi(u)
             lo = torch.where(phi > 0, u, lo)  # the root is above u where φ>0

@@ -58,7 +58,7 @@ class GPInstance:
     def make_engine(
         self, rescaling_threshold: float = 1e-40, dtype=None,
         device=DEFAULT_DEVICE,
-        use_kernels="auto", mesh=None,
+        use_kernels="auto", mesh=None, cuda_graphs=True,
     ):
         """dtype: torch.float64 (the default) or torch.float32. device: the
         card (the default; raises without one) unless the caller passes
@@ -70,7 +70,9 @@ class GPInstance:
         the place of ``device``; an "sp" axis of more than one device
         splits the site patterns over them (gp/engine.py). Under a global
         mesh (parallel.distributed.global_mesh) every rank fits on its own
-        sp devices, so the ranks hold the same fit."""
+        sp devices, so the ranks hold the same fit. cuda_graphs: on a card
+        with one shard, run_branch_ascent replays captured CUDA graphs of
+        its phases (gp/ascent_graph.py); False runs it eagerly."""
         if self.alignment is None or self.tree_collection is None:
             raise RuntimeError("Please load both fasta and newick files.")
         site_pattern = SitePattern(
@@ -83,7 +85,7 @@ class GPInstance:
         self.engine = GPEngine(
             site_pattern, self.dag, sbn_prior, node_probs, inverted,
             rescaling_threshold, dtype=dtype or torch.float64, device=device,
-            use_kernels=use_kernels, mesh=mesh,
+            use_kernels=use_kernels, mesh=mesh, cuda_graphs=cuda_graphs,
         )
 
     def get_engine(self) -> GPEngine:

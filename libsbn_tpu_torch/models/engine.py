@@ -25,6 +25,14 @@ PyTorch twins; float32 or float64 either way):
     log-det-Jacobian through the sweeps and K5 + K6 or the scan engine
     (``_rooted_phylo_gradients_autograd``, which also runs JC69 on K2 + K3).
 
+On a card (``cuda_graphs=True``, the default) the hand route and
+``rooted_log_likelihoods`` (K2, or K5 for GTR; rescaling and shared
+parameters) are each one replay of a captured CUDA graph
+(models/rooted_graph.py), the counterpart of the JAX engine's jitted
+programs; ``cuda_graphs=False`` runs them eagerly, launch by launch. The
+schedule's index arrays go to the device once per schedule object, which
+caches them (``_sched_dev``, the JAX engine's cache of the same name).
+
 Gradient conventions (PhyloGradient parity, tree_gradient.hpp):
 ``"branch_lengths"`` is d LL / d b_e over non-root node ids 0..root_id-1,
 the trifurcating layout with 2n-3 real edges; ``"substitution_model"`` is
@@ -66,6 +74,9 @@ from ..ops import substitution as subst_ops
 from ..ops import transforms
 from ..ops.schedule import BatchedSchedule
 from ..utils.device import DEFAULT_DEVICE, compute_device
+from . import rooted_graph
+
+HEIGHTS_METHODS = ("sweeps", "squaring")
 
 
 class LikelihoodEngine:
@@ -80,7 +91,11 @@ class LikelihoodEngine:
         dtype=torch.float64,
         device=DEFAULT_DEVICE,
         use_tip_states: bool = False,
+        cuda_graphs: bool = True,
     ):
+        """cuda_graphs: on a CUDA device, run the rooted hand route and
+        rooted LLs as captured CUDA graphs (models/rooted_graph.py);
+        False runs them eagerly. Ignored on the CPU."""
         check_spec(spec)
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
@@ -107,6 +122,12 @@ class LikelihoodEngine:
         self.weights = torch.as_tensor(
             site_pattern.weights, device=device
         ).to(dtype)
+        # The heights fixed point of the rooted hand route: "sweeps" (one
+        # gather a sweep) or "squaring" (log-depth matrix squarings), as
+        # the JAX engine's attribute of the same name.
+        self.heights_method = "sweeps"
+        self.graphs = (rooted_graph.RootedGraphs(self)
+                       if device.type == "cuda" and cuda_graphs else None)
 
     @property
     def tips(self):
@@ -117,15 +138,36 @@ class LikelihoodEngine:
         return self._tip_decode[self._tip_codes].transpose(1, 2).contiguous()
 
     # -- shared pieces ------------------------------------------------------
+    @staticmethod
+    def _sched_cache(sched: BatchedSchedule):
+        """The dict cached ON the schedule object that holds what the engine
+        derives from it, so it dies with the schedule and a new schedule
+        object is never served another's. Made at the schedule's first use,
+        after checking on the host what the kernels assume of it
+        (pruning_jc.check_schedule): once per schedule object."""
+        cache = getattr(sched, "_dev_cache", None)
+        if cache is None:
+            pruning_jc.check_schedule(sched.post_node, sched.post_children,
+                                      sched.leaf_count, sched.root_id)
+            cache = {}
+            object.__setattr__(sched, "_dev_cache", cache)
+        return cache
+
+    def _sched_dev(self, sched: BatchedSchedule, name, dtype=torch.int64):
+        """The device copy of the schedule's index array ``name`` in dtype,
+        in _sched_cache, keyed by device and dtype."""
+        cache = self._sched_cache(sched)
+        key = (name, self.device, dtype)
+        if key not in cache:
+            cache[key] = torch.as_tensor(
+                np.asarray(getattr(sched, name)), device=self.device
+            ).to(dtype)
+        return cache[key]
+
     def _post_children(self, sched: BatchedSchedule):
-        """The schedule's child table on the device, after checking on the
-        host what the kernels assume (pruning_jc.check_schedule)."""
-        pruning_jc.check_schedule(sched.post_node, sched.post_children,
-                                  sched.leaf_count, sched.root_id)
-        return torch.as_tensor(
-            np.asarray(sched.post_children), dtype=torch.int32,
-            device=self.device,
-        )
+        """The schedule's child table on the device, int32 (the kernels'),
+        checked and cached by _sched_dev."""
+        return self._sched_dev(sched, "post_children", torch.int32)
 
     def _bl_padded(self, branch_lengths):
         """(B, N) branch lengths in the working dtype, plus the ones-slot 0."""
@@ -154,10 +196,11 @@ class LikelihoodEngine:
         rates, props = site_tensors(self.spec, params, device=self.device)
         return freqs, Q, rates, props
 
-    def _node_P(self, Q, freqs, rates, bl_padded):
+    def _node_P(self, Q, freqs, rates, bl_padded, eigen=None):
         """Node transition matrices (B, N1, K, 4, 4) in the working dtype.
         Q: (4, 4) or per tree (B, 4, 4); freqs likewise; rates: (K,) or
-        (B, K); bl_padded: (B, N1).
+        (B, K); bl_padded: (B, N1); eigen: GTR's eigensystem of Q in the
+        working dtype (``_gtr_eigen``), solved ahead, or None.
 
         GTR exponentiates through ``expm_transition`` with times bl x rate
         formed in the working dtype (as the JAX engine, engine.py:112-116);
@@ -167,17 +210,24 @@ class LikelihoodEngine:
         if self.spec.substitution == "GTR":
             r = rates.to(dt)
             ts = bl_padded.to(dt)[:, :, None] * (r[:, None, :] if r.dim() == 2 else r)
-            return subst_ops.expm_transition(Q.to(dt), freqs.to(dt), ts)
+            return subst_ops.expm_transition(Q.to(dt), freqs.to(dt), ts,
+                                             eigen=eigen)
         _, evec, ivec, evals = subst_ops.jc69_eigen(device=self.device)
         return pruning.node_transition_matrices(
             evec.to(dt), ivec.to(dt), evals.to(dt), bl_padded.to(dt),
             rates.to(dt),
         )
 
-    def _lls(self, pc, bl_padded, model, root_id):
+    def _gtr_eigen(self, Q, freqs):
+        """The f64 eigensystem of a shared GTR Q as ``_node_P`` solves it
+        (of Q and freqs in the working dtype), on the host."""
+        return subst_ops.eigen_f64(Q.to(self.dtype), freqs.to(self.dtype))
+
+    def _lls(self, pc, bl_padded, model, root_id, eigen=None):
         """(B,) LLs from padded branch lengths (B, N1), differentiable in
         them and in the model tensors: K2/K3 (JC69 with rescaling), K5/K6
-        (GTR with rescaling), the scan engine without rescaling."""
+        (GTR with rescaling), the scan engine without rescaling. eigen: as
+        in _node_P."""
         freqs, Q, rates, props = model
         if self._matrix_free():
             return pruning_jc.log_likelihoods_jc69(
@@ -185,7 +235,7 @@ class LikelihoodEngine:
                 rates=rates, props=props,
             )
         dt = self.dtype
-        P = self._node_P(Q, freqs, rates, bl_padded)
+        P = self._node_P(Q, freqs, rates, bl_padded, eigen)
         if not self.rescale:
             return pruning.log_likelihoods(
                 pc, P, self.tips, freqs.to(dt), props.to(dt), self.weights,
@@ -253,11 +303,11 @@ class LikelihoodEngine:
         )
         out = {"log_likelihood": lls, "branch_lengths": bgrads}
         out.update(self._model_param_gradients(
-            sched, self._bl_padded(branch_lengths), params))
+            self._post_children(sched), sched.root_id,
+            self._bl_padded(branch_lengths), params))
         return out
 
-    def _model_param_gradients(self, sched: BatchedSchedule, bl_padded,
-                               params):
+    def _model_param_gradients(self, pc, root_id, bl_padded, params):
         """Per-tree substitution (stick space) and site gradients, float64,
         at padded branch lengths (B, N1) (rate-scaled for time trees).
 
@@ -267,12 +317,13 @@ class LikelihoodEngine:
         and each row is that tree's gradient; both blocks come from one
         forward and one backward launch (K5 + K6 for GTR, K2 + K3 for JC69
         with rescaling, the scan engine without). Per-tree parameters
-        (leading tree axis) start each copy from the tree's own row."""
+        (leading tree axis) start each copy from the tree's own row. pc:
+        the schedule's (B, S, 3) child table on the device."""
         gtr = self.spec.substitution == "GTR"
         weibull = self.spec.site.startswith("weibull")
         if not (gtr or weibull):
             return {}
-        B = np.asarray(sched.post_children).shape[0]
+        B = pc.shape[0]
         dev = self.device
         inputs = []
         with torch.enable_grad():
@@ -299,8 +350,8 @@ class LikelihoodEngine:
                     shapes, self.spec.site_category_count(), device=dev)
             else:
                 rates, props = site_tensors(self.spec, params, device=dev)
-            lls = self._lls(self._post_children(sched), bl_padded.detach(),
-                            (freqs, Q, rates, props), sched.root_id)
+            lls = self._lls(pc, bl_padded.detach(), (freqs, Q, rates, props),
+                            root_id)
             grads = torch.autograd.grad(lls.sum(), inputs)
         out = {}
         if gtr:
@@ -334,41 +385,46 @@ class LikelihoodEngine:
         return torch.nn.functional.pad(bl, (0, 2))
 
     def _rooted_inputs(self, sched, bounds, ratios, rates):
-        """The schedule's index arrays and the time-tree arrays on the
-        device, the arrays in the working dtype."""
-        def upload(x, dtype):
-            return torch.as_tensor(x, device=self.device).to(dtype)
+        """The schedule's index arrays (cached on it, _sched_dev) and the
+        time-tree arrays on the device, the arrays in the working dtype."""
+        def upload(x):
+            return torch.as_tensor(x, device=self.device).to(self.dtype)
 
         return {
             "pc": self._post_children(sched),
-            "pre_node": upload(sched.pre_internal_node, torch.int64),
-            "pre_parent": upload(sched.pre_internal_parent, torch.int64),
-            "parent": upload(sched.parent, torch.int64),
-            "bounds": upload(bounds, self.dtype),
-            "ratios": upload(ratios, self.dtype),
-            "rates": upload(rates, self.dtype),
+            "pre_node": self._sched_dev(sched, "pre_internal_node"),
+            "pre_parent": self._sched_dev(sched, "pre_internal_parent"),
+            "parent": self._sched_dev(sched, "parent"),
+            "bounds": upload(bounds),
+            "ratios": upload(ratios),
+            "rates": upload(rates),
             "n_iters": self._height_iters(sched),
             "leaf_count": sched.leaf_count,
             "root_id": sched.root_id,
         }
 
-    def _rooted_branch_lengths(self, a, ratios):
+    def _rooted_branch_lengths(self, a, ratios, method="sweeps"):
         """(heights (B, N), branch lengths (B, N-1)) of the time trees."""
         h = heights_ops.node_heights_from_ratios(
             ratios, a["bounds"], a["leaf_count"], a["pre_node"],
-            a["pre_parent"], n_iters=a["n_iters"])
+            a["pre_parent"], n_iters=a["n_iters"], method=method)
         return h, heights_ops.branch_lengths_from_heights(h, a["parent"])
 
-    def _rooted_parts(self, a, ratios, rates, model):
+    def _rooted_parts(self, a, ratios, rates, model, eigen=None):
         """((B,) LLs, (B,) log-det-Jacobians, (B, N-1) rate-scaled branch
         lengths), differentiable in ratios, rates and the model tensors."""
         h, bl = self._rooted_branch_lengths(a, ratios)
         bl_scaled = bl * rates
         lls = self._lls(a["pc"], self._bl_padded2(bl_scaled), model,
-                        a["root_id"])
+                        a["root_id"], eigen)
         ldjs = heights_ops.log_det_jacobian(h, a["bounds"], a["parent"],
                                             a["leaf_count"])
         return lls, ldjs, bl_scaled
+
+    def _rooted_graphed(self, per_tree):
+        """Whether a rooted call takes its captured graph: on a card with
+        cuda_graphs, rescaling and shared parameters."""
+        return self.graphs is not None and self.rescale and not per_tree
 
     def rooted_log_likelihoods(
         self, sched: BatchedSchedule, bounds, ratios, rates, params,
@@ -379,15 +435,26 @@ class LikelihoodEngine:
 
         bounds: (B, N) node bounds; ratios: (B, L-1) height ratios with the
         root height last; rates: (B, N-1) per-branch clock rates. per_tree:
-        each tree with its own parameter row, on the same kernels."""
-        a = self._rooted_inputs(sched, bounds, ratios, rates)
-        if per_tree:
-            self._check_per_tree(params, a["pc"].shape[0])
-        lls, ldjs, _ = self._rooted_parts(a, a["ratios"], a["rates"],
-                                          self._model(params))
+        each tree with its own parameter row, on the same kernels. On a
+        card with cuda_graphs (rescaling, shared parameters) one replay of
+        a captured graph."""
+        if self._rooted_graphed(per_tree):
+            lls, ldjs = self.graphs.log_likelihoods(sched, bounds, ratios,
+                                                    rates, params)
+        else:
+            a = self._rooted_inputs(sched, bounds, ratios, rates)
+            if per_tree:
+                self._check_per_tree(params, a["pc"].shape[0])
+            lls, ldjs = self._rooted_lls(a, params)
         if return_parts:
             return lls, ldjs
         return lls + ldjs
+
+    def _rooted_lls(self, a, params, eigen=None):
+        """((B,) LLs, (B,) log-det-Jacobians) of the inputs ``a``."""
+        lls, ldjs, _ = self._rooted_parts(a, a["ratios"], a["rates"],
+                                          self._model(params), eigen)
+        return lls, ldjs
 
     def rooted_phylo_gradients(
         self, sched: BatchedSchedule, bounds, ratios, rates, params,
@@ -396,18 +463,23 @@ class LikelihoodEngine:
         """Gradient dict of rooted time trees: ``log_likelihood`` (without
         the Jacobian), ``ratios_root_height``, ``clock_model`` and the model
         gradients. JC69 with rescaling and shared parameters takes the hand
-        route (one K1 launch); every other model, and per_tree parameters
-        (K1 takes shared rates only), autograd (K2 + K3, K5 + K6 or the
-        scan engine)."""
+        route (one K1 launch; on a card with cuda_graphs one replay of a
+        captured graph); every other model, and per_tree parameters (K1
+        takes shared rates only), autograd (K2 + K3, K5 + K6 or the scan
+        engine)."""
         if per_tree:
             self._check_per_tree(params,
                                  np.asarray(sched.post_children).shape[0])
-        route = (self._rooted_phylo_gradients_hand
-                 if self._matrix_free() and not per_tree
-                 else self._rooted_phylo_gradients_autograd)
-        return route(sched, bounds, ratios, rates, params, strict_clock)
+        if not (self._matrix_free() and not per_tree):
+            return self._rooted_phylo_gradients_autograd(
+                sched, bounds, ratios, rates, params, strict_clock)
+        if self._rooted_graphed(per_tree):
+            return self.graphs.phylo_gradients(sched, bounds, ratios, rates,
+                                               params, strict_clock)
+        return self._rooted_phylo_gradients_hand(
+            sched, bounds, ratios, rates, params, strict_clock)
 
-    def _rooted_gradient_dict(self, sched, lls, dratios, drates, bl_scaled,
+    def _rooted_gradient_dict(self, a, lls, dratios, drates, bl_scaled,
                               params, strict_clock):
         out = {
             "log_likelihood": lls,
@@ -418,19 +490,29 @@ class LikelihoodEngine:
         # The Jacobian does not depend on the model: its gradients are the
         # LL's at the rate-scaled branch lengths.
         out.update(self._model_param_gradients(
-            sched, self._bl_padded2(bl_scaled), params))
+            a["pc"], a["root_id"], self._bl_padded2(bl_scaled), params))
         return out
 
     def _rooted_phylo_gradients_hand(
         self, sched, bounds, ratios, rates, params, strict_clock
     ):
-        """JC69 rooted gradients by the hand chain rule: one K1 launch on
-        the rate-scaled branch lengths gives the LL and its branch gradient,
+        """JC69 rooted gradients by the hand chain rule, eagerly (see
+        _rooted_hand)."""
+        return self._rooted_hand(
+            self._rooted_inputs(sched, bounds, ratios, rates), params,
+            strict_clock)
+
+    def _rooted_hand(self, a, params, strict_clock):
+        """The hand route on the inputs ``a``: one K1 launch on the
+        rate-scaled branch lengths gives the LL and its branch gradient,
         then ops/heights.py's adjoint of the heights (the BEAST recursions
-        of rooted_gradient_transforms.cpp:17-162, as sweeps) gives the
-        ratio and clock gradients."""
-        a = self._rooted_inputs(sched, bounds, ratios, rates)
-        h, bl = self._rooted_branch_lengths(a, a["ratios"])
+        of rooted_gradient_transforms.cpp:17-162, as sweeps, or squarings
+        by heights_method) gives the ratio and clock gradients."""
+        method = self.heights_method
+        if method not in HEIGHTS_METHODS:
+            raise ValueError(f"heights_method must be one of "
+                             f"{HEIGHTS_METHODS}, got {method!r}")
+        h, bl = self._rooted_branch_lengths(a, a["ratios"], method)
         bl_scaled = bl * a["rates"]
         _, _, site_rates, props = self._model(params)
         lls, g_scaled = pruning_jc.log_likelihood_and_branch_gradient_jc69(
@@ -441,9 +523,10 @@ class LikelihoodEngine:
             heights_ops.ratio_and_rate_gradients_from_branch_gradient(
                 g_scaled, a["ratios"], a["bounds"], a["rates"],
                 a["leaf_count"], a["pre_node"], a["pre_parent"], a["parent"],
-                a["n_iters"], heights=h,
+                a["n_iters"], heights=h, method=method,
+                post_children=a["pc"],
             ))
-        return self._rooted_gradient_dict(sched, lls, dratios, drates,
+        return self._rooted_gradient_dict(a, lls, dratios, drates,
                                           bl_scaled, params, strict_clock)
 
     def _rooted_phylo_gradients_autograd(
@@ -461,5 +544,5 @@ class LikelihoodEngine:
             lls, ldjs, bl_scaled = self._rooted_parts(a, r, k, model)
             dratios, drates = torch.autograd.grad((lls + ldjs).sum(), (r, k))
         return self._rooted_gradient_dict(
-            sched, lls.detach(), dratios, drates, bl_scaled.detach(), params,
+            a, lls.detach(), dratios, drates, bl_scaled.detach(), params,
             strict_clock)

@@ -16,6 +16,12 @@ deepest internal node's depth; each sweep is a gather on the parent index.
 ``method="squaring"`` instead composes the affine sweep with itself by
 matrix squarings of (B, N, N) one-hot matrices (the JAX function's second
 lowering; exact for any count of sweeps at least the depth).
+
+The hand adjoint sums onto each parent over its children in a fixed order:
+gathers over the children table (the schedule's ``post_children``, row s
+holding internal node leaf_count + s's children, padded with the ones slot
+N), never scatter-adds, whose float atomics on a card add in no fixed
+order. So two runs on a card agree bit for bit.
 """
 
 from __future__ import annotations
@@ -48,7 +54,43 @@ def _squarings(n_iters):
 
 
 def _one_hot(parent_full, n, dtype):
-    return torch.nn.functional.one_hot(parent_full, n).to(dtype)
+    return (parent_full[..., None]
+            == torch.arange(n, device=parent_full.device)).to(dtype)
+
+
+def children_table(parent, leaf_count):
+    """(B, N - L, 3) int64 children of each internal node (row s: node
+    leaf_count + s) padded with the ones slot N, from the parent index
+    parent (B, N-1) of binary trees, as a schedule's post_children lays
+    them out. A stable sort of the parent index: every internal node is
+    the parent of exactly two nodes, so sorted positions 2s and 2s + 1
+    hold node leaf_count + s's children."""
+    parent = parent.long()
+    B, n1 = parent.shape
+    kids = torch.argsort(parent, dim=1, stable=True).view(B, -1, 2)
+    return torch.nn.functional.pad(kids, (0, 1), value=n1 + 1)
+
+
+def _children_index(post_children, leaf_count, root_self=False):
+    """(B, 3 (N + 1)) int64 gather index over per-node values padded with a
+    zero at the ones slot N: row v holds node v's children (the slot where
+    it has none: the leaves, and the slot's own row). With root_self the
+    binary root's third column, the slot, becomes the root itself."""
+    pc = post_children.long()
+    B, n_internal, _ = pc.shape
+    n = n_internal + leaf_count
+    if root_self:
+        root = torch.nn.functional.pad(pc[:, -1:, :2], (0, 1), value=n - 1)
+        pc = torch.cat([pc[:, :-1], root], dim=1)
+    return torch.nn.functional.pad(pc, (0, 0, leaf_count, 1),
+                                   value=n).reshape(B, -1)
+
+
+def _sum_over_children(x, index):
+    """(B, N + 1): for each node the sum of x (B, N + 1, zero at the ones
+    slot) over the row of ``index`` (_children_index), one reduction in a
+    fixed order."""
+    return torch.gather(x, 1, index).view(x.shape[0], -1, 3).sum(-1)
 
 
 def node_heights_from_ratios(ratios, node_bounds, leaf_count,
@@ -91,7 +133,7 @@ def branch_lengths_from_heights(heights, parent):
 def ratio_and_rate_gradients_from_branch_gradient(
     g_bl_scaled, ratios, node_bounds, rates, leaf_count, pre_internal_node,
     pre_internal_parent, parent, n_iters, include_jacobian=True,
-    heights=None, method="sweeps",
+    heights=None, method="sweeps", post_children=None,
 ):
     """The hand chain rule from a gradient with respect to the rate-scaled
     branch lengths bl * rates, g_bl_scaled (B, N-1), to (d obj / d ratios
@@ -101,7 +143,11 @@ def ratio_and_rate_gradients_from_branch_gradient(
     The adjoint of the fixed point is taken at the converged heights: with
     A = diag(r) P, W = sum_j (A^T)^j g_h over n_iters terms and the ratios'
     gradient is W (h[parent] - b) at internal non-root nodes; the root
-    height's is the last term (A^T)^n_iters g_h at the root."""
+    height's is the last term (A^T)^n_iters g_h at the root.
+
+    post_children: the schedule's (B, N - L, 3) children table; without it
+    the table comes from ``parent`` (children_table). Every sum onto a
+    parent is a gather over it, in a fixed order."""
     B, n = node_bounds.shape
     dtype = g_bl_scaled.dtype
     h = heights
@@ -110,13 +156,16 @@ def ratio_and_rate_gradients_from_branch_gradient(
             ratios, node_bounds, leaf_count, pre_internal_node,
             pre_internal_parent, n_iters=n_iters, method=method)
     parent = parent.long()
+    if post_children is None:
+        post_children = children_table(parent, leaf_count)
+    kids = _children_index(post_children, leaf_count)
     bl = branch_lengths_from_heights(h, parent)
     g_rates = g_bl_scaled * bl
-    g_bl = g_bl_scaled * rates
+    g_bl = torch.nn.functional.pad(g_bl_scaled * rates, (0, 2))
 
-    # bl_i = h[parent_i] - h_i: +g at the parent, -g at the node.
-    g_h = g_bl.new_zeros((B, n)).scatter_add_(1, parent, g_bl)
-    g_h[:, :-1] -= g_bl
+    # bl_i = h[parent_i] - h_i: +g at the parent, -g at the node. Per-node
+    # values carry the ones slot's zero last, (B, N + 1).
+    g_h = _sum_over_children(g_bl, kids) - g_bl
     b, r_full, parent_full = _sweep_operands(
         ratios.to(dtype), node_bounds, leaf_count, pre_internal_node,
         pre_internal_parent)
@@ -126,10 +175,10 @@ def ratio_and_rate_gradients_from_branch_gradient(
         # the masked leaf rows: a leaf whose height equals its parent's
         # would give 0 * inf = NaN there.
         diff = torch.gather(h, 1, parent) - b[:, :-1]
-        mask = torch.zeros((n - 1,), dtype=dtype, device=h.device)
-        mask[leaf_count:] = 1.0
+        mask = (torch.arange(n - 1, device=h.device) >= leaf_count).to(dtype)
         inv = mask / torch.where(mask > 0, diff, torch.ones_like(diff))
-        g_h.scatter_add_(1, parent, inv)
+        g_h = g_h + _sum_over_children(
+            torch.nn.functional.pad(inv, (0, 2)), kids)
 
     if method == "squaring":
         At = (r_full[:, :, None]
@@ -139,15 +188,19 @@ def ratio_and_rate_gradients_from_branch_gradient(
         for _ in range(_squarings(n_iters)):
             S = S + torch.matmul(M, S)
             M = torch.matmul(M, M)
-        W = torch.matmul(S, g_h[:, :, None])[:, :, 0]
-        w_final = torch.matmul(M, g_h[:, :, None])[:, :, 0]
+        W = torch.matmul(S, g_h[:, :n, None])[:, :, 0]
+        w_final = torch.matmul(M, g_h[:, :n, None])[:, :, 0]
     elif method == "sweeps":
-        # w <- P^T (r w): each node passes r_v w_v to its parent.
+        # w <- P^T (r w): each node passes r_v w_v to its parent; the root
+        # (r = 1, its own parent) keeps its own w besides. Four kernels a
+        # sweep.
+        up = _children_index(post_children, leaf_count, root_self=True)
+        r_pad = torch.nn.functional.pad(r_full, (0, 1))
         w, W = g_h, g_h
         for _ in range(n_iters):
-            w = torch.zeros_like(w).scatter_add_(1, parent_full, r_full * w)
+            w = _sum_over_children(r_pad * w, up)
             W = W + w
-        w_final = w
+        W, w_final = W[:, :n], w[:, :n]
     else:
         raise ValueError(f"unknown method {method!r}")
 

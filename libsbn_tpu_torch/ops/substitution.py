@@ -107,11 +107,7 @@ def _eigen_f64_host(Q, freqs):
     """The eigensystem of Q (nQ, 4, 4) in f64, solved on a CPU copy (one
     LAPACK call; on a card, eigh of a few 4x4s would launch a solver and
     synchronise anyway), returned on Q's device."""
-    lam, V, Vi = _eigen_of_q(
-        Q.detach().to("cpu", torch.float64),
-        freqs.detach().to("cpu", torch.float64),
-    )
-    return lam.to(Q.device), V.to(Q.device), Vi.to(Q.device)
+    return tuple(x.to(Q.device) for x in eigen_f64(Q, freqs))
 
 
 def _phi(lam, ts):
@@ -138,8 +134,8 @@ class _ExpmTransition(torch.autograd.Function):
     and no cotangent for freqs (they only symmetrize the eigenproblem)."""
 
     @staticmethod
-    def forward(ctx, Q, freqs, ts):
-        lam, V, Vi = _eigen_f64_host(Q, freqs)
+    def forward(ctx, Q, freqs, ts, eigen):
+        lam, V, Vi = _eigen_f64_host(Q, freqs) if eigen is None else eigen
         t64 = ts.to(torch.float64)
         expo = torch.exp(t64[..., None] * lam[:, None, :])  # (nQ, nT, 4)
         ctx.save_for_backward(lam, V, Vi, t64, expo)
@@ -160,10 +156,21 @@ class _ExpmTransition(torch.autograd.Function):
         if ctx.needs_input_grad[2]:
             diag = torch.diagonal(W, dim1=-2, dim2=-1)  # (nQ, nT, 4)
             dts = torch.sum(lam[:, None, :] * expo * diag, dim=-1).to(t_dtype)
-        return dQ, None, dts
+        return dQ, None, dts, None
 
 
-def expm_transition(Q, freqs, ts):
+def eigen_f64(Q, freqs):
+    """The f64 eigensystem (evals (nQ, 4), V (nQ, 4, 4), V^-1 (nQ, 4, 4)) of
+    Qs (*batch, 4, 4) on the host, as expm_transition solves it: for a
+    caller that solves it ahead of a CUDA graph, which cannot synchronise."""
+    nQ = int(np.prod(Q.shape[:-2], dtype=np.int64))
+    return _eigen_of_q(
+        Q.detach().reshape(nQ, 4, 4).to("cpu", torch.float64),
+        freqs.detach().expand(Q.shape[:-2] + (4,)).reshape(nQ, 4).to(
+            "cpu", torch.float64))
+
+
+def expm_transition(Q, freqs, ts, eigen=None):
     """P(t) = expm(Q t), differentiable in Q and ts, and defined (with its
     gradient) at repeated eigenvalues, e.g. the uniform-rates GTR point.
 
@@ -172,7 +179,8 @@ def expm_transition(Q, freqs, ts):
     function of Q alone, so freqs get no gradient here; differentiate
     through ``gtr_q`` for that); ts: (*batch, ...) times, whose leading
     dims are Q's batch dims. Returns ts.shape + (4, 4) in the promoted dtype
-    of Q and ts."""
+    of Q and ts. eigen: Q's eigensystem from ``eigen_f64``, on ts's device,
+    in place of solving it here (which reads Q on the host)."""
     batch = Q.shape[:-2]
     if ts.shape[: len(batch)] != batch:
         raise ValueError(
@@ -182,6 +190,6 @@ def expm_transition(Q, freqs, ts):
     nQ = int(np.prod(batch, dtype=np.int64))
     P = _ExpmTransition.apply(
         Q.reshape(nQ, 4, 4), freqs.expand(batch + (4,)).reshape(nQ, 4),
-        ts.reshape(nQ, -1),
+        ts.reshape(nQ, -1), eigen,
     )
     return P.reshape(ts.shape + (4, 4))

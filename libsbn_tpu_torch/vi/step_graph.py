@@ -17,16 +17,14 @@ length K and replays it:
   and the floats (eps (K, P, B), then betas (K,)), each filled by one
   host-to-device copy before the replay;
 * before a capture, one step of the window runs on a side stream and its
-  result is dropped (PyTorch's rule; it also loads the kernels' library,
-  which may run nvcc), its launches counted as any launch is;
+  result is dropped, its launches counted as any launch is;
 * each graph has its own memory pool; the metrics are copied out of it
   after each replay.
 
-The kernel wrappers count a launch in Python, so a capture would count
-launches that did not run: the capture's counts are taken back, and each
-replay adds them. A window of other shapes than the first raises, and so
-does any error of a capture or a replay; nothing here falls back to eager
-steps.
+The capture itself (the warm-up, the pool, the launch counts taken back at
+capture and added at each replay, errors raised) is utils/graphs.py's
+``Graph``. A window of other shapes than the first raises; nothing here
+falls back to eager steps.
 """
 
 from __future__ import annotations
@@ -37,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import pruning, pruning_jc
+from ..utils.graphs import Graph
 
 # Captures and replays of window graphs, so a run can show that a window
 # was one replay. reset_counters() sets them to 0.
@@ -58,12 +57,10 @@ def leaves(state):
 
 
 class _Window(NamedTuple):
-    graph: torch.cuda.CUDAGraph
+    graph: Graph  # returns (metrics, K), in the metrics' names' order
     packed: torch.Tensor  # (K, P, W) int32
     floats: torch.Tensor  # (K P B + K,): eps, then betas
-    out: torch.Tensor  # (metrics, K), written by the graph
-    names: tuple  # the metrics' names, in out's rows
-    counted: tuple  # per counter dict, what a replay launches or calls
+    names: list  # the metrics' names, filled at capture
 
 
 class StepGraphs:
@@ -109,48 +106,37 @@ class StepGraphs:
         K = packed.shape[0]
         window = self.windows.get(K)
         if window is None:
-            window = self.windows[K] = self._capture(
-                packed, floats, shapes, tuple(eps_shape))
+            # Kept only once its graph has been captured and replayed.
+            window = self._new_window(packed, floats, shapes,
+                                      tuple(eps_shape))
+            out = window.graph()
+            self.windows[K] = window
         else:
             window.packed.copy_(torch.from_numpy(packed))
             window.floats.copy_(torch.from_numpy(floats))
-        window.graph.replay()
-        COUNTS["replays"] += 1
-        for counts, n in zip(_STEP_COUNTERS, window.counted):
-            for name in n:
-                counts[name] += n[name]
-        return dict(zip(window.names, window.out.clone()))
+            out = window.graph()
+        return dict(zip(window.names, out.clone()))
 
-    def _capture(self, packed, floats, shapes, eps_shape):
+    def _new_window(self, packed, floats, shapes, eps_shape):
         dev = self.device
         packed_t = torch.from_numpy(packed).to(dev)
         floats_t = torch.from_numpy(floats).to(dev)
         n = math.prod(eps_shape)
         eps_t, betas_t = floats_t[:n].view(eps_shape), floats_t[n:]
-        with torch.cuda.device(dev):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.window_fn(self.state, packed_t[:1], eps_t[:1],
-                               betas_t[:1], shapes)
-            torch.cuda.current_stream().wait_stream(side)
-            before = [dict(counts) for counts in _STEP_COUNTERS]
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph):
-                    state, metrics = self.window_fn(
-                        self.state, packed_t, eps_t, betas_t, shapes)
-                    for dst, src in zip(leaves(self.state), leaves(state),
-                                        strict=True):
-                        dst.copy_(src)
-                    names = tuple(metrics)
-                    out = torch.stack([metrics[name] for name in names])
-            finally:
-                # Captured, not run: take the counts back (each replay adds
-                # them), whether or not the capture succeeded.
-                counted = []
-                for counts, was in zip(_STEP_COUNTERS, before):
-                    counted.append({k: counts[k] - was[k] for k in counts})
-                    counts.update(was)
-        COUNTS["captures"] += 1
-        return _Window(graph, packed_t, floats_t, out, names, tuple(counted))
+        names = []
+
+        def window():
+            state, metrics = self.window_fn(self.state, packed_t, eps_t,
+                                            betas_t, shapes)
+            for dst, src in zip(leaves(self.state), leaves(state),
+                                strict=True):
+                dst.copy_(src)
+            names[:] = metrics
+            return torch.stack([metrics[name] for name in names])
+
+        def first_step():
+            self.window_fn(self.state, packed_t[:1], eps_t[:1], betas_t[:1],
+                           shapes)
+
+        return _Window(Graph(window, dev, _STEP_COUNTERS, COUNTS,
+                             warmup=first_step), packed_t, floats_t, names)

@@ -7,7 +7,9 @@ one card each) on the card against the same on the CPU.
 
 The VBPI trainer's graph route (one CUDA graph replay a window,
 vi/step_graph.py) is held to its eager route bit for bit, and a replay's
-LLs to K1's twin. These tests need a CUDA card and skip without one. The file imports no JAX,
+LLs to K1's twin; so are the GP ascent's phase graphs (gp/ascent_graph.py:
+the kernel route bit for bit, the level route at rel 1e-12) and the
+rooted engine's (models/rooted_graph.py: one replay a call). These tests need a CUDA card and skip without one. The file imports no JAX,
 so that it also runs on a machine with the card and no JAX installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -24,10 +26,11 @@ import torch
 import libsbn_tpu_torch
 from libsbn_tpu_torch.core.site_pattern import SitePattern
 from libsbn_tpu_torch.core.tree import RootedTree, RootedTreeCollection
-from libsbn_tpu_torch.gp import GPInstance, engine_kernels
+from libsbn_tpu_torch.gp import GPInstance, ascent_graph, engine_kernels
 from libsbn_tpu_torch.gp.engine import _jc69_transition
 from libsbn_tpu_torch.io import newick
 from libsbn_tpu_torch.io.fasta import Alignment
+from libsbn_tpu_torch.models import rooted_graph
 from libsbn_tpu_torch.ops import (
     forest, pruning_generic, pruning_jc, pruning_vjp, schedule, substitution,
 )
@@ -649,13 +652,15 @@ def test_gtr_engine_on_card_matches_cpu():
                                    rtol=1e-9, atol=1e-8, err_msg=key)
 
 
-def _gp_instance(data, device, dtype=torch.float64, use_kernels="auto"):
+def _gp_instance(data, device, dtype=torch.float64, use_kernels="auto",
+                 cuda_graphs=True):
     fasta, nwk = {"hello": ("hello.fasta", "hello_rooted.nwk"),
                   "fluA": ("fluA.fa", "fluA.tree")}[data]
     inst = GPInstance()
     inst.read_fasta_file(f"{DATA}/{fasta}")
     inst.read_newick_file(f"{DATA}/{nwk}")
-    inst.make_engine(dtype=dtype, device=device, use_kernels=use_kernels)
+    inst.make_engine(dtype=dtype, device=device, use_kernels=use_kernels,
+                     cuda_graphs=cuda_graphs)
     return inst
 
 
@@ -805,7 +810,9 @@ def test_gp_fit_on_card_matches_cpu(use_kernels):
     the CPU) or the level route. Both land on libsbn_tpu's optimum
     -4337.885058592 within 1e-7. The level route's Newton sweeps differ
     in summation order only: same sweep count, branch lengths within rtol
-    1e-6. The card's kernel route launches K7 and K8 and calls no twin."""
+    1e-6. The card's kernel route launches K7 and K8 (once a sweep, and
+    once for the capture's warm-up of the propose graph) and calls no
+    twin."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     out = []
@@ -816,8 +823,9 @@ def test_gp_fit_on_card_matches_cpu(use_kernels):
         torch.cuda.synchronize()
         assert abs(m - -4337.885058592) < 1e-7, (device, m)
         out.append((sweeps, eng.branch_lengths.copy()))
+    assert eng.graphs is not None
     if use_kernels:
-        assert engine_kernels.LAUNCHES["golden_sweep"] == out[1][0]
+        assert engine_kernels.LAUNCHES["golden_sweep"] == out[1][0] + 1
         assert sum(engine_kernels.TWIN_CALLS.values()) == 0
     else:
         assert sum(engine_kernels.LAUNCHES.values()) == 0
@@ -957,8 +965,9 @@ def test_rooted_engine_on_card_matches_cpu(route, dtype, K):
     """The rooted engine on fluA x 4 perturbed trees on the card against the
     same on the CPU (the kernels' twins), at the kernels' tolerances: the
     LLs + ldjs of rooted_log_likelihoods and every gradient of each route.
-    The route is read from the launch counters: its kernels, on chip or
-    on their slab routes (f64 K = 4 exceeds K1-K3's plan), and no twin."""
+    The route is read from the launch counters of a second call (the
+    first captures the hand route's graph): its kernels, on chip or on
+    their slab routes (f64 K = 4 exceeds K1-K3's plan), and no twin."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     sub, method, launches = ROOTED_ROUTES[route]
@@ -968,6 +977,7 @@ def test_rooted_engine_on_card_matches_cpu(route, dtype, K):
     extra = () if method == "rooted_phylo_gradients" else (True,)
     want = getattr(cpu.engine, method)(*cpu_args, *extra)
     want_ll = cpu.engine.rooted_log_likelihoods(*cpu_args)
+    getattr(card.engine, method)(*card_args, *extra)
     for m in (pruning_jc, pruning_generic, pruning_vjp):
         m.reset_counters()
     got = getattr(card.engine, method)(*card_args, *extra)
@@ -1401,6 +1411,165 @@ def test_gp_sp_mesh_on_card(sp):
     assert engine_kernels.LAUNCHES["golden_sweep"] == sweeps
     assert engine_kernels.LAUNCHES["populate_plvs"] % sp == 0
     assert sum(engine_kernels.TWIN_CALLS.values()) == 0
+
+
+# -- the GP ascent's and the rooted engine's graphs ----------------------------
+
+
+def _ascent(eng, bl0, tol, max_iter):
+    """run_branch_ascent from bl0 with every counter at 0 first: (marginal,
+    sweeps, converged, branch lengths, launches, graph counts)."""
+    eng.branch_lengths = bl0.copy()
+    engine_kernels.reset_counters()
+    ascent_graph.reset_counters()
+    m, sweeps = eng.run_branch_ascent(tol, max_iter)
+    torch.cuda.synchronize()
+    return (m, sweeps, eng.last_ascent_converged, eng.branch_lengths.copy(),
+            dict(engine_kernels.LAUNCHES), dict(ascent_graph.COUNTS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1e-2, 10), (1e-6, 100)],
+                         ids=["1e-2_10", "1e-6_100"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("use_kernels", [True, False],
+                         ids=["kernels", "level"])
+def test_gp_ascent_graph_equals_eager(use_kernels, dtype, case):
+    """run_branch_ascent on fluA by the phase graphs against the eager loop
+    on the card. The kernel route bit for bit (marginal, branch lengths,
+    sweeps, converged flag); the level route (f64 only: its index_add_
+    adds with atomics) at rel 1e-12 and the same sweeps. A second ascent of
+    the graphed engine (no capture) launches K7 as often as the eager one
+    (once a populate) and K8 once a sweep, in one replay per phase; an
+    ascent from new lengths reads them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if not use_kernels and dtype == torch.float32:
+        pytest.skip("the level route is the f64 oracle")
+    engines = [_gp_instance("fluA", "cuda", dtype, use_kernels,
+                            cuda_graphs=graphs).get_engine()
+               for graphs in (True, False)]
+    rng = np.random.default_rng(1)
+    bl0 = engines[0].branch_lengths.copy()
+    fits = []
+    for start in (bl0, bl0 * rng.uniform(0.5, 1.5, bl0.shape)):
+        graph, eager = (_ascent(e, start, *case) for e in engines)
+        graph = _ascent(engines[0], start, *case)  # captured already
+        fits.append(graph[0])
+        assert graph[5]["captures"] == 0
+        assert graph[1:3] == eager[1:3]
+        if use_kernels:
+            assert graph[0] == eager[0]
+            np.testing.assert_array_equal(graph[3], eager[3])
+        else:
+            assert abs(graph[0] - eager[0]) <= 1e-12 * abs(eager[0])
+            np.testing.assert_allclose(graph[3], eager[3], rtol=1e-10)
+        assert graph[4] == eager[4]
+        k7 = graph[4]["populate_plvs"] if use_kernels else 0
+        assert graph[4]["golden_sweep"] == (graph[1] if use_kernels else 0)
+        if use_kernels:
+            assert k7 <= graph[5]["replays"] <= k7 + graph[1]
+    if dtype == torch.float64 and case == (1e-6, 100):
+        assert abs(fits[0] - -4337.885058592) < 1e-7
+
+
+def _rooted_call(eng, args, hand, eager=False):
+    """rooted_phylo_gradients (hand) or rooted_log_likelihoods' parts, with
+    the counters at 0 first; eager turns the engine's graphs off for the
+    call. Returns (outputs as a flat list, K1-K3 launches on either route,
+    graph counts)."""
+    graphs = eng.graphs
+    if eager:
+        eng.graphs = None
+    pruning_jc.reset_counters()
+    rooted_graph.reset_counters()
+    try:
+        if hand:
+            out = eng.rooted_phylo_gradients(*args)
+            out = [out[k] for k in sorted(out)]
+        else:
+            out = list(eng.rooted_log_likelihoods(*args, return_parts=True))
+        torch.cuda.synchronize()
+    finally:
+        eng.graphs = graphs
+    launches = {}
+    for k, v in pruning_jc.LAUNCHES.items():  # on chip or the slab route
+        if v:
+            launches[k.replace("_slab", "")] = launches.get(
+                k.replace("_slab", ""), 0) + v
+    return out, launches, dict(rooted_graph.COUNTS)
+
+
+def _equal(got, want):
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rooted_graph_equals_eager(dtype, K):
+    """The rooted hand route and rooted_log_likelihoods on fluA x 4 perturbed
+    trees, by their graphs and eagerly on the card: bit for bit, each graph
+    call one replay (K1 once, and K2 + K3 once for Weibull+4's shape
+    gradient; K2 once for the LLs), two calls of each route with the same
+    inputs equal bit for bit (the heights adjoint has no atomics), new
+    ratios read on the next replay, and a new batch size a new capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    site = "constant" if K == 1 else "weibull+4"
+    card, args = _rooted_instance("cuda", dtype, "JC69", site)
+    eng = card.engine
+    per_call = {"hand": {"ll_grad_jc69": 1} if K == 1 else
+                {"ll_grad_jc69": 1, "ll_jc69": 1, "ll_dea_jc69": 1},
+                "ll": {"ll_jc69": 1}}
+    for hand in (True, False):
+        route = "hand" if hand else "ll"
+        first = _rooted_call(eng, args, hand)
+        assert first[2]["captures"] == 1
+        got = _rooted_call(eng, args, hand)
+        want = _rooted_call(eng, args, hand, eager=True)
+        again = _rooted_call(eng, args, hand, eager=True)
+        _equal(got[0], want[0])
+        _equal(first[0], got[0])
+        _equal(again[0], want[0])
+        assert got[2] == {"captures": 0, "replays": 1}, got[2]
+        assert got[1] == per_call[route], got[1]
+        assert want[1] == per_call[route] and want[2]["replays"] == 0
+        sched, bounds, ratios, rates, params = args
+        ratios2 = ratios.copy()
+        ratios2[:, :-1] *= 0.98
+        args2 = (sched, bounds, ratios2, rates, params)
+        got2 = _rooted_call(eng, args2, hand)
+        _equal(got2[0], _rooted_call(eng, args2, hand, eager=True)[0])
+        assert not torch.equal(got2[0][0], got[0][0])
+        small = _rooted_instance("cuda", dtype, "JC69", site, batch=2)[1]
+        got3 = _rooted_call(eng, small, hand)
+        assert got3[2] == {"captures": 1, "replays": 1}
+        _equal(got3[0], _rooted_call(eng, small, hand, eager=True)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rooted_gtr_ll_graph_equals_eager(dtype):
+    """GTR's rooted_log_likelihoods by its graph (K5 once a replay, the
+    eigensystem solved on the host ahead) against the eager call, bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    card, args = _rooted_instance("cuda", dtype, "GTR", "constant")
+    eng = card.engine
+    eng.rooted_log_likelihoods(*args)
+    pruning_vjp.reset_counters()
+    rooted_graph.reset_counters()
+    got = eng.rooted_log_likelihoods(*args, return_parts=True)
+    torch.cuda.synchronize()
+    assert rooted_graph.COUNTS == {"captures": 0, "replays": 1}
+    assert pruning_vjp.LAUNCHES["ll_generic"] == 1
+    eng.graphs, graphs = None, eng.graphs
+    want = eng.rooted_log_likelihoods(*args, return_parts=True)
+    eng.graphs = graphs
+    _equal(got, want)
 
 
 # -- the VBPI graph route (vi/step_graph.py) ----------------------------------
