@@ -30,13 +30,16 @@ Phases, each of which raises on failure:
      Weibull+4 phylo_gradients (branch gradients against the physher
      goldens, the shape gradient against the card's own f64 finite
      difference), with the launch counters showing that K1, K2 and K3 ran
-     and no twin did;
+     and no twin did, and the graph counters that each call was one
+     replay of a captured graph (models/unrooted_graph.py, the engine's
+     default on a card);
   4b. GTR path: UnrootedInstance on the card, GTR + Weibull+4 on
      DS1.100_topologies, float64 and float32, against values pinned from
      libsbn_tpu's f64 scan engine; in f64 the kernel route against the
      port's own scan engine on the card and the substitution gradient at
      the uniform-rates default against a central finite difference; the
-     counters show K4, K5 and K6 launched and no twin called;
+     counters show K4, K5 and K6 launched and no twin called, and the
+     goldens' calls one graph replay each;
   5. VBPI path: the JAX bench's config 5 (DS1, process_loaded_trees,
      train_simple_average, JC69, split-lognormal, VIMCO, 10 particles) as
      JitVBPI(float32) on the card: a few step()s, one step_many(16) and
@@ -48,13 +51,15 @@ Phases, each of which raises on failure:
      and K3 at K = 1 and at Weibull+4 beside their slab route (the first
      design) on the same inputs, in turns, with the device memory one call
      adds (fails at 50 MB) and the on-chip design's shared-memory traffic;
-     engine.branch_gradients and engine.log_likelihoods from host arrays;
+     engine.branch_gradients and engine.log_likelihoods from host arrays,
+     eagerly (cuda_graphs=False, as recorded before the graphs) and by the
+     graph route;
      K4, K5 and K6 against their twins at the JAX bench's config 2 (GTR +
      Weibull+4 at shape 0.5, B = 256, float32), K4 and K5 on chip beside
      their slab routes in turns with the memory one call adds (fails at
      50 MB), K6 the same (fails at 128 MB), the K5 + K6 autograd pass and
-     engine.log_likelihoods and engine.phylo_gradients from host arrays,
-     with peak device memory, device time per call (torch.profiler) and
+     engine.log_likelihoods and engine.phylo_gradients from host arrays
+     by both routes, with peak device memory, device time per call (torch.profiler) and
      the device's idle share of the host-clock median;
   7. GP kernels vs twins: K7 (the PLV population, on chip) and K8 (the
      golden-section branch sweep, a block per edge over staged rows, and
@@ -87,9 +92,10 @@ Phases, each of which raises on failure:
      phylotorch goldens (JC69 LL, log-det-Jacobian and the 68 ratio and
      root-height gradients; Weibull+4 at shape 0.1, LL and shape gradient;
      GTR, LL and the 8 substitution gradients) and the clock gradient
-     against the card's own f64 central difference, with the counters
-     showing K1 (the hand route), K2, K3, K5 and K6 launched and no twin
-     called, on a run that ends with the JAX bench's flua_rooted_gradients
+     against the card's own f64 central difference, each golden's call a
+     graph replay (the hand route, the LLs, GTR's autograd route), with
+     the counters showing K1 (the hand route), K2, K3, K5 and K6 launched
+     and no twin called, on a run that ends with the JAX bench's flua_rooted_gradients
      (fluA tiled to 256, ratios perturbed by U(0.95, 1.05) from
      default_rng(0), JC69, float32): the hand route (K1) against the
      autograd route (K2 + K3) and against the f64 hand route; after the
@@ -114,7 +120,9 @@ Phases, each of which raises on failure:
      and K2), GTR + Weibull+4 split for 2 (K4 and K5), JC69 psp for 2,
      each ELBO trace against the CPU reference at rel 1e-9; (d)
      vi.benchmark.fixed on DS1 (20 steps, 10 particles, the final ELBO over
-     10,000 particles: one K2 launch at B = 10,000) with its gradient time
+     10,000 particles: a graph of its own at B = 10,000, its warm-up and
+     its replay two K2 launches; every graph's warm-up adds one launch of
+     its kernels to a path's counts) with its gradient time
      and final ELBO; (f) the
      vip-torch command (benchmark --step-count 2 --particle-count 4) on a
      hello directory (on DS1 its own 10,000-particle ELBO would add 43 s of
@@ -196,12 +204,31 @@ Phases, each of which raises on failure:
      inputs; then host-clock ms a call by route (graph, eager, in turns;
      the GP ascent on the kernel and the level route at float32), and each
      call's device time and idle share traced in a fresh process.
+  16. one replay per engine call (after [15]): with the counters at 0, the
+     path: log_likelihoods, branch_gradients and phylo_gradients by the
+     engine's graphs (models/unrooted_graph.py) on DS1 x 512 (JC69, and
+     JC69 + Weibull+4 at shape 0.1) and config 2 (GTR + Weibull+4 at shape
+     0.5, DS1.100_topologies x 256), and the rooted autograd route
+     (models/rooted_graph.py) on fluA x 256 (GTR, and JC69 + Weibull+4),
+     float32 and float64, each call a capture and one replay, with the MB
+     each captured key holds; then each against an engine built with
+     cuda_graphs=False bit for bit, a second call one replay launching each
+     kernel as the eager call does, new inputs on a new schedule object
+     read with no capture, a Burrito step (new topologies) two replays and
+     no capture; the B = 10,000 float64 final-ELBO key's MB and first-call
+     seconds; then host-clock ms a call by route (graph, eager, eager,
+     graph; float32, from host arrays) of engine.branch_gradients and
+     engine.log_likelihoods at DS1 x 512, engine.log_likelihoods and
+     engine.phylo_gradients at config 2, and the rooted autograd route at
+     fluA x 256 (JC69: K2 + K3; GTR: K5 + K6), and each call's device time
+     and idle share traced in a fresh process.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its paths, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the peak of their type (float64's
 for a float64 launch, float32's otherwise) and its inputs and outputs at
 the HBM rate; K1 has two entries, the first counting the unrooted, vip,
-parallel and soak paths (the ranks' launches of [13] included), the second the
+parallel, soak and engine-graph paths (the ranks' launches of [13]
+included), the second the
 rooted batch and path ([10] and [15]); K2 has two,
 the first counting every path but the vip path, the second the vip path's
 launches with the B = 10,000 launch's time and bound), the card's
@@ -209,6 +236,7 @@ launches with the B = 10,000 launch's time and bound), the card's
 Imports nothing of JAX.
 """
 
+import gc
 import json
 import os
 import re
@@ -233,6 +261,7 @@ from libsbn_tpu_torch.gp.engine import _jc69_transition  # noqa: E402
 from libsbn_tpu_torch.io import newick  # noqa: E402
 from libsbn_tpu_torch.io.fasta import Alignment  # noqa: E402
 from libsbn_tpu_torch.models import rooted_graph  # noqa: E402
+from libsbn_tpu_torch.models import unrooted_graph as lt_unrooted_graph  # noqa: E402
 from libsbn_tpu_torch.models.engine import LikelihoodEngine  # noqa: E402
 from libsbn_tpu_torch.models.phylo_model import default_parameters  # noqa: E402
 from libsbn_tpu_torch.ops import (  # noqa: E402
@@ -972,6 +1001,7 @@ def phase_main_path():
     print("[4] likelihood path: UnrootedInstance on cuda vs goldens")
     shape_fd = shape_finite_difference()
     reset_counters()
+    reset_graph_counts()
     for dtype in (torch.float64, torch.float32):
         tol = GOLDEN_TOL[dtype]
         tag = str(dtype)[6:]
@@ -1008,8 +1038,26 @@ def phase_main_path():
         inst = instance("hello.nwk", "hello.fasta", jc, dtype)
         close(f"hello LL, {tag}", inst.log_likelihoods(), [HELLO_LL],
               tol["hello"])
+    # Each of the five calls a dtype (DS1 log_likelihoods and
+    # phylo_gradients, JC69 and Weibull+4, and hello's LL) is its
+    # instance's first of its key: a capture and one replay each (its
+    # kernels launch twice, in the warm-up and the replay).
+    graph_path_counts("likelihood path", 10, 10)
     return launch_counts("likelihood path",
                          ["ll_grad_jc69", "ll_jc69", "ll_dea_jc69"])
+
+
+def graph_path_counts(path, captures, replays, rooted=False):
+    """Fail unless the path's engine calls were ``replays`` replays of
+    ``captures`` captured graphs (the unrooted engine's, or the rooted
+    one's): its goldens held through the graph route."""
+    got = graph_counts()[1 if rooted else 0]
+    if got != {"captures": captures, "replays": replays}:
+        raise AssertionError(f"{path}: graphs {got}, not {captures} "
+                             f"captures and {replays} replays")
+    print(f"  {path}: the goldens held through {replays} replays of "
+          f"{captures} captured {'rooted' if rooted else 'unrooted'} "
+          "engine graphs")
 
 
 def shape_finite_difference(h=1e-5):
@@ -1047,6 +1095,7 @@ def phase_gtr_path():
     print("[4b] GTR path: UnrootedInstance on cuda, GTR + Weibull+4, "
           "DS1.100_topologies, vs libsbn_tpu's f64 scan engine")
     reset_counters()
+    reset_graph_counts()
     for dtype in (torch.float64, torch.float32):
         tol = GOLDEN_TOL[dtype]
         tag = str(dtype)[6:]
@@ -1070,6 +1119,9 @@ def phase_gtr_path():
               GTR_SUBSTITUTION_GRADIENTS, tol["grad"])
         close(f"GTR shape gradients (10 trees), {tag}",
               grads["site_model"][:10].cpu(), GTR_SITE_GRADIENTS, tol["grad"])
+    # log_likelihoods and phylo_gradients a dtype, each its instance's
+    # first of its key: a capture and one replay each.
+    graph_path_counts("GTR path", 4, 4)
     launches = launch_counts(
         "GTR path", ["ll_grad_generic", "ll_generic", "ll_dp_generic"],
         ["ll_grad_generic_slab", "ll_generic_slab", "ll_dp_generic_slab"])
@@ -1468,30 +1520,29 @@ def phase_timing(smi):
 def engine_calls(smi, calls=10):
     """engine.branch_gradients (K1) and engine.log_likelihoods (K2) from
     host arrays on the headline workload: DS1.subsampled_10 tiled to B
-    trees, perturbed lengths, f32."""
-    tops, bls, ttm = newick.parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
-    sp = SitePattern(Alignment.read_fasta(f"{DATA}/DS1.fasta"), ttm)
-    reps = B // len(tops) + 1
-    sched = schedule.schedules_of_topologies((tops * reps)[:B])
-    bl = np.tile(np.stack(bls), (reps, 1))[:B]
-    bl = bl * np.random.default_rng(0).uniform(0.8, 1.2, bl.shape)
+    trees, perturbed lengths, f32; eagerly (cuda_graphs=False, the records'
+    route), then by the graph route ([16] holds the two to each other)."""
+    sp, sched, bl = headline_batch()
     spec = lt.PhyloModelSpec("JC69", "constant", "strict")
-    engine = LikelihoodEngine(sp, spec, dtype=torch.float32, device=DEV)
     params = default_parameters(spec, device=DEV)
-    for name, fn in (("branch_gradients", engine.branch_gradients),
-                     ("log_likelihoods", engine.log_likelihoods)):
-        for _ in range(3):
-            fn(sched, bl, params)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(calls):
-            t0 = time.perf_counter()
-            fn(sched, bl, params)
+    for route in ("eager", "graph"):
+        engine = LikelihoodEngine(sp, spec, dtype=torch.float32, device=DEV,
+                                  cuda_graphs=route == "graph")
+        for name, fn in (("branch_gradients", engine.branch_gradients),
+                         ("log_likelihoods", engine.log_likelihoods)):
+            for _ in range(3):
+                fn(sched, bl, params)
             torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        print(f"  engine.{name} from host arrays, B = {B}: median "
-              f"{statistics.median(times):.3f} ms (min {min(times):.3f}, "
-              f"{calls} calls, host clock, synchronised; {smi})")
+            times = []
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                fn(sched, bl, params)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            print(f"  engine.{name} from host arrays, B = {B}, {route}: "
+                  f"median {statistics.median(times):.3f} ms (min "
+                  f"{min(times):.3f}, {calls} calls, host clock, "
+                  f"synchronised; {smi})")
 
 
 def phase_generic_timing(smi, calls=10):
@@ -1546,15 +1597,18 @@ def phase_generic_timing(smi, calls=10):
           f"{time_ms(ll_and_grad, reps=5, inner=5):.4f} ms")
 
     spec = lt.PhyloModelSpec("GTR", "weibull+4", "strict")
-    engine = LikelihoodEngine(d["sp"], spec, dtype=dt, device=DEV)
-    params = default_parameters(spec, device=DEV)
-    params["site"]["shape"] = torch.tensor(BENCH_SHAPE, dtype=torch.float64,
-                                           device=DEV)
-    for name, fn in (("log_likelihoods", engine.log_likelihoods),
-                     ("phylo_gradients", engine.phylo_gradients)):
-        line, peak = host_and_device(
-            lambda fn=fn: fn(d["sched"], d["bl_host"], params), calls)
-        print(f"  engine.{name} from host arrays: {line}; peak {peak:.2f} GiB")
+    params = card_params(spec, BENCH_SHAPE)
+    # Eagerly (cuda_graphs=False, the records' route), then by the graph
+    # route ([16] holds the two to each other).
+    for route in ("eager", "graph"):
+        engine = LikelihoodEngine(d["sp"], spec, dtype=dt, device=DEV,
+                                  cuda_graphs=route == "graph")
+        for name, fn in (("log_likelihoods", engine.log_likelihoods),
+                         ("phylo_gradients", engine.phylo_gradients)):
+            line, peak = host_and_device(
+                lambda fn=fn: fn(d["sched"], d["bl_host"], params), calls)
+            print(f"  engine.{name} from host arrays, {route}: {line}; peak "
+                  f"{peak:.2f} GiB")
     return out, bounds
 
 
@@ -2066,6 +2120,7 @@ def phase_rooted_path():
           "vs the physher and phylotorch goldens")
     clock_fd = clock_finite_difference()
     reset_counters()
+    reset_graph_counts()
     f64, tol = torch.float64, ROOTED_TOL
     inst = rooted_instance(lt.PhyloModelSpec("JC69", "constant", "strict"), f64)
     jc_cases = [(rooted_kernel_inputs(inst.engine, *rooted_args(inst)[:4]), f64, 1,
@@ -2112,6 +2167,12 @@ def phase_rooted_path():
           g["log_likelihood"].cpu(), [ROOTED_GTR_LL], tol["gtr"])
     close("fluA GTR substitution gradients vs phylotorch",
           g["substitution_model"][0].cpu(), ROOTED_GTR_GRADIENTS, tol["gtr"])
+    # The f64 goldens' calls, each instance's first of its key but the
+    # second LL call: JC69 rooted_log_likelihoods twice (one key) and
+    # phylo_gradients (the hand route); Weibull+4 and GTR
+    # rooted_log_likelihoods and phylo_gradients (the hand route, and for
+    # GTR the autograd route).
+    graph_path_counts("rooted path (f64 goldens)", 6, 7, rooted=True)
     jc_cases += rooted_routes_f32()
     launches = launch_counts("rooted path", ["ll_grad_jc69", "ll_jc69",
                                              "ll_dea_jc69", "ll_generic",
@@ -2430,12 +2491,15 @@ def phase_vip(smi):
     for key in pt_cpu_g:
         rel_close(f"per-tree {key}, card vs CPU reference", g[key].cpu(),
                   pt_cpu_g[key], PER_TREE_REL)
-    # (c) The Burrito on the card.
+    # (c) The Burrito on the card: a step's branch_gradients and its ELBO's
+    # log_likelihoods each replay a graph (one key each for every step), so
+    # each kernel launches once a step and once more for the warm-up before
+    # its graph's capture.
     burros = {}
     for tag, spec, bm, steps in VIP_RUNS:
         jc = spec[0] == "JC69"
-        want = ({"ll_grad_jc69": steps, "ll_jc69": steps} if jc
-                else {"ll_grad_generic": steps, "ll_generic": steps})
+        want = ({"ll_grad_jc69": steps + 1, "ll_jc69": steps + 1} if jc
+                else {"ll_grad_generic": steps + 1, "ll_generic": steps + 1})
         burro = burros[tag] = vip_burrito(DEV, spec, bm)
         counted_call(f"Burrito {tag}, {steps} gradient_steps",
                      lambda: burro.gradient_steps(steps), want)
@@ -2457,8 +2521,11 @@ def phase_vip(smi):
                 data_dir, branch_model_name="split",
                 scalar_model_name="lognormal", optimizer_name="simple",
                 step_count=VIP_FIXED_STEPS, particle_count=PARTICLES),
-            {"ll_grad_jc69": VIP_FIXED_STEPS,
-             "ll_jc69": VIP_FIXED_STEPS + 1})
+            # A step's two graphs as in (c): their warm-ups add one K1 and
+            # one K2; the final ELBO's B = 10,000 call is a key of its own,
+            # its warm-up and its replay two K2.
+            {"ll_grad_jc69": VIP_FIXED_STEPS + 1,
+             "ll_jc69": VIP_FIXED_STEPS + 1 + 2})
         fixed_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         rc = cli.main(["benchmark", "--step-count", "2", "--particle-count",
@@ -2605,7 +2672,8 @@ def forest_ds1_100():
 def forest_per_tree(tops, split_ids, bl_sets, sp):
     """(lls (R, T), grads (R, T, N-1)) of every tree under each length set
     through the port's per-tree engine on the card: LikelihoodEngine
-    branch_gradients, JC69, float64 (one K1 launch, R T trees)."""
+    branch_gradients, JC69, float64 (K1 on R T trees, by the engine's
+    graph: a launch in its capture's warm-up and one in the replay)."""
     R, T = bl_sets.shape[0], len(tops)
     spec = lt.PhyloModelSpec("JC69", "constant", "strict")
     engine = LikelihoodEngine(sp, spec, dtype=torch.float64, device=DEV)
@@ -3546,6 +3614,401 @@ def phase_graph_paths(smi):
     print(f"[15] took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
+# [16] one replay per engine call: the unrooted engine's calls and the
+# rooted autograd route as CUDA graphs (models/unrooted_graph.py,
+# models/rooted_graph.py).
+ENGINE_CALLS = ("log_likelihoods", "branch_gradients", "phylo_gradients")
+DS1_SHAPE = 0.1  # the Weibull shape of [4]'s DS1 Weibull+4 goldens
+
+
+def headline_batch(n=B):
+    """The headline workload: DS1.subsampled_10 tiled to n trees, branch
+    lengths perturbed by U(0.8, 1.2) from default_rng(0): (site patterns,
+    schedule, branch lengths (n, N) on the host)."""
+    tops, bls, ttm = newick.parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
+    sp = SitePattern(Alignment.read_fasta(f"{DATA}/DS1.fasta"), ttm)
+    reps = n // len(tops) + 1
+    sched = schedule.schedules_of_topologies((tops * reps)[:n])
+    bl = np.tile(np.stack(bls), (reps, 1))[:n]
+    return sp, sched, bl * np.random.default_rng(0).uniform(0.8, 1.2, bl.shape)
+
+
+def card_params(spec, shape=None, rates6=None, freqs=None):
+    """A spec's default parameters on the card, with the Weibull shape and
+    GTR's rates and frequencies where given."""
+    params = default_parameters(spec, device=DEV)
+    f64 = dict(dtype=torch.float64, device=DEV)
+    if shape is not None:
+        params["site"]["shape"] = torch.tensor(shape, **f64)
+    if rates6 is not None:
+        params["substitution"] = {"rates": torch.tensor(rates6, **f64),
+                                  "frequencies": torch.tensor(freqs, **f64)}
+    return params
+
+
+def unrooted_graph_cases():
+    """{tag: (site patterns, spec, schedule, host branch lengths, parameters
+    on the card)}: the headline batch under JC69 and JC69 + Weibull+4 (shape
+    DS1_SHAPE), and config 2 (GTR at its default + Weibull+4 at shape
+    BENCH_SHAPE, DS1.100_topologies x B_GTR)."""
+    sp, sched, bl = headline_batch()
+    cases = {}
+    for site, shape in (("constant", None), ("weibull+4", DS1_SHAPE)):
+        spec = lt.PhyloModelSpec("JC69", site, "strict")
+        tag = f"DS1 x {B}, JC69" + ("" if shape is None else " + Weibull+4")
+        cases[tag] = (sp, spec, sched, bl, card_params(spec, shape))
+    d = load_ds1_100(torch.float32)
+    spec = lt.PhyloModelSpec("GTR", "weibull+4", "strict")
+    cases[f"config 2, DS1.100 x {B_GTR}, GTR + Weibull+4"] = (
+        d["sp"], spec, d["sched"], d["bl_host"], card_params(spec, BENCH_SHAPE))
+    return cases
+
+
+def rooted_graph_cases():
+    """{tag: (site patterns, spec, arguments)} of [16]'s rooted autograd
+    route: fluA x B_ROOTED (rooted_batch) under GTR (ROOTED_GTR_*) and JC69
+    + Weibull+4 (shape 0.1)."""
+    sp, sched, bounds, ratios, rates = rooted_batch()
+    cases = {}
+    for spec, params in (
+            (lt.PhyloModelSpec("GTR", "constant", "strict"),
+             dict(rates6=ROOTED_GTR_RATES, freqs=ROOTED_GTR_FREQS)),
+            (lt.PhyloModelSpec("JC69", "weibull+4", "strict"),
+             dict(shape=0.1))):
+        tag = f"fluA x {B_ROOTED}, {spec.substitution}" + (
+            " + Weibull+4" if spec.site != "constant" else "")
+        cases[tag] = (sp, spec, (sched, bounds, ratios, rates,
+                                 card_params(spec, **params)))
+    return cases
+
+
+def rooted_autograd(eng, args):
+    """The rooted autograd route by the engine's graphs: rooted_phylo_
+    gradients for GTR (its route), RootedGraphs' "autograd" route for JC69
+    (whose engine call takes the hand route)."""
+    if eng.spec.substitution == "GTR":
+        return eng.rooted_phylo_gradients(*args)
+    return eng.graphs.phylo_gradients(*args, True, "autograd")
+
+
+def flat(out):
+    """A call's outputs as a list of tensors (a dict's by sorted key)."""
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def graph_counts():
+    return dict(lt_unrooted_graph.COUNTS), dict(rooted_graph.COUNTS)
+
+
+def reset_graph_counts():
+    lt_unrooted_graph.reset_counters()
+    rooted_graph.reset_counters()
+
+
+def nonzero_launches():
+    torch.cuda.synchronize()
+    return {k: v for m in COUNTED for k, v in m.LAUNCHES.items() if v}
+
+
+def key_mb(fn):
+    """(fn's outputs, MB the capture behind it holds): the device memory
+    reserved over a first call (its warm-up, capture and replay), unused
+    cache released before and after, less its returned outputs."""
+    gc.collect()  # as a capture does: nothing freed then counts here
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() - before - nbytes(out)
+    return out, held / 2**20
+
+
+def engine_graph_checks(tag, dtype, case, got):
+    """One unrooted case at dtype: each call of the graph engine (its first
+    outputs ``got``) against an eager engine's, bit for bit; a second call
+    one replay launching what the eager call launches; a call with new
+    branch lengths and parameters on a new schedule object of the same
+    shapes (as a VI step hands over) one replay that reads them."""
+    sp, spec, sched, bl, params = case
+    graph_eng = got["engine"]
+    eager = LikelihoodEngine(sp, spec, dtype=dtype, device=DEV,
+                             cuda_graphs=False)
+    bl2 = bl * 0.97
+    params2 = {g: {k: v * 1.05 for k, v in d.items()}
+               for g, d in params.items()}
+    if "substitution" in params2:
+        for k, v in params2["substitution"].items():
+            params2["substitution"][k] = v / v.sum()
+    again = copy_schedule(sched)
+    for call in ENGINE_CALLS:
+        what = f"{tag} {str(dtype)[6:]} engine.{call}"
+        reset_counters()
+        want = flat(getattr(eager, call)(sched, bl, params))
+        eager_launches = nonzero_launches()
+        bit_for_bit(f"{what}, graph vs eager", got[call], want)
+        reset_counters()
+        reset_graph_counts()
+        second = flat(getattr(graph_eng, call)(sched, bl, params))
+        launches = nonzero_launches()
+        if (graph_counts()[0] != {"captures": 0, "replays": 1}
+                or launches != eager_launches):
+            raise AssertionError(f"{what}: {graph_counts()}, launches "
+                                 f"{launches}, eager {eager_launches}")
+        bit_for_bit(f"{what}, graph twice", second, got[call])
+        new = flat(getattr(graph_eng, call)(again, bl2, params2))
+        if graph_counts()[0] != {"captures": 0, "replays": 2}:
+            raise AssertionError(f"{what}: new inputs {graph_counts()}")
+        bit_for_bit(f"{what}, new inputs on a new schedule object, graph vs "
+                    "eager", new, flat(getattr(eager, call)(again, bl2,
+                                                            params2)))
+        if torch.equal(new[0], got[call][0]):
+            raise AssertionError(f"{what}: new inputs gave the old outputs")
+        print(f"  {what}: one replay a call, launches {launches} (the eager "
+              "call's)")
+
+
+def copy_schedule(sched):
+    """A new schedule object with the same arrays, as a new batch of the
+    same shapes is."""
+    import copy
+
+    out = copy.copy(sched)
+    object.__setattr__(out, "_dev_cache", None)
+    object.__setattr__(out, "_height_iters_cache", None)
+    return out
+
+
+def rooted_autograd_checks(tag, dtype, case, eng, got):
+    """The rooted autograd route's graph (first outputs ``got``) against
+    _rooted_phylo_gradients_autograd, bit for bit, twice each; a second
+    call one replay launching what the eager call launches; new ratios
+    read with no capture."""
+    sp, spec, args = case
+    what = f"{tag} {str(dtype)[6:]} rooted autograd route"
+    reset_counters()
+    want = flat(eng._rooted_phylo_gradients_autograd(*args, True))
+    eager_launches = nonzero_launches()
+    again = flat(eng._rooted_phylo_gradients_autograd(*args, True))
+    bit_for_bit(f"{what}, graph vs eager", got, want)
+    bit_for_bit(f"{what}, eager twice", again, want)
+    reset_counters()
+    reset_graph_counts()
+    second = flat(rooted_autograd(eng, args))
+    launches = nonzero_launches()
+    if (graph_counts()[1] != {"captures": 0, "replays": 1}
+            or launches != eager_launches):
+        raise AssertionError(f"{what}: {graph_counts()}, launches {launches},"
+                             f" eager {eager_launches}")
+    bit_for_bit(f"{what}, graph twice", second, got)
+    sched, bounds, ratios, rates, params = args
+    ratios2 = ratios.copy()
+    ratios2[:, :-1] = np.clip(ratios2[:, :-1] * 0.97, 1e-4, 1 - 1e-4)
+    args2 = (sched, bounds, ratios2, rates, params)
+    new = flat(rooted_autograd(eng, args2))
+    if graph_counts()[1] != {"captures": 0, "replays": 2}:
+        raise AssertionError(f"{what}: new ratios {graph_counts()}")
+    bit_for_bit(f"{what}, new ratios, graph vs eager", new,
+                flat(eng._rooted_phylo_gradients_autograd(*args2, True)))
+    if torch.equal(new[0], got[0]):
+        raise AssertionError(f"{what}: new ratios gave the old outputs")
+    print(f"  {what}: one replay a call, launches {launches} (the eager "
+          "call's)")
+
+
+def burrito_replay_check():
+    """A Burrito step (a new topology set, so a new schedule object of the
+    same shapes) replays its graphs and captures none."""
+    burro = vip_burrito(DEV)
+    burro.gradient_steps(1)
+    reset_counters()
+    reset_graph_counts()
+    burro.gradient_steps(1)
+    launches = nonzero_launches()
+    if graph_counts()[0] != {"captures": 0, "replays": 2} or launches != {
+            "ll_grad_jc69": 1, "ll_jc69": 1}:
+        raise AssertionError(f"Burrito step: {graph_counts()}, {launches}")
+    print(f"  ok  a Burrito gradient step (new topologies, B = {PARTICLES}):"
+          f" {graph_counts()[0]['replays']} replays (branch_gradients and the"
+          f" ELBO's log_likelihoods), no capture, launches {launches}")
+
+
+def engine_graph_calls():
+    """{(what, route): call} of [16]'s timings at float32: the five calls of
+    the records' table and the GTR rooted autograd route, by the graph
+    route and eagerly."""
+    cases = unrooted_graph_cases()
+    headline = cases[f"DS1 x {B}, JC69"]
+    config2 = cases[f"config 2, DS1.100 x {B_GTR}, GTR + Weibull+4"]
+    sp, sched, bounds, ratios, rates = rooted_batch()
+    jc = lt.PhyloModelSpec("JC69", "constant", "strict")
+    gtr = rooted_graph_cases()[f"fluA x {B_ROOTED}, GTR"]
+    calls = {}
+    for graphs in (True, False):
+        route = "graph" if graphs else "eager"
+
+        def engine(sp, spec):
+            return LikelihoodEngine(sp, spec, dtype=torch.float32, device=DEV,
+                                    cuda_graphs=graphs)
+
+        for (name, case) in (("DS1 x %d" % B, headline),
+                             ("config 2", config2)):
+            sp_, spec, sched_, bl, params = case
+            eng = engine(sp_, spec)
+            names = (("branch_gradients", "log_likelihoods")
+                     if case is headline else
+                     ("log_likelihoods", "phylo_gradients"))
+            for call in names:
+                calls[(f"engine.{call}, {name}", route)] = (
+                    lambda f=getattr(eng, call), a=(sched_, bl, params): f(*a))
+        for what, spec, args in (
+                ("fluA x %d JC69 (K2 + K3)" % B_ROOTED, jc,
+                 (sched, bounds, ratios, rates,
+                  default_parameters(jc, device=DEV))),
+                ("fluA x %d GTR (K5 + K6)" % B_ROOTED, gtr[1], gtr[2])):
+            eng = engine(sp, spec)
+            fn = ((lambda eng=eng, args=args: rooted_autograd(eng, args))
+                  if graphs else
+                  (lambda eng=eng, args=args:
+                   eng._rooted_phylo_gradients_autograd(*args, True)))
+            calls[(f"rooted autograd route, {what}", route)] = fn
+    return calls
+
+
+def time_engine_graphs(smi):
+    """Host-clock ms a call of each (what, route) of engine_graph_calls,
+    synchronised, from host arrays, after a warm-up (the captures), in
+    turns graph, eager, eager, graph: {(what, route): [median, median]}."""
+    print(f"  [16] timings, float32, from host arrays, host clock ({smi}):")
+    calls = engine_graph_calls()
+    for fn in calls.values():
+        fn()
+    out = {}
+    for route in ("graph", "eager", "eager", "graph"):
+        for (what, r), fn in calls.items():
+            if r != route:
+                continue
+            times = []
+            for _ in range(GRAPH_RUNS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            out.setdefault((what, route), []).append(statistics.median(times))
+    for what in dict.fromkeys(w for w, _ in out):
+        g, e = out[(what, "graph")], out[(what, "eager")]
+        print(f"    {what}: graph {g[0]:.3f} / {g[1]:.3f} ms, eager "
+              f"{e[0]:.3f} / {e[1]:.3f} ms a call (medians of {GRAPH_RUNS}, "
+              f"two turns), eager / graph {min(e) / min(g):.2f}x")
+    return out
+
+
+def trace_engine_graphs():
+    """host_and_device's line for every call of engine_graph_calls: run in
+    a fresh process (see trace_one_k1)."""
+    return {f"{what}, {route}": host_and_device(fn, GRAPH_RUNS)[0]
+            for (what, route), fn in engine_graph_calls().items()}
+
+
+def final_elbo_key(smi):
+    """The B = FINAL_ELBO_PARTICLES float64 JC69 log_likelihoods key (vi.
+    benchmark.fixed's final ELBO) on the headline recipe: the MB its
+    capture holds, the seconds of its first call (warm-up, capture,
+    replay) and of a replay and of an eager call."""
+    sp, sched, bl = headline_batch(FINAL_ELBO_PARTICLES)
+    spec = lt.PhyloModelSpec("JC69", "constant", "strict")
+    params = default_parameters(spec, device=DEV)
+    out = {}
+    for graphs in (True, False):
+        eng = LikelihoodEngine(sp, spec, dtype=torch.float64, device=DEV,
+                               cuda_graphs=graphs)
+        t0 = time.perf_counter()
+        _, mb = key_mb(lambda: eng.log_likelihoods(sched, bl, params))
+        first = time.perf_counter() - t0
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.log_likelihoods(sched, bl, params)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[graphs] = (mb, first, statistics.median(times))
+    (mb, first, replay), (_, _, eager) = out[True], out[False]
+    print(f"  final-ELBO key, B = {FINAL_ELBO_PARTICLES} float64 JC69 "
+          f"log_likelihoods ({smi}): holds {mb:.2f} MB; first call (warm-up,"
+          f" capture, replay) {first:.3f} s; a replay {replay * 1e3:.3f} ms, "
+          f"an eager call {eager * 1e3:.3f} ms (host clock, medians of 3)")
+
+
+def phase_engine_graphs(smi):
+    """[16] the engine's unrooted calls and the rooted autograd route by
+    their CUDA graphs; returns the launch counts of its path."""
+    print("[16] one replay per engine call: CUDA graphs of log_likelihoods, "
+          "branch_gradients, phylo_gradients (K1-K6) and the rooted "
+          "autograd route")
+    t_phase = time.perf_counter()
+    cases, rcases = unrooted_graph_cases(), rooted_graph_cases()
+    # The path, with every counter at 0: each call by the graph engine, as
+    # a user calls it on a card; the MB each captured key holds.
+    reset_counters()
+    reset_graph_counts()
+    runs, rruns, held = {}, {}, {}
+    for dtype in GRAPH_DTYPES:
+        for tag, (sp, spec, sched, bl, params) in cases.items():
+            eng = LikelihoodEngine(sp, spec, dtype=dtype, device=DEV)
+            got = runs[(tag, dtype)] = {"engine": eng}
+            for call in ENGINE_CALLS:
+                out, held[(tag, dtype, call)] = key_mb(
+                    lambda: getattr(eng, call)(sched, bl, params))
+                got[call] = flat(out)
+        for tag, (sp, spec, args) in rcases.items():
+            eng = LikelihoodEngine(sp, spec, dtype=dtype, device=DEV)
+            out, held[(tag, dtype, "rooted autograd")] = key_mb(
+                lambda: rooted_autograd(eng, args))
+            rruns[(tag, dtype)] = (eng, flat(out))
+    launches = launch_counts(
+        "engine graphs path", ["ll_grad_jc69", "ll_jc69", "ll_dea_jc69",
+                               "ll_grad_generic", "ll_generic",
+                               "ll_dp_generic"],
+        ["ll_grad_generic_slab", "ll_generic_slab", "ll_dp_generic_slab"])
+    n_unrooted = len(GRAPH_DTYPES) * len(cases) * len(ENGINE_CALLS)
+    n_rooted = len(GRAPH_DTYPES) * len(rcases)
+    counts = graph_counts()
+    print(f"  engine graphs path: unrooted programs {counts[0]}, rooted "
+          f"programs {counts[1]}")
+    if counts != ({"captures": n_unrooted, "replays": n_unrooted},
+                  {"captures": n_rooted, "replays": n_rooted}):
+        raise AssertionError("the engine calls did not replay their graphs")
+    print("  MB each captured key holds (device memory reserved over its "
+          "first call, less its outputs):")
+    for (tag, dtype, call), mb in held.items():
+        print(f"    {tag}, {str(dtype)[6:]}, {call}: {mb:.2f} MB")
+    # The checks, after the counters were read.
+    for (tag, dtype), got in runs.items():
+        engine_graph_checks(tag, dtype, cases[tag], got)
+    for (tag, dtype), (eng, got) in rruns.items():
+        rooted_autograd_checks(tag, dtype, rcases[tag], eng, got)
+    burrito_replay_check()
+    print(f"  [16] path and checks: {time.perf_counter() - t_phase:.1f} s")
+    final_elbo_key(smi)
+    time_engine_graphs(smi)
+    print(f"  [16] timings done: {time.perf_counter() - t_phase:.1f} s")
+    # Device time and idle share, traced in a fresh process.
+    out = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         "chip_smoke.trace_engine_graphs()))"],
+        cwd=REPO, capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"trace of [16]'s calls failed:\n"
+                             f"{out.stderr[-4000:]}")
+    for name, line in json.loads(out.stdout.splitlines()[-1]).items():
+        print(f"    {name}: {line}")
+    print(f"[16] took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
 
 def main():
     t_start = time.perf_counter()
@@ -3564,6 +4027,7 @@ def main():
     # [15]'s K1 launches are on the rooted batch: K1's second entry.
     rooted_launches["ll_grad_jc69"] += graph_launches.pop("ll_grad_jc69")
     runs.append(graph_launches)
+    runs.append(phase_engine_graphs(smi))
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     # K1's rooted launches stand in its second entry below and K2's vip
     # launches in its second; every other kernel's entry counts every path.

@@ -25,11 +25,16 @@ PyTorch twins; float32 or float64 either way):
     log-det-Jacobian through the sweeps and K5 + K6 or the scan engine
     (``_rooted_phylo_gradients_autograd``, which also runs JC69 on K2 + K3).
 
-On a card (``cuda_graphs=True``, the default) the hand route and
-``rooted_log_likelihoods`` (K2, or K5 for GTR; rescaling and shared
-parameters) are each one replay of a captured CUDA graph
-(models/rooted_graph.py), the counterpart of the JAX engine's jitted
-programs; ``cuda_graphs=False`` runs them eagerly, launch by launch. The
+On a card (``cuda_graphs=True``, the default), with rescaling and shared
+parameters, each of ``log_likelihoods``, ``branch_gradients`` and
+``phylo_gradients`` (models/unrooted_graph.py) and of
+``rooted_log_likelihoods`` and ``rooted_phylo_gradients`` (the hand route
+for JC69, the autograd route for GTR; models/rooted_graph.py) is one
+replay of a captured CUDA graph, the counterpart of the JAX engine's
+jitted programs; ``cuda_graphs=False`` runs them eagerly, launch by
+launch, and per-tree parameters and rescale=False always do. GTR's
+eigensystem is solved once a call on the host, from the shared parameters,
+by both routes (``_shared_eigen``), so they run the same arithmetic. The
 schedule's index arrays go to the device once per schedule object, which
 caches them (``_sched_dev``, the JAX engine's cache of the same name).
 
@@ -74,7 +79,7 @@ from ..ops import substitution as subst_ops
 from ..ops import transforms
 from ..ops.schedule import BatchedSchedule
 from ..utils.device import DEFAULT_DEVICE, compute_device
-from . import rooted_graph
+from . import rooted_graph, unrooted_graph
 
 HEIGHTS_METHODS = ("sweeps", "squaring")
 
@@ -93,8 +98,8 @@ class LikelihoodEngine:
         use_tip_states: bool = False,
         cuda_graphs: bool = True,
     ):
-        """cuda_graphs: on a CUDA device, run the rooted hand route and
-        rooted LLs as captured CUDA graphs (models/rooted_graph.py);
+        """cuda_graphs: on a CUDA device, run the engine calls as captured
+        CUDA graphs (models/unrooted_graph.py, models/rooted_graph.py);
         False runs them eagerly. Ignored on the CPU."""
         check_spec(spec)
         if dtype not in (torch.float32, torch.float64):
@@ -126,8 +131,12 @@ class LikelihoodEngine:
         # gather a sweep) or "squaring" (log-depth matrix squarings), as
         # the JAX engine's attribute of the same name.
         self.heights_method = "sweeps"
-        self.graphs = (rooted_graph.RootedGraphs(self)
-                       if device.type == "cuda" and cuda_graphs else None)
+        graphed = device.type == "cuda" and cuda_graphs
+        # The rooted programs (``graphs``) and the unrooted ones; None runs
+        # the calls eagerly.
+        self.graphs = rooted_graph.RootedGraphs(self) if graphed else None
+        self.unrooted_graphs = (unrooted_graph.UnrootedGraphs(self)
+                                if graphed else None)
 
     @property
     def tips(self):
@@ -223,6 +232,31 @@ class LikelihoodEngine:
         (of Q and freqs in the working dtype), on the host."""
         return subst_ops.eigen_f64(Q.to(self.dtype), freqs.to(self.dtype))
 
+    def _shared_eigen(self, params):
+        """GTR's eigensystem of the shared parameters' Q, (evals (1, 4),
+        V (1, 4, 4), V^-1 (1, 4, 4)) float64 on the host: one LAPACK solve
+        of Q built on the host. Every GTR call solves it ahead so (the
+        graphs pack it into their buffers, the eager calls copy it to the
+        device), and the per-tree copies of the model gradients share it.
+        None for JC69 and for per-tree rows, whose Qs are solved where they
+        are used."""
+        if self.spec.substitution != "GTR":
+            return None
+        freqs, Q = substitution_tensors(self.spec, params)
+        return self._gtr_eigen(Q, freqs) if Q.dim() == 2 else None
+
+    def _eigen(self, params):
+        """``_shared_eigen`` on the engine's device, or None."""
+        eigen = self._shared_eigen(params)
+        return None if eigen is None else tuple(
+            x.to(self.device) for x in eigen)
+
+    def _unrooted_graphed(self, per_tree):
+        """Whether an unrooted call takes its captured graph: on a card
+        with cuda_graphs, rescaling and shared parameters."""
+        return (self.unrooted_graphs is not None and self.rescale
+                and not per_tree)
+
     def _lls(self, pc, bl_padded, model, root_id, eigen=None):
         """(B,) LLs from padded branch lengths (B, N1), differentiable in
         them and in the model tensors: K2/K3 (JC69 with rescaling), K5/K6
@@ -251,12 +285,18 @@ class LikelihoodEngine:
         self, sched: BatchedSchedule, branch_lengths, params, per_tree=False
     ):
         """(B,) log likelihoods; branch_lengths: (B, N). per_tree: each
-        tree with its own parameter row, on the same kernels (K2, K5)."""
+        tree with its own parameter row, on the same kernels (K2, K5). On
+        a card with cuda_graphs (rescaling, shared parameters) one replay
+        of a captured graph."""
+        if self._unrooted_graphed(per_tree):
+            return self.unrooted_graphs.log_likelihoods(sched, branch_lengths,
+                                                        params)
         pc = self._post_children(sched)
         if per_tree:
             self._check_per_tree(params, pc.shape[0])
         return self._lls(pc, self._bl_padded(branch_lengths),
-                         self._model(params), sched.root_id)
+                         self._model(params), sched.root_id,
+                         self._eigen(params))
 
     def branch_gradients(
         self, sched: BatchedSchedule, branch_lengths, params, per_tree=False
@@ -265,49 +305,88 @@ class LikelihoodEngine:
         (JC69) or K4 (GTR) with rescaling, the scan engine without. K1 and
         K4 take shared model tensors only, so per_tree (each tree with its
         own parameter row) runs the scan engine with per-tree matrices,
-        counted in ``pruning.CALLS``."""
-        dt = self.dtype
+        counted in ``pruning.CALLS``. On a card with cuda_graphs
+        (rescaling, shared parameters) one replay of a captured graph."""
+        if self._unrooted_graphed(per_tree):
+            return self.unrooted_graphs.branch_gradients(
+                sched, branch_lengths, params)
         pc = self._post_children(sched)
-        B = pc.shape[0]
         bl = self._bl_padded(branch_lengths)
-        freqs, Q, rates, props = self._model(params)
         if per_tree:
-            self._check_per_tree(params, B)
-            P = self._node_P(Q, freqs, rates, bl)
-            Qb = (Q if Q.dim() == 3 else Q.expand(B, 4, 4)).to(dt)
-            rb = (rates if rates.dim() == 2 else rates.expand(B, -1)).to(dt)
-            return pruning.log_likelihood_and_branch_gradient(
-                pc, P, Qb[:, None] * rb[:, :, None, None], self.tips,
-                freqs.to(dt), props.to(dt), self.weights,
-                root_id=sched.root_id, rescale=self.rescale)
+            self._check_per_tree(params, pc.shape[0])
+            return self._per_tree_branch_gradients(pc, bl, params,
+                                                   sched.root_id)
+        return self._branch_gradients(pc, bl, params, sched.root_id,
+                                      self._eigen(params))
+
+    def _per_tree_branch_gradients(self, pc, bl, params, root_id):
+        """branch_gradients with a parameter row per tree: the scan engine
+        with per-tree matrices."""
+        dt = self.dtype
+        B = pc.shape[0]
+        freqs, Q, rates, props = self._model(params)
+        P = self._node_P(Q, freqs, rates, bl)
+        Qb = (Q if Q.dim() == 3 else Q.expand(B, 4, 4)).to(dt)
+        rb = (rates if rates.dim() == 2 else rates.expand(B, -1)).to(dt)
+        return pruning.log_likelihood_and_branch_gradient(
+            pc, P, Qb[:, None] * rb[:, :, None, None], self.tips,
+            freqs.to(dt), props.to(dt), self.weights, root_id=root_id,
+            rescale=self.rescale)
+
+    def _branch_gradients(self, pc, bl, params, root_id, eigen=None):
+        """(lls, grads) of shared parameters at padded branch lengths bl
+        (B, N1): K1, K4, or the scan engine without rescaling. eigen: as in
+        _node_P."""
+        dt = self.dtype
+        freqs, Q, rates, props = self._model(params)
         if self._matrix_free():
             return pruning_jc.log_likelihood_and_branch_gradient_jc69(
-                pc, bl, self.tips, self.weights, root_id=sched.root_id,
+                pc, bl, self.tips, self.weights, root_id=root_id,
                 rates=rates.to(dt), props=props.to(dt),
             )
-        P = self._node_P(Q, freqs, rates, bl)
+        P = self._node_P(Q, freqs, rates, bl, eigen)
         Qs = Q.to(dt)[None] * rates.to(dt)[:, None, None]  # r_k Q
         args = (pc, P, Qs, self.tips, freqs.to(dt), props.to(dt), self.weights)
         if not self.rescale:
             return pruning.log_likelihood_and_branch_gradient(
-                *args, root_id=sched.root_id, rescale=False)
+                *args, root_id=root_id, rescale=False)
         return pruning_generic.log_likelihood_and_branch_gradient_generic(
-            *args, root_id=sched.root_id)
+            *args, root_id=root_id)
 
     def phylo_gradients(
         self, sched: BatchedSchedule, branch_lengths, params, per_tree=False
     ):
-        """Gradient dict in reference conventions (unrooted trees)."""
-        lls, bgrads = self.branch_gradients(
-            sched, branch_lengths, params, per_tree=per_tree
-        )
+        """Gradient dict in reference conventions (unrooted trees). On a
+        card with cuda_graphs (rescaling, shared parameters) one replay of
+        a captured graph: the branch gradients and the model's in one."""
+        if self._unrooted_graphed(per_tree):
+            return self.unrooted_graphs.phylo_gradients(sched, branch_lengths,
+                                                        params)
+        pc = self._post_children(sched)
+        bl = self._bl_padded(branch_lengths)
+        if per_tree:
+            self._check_per_tree(params, pc.shape[0])
+            lls, bgrads = self._per_tree_branch_gradients(pc, bl, params,
+                                                          sched.root_id)
+            out = {"log_likelihood": lls, "branch_lengths": bgrads}
+            out.update(self._model_param_gradients(pc, sched.root_id, bl,
+                                                   params))
+            return out
+        return self._phylo_gradients(pc, bl, params, sched.root_id,
+                                     self._eigen(params))
+
+    def _phylo_gradients(self, pc, bl, params, root_id, eigen=None):
+        """phylo_gradients' dict of shared parameters at padded branch
+        lengths bl: _branch_gradients, then _model_param_gradients, both on
+        the eigensystem ``eigen``."""
+        lls, bgrads = self._branch_gradients(pc, bl, params, root_id, eigen)
         out = {"log_likelihood": lls, "branch_lengths": bgrads}
-        out.update(self._model_param_gradients(
-            self._post_children(sched), sched.root_id,
-            self._bl_padded(branch_lengths), params))
+        out.update(self._model_param_gradients(pc, root_id, bl, params,
+                                               eigen))
         return out
 
-    def _model_param_gradients(self, pc, root_id, bl_padded, params):
+    def _model_param_gradients(self, pc, root_id, bl_padded, params,
+                               eigen=None):
         """Per-tree substitution (stick space) and site gradients, float64,
         at padded branch lengths (B, N1) (rate-scaled for time trees).
 
@@ -318,7 +397,9 @@ class LikelihoodEngine:
         forward and one backward launch (K5 + K6 for GTR, K2 + K3 for JC69
         with rescaling, the scan engine without). Per-tree parameters
         (leading tree axis) start each copy from the tree's own row. pc:
-        the schedule's (B, S, 3) child table on the device."""
+        the schedule's (B, S, 3) child table on the device. eigen: the
+        shared parameters' eigensystem (``_shared_eigen``), which every
+        tree's copy of Q shares, or None to solve the B copies here."""
         gtr = self.spec.substitution == "GTR"
         weibull = self.spec.site.startswith("weibull")
         if not (gtr or weibull):
@@ -351,7 +432,7 @@ class LikelihoodEngine:
             else:
                 rates, props = site_tensors(self.spec, params, device=dev)
             lls = self._lls(pc, bl_padded.detach(), (freqs, Q, rates, props),
-                            root_id)
+                            root_id, eigen)
             grads = torch.autograd.grad(lls.sum(), inputs)
         out = {}
         if gtr:
@@ -445,7 +526,7 @@ class LikelihoodEngine:
             a = self._rooted_inputs(sched, bounds, ratios, rates)
             if per_tree:
                 self._check_per_tree(params, a["pc"].shape[0])
-            lls, ldjs = self._rooted_lls(a, params)
+            lls, ldjs = self._rooted_lls(a, params, self._eigen(params))
         if return_parts:
             return lls, ldjs
         return lls + ldjs
@@ -463,24 +544,25 @@ class LikelihoodEngine:
         """Gradient dict of rooted time trees: ``log_likelihood`` (without
         the Jacobian), ``ratios_root_height``, ``clock_model`` and the model
         gradients. JC69 with rescaling and shared parameters takes the hand
-        route (one K1 launch; on a card with cuda_graphs one replay of a
-        captured graph); every other model, and per_tree parameters (K1
-        takes shared rates only), autograd (K2 + K3, K5 + K6 or the scan
-        engine)."""
+        route (one K1 launch); every other model, and per_tree parameters
+        (K1 takes shared rates only), autograd (K2 + K3, K5 + K6 or the
+        scan engine). On a card with cuda_graphs, rescaling and shared
+        parameters either route is one replay of a captured graph."""
         if per_tree:
             self._check_per_tree(params,
                                  np.asarray(sched.post_children).shape[0])
+        if self._rooted_graphed(per_tree):
+            return self.graphs.phylo_gradients(
+                sched, bounds, ratios, rates, params, strict_clock,
+                "hand" if self._matrix_free() else "autograd")
         if not (self._matrix_free() and not per_tree):
             return self._rooted_phylo_gradients_autograd(
                 sched, bounds, ratios, rates, params, strict_clock)
-        if self._rooted_graphed(per_tree):
-            return self.graphs.phylo_gradients(sched, bounds, ratios, rates,
-                                               params, strict_clock)
         return self._rooted_phylo_gradients_hand(
             sched, bounds, ratios, rates, params, strict_clock)
 
     def _rooted_gradient_dict(self, a, lls, dratios, drates, bl_scaled,
-                              params, strict_clock):
+                              params, strict_clock, eigen=None):
         out = {
             "log_likelihood": lls,
             "ratios_root_height": dratios,
@@ -490,7 +572,8 @@ class LikelihoodEngine:
         # The Jacobian does not depend on the model: its gradients are the
         # LL's at the rate-scaled branch lengths.
         out.update(self._model_param_gradients(
-            a["pc"], a["root_id"], self._bl_padded2(bl_scaled), params))
+            a["pc"], a["root_id"], self._bl_padded2(bl_scaled), params,
+            eigen))
         return out
 
     def _rooted_phylo_gradients_hand(
@@ -535,14 +618,21 @@ class LikelihoodEngine:
         """Rooted gradients by autograd of sum(LL + log-det-Jacobian) with
         respect to (ratios, rates), through the heights sweeps and the LL's
         backward (K5 + K6, K2 + K3 for JC69, or the scan engine); the trees
-        are independent, so the sum's gradient is each tree's own."""
-        a = self._rooted_inputs(sched, bounds, ratios, rates)
+        are independent, so the sum's gradient is each tree's own. Eagerly
+        (see _rooted_autograd)."""
+        return self._rooted_autograd(
+            self._rooted_inputs(sched, bounds, ratios, rates), params,
+            strict_clock, self._eigen(params))
+
+    def _rooted_autograd(self, a, params, strict_clock, eigen=None):
+        """The autograd route on the inputs ``a``; eigen: as in _node_P,
+        GTR's Q solved ahead (``_shared_eigen``), or None."""
         model = self._model(params)
         with torch.enable_grad():
             r = a["ratios"].detach().requires_grad_(True)
             k = a["rates"].detach().requires_grad_(True)
-            lls, ldjs, bl_scaled = self._rooted_parts(a, r, k, model)
+            lls, ldjs, bl_scaled = self._rooted_parts(a, r, k, model, eigen)
             dratios, drates = torch.autograd.grad((lls + ldjs).sum(), (r, k))
         return self._rooted_gradient_dict(
             a, lls.detach(), dratios, drates, bl_scaled.detach(), params,
-            strict_clock)
+            strict_clock, eigen)

@@ -119,9 +119,21 @@ def node_heights_from_ratios(ratios, node_bounds, leaf_count,
         return torch.matmul(A, h[:, :, None])[:, :, 0] + c
     if method != "sweeps":
         raise ValueError(f"unknown method {method!r}")
+    # The sweeps run over N + 1 slots: slot N holds the root height (bound
+    # 0, ratio 1, its own parent, so it keeps its value) and is the root's
+    # parent. No slot is then the parent of more than two, and the gather's
+    # backward, which adds onto parents with float atomics on a card, has
+    # one value: the autograd route repeats bit for bit. The root's height
+    # is b + (h - b) each sweep, as with the root its own parent.
+    B = ratios.shape[0]
+    b1 = torch.nn.functional.pad(b, (0, 1))
+    r1 = torch.nn.functional.pad(r_full, (0, 1), value=1.0)
+    p1 = torch.cat([parent_full[:, :n - 1], parent_full.new_full((B, 2), n)],
+                   dim=1)
+    h = torch.cat([h, ratios[:, -1:]], dim=1)
     for _ in range(n_iters):
-        h = b + r_full * (torch.gather(h, 1, parent_full) - b)
-    return h
+        h = b1 + r1 * (torch.gather(h, 1, p1) - b1)
+    return h[:, :n]
 
 
 def branch_lengths_from_heights(heights, parent):

@@ -162,12 +162,27 @@ class _ExpmTransition(torch.autograd.Function):
 def eigen_f64(Q, freqs):
     """The f64 eigensystem (evals (nQ, 4), V (nQ, 4, 4), V^-1 (nQ, 4, 4)) of
     Qs (*batch, 4, 4) on the host, as expm_transition solves it: for a
-    caller that solves it ahead of a CUDA graph, which cannot synchronise."""
+    caller that solves it ahead of a CUDA graph, which cannot synchronise.
+    Row-major, as a graph's packed copy of it is (LAPACK's eigenvectors
+    are column-major): the products over it then take the same path, and
+    round alike, whichever copy they read."""
     nQ = int(np.prod(Q.shape[:-2], dtype=np.int64))
-    return _eigen_of_q(
+    return tuple(x.contiguous() for x in _eigen_of_q(
         Q.detach().reshape(nQ, 4, 4).to("cpu", torch.float64),
         freqs.detach().expand(Q.shape[:-2] + (4,)).reshape(nQ, 4).to(
-            "cpu", torch.float64))
+            "cpu", torch.float64)))
+
+
+def _expand_eigen(eigen, nQ):
+    """An eigensystem (evals, V, V^-1) with leading dim nQ, or one of
+    leading dim 1 expanded (without copying) to nQ identical rows: the
+    solve of one shared Q standing for each of its nQ copies."""
+    n = eigen[0].shape[0]
+    if n == nQ:
+        return eigen
+    if n != 1:
+        raise ValueError(f"an eigensystem of {n} Qs for {nQ} Qs")
+    return tuple(x.expand((nQ,) + tuple(x.shape[1:])) for x in eigen)
 
 
 def expm_transition(Q, freqs, ts, eigen=None):
@@ -180,7 +195,10 @@ def expm_transition(Q, freqs, ts, eigen=None):
     through ``gtr_q`` for that); ts: (*batch, ...) times, whose leading
     dims are Q's batch dims. Returns ts.shape + (4, 4) in the promoted dtype
     of Q and ts. eigen: Q's eigensystem from ``eigen_f64``, on ts's device,
-    in place of solving it here (which reads Q on the host)."""
+    in place of solving it here (which reads Q on the host); for Qs that
+    are copies of one shared Q (per-tree copies that autograd tells apart),
+    the shared Q's eigensystem (leading dim 1), one host solve expanded to
+    every copy."""
     batch = Q.shape[:-2]
     if ts.shape[: len(batch)] != batch:
         raise ValueError(
@@ -188,6 +206,8 @@ def expm_transition(Q, freqs, ts, eigen=None):
             f"{tuple(batch)}"
         )
     nQ = int(np.prod(batch, dtype=np.int64))
+    if eigen is not None:
+        eigen = _expand_eigen(eigen, nQ)
     P = _ExpmTransition.apply(
         Q.reshape(nQ, 4, 4), freqs.expand(batch + (4,)).reshape(nQ, 4),
         ts.reshape(nQ, -1), eigen,

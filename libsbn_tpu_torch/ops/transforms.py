@@ -28,8 +28,14 @@ def stick_breaking(y):
     """Unconstrained y (..., K-1) -> simplex x (..., K)."""
     z = torch.sigmoid(y - _offsets(y.shape[-1], y))
     # x_k = z_k prod_{j<k} (1 - z_j); the remainder goes to the last entry.
-    one_minus = torch.cat([torch.ones_like(z[..., :1]), 1.0 - z], dim=-1)
-    stick = torch.cumprod(one_minus, dim=-1)
+    # The running product is written out, a multiply an entry in cumprod's
+    # order: cumprod's backward reads the device from the host (it asks
+    # whether an input is zero), which a captured CUDA graph cannot do.
+    one_minus = 1.0 - z
+    stick = [torch.ones_like(z[..., :1])]
+    for k in range(z.shape[-1]):
+        stick.append(stick[-1] * one_minus[..., k:k + 1])
+    stick = torch.cat(stick, dim=-1)
     return torch.cat([z * stick[..., :-1], stick[..., -1:]], dim=-1)
 
 

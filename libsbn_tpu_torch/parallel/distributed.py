@@ -14,6 +14,10 @@ collectives are explicit:
     every rank needs (vi/jit_step.py ``vbpi_train_step``);
   * the pattern axis ("sp") shards within a rank.
 
+Device rule: a rank computes on a card unless the caller passes
+``device="cpu"``; without a card the default raises, as every entry point
+of the port does (utils/device.py).
+
 Backend rule, explicit and never silent: ``backend=None`` takes "nccl" when
 the rank's device is a card and "gloo" on the CPU. A caller may pass
 "gloo" for ranks that share one card (NCCL refuses two ranks on one GPU);
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.device import DEFAULT_DEVICE, compute_device
 from .sharding import Mesh, Sharding
 
 # This process's devices, as initialize() chose them (one process group per
@@ -44,17 +49,22 @@ from .sharding import Mesh, Sharding
 _LOCAL_DEVICES: list = []
 
 
-def _default_devices(rank: int, local_device_ids=None):
+def _default_devices(rank: int, local_device_ids=None, device=DEFAULT_DEVICE):
     """The rank's devices: the cards ``local_device_ids``, else the card
-    ``rank % device_count`` when one is present, else the CPU."""
+    ``device`` names (by default the card ``rank % device_count``), or the
+    CPU when ``device`` is "cpu". Without a card a CUDA device raises
+    (utils/device.py compute_device); nothing falls back to the CPU."""
+    device = compute_device(device)
+    if device.type == "cpu":
+        if local_device_ids is not None:
+            raise ValueError(f"local_device_ids={local_device_ids} name "
+                             "cards, but device is the CPU")
+        return [device]
     if local_device_ids is not None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(f"local_device_ids={local_device_ids} given, "
-                               "but no CUDA device is present")
         return [torch.device("cuda", int(i)) for i in local_device_ids]
-    if torch.cuda.is_available():
-        return [torch.device("cuda", rank % torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    if device.index is not None:
+        return [device]
+    return [torch.device("cuda", rank % torch.cuda.device_count())]
 
 
 def initialize(
@@ -63,6 +73,7 @@ def initialize(
     process_id: Optional[int] = None,
     local_device_ids=None,
     backend: Optional[str] = None,
+    device=DEFAULT_DEVICE,
 ) -> bool:
     """Join a torch.distributed job.
 
@@ -71,8 +82,11 @@ def initialize(
     ("tcp://host:port" or "file:///path"); a bare "host:port" means tcp.
     Without an address and a process count this is a single-process run
     and nothing is initialized. backend: None for the rule in the module
-    docstring, or "nccl" / "gloo". Returns True if the job has more than
-    one process. May be called again: it then reports the job it joined."""
+    docstring, or "nccl" / "gloo". device: the rank's card by default
+    (``rank % device_count``, or local_device_ids), "cpu" to run the rank
+    on the CPU; without a card the default raises. Returns True if the job
+    has more than one process. May be called again: it then reports the
+    job it joined."""
     if dist.is_initialized():
         return dist.get_world_size() > 1
     coordinator_address = coordinator_address or os.environ.get(
@@ -88,7 +102,7 @@ def initialize(
             "a distributed job needs a coordinator address, a process count "
             f"and a process id, got {coordinator_address!r}, "
             f"{num_processes!r}, {process_id!r}")
-    devices = _default_devices(process_id, local_device_ids)
+    devices = _default_devices(process_id, local_device_ids, device)
     if backend is None:
         backend = "nccl" if devices[0].type == "cuda" else "gloo"
     if backend not in ("nccl", "gloo"):
@@ -107,19 +121,21 @@ def initialize(
 
 
 def global_mesh(dp: Optional[int] = None, sp: int = 1,
-                hybrid: bool = False) -> Mesh:
+                hybrid: bool = False, device=DEFAULT_DEVICE) -> Mesh:
     """A (dp, sp) mesh over all devices in the job, dp spanning the ranks
     (every rank calls this with the same arguments; sp lies within a
     rank's devices). Without a process group it is this process's mesh.
     ``hybrid`` is accepted for the JAX package's signature and changes
     nothing: its second network tier (DCN between TPU slices) has no
-    counterpart among the ranks of one host."""
+    counterpart among the ranks of one host. device: where a process
+    without initialize()'s devices computes, the card by default and "cpu"
+    only when asked; without a card the default raises."""
     del hybrid
     if dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
-        local = list(_LOCAL_DEVICES) or _default_devices(rank)
+        local = list(_LOCAL_DEVICES) or _default_devices(rank, None, device)
     else:
-        world, rank, local = 1, 0, _default_devices(0)
+        world, rank, local = 1, 0, _default_devices(0, None, device)
     n = world * len(local)
     if dp is None:
         dp = n // sp

@@ -14,10 +14,12 @@ launch counts and the GP fit. Two ranks on the CPU, from the repo root:
 
     for r in 0 1; do LIBSBN_COORDINATOR=file:///tmp/lsbn_store \\
       LIBSBN_NUM_PROCESSES=2 LIBSBN_PROCESS_ID=$r python -m \\
-      libsbn_tpu_torch.parallel.multihost_demo --out /tmp/rank$r.npz & done
+      libsbn_tpu_torch.parallel.multihost_demo --device cpu \\
+      --out /tmp/rank$r.npz & done
 
-Ranks that share one card pass ``--backend gloo`` (NCCL refuses two ranks
-on one GPU).
+Without ``--device cpu`` each rank computes on a card (and raises without
+one). Ranks that share one card pass ``--backend gloo`` (NCCL refuses two
+ranks on one GPU).
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ def parse_args(argv=None):
                    default="float64")
     p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
                    help="default: nccl on a card, gloo on the CPU")
+    p.add_argument("--device", default="cuda",
+                   help="the rank's device: a card by default (raising "
+                        "without one), cpu to run on the CPU")
     p.add_argument("--gp-fasta", default=None)
     p.add_argument("--gp-newick", default=None)
     return p.parse_args(argv)
@@ -60,8 +65,8 @@ def main(argv=None):
     from libsbn_tpu_torch.parallel import distributed
     from libsbn_tpu_torch.vi import JitVBPI
 
-    distributed.initialize(backend=args.backend)
-    mesh = distributed.global_mesh()
+    distributed.initialize(backend=args.backend, device=args.device)
+    mesh = distributed.global_mesh(device=args.device)
     dtype = getattr(torch, args.dtype)
     inst = lt.UnrootedInstance("multihost")
     inst.read_nexus_file(args.trees)

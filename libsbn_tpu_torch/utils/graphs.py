@@ -27,12 +27,20 @@ replays them in one call. ``Graph`` holds one such function:
 
 On a device that is not CUDA a Graph calls ``fn`` as it is, so the CPU
 tests run the same functions over the same buffers.
+
+``PackedPrograms`` keeps such Graphs by key over two static buffers each,
+one int32 and one float64: a call packs its host arrays into them with one
+host-to-device copy each and replays the key's graph, whose function reads
+views of the buffers (the engines' graphs, models/rooted_graph.py and
+models/unrooted_graph.py).
 """
 
 from __future__ import annotations
 
 import gc
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -99,3 +107,77 @@ class Graph:
                     c.update(was)
         self.graph, self.outputs = graph, outputs
         self.counts["captures"] += 1
+
+
+def host_f64(x):
+    """An array or tensor anywhere as a float64 numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(x, np.float64)
+
+
+class Packed(NamedTuple):
+    graph: Graph
+    ints: torch.Tensor  # int32, the packed int arrays
+    floats: torch.Tensor  # float64, the packed float arrays
+
+
+class PackedPrograms:
+    """Graphs by key, each over one int32 and one float64 static buffer
+    on ``device``; counters and counts as Graph takes them."""
+
+    def __init__(self, device, counters, counts):
+        self.device = torch.device(device)
+        self.counters = tuple(counters)
+        self.counts = counts
+        self.programs = {}
+
+    def __len__(self):
+        return len(self.programs)
+
+    def run(self, key, ints, floats, make):
+        """Replay the program of ``key`` once on ``ints`` (host int arrays,
+        packed as int32) and ``floats`` (host float64 arrays), capturing it
+        first if its key is new: ``make(int_views, float_views)`` then
+        returns the function to capture, which reads the buffers' views of
+        the arrays' shapes, in order. The key is extended by the arrays'
+        shapes. Returns the function's outputs, in the graph's pool."""
+        ints = [np.asarray(x) for x in ints]
+        floats = [np.asarray(x, np.float64) for x in floats]
+        int_shapes = tuple(x.shape for x in ints)
+        float_shapes = tuple(x.shape for x in floats)
+        key = (key, int_shapes, float_shapes)
+        flat_i = _flat(ints, np.int32)
+        flat_f = _flat(floats, np.float64)
+        prog = self.programs.get(key)
+        if prog is not None:
+            prog.ints.copy_(torch.from_numpy(flat_i))
+            prog.floats.copy_(torch.from_numpy(flat_f))
+            return prog.graph()
+        ints_t = torch.tensor(flat_i, device=self.device)
+        floats_t = torch.tensor(flat_f, device=self.device)
+        fn = make(_views(ints_t, int_shapes), _views(floats_t, float_shapes))
+        prog = Packed(Graph(fn, self.device, self.counters, self.counts),
+                      ints_t, floats_t)
+        out = prog.graph()
+        # Kept only once its graph has been captured and replayed.
+        self.programs[key] = prog
+        return out
+
+
+def _flat(arrays, dtype):
+    """The arrays back to back in one flat array of ``dtype``."""
+    if not arrays:
+        return np.zeros(0, dtype)
+    return np.concatenate([x.ravel() for x in arrays]).astype(dtype,
+                                                              copy=False)
+
+
+def _views(buf, shapes):
+    """Views of the flat ``buf`` of the given shapes, back to back."""
+    out, offset = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape, dtype=np.int64))
+        out.append(buf[offset:offset + n].view(shape))
+        offset += n
+    return out

@@ -9,7 +9,10 @@ The VBPI trainer's graph route (one CUDA graph replay a window,
 vi/step_graph.py) is held to its eager route bit for bit, and a replay's
 LLs to K1's twin; so are the GP ascent's phase graphs (gp/ascent_graph.py:
 the kernel route bit for bit, the level route at rel 1e-12) and the
-rooted engine's (models/rooted_graph.py: one replay a call). These tests need a CUDA card and skip without one. The file imports no JAX,
+rooted engine's (models/rooted_graph.py: one replay a call, the hand and
+the autograd routes) and the unrooted engine's (models/unrooted_graph.py:
+log_likelihoods, branch_gradients and phylo_gradients, one replay a call).
+These tests need a CUDA card and skip without one. The file imports no JAX,
 so that it also runs on a machine with the card and no JAX installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -30,7 +33,7 @@ from libsbn_tpu_torch.gp import GPInstance, ascent_graph, engine_kernels
 from libsbn_tpu_torch.gp.engine import _jc69_transition
 from libsbn_tpu_torch.io import newick
 from libsbn_tpu_torch.io.fasta import Alignment
-from libsbn_tpu_torch.models import rooted_graph
+from libsbn_tpu_torch.models import rooted_graph, unrooted_graph
 from libsbn_tpu_torch.ops import (
     forest, pruning_generic, pruning_jc, pruning_vjp, schedule, substitution,
 )
@@ -630,7 +633,10 @@ def test_gtr_engine_on_card_matches_cpu():
     """The f64 GTR + Weibull+4 path through UnrootedInstance on the card
     against the same on the CPU: LLs within rtol 1e-12, every gradient
     within rtol 1e-9 / atol 1e-8 (summation order only). The card's run
-    launches K4, K5 and K6 and calls no twin."""
+    launches K4, K5 and K6 and calls no twin: each call is its graph's
+    first, so its kernels launch twice, in the capture's warm-up and in
+    the replay (log_likelihoods: K5; phylo_gradients: K4, then K5 + K6
+    for the model gradients)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cpu, card = _gtr_instance("cpu"), _gtr_instance("cuda")
@@ -639,10 +645,10 @@ def test_gtr_engine_on_card_matches_cpu():
         m.reset_counters()
     got_ll, got = card.log_likelihoods(), card.phylo_gradients()
     torch.cuda.synchronize()
-    assert pruning_generic.LAUNCHES == {"ll_grad_generic": 1,
+    assert pruning_generic.LAUNCHES == {"ll_grad_generic": 2,
                                         "ll_grad_generic_slab": 0}
-    assert pruning_vjp.LAUNCHES == {"ll_generic": 2, "ll_generic_slab": 0,
-                                    "ll_dp_generic": 1, "ll_dp_generic_slab": 0}
+    assert pruning_vjp.LAUNCHES == {"ll_generic": 4, "ll_generic_slab": 0,
+                                    "ll_dp_generic": 2, "ll_dp_generic_slab": 0}
     for m in (pruning_jc, pruning_generic, pruning_vjp):
         assert not any(m.TWIN_CALLS.values())
     np.testing.assert_allclose(got_ll, want_ll, rtol=1e-12)
@@ -1043,17 +1049,21 @@ def test_burrito_on_card_matches_cpu(data, branch_model):
     """Five gradient steps of the Burrito on the card (K1 and K2) against
     the same seed on the CPU (their twins): the ELBO traces, q-params and
     SBN parameters at rel 1e-9; the card run launches K1 and K2 and calls
-    no twin."""
+    no twin: once a step each, and once more each for the warm-up before
+    the capture of its graph (branch_gradients and log_likelihoods, the
+    same key every step)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cpu = _burrito("cpu", data, branch_model)
     cpu.gradient_steps(5)
     card = _burrito("cuda", data, branch_model)
     pruning_jc.reset_counters()
+    unrooted_graph.reset_counters()
     card.gradient_steps(5)
     torch.cuda.synchronize()
-    assert pruning_jc.LAUNCHES["ll_grad_jc69"] == 5
-    assert pruning_jc.LAUNCHES["ll_jc69"] == 5
+    assert pruning_jc.LAUNCHES["ll_grad_jc69"] == 5 + 1
+    assert pruning_jc.LAUNCHES["ll_jc69"] == 5 + 1
+    assert unrooted_graph.COUNTS == {"captures": 2, "replays": 10}
     assert not any(pruning_jc.TWIN_CALLS.values())
     _rel_close(card.elbo_trace, cpu.elbo_trace, 1e-9)
     _rel_close(card.scalar_model.q_params, cpu.scalar_model.q_params, 1e-9)
@@ -1785,3 +1795,217 @@ def test_graph_capture_failure_raises():
     assert got["counts"] == {"captures": 0, "replays": 0}
     assert got["windows"] == 0 and got["unchanged"]
     assert got["k1"] == 1
+
+
+# -- the unrooted engine's graphs and the rooted autograd route ---------------
+
+
+UNROOTED_MODELS = {  # model -> (substitution, site, {route: launches a call})
+    "jc69": ("JC69", "constant", {
+        "ll": {"ll_jc69": 1}, "bgrad": {"ll_grad_jc69": 1},
+        "phylo": {"ll_grad_jc69": 1}}),
+    "jc69_weibull": ("JC69", "weibull+4", {
+        "ll": {"ll_jc69": 1}, "bgrad": {"ll_grad_jc69": 1},
+        "phylo": {"ll_grad_jc69": 1, "ll_jc69": 1, "ll_dea_jc69": 1}}),
+    "gtr": ("GTR", "constant", {
+        "ll": {"ll_generic": 1}, "bgrad": {"ll_grad_generic": 1},
+        "phylo": {"ll_grad_generic": 1, "ll_generic": 1,
+                  "ll_dp_generic": 1}}),
+    "gtr_weibull": ("GTR", "weibull+4", {
+        "ll": {"ll_generic": 1}, "bgrad": {"ll_grad_generic": 1},
+        "phylo": {"ll_grad_generic": 1, "ll_generic": 1,
+                  "ll_dp_generic": 1}}),
+}
+ENGINE_METHODS = {"ll": "log_likelihoods", "bgrad": "branch_gradients",
+                  "phylo": "phylo_gradients"}
+
+
+def _unrooted_engines(model, dtype, count=10):
+    """(graph engine, eager engine, schedule, numpy branch lengths and
+    parameters from default_rng(0)) on DS1.100_topologies' first ``count``
+    trees with DS1.fasta."""
+    from libsbn_tpu_torch.models.engine import LikelihoodEngine
+
+    tops, _, ttm = newick.parse_newick_file(
+        f"{DATA}/DS1.100_topologies.nwk")
+    sp = SitePattern(Alignment.read_fasta(f"{DATA}/DS1.fasta"), ttm)
+    sched = schedule.schedules_of_topologies(tops[:count])
+    sub, site, _ = UNROOTED_MODELS[model]
+    spec = libsbn_tpu_torch.PhyloModelSpec(sub, site, "strict")
+    engines = [LikelihoodEngine(sp, spec, dtype=dtype, device="cuda",
+                                cuda_graphs=graphs) for graphs in (True, False)]
+    return (*engines, sched, _unrooted_inputs(model, sched, 0))
+
+
+def _unrooted_inputs(model, sched, seed):
+    rng = np.random.default_rng(seed)
+    bl = rng.uniform(0.01, 0.2, (np.shape(sched.post_children)[0],
+                                 sched.node_count))
+    bl[:, -1] = 0.0
+    f64 = dict(dtype=torch.float64, device="cuda")
+    sub, site, _ = UNROOTED_MODELS[model]
+    params = {"clock": {"rate": torch.tensor(1.0, **f64)}}
+    if sub == "GTR":
+        params["substitution"] = {
+            "rates": torch.tensor(rng.dirichlet(np.full(6, 20.0)), **f64),
+            "frequencies": torch.tensor(rng.dirichlet(np.full(4, 20.0)),
+                                        **f64)}
+    if site != "constant":
+        params["site"] = {"shape": torch.tensor(rng.uniform(0.3, 1.5), **f64)}
+    return bl, params
+
+
+def _flat_out(out):
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def _counted(fn):
+    """fn()'s outputs as a flat list, with the K1-K6 launches it added
+    (on chip and slab routes together) and the unrooted graphs' counts."""
+    counted = (pruning_jc, pruning_generic, pruning_vjp)
+    for m in counted:
+        m.reset_counters()
+    unrooted_graph.reset_counters()
+    rooted_graph.reset_counters()
+    out = _flat_out(fn())
+    torch.cuda.synchronize()
+    launches = {}
+    for m in counted:
+        assert not any(m.TWIN_CALLS.values())
+        for k, v in m.LAUNCHES.items():
+            if v:
+                base = k.replace("_slab", "")
+                launches[base] = launches.get(base, 0) + v
+    return out, launches, (dict(unrooted_graph.COUNTS),
+                           dict(rooted_graph.COUNTS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model", sorted(UNROOTED_MODELS))
+def test_unrooted_graph_equals_eager(model, dtype):
+    """log_likelihoods, branch_gradients and phylo_gradients on ten
+    DS1.100_topologies trees (seeded lengths and parameters), by the
+    engine's graphs (cuda_graphs=True) and eagerly: bit for bit; a call
+    after the capture is one replay that launches each kernel of the route
+    as the eager call does; a second call with new inputs reads them with
+    no new capture; a new schedule object of the same shapes replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    graph, eager, sched, (bl, params) = _unrooted_engines(model, dtype)
+    per_call = UNROOTED_MODELS[model][2]
+    for route, method in ENGINE_METHODS.items():
+        call_g, call_e = getattr(graph, method), getattr(eager, method)
+        first = _counted(lambda: call_g(sched, bl, params))
+        assert first[2][0] == {"captures": 1, "replays": 1}, first[2]
+        got = _counted(lambda: call_g(sched, bl, params))
+        want = _counted(lambda: call_e(sched, bl, params))
+        _equal(got[0], want[0])
+        _equal(first[0], got[0])
+        assert got[2][0] == {"captures": 0, "replays": 1}, got[2]
+        assert got[1] == want[1] == per_call[route], (got[1], want[1])
+        bl2, params2 = _unrooted_inputs(model, sched, 1)
+        again = schedule.schedules_of_topologies(_topologies(sched))
+        got2 = _counted(lambda: call_g(again, bl2, params2))
+        assert got2[2][0] == {"captures": 0, "replays": 1}, got2[2]
+        _equal(got2[0], _counted(lambda: call_e(again, bl2, params2))[0])
+        assert not torch.equal(got2[0][0], got[0][0])
+
+
+def _topologies(sched):
+    """The schedule's topologies again, from DS1.100_topologies."""
+    tops, _, _ = newick.parse_newick_file(f"{DATA}/DS1.100_topologies.nwk")
+    return tops[:np.shape(sched.post_children)[0]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model", [("GTR", "constant"),
+                                   ("JC69", "weibull+4")],
+                         ids=["gtr", "jc69_weibull"])
+def test_rooted_autograd_graph_equals_eager(model, dtype):
+    """The rooted autograd route on fluA x 4 perturbed trees by its graph
+    (rooted_phylo_gradients on GTR; RootedGraphs' "autograd" route on JC69
+    + Weibull+4, whose engine call takes the hand route) against
+    _rooted_phylo_gradients_autograd, bit for bit, twice each: one replay
+    a call, with K5 + K6 (GTR) or K2 + K3 launched as the eager call
+    launches them; new ratios read with no new capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    card, args = _rooted_instance("cuda", dtype, *model)
+    eng = card.engine
+
+    def graph(a):
+        if model[0] == "GTR":
+            return eng.rooted_phylo_gradients(*a)
+        return eng.graphs.phylo_gradients(*a, True, "autograd")
+
+    first = _counted(lambda: graph(args))
+    assert first[2][1] == {"captures": 1, "replays": 1}, first[2]
+    got = _counted(lambda: graph(args))
+    want = _counted(lambda: eng._rooted_phylo_gradients_autograd(*args, True))
+    again = _counted(lambda: eng._rooted_phylo_gradients_autograd(*args, True))
+    _equal(got[0], want[0])
+    _equal(first[0], got[0])
+    _equal(again[0], want[0])
+    assert got[2][1] == {"captures": 0, "replays": 1}, got[2]
+    assert got[1] == want[1], (got[1], want[1])
+    sched, bounds, ratios, rates, params = args
+    ratios2 = ratios.copy()
+    ratios2[:, :-1] *= 0.98
+    args2 = (sched, bounds, ratios2, rates, params)
+    got2 = _counted(lambda: graph(args2))
+    assert got2[2][1] == {"captures": 0, "replays": 1}
+    _equal(got2[0], _counted(
+        lambda: eng._rooted_phylo_gradients_autograd(*args2, True))[0])
+    assert not torch.equal(got2[0][0], got[0][0])
+
+
+_HOST_READ_CAPTURE = """
+import json, torch
+from libsbn_tpu_torch.models import unrooted_graph
+import test_torch_cuda as t
+
+graph, eager, sched, (bl, params) = t._unrooted_engines("gtr", torch.float64)
+want = eager.log_likelihoods(sched, bl, params)
+# The eigensystem left to be solved inside the call: expm_transition then
+# reads Q on the host, which the capture cannot do.
+graph._shared_eigen = lambda params: None
+unrooted_graph.reset_counters()
+try:
+    out = graph.log_likelihoods(sched, bl, params)
+    error = None
+except RuntimeError as err:
+    out, error = None, str(err)
+print(json.dumps({"error": error, "out": out is not None,
+                  "counts": unrooted_graph.COUNTS,
+                  "programs": len(graph.unrooted_graphs.programs),
+                  "want_finite": bool(torch.isfinite(want).all())}))
+"""
+
+
+@pytest.mark.cuda
+def test_unrooted_capture_reading_the_host_raises():
+    """A GTR log_likelihoods whose eigensystem is left to be solved inside
+    the captured function (a host read under capture) raises out of the
+    engine call: no result, no replay, no graph kept, nothing run eagerly
+    in its place. In a process of its own, so that the failed capture
+    touches no other test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here, os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", _HOST_READ_CAPTURE], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert got["error"] and not got["out"], got
+    assert got["counts"] == {"captures": 0, "replays": 0}
+    assert got["programs"] == 0 and got["want_finite"]

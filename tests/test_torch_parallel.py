@@ -265,14 +265,37 @@ def test_initialize_without_a_job(monkeypatch):
     for name in ("LIBSBN_COORDINATOR", "LIBSBN_NUM_PROCESSES",
                  "LIBSBN_PROCESS_ID"):
         monkeypatch.delenv(name, raising=False)
-    assert distributed.initialize() is False
-    assert distributed.initialize() is False
-    mesh = distributed.global_mesh()
+    assert distributed.initialize(device="cpu") is False
+    assert distributed.initialize(device="cpu") is False
+    mesh = distributed.global_mesh(device="cpu")
     assert mesh.shape == {"dp": 1, "sp": 1} and not mesh.distributed
+    assert mesh.first_device == torch.device("cpu")
     with pytest.raises(ValueError, match="coordinator address"):
         distributed.initialize(coordinator_address="file:///nowhere")
     with pytest.raises(ValueError, match="must cover"):
-        distributed.global_mesh(dp=2)
+        distributed.global_mesh(dp=2, device="cpu")
+
+
+def test_global_mesh_without_a_card_raises(monkeypatch):
+    """With no device named, global_mesh and initialize take the card:
+    without one they raise, naming device="cpu", and never pick the CPU;
+    local_device_ids with device="cpu" is refused."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the no-card path is not reachable")
+    for name in ("LIBSBN_COORDINATOR", "LIBSBN_NUM_PROCESSES",
+                 "LIBSBN_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match='no CUDA device.*device="cpu"'):
+        distributed.global_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.global_mesh(device="cuda:0")
+    with pytest.raises(RuntimeError, match='no CUDA device.*device="cpu"'):
+        distributed.initialize(f"file://{os.devnull}_never", 2, 0)
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed._default_devices(0, [0])
+    with pytest.raises(ValueError, match="device is the CPU"):
+        distributed._default_devices(0, [0], "cpu")
 
 
 # -- VBPI on meshes -------------------------------------------------------------
@@ -316,7 +339,8 @@ def run_ranks(tmp_path, world, extra=(), backend=None):
     procs = []
     for rank in range(world):
         cmd = [sys.executable, "-m", "libsbn_tpu_torch.parallel.multihost_demo",
-               "--out", str(tmp_path / f"rank{rank}.npz"), *extra]
+               "--out", str(tmp_path / f"rank{rank}.npz"), "--device", "cpu",
+               *extra]
         if backend:
             cmd += ["--backend", backend]
         procs.append(subprocess.Popen(
@@ -425,14 +449,14 @@ def test_distributed_step_many_is_single_process(tmp_path, data_dir):
         "from libsbn_tpu_torch.parallel import distributed\n"
         "from libsbn_tpu_torch.vi import JitVBPI\n"
         "torch.set_num_threads(1)\n"
-        "assert distributed.initialize(%r, 1, 0) is False\n"
+        "assert distributed.initialize(%r, 1, 0, device='cpu') is False\n"
         "def inst():\n"
         "    i = lt.UnrootedInstance('x')\n"
         "    i.read_nexus_file(%r); i.process_loaded_trees()\n"
         "    i.train_simple_average(); i.read_fasta_file(%r)\n"
         "    i.prepare_for_phylo_likelihood(lt.PhyloModelSpec(), device='cpu')\n"
         "    return i\n"
-        "mesh = distributed.global_mesh()\n"
+        "mesh = distributed.global_mesh(device='cpu')\n"
         "assert mesh.distributed and mesh.world_size == 1\n"
         "a = JitVBPI(inst(), 4, mesh=mesh, seed=1)\n"
         "b = JitVBPI(inst(), 4, seed=1)\n"
@@ -446,7 +470,8 @@ def test_distributed_step_many_is_single_process(tmp_path, data_dir):
         "assert all(torch.equal(ma[k], mb[k]) for k in ma)\n"
         "assert torch.equal(a.state.sbn_params, b.state.sbn_params)\n"
         "assert a.log_f_values(4).shape == (4,)\n"
-        "print('ONE_RANK_OK')\n"
+        "print('ONE_RANK_OK', flush=True)\n"
+        "torch.distributed.destroy_process_group()\n"
     ) % (REPO, f"file://{tmp_path}/store1", f"{data_dir}/hello_out.t",
          f"{data_dir}/hello.fasta")
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
@@ -464,19 +489,20 @@ def test_two_rank_log_f_values_are_global(tmp_path, data_dir):
         "from libsbn_tpu_torch.parallel import distributed\n"
         "from libsbn_tpu_torch.vi import JitVBPI\n"
         "torch.set_num_threads(1)\n"
-        "assert distributed.initialize()\n"
+        "assert distributed.initialize(device='cpu')\n"
         "def inst():\n"
         "    i = lt.UnrootedInstance('x')\n"
         "    i.read_nexus_file(%r); i.process_loaded_trees()\n"
         "    i.train_simple_average(); i.read_fasta_file(%r)\n"
         "    i.prepare_for_phylo_likelihood(lt.PhyloModelSpec(), device='cpu')\n"
         "    return i\n"
-        "mesh = distributed.global_mesh()\n"
+        "mesh = distributed.global_mesh(device='cpu')\n"
         "got = JitVBPI(inst(), 8, mesh=mesh, seed=3).log_f_values(8)\n"
         "want = np.concatenate([JitVBPI(inst(), 4, seed=3 + 7919 * r)"
         ".log_f_values(4) for r in range(2)])\n"
         "assert np.array_equal(got, want), (got, want)\n"
-        "print('LOGF_OK')\n"
+        "print('LOGF_OK', flush=True)\n"
+        "torch.distributed.destroy_process_group()\n"
     ) % (REPO, f"{data_dir}/hello_out.t", f"{data_dir}/hello.fasta")
     env = dict(os.environ, LIBSBN_COORDINATOR=f"file://{tmp_path}/store2",
                LIBSBN_NUM_PROCESSES="2")

@@ -11,9 +11,14 @@ and graph packing, in the port against libsbn_tpu and its own eager route.
   schedule object, keyed by device, never served to another schedule
   object, gone with its schedule;
 * models/rooted_graph.py's packed path (what a card captures and replays),
-  run on the CPU, against the eager call bit for bit: the hand route and
-  rooted_log_likelihoods (JC69, Weibull+4, GTR; f64 and f32), new inputs
-  read on a second call, a new key for a new shape.
+  run on the CPU, against the eager call bit for bit: the hand route,
+  rooted_log_likelihoods and the autograd route (JC69, Weibull+4, GTR; f64
+  and f32), new inputs read on a second call, a new key for a new shape;
+  in f64 the autograd route against libsbn_tpu's rooted_phylo_gradients
+  at rel 1e-10;
+* the GTR model gradients from one eigensystem solve of the shared Q
+  expanded to every tree's copy (engine._shared_eigen) against
+  libsbn_tpu's, unrooted and rooted, at rel 1e-10.
 
 Every port call runs on the CPU (the kernels' twins). "rel r" means
 |got - want| <= r (|want| + max |want|) elementwise.
@@ -33,9 +38,11 @@ from libsbn_tpu.ops import schedule as jschedule
 
 from libsbn_tpu_torch.core.topology import Topology
 from libsbn_tpu_torch.models import rooted_graph
-from libsbn_tpu_torch.ops import heights, pruning_jc, schedule
+from libsbn_tpu_torch.models.phylo_model import substitution_tensors
+from libsbn_tpu_torch.ops import heights, pruning_jc, schedule, substitution
 
-from test_torch_rooted import CLOCK_RATE, _instances, _port_parts, assert_rel
+from test_torch_rooted import (CLOCK_RATE, _instances, _parts, _port_parts,
+                               assert_rel)
 
 torch.set_num_threads(2)
 
@@ -151,6 +158,31 @@ def test_fixed_order_adjoint_matches_scatter_and_jax(fluA_tips, method):
             method=method)
         for name, a, b in zip(("dratios", "drates", "heights"), got, want):
             assert_rel(a[i], b, 1e-12, f"tree {i} {name}")
+
+
+def test_heights_sweeps_equal_the_root_self_gather(fluA_tips):
+    """node_heights_from_ratios' sweeps (the root's parent a slot that
+    holds the root height, so the gather's backward adds at most two terms
+    a node) give the heights of the sweeps with the root its own parent,
+    and the same gradient through them, bit for bit on the CPU, on the
+    distinct batch."""
+    sched, _, bounds, ratios, _ = _distinct_batch(fluA_tips)
+    t = torch.as_tensor
+    L, n = sched.leaf_count, sched.node_count
+    idx = (t(sched.pre_internal_node).long(),
+           t(sched.pre_internal_parent).long())
+    r = t(ratios).clone().requires_grad_(True)
+    got = heights.node_heights_from_ratios(r, t(bounds), L, *idx)
+    g = t(np.random.default_rng(6).normal(size=got.shape))
+    (dgot,) = torch.autograd.grad((got * g).sum(), r)
+    r2 = t(ratios).clone().requires_grad_(True)
+    b, r_full, parent_full = heights._sweep_operands(r2, t(bounds), L, *idx)
+    h = torch.cat([b[:, :n - 1], r2[:, -1:]], dim=1)
+    for _ in range(n - L - 1):
+        h = b + r_full * (torch.gather(h, 1, parent_full) - b)
+    (dwant,) = torch.autograd.grad((h * g).sum(), r2)
+    assert torch.equal(got.detach(), h.detach())
+    assert torch.equal(dgot, dwant)
 
 
 def test_children_table_is_post_children(fluA_tips):
@@ -269,11 +301,14 @@ def _bit_for_bit(got, want):
 @pytest.mark.parametrize("model", ["jc69", "weibull", "gtr"])
 def test_packed_rooted_calls_equal_eager(data_dir, model, dtype):
     """RootedGraphs on the CPU (the function a card captures, over its
-    packed buffers) against the eager call, bit for bit: the LL parts and,
-    on the hand route (JC69), the gradient dict at a strict and a relaxed
-    clock; a second call with new ratios and a new heights_method read the
-    new inputs; a new batch size is a new key."""
-    pi = _instances(data_dir, model, dtype)[1]
+    packed buffers) against the eager call, bit for bit: the LL parts, the
+    hand route's gradient dict (JC69) and the autograd route's (Weibull+4
+    and GTR, against _rooted_phylo_gradients_autograd) at a strict and a
+    relaxed clock; in f64 the autograd route against libsbn_tpu's
+    rooted_phylo_gradients at rel 1e-10; a second call with new ratios (and
+    a new heights_method) read the new inputs; a new batch size is a new
+    key."""
+    ji, pi = _instances(data_dir, model, dtype)
     eng = pi.engine
     graphs = rooted_graph.RootedGraphs(eng)
     sched, bounds, ratios, rates = _port_parts(pi, batch=4)
@@ -293,6 +328,26 @@ def test_packed_rooted_calls_equal_eager(data_dir, model, dtype):
         _bit_for_bit(got2, eng._rooted_phylo_gradients_hand(*args2, True))
         assert not torch.equal(got2["log_likelihood"],
                                want[0])
+    if model != "jc69":
+        for strict in (True, False):
+            got = graphs.phylo_gradients(*args, strict, "autograd")
+            _bit_for_bit(got, eng._rooted_phylo_gradients_autograd(*args,
+                                                                   strict))
+        ratios2 = ratios.copy()
+        ratios2[:, :-1] *= 0.98
+        args2 = (sched, bounds, ratios2, rates, params)
+        got2 = graphs.phylo_gradients(*args2, True, "autograd")
+        _bit_for_bit(got2, eng._rooted_phylo_gradients_autograd(*args2,
+                                                                True))
+        assert not torch.equal(got2["log_likelihood"], want[0])
+        if dtype == torch.float64:
+            tops, *_ = _parts(ji, batch=4)
+            jgot = ji.engine.rooted_phylo_gradients(
+                jschedule.schedules_of_topologies(tops), bounds, ratios2,
+                rates, ji.phylo_model_params)
+            assert set(got2) == set(jgot)
+            for key in jgot:
+                assert_rel(got2[key], np.asarray(jgot[key]), 1e-10, key)
     keys = len(graphs.programs)
     small = _port_parts(pi, batch=2)
     _bit_for_bit(graphs.log_likelihoods(*small, params),
@@ -305,3 +360,45 @@ def test_engine_on_cpu_has_no_graphs(data_dir):
     """cuda_graphs is ignored on the CPU: the engine runs eagerly."""
     pi = _instances(data_dir, "jc69")[1]
     assert pi.engine.graphs is None
+
+
+def test_shared_eigen_gradients_match_jax(data_dir):
+    """GTR's model gradients from one host solve of the shared Q's
+    eigensystem, expanded to the B per-tree copies that autograd tells
+    apart (engine._shared_eigen, expm_transition's eigen), against
+    libsbn_tpu's f64 gradients at rel 1e-10: the rooted autograd route's
+    substitution_model rows (the GTR of tests/test_torch_rooted.py) and the
+    unrooted phylo_gradients on the same trees at seeded branch lengths;
+    expm_transition on the expanded solve against B solves of the copies;
+    an eigensystem of another count of Qs is refused."""
+    ji, pi = _instances(data_dir, "gtr")
+    eng = pi.engine
+    params = pi.phylo_model_params
+    eigen = eng._shared_eigen(params)
+    assert [tuple(x.shape) for x in eigen] == [(1, 4), (1, 4, 4), (1, 4, 4)]
+    sched, bounds, ratios, rates = _port_parts(pi, batch=3)
+    tops, *_ = _parts(ji, batch=3)
+    jsched = jschedule.schedules_of_topologies(tops)
+    got = eng.rooted_phylo_gradients(sched, bounds, ratios, rates, params)
+    want = ji.engine.rooted_phylo_gradients(jsched, bounds, ratios, rates,
+                                            ji.phylo_model_params)
+    assert got["substitution_model"].shape == (3, 8)
+    assert_rel(got["substitution_model"],
+               np.asarray(want["substitution_model"]), 1e-10,
+               "rooted substitution_model")
+    bl = np.random.default_rng(1).uniform(0.001, 0.01, (3, sched.node_count))
+    bl[:, -1] = 0.0
+    got = eng.phylo_gradients(sched, bl, params)
+    want = ji.engine.phylo_gradients(jsched, bl, ji.phylo_model_params)
+    for key in ("substitution_model", "branch_lengths", "log_likelihood"):
+        assert_rel(got[key], np.asarray(want[key]), 1e-10, key)
+    freqs, Q = substitution_tensors(eng.spec, params)
+    Qb = Q.expand(3, 4, 4)
+    ts = torch.as_tensor(np.random.default_rng(2).uniform(0.0, 0.3, (3, 7)))
+    shared = substitution.expm_transition(Qb, freqs, ts, eigen=eigen)
+    each = substitution.expm_transition(Qb, freqs, ts)
+    np.testing.assert_allclose(shared.numpy(), each.numpy(), rtol=0,
+                               atol=1e-15)
+    with pytest.raises(ValueError, match="eigensystem of 2 Qs"):
+        substitution.expm_transition(
+            Qb, freqs, ts, eigen=tuple(torch.cat([x, x]) for x in eigen))
