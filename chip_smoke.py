@@ -30,16 +30,20 @@ Phases, each of which raises on failure:
      Weibull+4 phylo_gradients (branch gradients against the physher
      goldens, the shape gradient against the card's own f64 finite
      difference), with the launch counters showing that K1, K2 and K3 ran
-     and no twin did, and the graph counters that each call was one
-     replay of a captured graph (models/unrooted_graph.py, the engine's
-     default on a card);
+     and no twin did; each call is made twice, a key's first call (run
+     eagerly) and its second (a capture of its graph and one replay:
+     models/unrooted_graph.py, the engine's default on a card), both held
+     to the goldens, and the graph counters show one capture and one
+     replay a key; the goldens' constants come from the parity tier
+     (libsbn_tpu_torch/utils/parity.py);
   4b. GTR path: UnrootedInstance on the card, GTR + Weibull+4 on
      DS1.100_topologies, float64 and float32, against values pinned from
      libsbn_tpu's f64 scan engine; in f64 the kernel route against the
      port's own scan engine on the card and the substitution gradient at
      the uniform-rates default against a central finite difference; the
-     counters show K4, K5 and K6 launched and no twin called, and the
-     goldens' calls one graph replay each;
+     counters show K4, K5 and K6 launched and no twin called, and each
+     golden call made twice, eagerly and by one replay of its captured
+     graph;
   5. VBPI path: the JAX bench's config 5 (DS1, process_loaded_trees,
      train_simple_average, JC69, split-lognormal, VIMCO, 10 particles) as
      JitVBPI(float32) on the card: a few step()s, one step_many(16) and
@@ -92,8 +96,10 @@ Phases, each of which raises on failure:
      phylotorch goldens (JC69 LL, log-det-Jacobian and the 68 ratio and
      root-height gradients; Weibull+4 at shape 0.1, LL and shape gradient;
      GTR, LL and the 8 substitution gradients) and the clock gradient
-     against the card's own f64 central difference, each golden's call a
-     graph replay (the hand route, the LLs, GTR's autograd route), with
+     against the card's own f64 central difference, each golden's call
+     made twice, eagerly and by one replay of its captured graph (the hand
+     route, the LLs, GTR's autograd route; the Weibull+4 keys run K1-K3's
+     slab routes at f64 and stay eager), with
      the counters showing K1 (the hand route), K2, K3, K5 and K6 launched
      and no twin called, on a run that ends with the JAX bench's flua_rooted_gradients
      (fluA tiled to 256, ratios perturbed by U(0.95, 1.05) from
@@ -111,17 +117,18 @@ Phases, each of which raises on failure:
      runs on the CPU (device="cpu", the kernels' twins), with the counters
      at 0: (a) EM on DS1.100_topologies on the card, (0, 23) and (0.5,
      100), against the zcrabbit goldens of tests/golden_sbn.py and the CPU
-     reference, and run twice, equal bit for bit; (b) GTR + Weibull+4 rows per tree on DS1.subsampled_10,
-     float64, log_likelihoods (K5) and phylo_gradients (the scan engine for
-     the branch gradients, K5 + K6 for the model's) against the CPU at rel
+     reference, and run twice, equal bit for bit; (b) GTR + Weibull+4
+     rows per tree on DS1.subsampled_10, float64, log_likelihoods (K5)
+     and phylo_gradients (the scan engine for the branch gradients, K5 +
+     K6 for the model's) against the CPU at rel
      1e-10, each call's route read from the counters; (c) the Burrito
      (DS1.subsampled_10.t burn-in 0.1, DS1.fasta, lognormal, the simple
      optimizer, 10 particles, seed 0, float64): JC69 split for 5 steps (K1
      and K2), GTR + Weibull+4 split for 2 (K4 and K5), JC69 psp for 2,
      each ELBO trace against the CPU reference at rel 1e-9; (d)
      vi.benchmark.fixed on DS1 (20 steps, 10 particles, the final ELBO over
-     10,000 particles: a graph of its own at B = 10,000, its warm-up and
-     its replay two K2 launches; every graph's warm-up adds one launch of
+     10,000 particles: a key of its own at B = 10,000, called once, so
+     run eagerly: one K2 launch; every graph's warm-up adds one launch of
      its kernels to a path's counts) with its gradient time
      and final ELBO; (f) the
      vip-torch command (benchmark --step-count 2 --particle-count 4) on a
@@ -210,24 +217,40 @@ Phases, each of which raises on failure:
      JC69 + Weibull+4 at shape 0.1) and config 2 (GTR + Weibull+4 at shape
      0.5, DS1.100_topologies x 256), and the rooted autograd route
      (models/rooted_graph.py) on fluA x 256 (GTR, and JC69 + Weibull+4),
-     float32 and float64, each call a capture and one replay, with the MB
-     each captured key holds; then each against an engine built with
-     cuda_graphs=False bit for bit, a second call one replay launching each
-     kernel as the eager call does, new inputs on a new schedule object
-     read with no capture, a Burrito step (new topologies) two replays and
-     no capture; the B = 10,000 float64 final-ELBO key's MB and first-call
-     seconds; then host-clock ms a call by route (graph, eager, eager,
+     float32 and float64, each call twice (a key's first call runs
+     eagerly, its second is a capture and one replay, into one memory pool
+     an engine; the f64 JC69 + Weibull+4 key runs K2/K3's slab routes and
+     stays eager), with the MB each key adds and each engine holds; then
+     both calls against an engine built with cuda_graphs=False bit for
+     bit, a third call one replay launching each kernel as the eager call
+     does and copying no int32 buffer (the same schedule object), new
+     inputs on a new schedule object read with no capture, an engine's
+     keys called in turns with new inputs bit for bit, a Burrito step (new
+     topologies) two replays and no capture, the slab key under 200 MB,
+     config 2's keys each alone against the engine holding all three (at
+     most the largest plus 20 MB a key); the B = 10,000 float64
+     final-ELBO key called once on fresh engines, graph and eager in
+     turns (no program kept, the reserved memory back within 2 MB), then
+     its capture and replays; the slab key eagerly against a graph of its
+     own; then host-clock ms a call by route (graph, eager, eager,
      graph; float32, from host arrays) of engine.branch_gradients and
      engine.log_likelihoods at DS1 x 512, engine.log_likelihoods and
      engine.phylo_gradients at config 2, and the rooted autograd route at
-     fluA x 256 (JC69: K2 + K3; GTR: K5 + K6), and each call's device time
-     and idle share traced in a fresh process.
+     fluA x 256 (JC69: K2 + K3; GTR: K5 + K6), and each call's device time,
+     idle share and host-to-device copies traced in a fresh process.
+  17. the parity tier (after [16]): with the counters at 0,
+     libsbn_tpu_torch/utils/parity.py's run() in this process, as
+     `python -m libsbn_tpu_torch.utils.parity` runs it: golden numbers at
+     float32 on the kernels and the engines' graphs (DS1 JC69 and
+     Weibull+4, fluA rooted strict clock, GTR and Weibull+4, GP hello and
+     five_taxon on both routes, one VBPI step, config 2's GTR gradients),
+     one line a check, with K1-K8 all launched.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its paths, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the peak of their type (float64's
 for a float64 launch, float32's otherwise) and its inputs and outputs at
 the HBM rate; K1 has two entries, the first counting the unrooted, vip,
-parallel, soak and engine-graph paths (the ranks' launches of [13]
+parallel, soak, engine-graph and parity paths (the ranks' launches of [13]
 included), the second the
 rooted batch and path ([10] and [15]); K2 has two,
 the first counting every path but the vip path, the second the vip path's
@@ -270,7 +293,18 @@ from libsbn_tpu_torch.ops import (  # noqa: E402
 from libsbn_tpu_torch.ops import forest, substitution, transforms  # noqa: E402
 from libsbn_tpu_torch.ops.site_model import weibull_rates  # noqa: E402
 from libsbn_tpu_torch.parallel.sharding import make_mesh  # noqa: E402
-from libsbn_tpu_torch.utils import cpu_baseline, profiling  # noqa: E402
+from libsbn_tpu_torch.utils import cpu_baseline, parity, profiling  # noqa: E402
+from libsbn_tpu_torch.utils.graphs import PackedPrograms  # noqa: E402
+# The golden numbers, kept by the parity tier.
+from libsbn_tpu_torch.utils.parity import (  # noqa: E402
+    CLOCK_RATE, GP_HELLO, GP_HELLO_BL, GTR_FREQS, GTR_GRADIENTS_BL0,
+    GTR_LIKELIHOODS, GTR_RATES, GTR_SHAPE, GTR_SITE_GRADIENTS,
+    GTR_SUBSTITUTION_GRADIENTS, PHYSHER_GRADIENTS, PHYSHER_JACOBIAN,
+    PHYSHER_LL, PHYSHER_RATIO_GRADIENTS, PHYSHER_WEIBULL_LIKELIHOODS,
+    PYBEAGLE_LIKELIHOODS, ROOTED_GTR_FREQS, ROOTED_GTR_GRADIENTS,
+    ROOTED_GTR_LL, ROOTED_GTR_RATES, ROOTED_WEIBULL_LL,
+    ROOTED_WEIBULL_SHAPE_GRADIENT,
+)
 from libsbn_tpu_torch.vi import Burrito, JitVBPI, benchmark, cli  # noqa: E402
 from libsbn_tpu_torch.vi import checkpoint, soak, step_graph  # noqa: E402
 from libsbn_tpu_torch.vi.jit_step import (  # noqa: E402
@@ -278,153 +312,14 @@ from libsbn_tpu_torch.vi.jit_step import (  # noqa: E402
     vbpi_train_step, vbpi_train_step_packed, vbpi_train_steps_packed,
 )
 
-# Golden numbers (the reference's unrooted_sbn_instance.hpp tests, as
-# pinned by the JAX package's tests/test_likelihood.py).
-PYBEAGLE_LIKELIHOODS = np.array([
-    -14582.995273982739, -6911.294207416366, -6916.880235529542,
-    -6904.016888831189, -6915.055570693576, -6915.50496696512,
-    -6910.958836661867, -6909.02639968063, -6912.967861935749,
-    -6910.7871105783515,
-])
-PHYSHER_GRADIENTS = np.array([
-    -904.18956, -607.70500, -562.36274, -553.63315, -542.26058, -539.64210,
-    -463.36511, -445.32555, -414.27197, -412.84218, -399.15359, -342.68038,
-    -306.23644, -277.05392, -258.73681, -175.07391, -171.59627, -168.57646,
-    -150.57623, -145.38176, -115.15798, -94.86412, -83.02880, -80.09165,
-    -69.00574, -51.93337, 0.00000, 0.00000, 16.17497, 20.47784,
-    58.06984, 131.18998, 137.10799, 225.73617, 233.92172, 253.49785,
-    255.52967, 259.90378, 394.00504, 394.96619, 396.98933, 429.83873,
-    450.71566, 462.75827, 471.57364, 472.83161, 514.59289, 650.72575,
-    888.87834, 913.96566, 927.14730, 959.10746, 2296.55028,
-])
-PHYSHER_WEIBULL_LIKELIHOODS = np.array([
-    -9456.1201098061, -6624.4110704332, -6623.4474776131, -6617.25658038029,
-    -6627.5385571548, -6621.6155048722, -6622.3314942713, -6618.7695717585,
-    -6616.3837517370, -6623.8295828648,
-])
-# d LL / d b of edge 0 of each tree, Weibull+4 at shape 0.1.
+# The reference's unrooted_sbn_instance.hpp goldens not in the tier (as
+# the JAX package's tests/test_likelihood.py pins them): d LL / d b of edge
+# 0 of each DS1 tree, Weibull+4 at shape 0.1, and hello's LL.
 PHYSHER_WEIBULL_GRADIENTS_BL0 = np.array([
     -126.890527, 157.251275, 138.202510, -180.311856, 417.562897, -796.450894,
     -173.744375, -70.693513, 699.190754, -723.034349,
 ])
 HELLO_LL = -84.852358
-# GTR + Weibull+4 on DS1.100_topologies at GTR_PARAMS, from libsbn_tpu's f64
-# scan engine on the CPU (tests/test_torch_generic.py holds these to it):
-# the 100 LLs, d LL / d b of edge 0, and for the first 10 trees the
-# stick-space substitution gradients and d LL / d shape.
-GTR_RATES = [0.1, 0.2, 0.15, 0.25, 0.2, 0.1]
-GTR_FREQS = [0.3, 0.25, 0.2, 0.25]
-GTR_SHAPE = 0.7
-GTR_LIKELIHOODS = np.array([
-    -12063.247826462177, -12063.247826462177, -12065.064513915742,
-    -12066.546341549118, -12064.958601409962, -12065.064513915742,
-    -12062.879578895094, -12062.284346448128, -12062.284346448128,
-    -12060.47329032368, -12066.77519836391, -12062.284346448128,
-    -12065.064513915742, -12076.870100388702, -12085.596890937984,
-    -12080.92295259792, -12083.87257062936, -12060.47329032368,
-    -12066.77519836391, -12063.247826462177, -12067.147599348833,
-    -12065.064513915742, -12079.1032081323, -12062.284346448128,
-    -12062.628902482365, -12063.247826462177, -12066.77519836391,
-    -12060.47329032368, -12087.909802356662, -12078.607620585313,
-    -12080.822526732103, -12084.464948586728, -12068.253503456332,
-    -12063.247826462177, -12069.409200239426, -12066.77519836391,
-    -12064.710907940189, -12063.247826462177, -12062.284346448128,
-    -12066.902479326693, -12069.518578088015, -12065.934907221339,
-    -12076.422682685921, -12065.064513915742, -12063.247826462177,
-    -12064.521368624752, -12063.247826462177, -12071.220025238868,
-    -12065.064513915742, -12065.064513915742, -12064.958601409962,
-    -12064.958601409962, -12060.47329032368, -12078.186574734047,
-    -12062.879578895094, -12063.247826462177, -12072.600103865445,
-    -12061.196581895885, -12066.332824568493, -12065.064513915742,
-    -12065.45512492349, -12065.064513915742, -12063.247826462177,
-    -12065.064513915742, -12063.247826462177, -12067.936598736895,
-    -12063.247826462177, -12064.958601409962, -12066.77519836391,
-    -12073.94734520236, -12065.064513915742, -12063.247826462177,
-    -12066.77519836391, -12063.247826462177, -12070.48361661324,
-    -12060.47329032368, -12062.284346448128, -12063.247826462177,
-    -12065.064513915742, -12067.750930021426, -12068.379229876662,
-    -12066.035034149578, -12069.141211463775, -12072.344945426476,
-    -12060.47329032368, -12065.064513915742, -12072.79874688384,
-    -12063.247826462177, -12065.064513915742, -12069.518578088011,
-    -12064.719173025587, -12061.196581895882, -12065.064513915742,
-    -12063.247826462177, -12066.332824568493, -12062.628902482365,
-    -12063.247826462177, -12063.247826462177, -12080.92295259792,
-    -12083.33480917808,
-])
-GTR_GRADIENTS_BL0 = np.array([
-    -61.43698942053795, -61.43698942053795, -61.42712196900927,
-    -61.58774150418649, -61.68168873221416, -61.42712196900927,
-    -61.50038687407986, -61.52313959799515, -61.52313959799515,
-    -61.52669684551009, -61.67216012223884, -61.52313959799515,
-    -61.42712196900927, -61.446847770590466, -61.275701747263845,
-    -61.21170474051353, -61.204171743211006, -61.52669684551009,
-    -61.67216012223884, -61.43698942053795, -61.67145528794126,
-    -61.42712196900927, -61.222448969056316, -61.52313959799515,
-    -61.45029766125027, -61.43698942053795, -61.67216012223884,
-    -61.52669684551009, -61.99210816751229, -61.467566160141715,
-    -61.3645395873349, -61.368161176063815, -61.4246422545573,
-    -61.43698942053795, -61.61665922527933, -61.67216012223884,
-    -61.77032323016345, -61.43698942053795, -61.52313959799515,
-    -61.584958181638356, -61.34825866520155, -61.301758368540085,
-    -61.445611733827505, -61.42712196900927, -61.43698942053795,
-    -61.44602383502673, -61.43698942053795, -61.622673433974754,
-    -61.42712196900927, -61.42712196900927, -61.681688732214155,
-    -61.681688732214155, -61.52669684551009, -61.44287335398941,
-    -61.50038687407986, -61.43698942053795, -61.63227064169885,
-    -61.488112950128475, -61.159680562110935, -61.42712196900927,
-    -61.66477390328993, -61.42712196900927, -61.43698942053795,
-    -61.42712196900927, -61.43698942053795, -61.660327979154374,
-    -61.43698942053795, -61.681688732214155, -61.67216012223884,
-    -62.26050266021612, -61.42712196900927, -61.43698942053795,
-    -61.67216012223884, -61.43698942053795, -61.42499948511995,
-    -61.52669684551009, -61.52313959799515, -61.43698942053795,
-    -61.42712196900927, -61.35148722775864, -61.655415775109795,
-    -61.67059313314969, -61.59601079178756, -61.63080263093031,
-    -61.52669684551009, -61.42712196900927, -61.48113183320125,
-    -61.43698942053795, -61.42712196900927, -61.34825866520155,
-    -61.48948765311322, -61.488112950128475, -61.42712196900927,
-    -61.43698942053795, -61.159680562110935, -61.45029766125027,
-    -61.43698942053795, -61.43698942053795, -61.21170474051353,
-    -61.1921811112531,
-])
-GTR_SUBSTITUTION_GRADIENTS = np.array([
-    [37.37450626752085, -75.29788860620711, 69.43935430704154,
-     -125.7528023286616, 74.61405128401657, -553.0478160564726,
-     -97.9475700563386, 287.58209606673495],
-    [37.37450626752085, -75.29788860620711, 69.43935430704154,
-     -125.7528023286616, 74.61405128401657, -553.0478160564726,
-     -97.9475700563386, 287.58209606673495],
-    [36.19053504157635, -75.77642534559747, 69.3917718697112,
-     -126.21328012676449, 74.25887093435685, -555.4452829645165,
-     -98.71550003953224, 287.6570451307733],
-    [37.37553809344446, -74.62381175902885, 68.98119333187559,
-     -124.39863067267069, 74.77202193696141, -550.8187309622937,
-     -99.48189646531735, 288.6725205826812],
-    [37.50285436018544, -75.48631578635693, 69.39816740647056,
-     -124.77092598172769, 74.70581835735612, -552.1752795202394,
-     -96.3066940826561, 287.0355248543127],
-    [36.19053504157635, -75.77642534559747, 69.3917718697112,
-     -126.21328012676449, 74.25887093435685, -555.4452829645165,
-     -98.71550003953224, 287.6570451307733],
-    [35.73709796468088, -74.72118667228663, 69.81694511865842,
-     -124.13110282415816, 73.48403387350074, -553.9754879368842,
-     -99.76516080838827, 287.7282756985213],
-    [36.288204904886285, -75.17717936023098, 69.43753103746555,
-     -124.78090473404248, 73.87803795442832, -554.4604885663691,
-     -99.83955206208118, 287.7635385101621],
-    [36.288204904886285, -75.17717936023098, 69.43753103746555,
-     -124.78090473404248, 73.87803795442832, -554.4604885663691,
-     -99.83955206208118, 287.7635385101621],
-    [37.47201893821999, -74.72357634865382, 69.4826702236545,
-     -124.33979148182523, 74.23418838950244, -552.0436445465191,
-     -99.08970426161964, 287.6930988009878],
-])
-GTR_SITE_GRADIENTS = np.array([
-    -19055.840498591067, -19055.840498591067, -19067.658784565938,
-    -19041.12216153288, -19055.251518859117, -19067.658784565938,
-    -19062.94895152681, -19061.01239077452, -19061.01239077452,
-    -19048.819934253996,
-])
 
 # Parity gates against the goldens (BASELINE.md precision policy):
 # (rtol, atol) for LLs and for gradient entries.
@@ -493,8 +388,6 @@ PARTICLES = 10  # the JAX bench's config 5
 # 100) in f64 (libsbn_tpu: -4337.885058592374 on its level route and
 # -4337.885058592593 on its Pallas route, both in 12 sweeps;
 # tests/test_torch_gp_kernels.py holds the port's CPU routes to it).
-GP_HELLO = -84.77961943
-GP_HELLO_BL = [0.0, 0.22, 0.113, 0.15, 0.1]
 GP_GRADIENT = (-4.806671945, -0.6109379521)
 GP_FLUA = -4337.885058592
 GP_FLUA_TOL = {torch.float64: 1e-7, torch.float32: 1e-2}
@@ -503,34 +396,9 @@ GP_CHUNK = 100  # the streamed ascent's chunk: fluA's 238 patterns in 3
 # K8 against its twin, the largest objective gap over |f| + sum(w) and the
 # largest log-branch-length gap on edges that are not flat
 # (engine_kernels.sweep_disagreement).
-# Rooted time trees on fluA at a strict clock of 0.001: the physher and
-# phylotorch goldens (the reference's rooted_sbn_instance.hpp tests, as the
-# JAX package's tests/test_rooted_likelihood.py pins them), and their
-# tolerances there, (rtol, atol).
-CLOCK_RATE = 0.001
-ROOTED_LL = -4777.616349
-ROOTED_LDJ = -9.25135166
-ROOTED_RATIO_GRADIENTS = np.array([
-    -0.593654, 6.441290, 11.202945, 5.173924, -0.904631, 2.731402, 3.157131,
-    7.082914, 10.305417, 13.988206, 20.709336, 48.897993, 99.164949, 130.205747,
-    17.314019, 21.033290, -1.336335, 12.259822, 22.887291, 27.176564, 47.487426,
-    3.637276, 12.955169, 15.315953, 83.254605, -3.806996, 105.385095, 4.874023,
-    22.754466, 6.036534, 25.651478, 29.535185, 29.598789, 1.817247, 10.598685,
-    76.259248, 56.481423, 10.679778, 6.587179, 3.330556, -4.622247, 33.417304,
-    63.415767, 188.809515, 23.540875, 17.421076, 1.222568, 22.372012, 34.239511,
-    3.486115, 4.098873, 13.200954, 19.726890, 96.808738, 4.240029, 7.414585,
-    48.871694, 3.488516, 82.969065, 9.009334, 8.032474, 3.981016, 6.543650,
-    53.702423, 37.835952, 2.840831, 7.517186, 19.936861,
-])
-ROOTED_WEIBULL_LL = -4618.2062529058  # shape 0.1
-ROOTED_WEIBULL_SHAPE_GRADIENT = -5.231329
-ROOTED_GTR_RATES = [0.05, 0.1, 0.15, 0.20, 0.25, 0.25]
-ROOTED_GTR_FREQS = [0.1, 0.2, 0.3, 0.4]
-ROOTED_GTR_LL = -5221.438941335706
-ROOTED_GTR_GRADIENTS = np.array([
-    49.06451538, 151.83105912, 26.40235659, -8.25135661,
-    75.29759338, 352.56545247, 90.07046995, 30.12301652,
-])
+# Rooted time trees on fluA at a strict clock of CLOCK_RATE: the
+# tolerances of the JAX package's tests/test_rooted_likelihood.py for the
+# physher and phylotorch goldens, (rtol, atol).
 ROOTED_TOL = {"ll": (0.0, 1e-4), "grad": (0.0, 1e-4), "gtr": (0.0, 1e-3),
               "shape": (0.0, 1e-3), "clock": (1e-3, 0.0)}
 # The hand route against the autograd route in f32 (the JAX package's
@@ -995,6 +863,15 @@ def launch_counts(path, needed, avoided=()):
     return launches
 
 
+ROUTE_CALLS = ("eager", "graph")  # an engine key's first call, its second
+
+
+def both_calls(fn):
+    """{"eager": fn(), "graph": fn()}: an engine key's first call runs
+    eagerly, its second captures the key's graph and replays it."""
+    return {route: fn() for route in ROUTE_CALLS}
+
+
 def phase_main_path():
     """The user's likelihood entry points on the card; returns the launch
     counts."""
@@ -1007,41 +884,48 @@ def phase_main_path():
         tag = str(dtype)[6:]
         jc = lt.PhyloModelSpec("JC69", "constant", "strict")
         inst = instance("DS1.subsampled_10.t", "DS1.fasta", jc, dtype)
-        close(f"DS1 LLs vs pybeagle, {tag}", inst.log_likelihoods(),
-              PYBEAGLE_LIKELIHOODS, tol["ll"])
-        grads = inst.phylo_gradients()
-        g = grads["branch_lengths"]
-        if g.device.type != torch.device(DEV).type or g.shape != (10, 51):
-            raise AssertionError(f"gradients on {g.device}, shape {g.shape}")
-        close(f"DS1 LLs of phylo_gradients, {tag}",
-              grads["log_likelihood"].cpu(), PYBEAGLE_LIKELIHOODS, tol["ll"])
-        mine = np.sort(np.concatenate([g[-1].cpu().numpy(), [0.0, 0.0]]))
-        close(f"DS1 last-tree gradient vs physher, {tag}", mine,
-              PHYSHER_GRADIENTS, tol["grad"])
+        for route, lls in both_calls(inst.log_likelihoods).items():
+            close(f"DS1 LLs vs pybeagle, {tag}, {route} call", lls,
+                  PYBEAGLE_LIKELIHOODS, tol["ll"])
+        for route, grads in both_calls(inst.phylo_gradients).items():
+            g = grads["branch_lengths"]
+            if (g.device.type != torch.device(DEV).type
+                    or g.shape != (10, 51)):
+                raise AssertionError(f"gradients on {g.device}, shape "
+                                     f"{g.shape}")
+            close(f"DS1 LLs of phylo_gradients, {tag}, {route} call",
+                  grads["log_likelihood"].cpu(), PYBEAGLE_LIKELIHOODS,
+                  tol["ll"])
+            mine = np.sort(np.concatenate([g[-1].cpu().numpy(), [0.0, 0.0]]))
+            close(f"DS1 last-tree gradient vs physher, {tag}, {route} call",
+                  mine, PHYSHER_GRADIENTS, tol["grad"])
         wb = lt.PhyloModelSpec("JC69", "weibull+4", "strict")
         inst = instance("DS1.subsampled_10.t", "DS1.fasta", wb, dtype)
         inst.phylo_model_params["site"]["shape"] = torch.tensor(
             0.1, dtype=torch.float64, device=DEV)
-        close(f"DS1 Weibull+4 LLs vs physher, {tag}", inst.log_likelihoods(),
-              PHYSHER_WEIBULL_LIKELIHOODS, tol["ll"])
-        grads = inst.phylo_gradients()
-        shape_grad = grads["site_model"]
-        if (shape_grad.device.type != torch.device(DEV).type
-                or shape_grad.shape != (10,)):
-            raise AssertionError(f"shape gradient on {shape_grad.device}, "
-                                 f"shape {tuple(shape_grad.shape)}")
-        close(f"DS1 Weibull+4 edge-0 gradients vs physher, {tag}",
-              grads["branch_lengths"][:, 0].cpu(),
-              PHYSHER_WEIBULL_GRADIENTS_BL0, tol["grad"])
-        close(f"DS1 Weibull+4 shape gradient vs f64 finite difference, {tag}",
-              shape_grad.cpu(), shape_fd, tol["shape"])
+        for route, lls in both_calls(inst.log_likelihoods).items():
+            close(f"DS1 Weibull+4 LLs vs physher, {tag}, {route} call", lls,
+                  PHYSHER_WEIBULL_LIKELIHOODS, tol["ll"])
+        for route, grads in both_calls(inst.phylo_gradients).items():
+            shape_grad = grads["site_model"]
+            if (shape_grad.device.type != torch.device(DEV).type
+                    or shape_grad.shape != (10,)):
+                raise AssertionError(f"shape gradient on {shape_grad.device}"
+                                     f", shape {tuple(shape_grad.shape)}")
+            close(f"DS1 Weibull+4 edge-0 gradients vs physher, {tag}, "
+                  f"{route} call", grads["branch_lengths"][:, 0].cpu(),
+                  PHYSHER_WEIBULL_GRADIENTS_BL0, tol["grad"])
+            close(f"DS1 Weibull+4 shape gradient vs f64 finite difference, "
+                  f"{tag}, {route} call", shape_grad.cpu(), shape_fd,
+                  tol["shape"])
         inst = instance("hello.nwk", "hello.fasta", jc, dtype)
-        close(f"hello LL, {tag}", inst.log_likelihoods(), [HELLO_LL],
-              tol["hello"])
+        for route, lls in both_calls(inst.log_likelihoods).items():
+            close(f"hello LL, {tag}, {route} call", lls, [HELLO_LL],
+                  tol["hello"])
     # Each of the five calls a dtype (DS1 log_likelihoods and
-    # phylo_gradients, JC69 and Weibull+4, and hello's LL) is its
-    # instance's first of its key: a capture and one replay each (its
-    # kernels launch twice, in the warm-up and the replay).
+    # phylo_gradients, JC69 and Weibull+4, and hello's LL) is made twice:
+    # its key's first call runs eagerly, its second is a capture and one
+    # replay (its kernels launch twice then, in the warm-up and the replay).
     graph_path_counts("likelihood path", 10, 10)
     return launch_counts("likelihood path",
                          ["ll_grad_jc69", "ll_jc69", "ll_dea_jc69"])
@@ -1100,27 +984,30 @@ def phase_gtr_path():
         tol = GOLDEN_TOL[dtype]
         tag = str(dtype)[6:]
         inst = gtr_instance(dtype)
-        close(f"GTR LLs, {tag}", inst.log_likelihoods(), GTR_LIKELIHOODS,
-              tol["ll"])
-        grads = inst.phylo_gradients()
-        shapes = {k: tuple(v.shape) for k, v in grads.items()}
-        want = {"log_likelihood": (100,), "branch_lengths": (100, 51),
-                "substitution_model": (100, 8), "site_model": (100,)}
-        if shapes != want or any(v.device.type != torch.device(DEV).type
-                                 for v in grads.values()):
-            raise AssertionError(f"phylo_gradients: {shapes}")
-        close(f"GTR LLs of phylo_gradients, {tag}",
-              grads["log_likelihood"].cpu(), GTR_LIKELIHOODS, tol["ll"])
-        close(f"GTR edge-0 gradients, {tag}",
-              grads["branch_lengths"][:, 0].cpu(), GTR_GRADIENTS_BL0,
-              tol["grad"])
-        close(f"GTR substitution gradients (10 trees), {tag}",
-              grads["substitution_model"][:10].cpu(),
-              GTR_SUBSTITUTION_GRADIENTS, tol["grad"])
-        close(f"GTR shape gradients (10 trees), {tag}",
-              grads["site_model"][:10].cpu(), GTR_SITE_GRADIENTS, tol["grad"])
-    # log_likelihoods and phylo_gradients a dtype, each its instance's
-    # first of its key: a capture and one replay each.
+        for route, lls in both_calls(inst.log_likelihoods).items():
+            close(f"GTR LLs, {tag}, {route} call", lls, GTR_LIKELIHOODS,
+                  tol["ll"])
+        for route, grads in both_calls(inst.phylo_gradients).items():
+            shapes = {k: tuple(v.shape) for k, v in grads.items()}
+            want = {"log_likelihood": (100,), "branch_lengths": (100, 51),
+                    "substitution_model": (100, 8), "site_model": (100,)}
+            if shapes != want or any(v.device.type != torch.device(DEV).type
+                                     for v in grads.values()):
+                raise AssertionError(f"phylo_gradients: {shapes}")
+            what = f"{tag}, {route} call"
+            close(f"GTR LLs of phylo_gradients, {what}",
+                  grads["log_likelihood"].cpu(), GTR_LIKELIHOODS, tol["ll"])
+            close(f"GTR edge-0 gradients, {what}",
+                  grads["branch_lengths"][:, 0].cpu(), GTR_GRADIENTS_BL0,
+                  tol["grad"])
+            close(f"GTR substitution gradients (10 trees), {what}",
+                  grads["substitution_model"][:10].cpu(),
+                  GTR_SUBSTITUTION_GRADIENTS, tol["grad"])
+            close(f"GTR shape gradients (10 trees), {what}",
+                  grads["site_model"][:10].cpu(), GTR_SITE_GRADIENTS,
+                  tol["grad"])
+    # log_likelihoods and phylo_gradients a dtype, each made twice: an eager
+    # first call, then a capture and one replay.
     graph_path_counts("GTR path", 4, 4)
     launches = launch_counts(
         "GTR path", ["ll_grad_generic", "ll_generic", "ll_dp_generic"],
@@ -2125,54 +2012,67 @@ def phase_rooted_path():
     inst = rooted_instance(lt.PhyloModelSpec("JC69", "constant", "strict"), f64)
     jc_cases = [(rooted_kernel_inputs(inst.engine, *rooted_args(inst)[:4]), f64, 1,
                  "rooted fluA, float64 K=1")]
-    lls, ldjs = inst.engine.rooted_log_likelihoods(*rooted_args(inst), True)
-    close("fluA rooted LL vs physher", lls.cpu(), [ROOTED_LL], tol["ll"])
-    close("fluA log-det-Jacobian vs physher", ldjs.cpu(), [ROOTED_LDJ],
-          tol["ll"])
+    parts = both_calls(
+        lambda: inst.engine.rooted_log_likelihoods(*rooted_args(inst), True))
+    for route, (lls, ldjs) in parts.items():
+        close(f"fluA rooted LL vs physher, {route} call", lls.cpu(),
+              [PHYSHER_LL], tol["ll"])
+        close(f"fluA log-det-Jacobian vs physher, {route} call", ldjs.cpu(),
+              [PHYSHER_JACOBIAN], tol["ll"])
     close("fluA log_likelihoods() = LL + ldj", inst.log_likelihoods(),
-          [ROOTED_LL + ROOTED_LDJ], tol["ll"])
-    g = inst.phylo_gradients()
-    r = g["ratios_root_height"]
-    if r.device.type != torch.device(DEV).type or r.shape != (1, 68):
-        raise AssertionError(f"ratio gradients on {r.device}, shape {r.shape}")
-    close("fluA LL of phylo_gradients vs physher", g["log_likelihood"].cpu(),
-          [ROOTED_LL], tol["ll"])
-    close("fluA ratio and root-height gradients vs physher", r[0].cpu(),
-          ROOTED_RATIO_GRADIENTS, tol["grad"])
-    close("fluA clock gradient vs f64 central difference",
-          g["clock_model"][0].cpu(), [clock_fd], tol["clock"])
+          [PHYSHER_LL + PHYSHER_JACOBIAN], tol["ll"])
+    for route, g in both_calls(inst.phylo_gradients).items():
+        r = g["ratios_root_height"]
+        if r.device.type != torch.device(DEV).type or r.shape != (1, 68):
+            raise AssertionError(f"ratio gradients on {r.device}, shape "
+                                 f"{r.shape}")
+        close(f"fluA LL of phylo_gradients vs physher, {route} call",
+              g["log_likelihood"].cpu(), [PHYSHER_LL], tol["ll"])
+        close(f"fluA ratio and root-height gradients vs physher, {route} "
+              "call", r[0].cpu(), PHYSHER_RATIO_GRADIENTS, tol["grad"])
+        close(f"fluA clock gradient vs f64 central difference, {route} call",
+              g["clock_model"][0].cpu(), [clock_fd], tol["clock"])
     inst = rooted_instance(lt.PhyloModelSpec("JC69", "weibull+4", "strict"),
                            f64)
     inst.phylo_model_params["site"]["shape"] = torch.tensor(
         0.1, dtype=f64, device=DEV)
     jc_cases.append((rooted_kernel_inputs(inst.engine, *rooted_args(inst)[:4]),
                      f64, 4, "rooted fluA, float64 Weibull+4 at shape 0.1"))
-    lls, ldjs = inst.engine.rooted_log_likelihoods(*rooted_args(inst), True)
-    close("fluA Weibull+4 LL vs physher", lls.cpu(), [ROOTED_WEIBULL_LL],
-          tol["ll"])
-    close("fluA Weibull+4 shape gradient vs physher",
-          inst.phylo_gradients()["site_model"].cpu(),
-          [ROOTED_WEIBULL_SHAPE_GRADIENT], tol["shape"])
+    # f64 K = 4 on fluA takes K1-K3's slab routes: these keys stay eager.
+    parts = both_calls(
+        lambda: inst.engine.rooted_log_likelihoods(*rooted_args(inst), True))
+    for route, (lls, _) in parts.items():
+        close(f"fluA Weibull+4 LL vs physher, {route} call", lls.cpu(),
+              [ROOTED_WEIBULL_LL], tol["ll"])
+    for route, g in both_calls(inst.phylo_gradients).items():
+        close(f"fluA Weibull+4 shape gradient vs physher, {route} call",
+              g["site_model"].cpu(), [ROOTED_WEIBULL_SHAPE_GRADIENT],
+              tol["shape"])
     inst = rooted_instance(lt.PhyloModelSpec("GTR", "constant", "strict"), f64)
     inst.phylo_model_params["substitution"] = {
         "rates": torch.tensor(ROOTED_GTR_RATES, dtype=f64, device=DEV),
         "frequencies": torch.tensor(ROOTED_GTR_FREQS, dtype=f64, device=DEV),
     }
     gtr_d = rooted_kernel_inputs(inst.engine, *rooted_args(inst)[:4])
-    lls, ldjs = inst.engine.rooted_log_likelihoods(*rooted_args(inst), True)
-    close("fluA GTR LL vs phylotorch", lls.cpu(), [ROOTED_GTR_LL], tol["gtr"])
-    close("fluA GTR log-det-Jacobian", ldjs.cpu(), [ROOTED_LDJ], tol["ll"])
-    g = inst.phylo_gradients()
-    close("fluA GTR LL of phylo_gradients vs phylotorch",
-          g["log_likelihood"].cpu(), [ROOTED_GTR_LL], tol["gtr"])
-    close("fluA GTR substitution gradients vs phylotorch",
-          g["substitution_model"][0].cpu(), ROOTED_GTR_GRADIENTS, tol["gtr"])
-    # The f64 goldens' calls, each instance's first of its key but the
-    # second LL call: JC69 rooted_log_likelihoods twice (one key) and
-    # phylo_gradients (the hand route); Weibull+4 and GTR
-    # rooted_log_likelihoods and phylo_gradients (the hand route, and for
-    # GTR the autograd route).
-    graph_path_counts("rooted path (f64 goldens)", 6, 7, rooted=True)
+    parts = both_calls(
+        lambda: inst.engine.rooted_log_likelihoods(*rooted_args(inst), True))
+    for route, (lls, ldjs) in parts.items():
+        close(f"fluA GTR LL vs phylotorch, {route} call", lls.cpu(),
+              [ROOTED_GTR_LL], tol["gtr"])
+        close(f"fluA GTR log-det-Jacobian, {route} call", ldjs.cpu(),
+              [PHYSHER_JACOBIAN], tol["ll"])
+    for route, g in both_calls(inst.phylo_gradients).items():
+        close(f"fluA GTR LL of phylo_gradients vs phylotorch, {route} call",
+              g["log_likelihood"].cpu(), [ROOTED_GTR_LL], tol["gtr"])
+        close(f"fluA GTR substitution gradients vs phylotorch, {route} call",
+              g["substitution_model"][0].cpu(), ROOTED_GTR_GRADIENTS,
+              tol["gtr"])
+    # The f64 goldens' calls, each made twice (an eager first call, then a
+    # capture and one replay) and JC69's LLs a third time (a replay):
+    # JC69 rooted_log_likelihoods and phylo_gradients (the hand route), GTR
+    # rooted_log_likelihoods and phylo_gradients (the autograd route); the
+    # Weibull+4 keys run K1-K3's slab routes and stay eager.
+    graph_path_counts("rooted path (f64 goldens)", 4, 5, rooted=True)
     jc_cases += rooted_routes_f32()
     launches = launch_counts("rooted path", ["ll_grad_jc69", "ll_jc69",
                                              "ll_dea_jc69", "ll_generic",
@@ -2492,9 +2392,10 @@ def phase_vip(smi):
         rel_close(f"per-tree {key}, card vs CPU reference", g[key].cpu(),
                   pt_cpu_g[key], PER_TREE_REL)
     # (c) The Burrito on the card: a step's branch_gradients and its ELBO's
-    # log_likelihoods each replay a graph (one key each for every step), so
-    # each kernel launches once a step and once more for the warm-up before
-    # its graph's capture.
+    # log_likelihoods are one key each for every step: the first step runs
+    # them eagerly, the second captures their graphs, later steps replay
+    # them, so each kernel launches once a step and once more for the
+    # warm-up before its graph's capture.
     burros = {}
     for tag, spec, bm, steps in VIP_RUNS:
         jc = spec[0] == "JC69"
@@ -2523,9 +2424,9 @@ def phase_vip(smi):
                 step_count=VIP_FIXED_STEPS, particle_count=PARTICLES),
             # A step's two graphs as in (c): their warm-ups add one K1 and
             # one K2; the final ELBO's B = 10,000 call is a key of its own,
-            # its warm-up and its replay two K2.
+            # called once: eagerly, one K2 and no graph.
             {"ll_grad_jc69": VIP_FIXED_STEPS + 1,
-             "ll_jc69": VIP_FIXED_STEPS + 1 + 2})
+             "ll_jc69": VIP_FIXED_STEPS + 1 + 1})
         fixed_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         rc = cli.main(["benchmark", "--step-count", "2", "--particle-count",
@@ -3458,14 +3359,18 @@ def rooted_graph_call(eng, args, hand, eager=False):
 
 
 def rooted_graph_checks(dtype, eng, args, got_hand, got_ll):
-    """flua_rooted_gradients at dtype: the graphed calls of the path
+    """flua_rooted_gradients at dtype: the path's two calls of each route
+    ({"eager": its first, "graph": its second, the capture's replay})
     against the eager calls bit for bit, twice each; a call one replay
     with K1 (K2 for the LLs) once; new ratios read, their LLs against K1's
     twin on the eager route's own inputs. Returns the twin's error."""
     tag = f"flua_rooted_gradients {str(dtype)[6:]}"
-    for hand, got in ((True, got_hand), (False, got_ll)):
+    for hand, calls in ((True, got_hand), (False, got_ll)):
         what = f"{tag} {'hand route' if hand else 'LLs'}"
+        got = calls["graph"]
         want = rooted_graph_call(eng, args, hand, eager=True)
+        bit_for_bit(f"{what}, the key's first (eager) call vs eager",
+                    calls["eager"], want)
         again = rooted_graph_call(eng, args, hand, eager=True)
         reset_counters()
         rooted_graph.reset_counters()
@@ -3488,7 +3393,7 @@ def rooted_graph_checks(dtype, eng, args, got_hand, got_ll):
     ea, one, _ = kernel_inputs(d, dtype, 1)
     twin, _ = pruning_jc.ll_grad_jc69_plain(
         d["pc"], ea, one, one, d["tips"], d["w"], root_id=d["root_id"])
-    if torch.equal(replayed[0], got_hand[0]):
+    if torch.equal(replayed[0], got_hand["graph"][0]):
         raise AssertionError(f"{tag}: new ratios gave the old LLs")
     return close(f"{tag} replay at new ratios, LLs vs K1's twin",
                  replayed[0].cpu(), twin.cpu(), TWIN_TOL[dtype]["ll"])
@@ -3529,11 +3434,12 @@ def graph_path_calls(level=True):
 
 def time_graph_paths(smi):
     """Host-clock ms a call of each (what, route) of graph_path_calls,
-    synchronised, after a warm-up (the captures), in turns graph, eager,
+    synchronised, after two warm-up calls (the captures), in turns graph, eager,
     eager, graph: {(what, route): [median, median]}."""
     print(f"  [15] timings, float32, host clock ({smi}):")
     calls = graph_path_calls()
     for fn in calls.values():
+        fn()
         fn()
     out = {}
     for route in ("graph", "eager", "eager", "graph"):
@@ -3580,9 +3486,12 @@ def phase_graph_paths(smi):
         bl0 = eng.branch_lengths.copy()
         gp_runs[(dtype, case)] = (eng, bl0, gp_ascent(eng, bl0, *case))
     for dtype in GRAPH_DTYPES:
+        # Each rooted call twice: its key's first call runs eagerly, its
+        # second captures the graph and replays it.
         eng, args = rooted_graph_engine(dtype)
-        rooted_runs[dtype] = (eng, args, rooted_graph_call(eng, args, True),
-                              rooted_graph_call(eng, args, False))
+        rooted_runs[dtype] = (eng, args, *(
+            both_calls(lambda h=hand: rooted_graph_call(eng, args, h))
+            for hand in (True, False)))
     launches = launch_counts("graph paths", ["populate_plvs", "golden_sweep",
                                              "ll_grad_jc69", "ll_jc69"])
     graphs = (dict(ascent_graph.COUNTS), dict(rooted_graph.COUNTS))
@@ -3713,9 +3622,8 @@ def nonzero_launches():
 
 
 def key_mb(fn):
-    """(fn's outputs, MB the capture behind it holds): the device memory
-    reserved over a first call (its warm-up, capture and replay), unused
-    cache released before and after, less its returned outputs."""
+    """(fn's outputs, MB of device memory that stays reserved over fn(),
+    less the outputs' own bytes), unused cache released before and after."""
     gc.collect()  # as a capture does: nothing freed then counts here
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3727,14 +3635,47 @@ def key_mb(fn):
     return out, held / 2**20
 
 
+def slab_key(spec, dtype, sched):
+    """Whether a JC69 key of ``spec`` at ``dtype`` on ``sched``'s trees runs
+    K2/K3's slab routes (beyond their on-chip plan); such a key stays eager
+    (utils/graphs.py)."""
+    if spec.substitution != "JC69":
+        return False
+    _, S, _ = np.shape(sched.post_children)
+    K = spec.site_category_count()
+    return any(pruning_jc.onchip_plan(dtype, K, S, sched.leaf_count, kind)
+               is None for kind in ("ll", "dea"))
+
+
+def engine_keys(sp, spec, dtype, calls, held, tag):
+    """A graph engine (the default on a card) with each of ``calls(eng)``
+    ({name: call}) made twice, its first call and its capture's replay:
+    {"engine": the engine, name: {"eager": outputs, "graph": outputs}}, with
+    the MB each key adds to the engine in ``held``."""
+    eng = LikelihoodEngine(sp, spec, dtype=dtype, device=DEV)
+    got = {"engine": eng}
+    for name, call in calls(eng).items():
+        got[name], held[(tag, dtype, name)] = key_mb(lambda: both_calls(call))
+    return got
+
+
+def unrooted_calls(sched, bl, params):
+    return lambda eng: {
+        call: (lambda f=getattr(eng, call): flat(f(sched, bl, params)))
+        for call in ENGINE_CALLS}
+
+
 def engine_graph_checks(tag, dtype, case, got):
-    """One unrooted case at dtype: each call of the graph engine (its first
-    outputs ``got``) against an eager engine's, bit for bit; a second call
-    one replay launching what the eager call launches; a call with new
-    branch lengths and parameters on a new schedule object of the same
-    shapes (as a VI step hands over) one replay that reads them."""
+    """One unrooted case at dtype: both calls of each key (``got``: its
+    eager first call and its capture's replay) against an eager engine's
+    call, bit for bit; a third call one replay launching what the eager
+    call launches and copying no int32 buffer (the same schedule object);
+    a call with new branch lengths and parameters on a new schedule object
+    of the same shapes (as a VI step hands over) one replay that reads
+    them and copies the new ints."""
     sp, spec, sched, bl, params = case
     graph_eng = got["engine"]
+    uploads = graph_eng.unrooted_graphs.programs.uploads
     eager = LikelihoodEngine(sp, spec, dtype=dtype, device=DEV,
                              cuda_graphs=False)
     bl2 = bl * 0.97
@@ -3749,26 +3690,58 @@ def engine_graph_checks(tag, dtype, case, got):
         reset_counters()
         want = flat(getattr(eager, call)(sched, bl, params))
         eager_launches = nonzero_launches()
-        bit_for_bit(f"{what}, graph vs eager", got[call], want)
+        for route in ROUTE_CALLS:
+            bit_for_bit(f"{what}, {route} call vs eager engine",
+                        got[call][route], want)
         reset_counters()
         reset_graph_counts()
-        second = flat(getattr(graph_eng, call)(sched, bl, params))
+        copied = dict(uploads)
+        third = flat(getattr(graph_eng, call)(sched, bl, params))
         launches = nonzero_launches()
+        copied = {k: uploads[k] - copied[k] for k in uploads}
         if (graph_counts()[0] != {"captures": 0, "replays": 1}
-                or launches != eager_launches):
+                or launches != eager_launches
+                or copied != {"ints": 0, "floats": 1}):
             raise AssertionError(f"{what}: {graph_counts()}, launches "
-                                 f"{launches}, eager {eager_launches}")
-        bit_for_bit(f"{what}, graph twice", second, got[call])
+                                 f"{launches}, eager {eager_launches}, "
+                                 f"copies {copied}")
+        bit_for_bit(f"{what}, graph twice", third, got[call]["graph"])
+        ints = uploads["ints"]
         new = flat(getattr(graph_eng, call)(again, bl2, params2))
-        if graph_counts()[0] != {"captures": 0, "replays": 2}:
-            raise AssertionError(f"{what}: new inputs {graph_counts()}")
+        if (graph_counts()[0] != {"captures": 0, "replays": 2}
+                or uploads["ints"] != ints + 1):
+            raise AssertionError(f"{what}: new inputs {graph_counts()}, "
+                                 f"{uploads['ints'] - ints} int copies")
         bit_for_bit(f"{what}, new inputs on a new schedule object, graph vs "
                     "eager", new, flat(getattr(eager, call)(again, bl2,
                                                             params2)))
-        if torch.equal(new[0], got[call][0]):
+        if torch.equal(new[0], got[call]["graph"][0]):
             raise AssertionError(f"{what}: new inputs gave the old outputs")
         print(f"  {what}: one replay a call, launches {launches} (the eager "
-              "call's)")
+              "call's), one float64 copy and no int32 copy for a repeated "
+              "schedule object")
+
+
+def interleaved_check(tag, dtype, case, got):
+    """The case's three keys on its one graph engine (their graphs in one
+    pool) called in turns, twice round, each with new branch lengths:
+    every call one replay, equal to the eager engine's bit for bit."""
+    sp, spec, sched, bl, params = case
+    eng = got["engine"]
+    eager = LikelihoodEngine(sp, spec, dtype=dtype, device=DEV,
+                             cuda_graphs=False)
+    reset_graph_counts()
+    n = 0
+    for turn in range(2):
+        for call in ENGINE_CALLS:
+            bl_n = bl * (0.9 + 0.02 * n)
+            n += 1
+            bit_for_bit(f"{tag} {str(dtype)[6:]} interleaved keys, turn "
+                        f"{turn}, engine.{call}",
+                        flat(getattr(eng, call)(sched, bl_n, params)),
+                        flat(getattr(eager, call)(sched, bl_n, params)))
+    if graph_counts()[0] != {"captures": 0, "replays": n}:
+        raise AssertionError(f"{tag}: interleaved keys {graph_counts()}")
 
 
 def copy_schedule(sched):
@@ -3782,48 +3755,52 @@ def copy_schedule(sched):
     return out
 
 
-def rooted_autograd_checks(tag, dtype, case, eng, got):
-    """The rooted autograd route's graph (first outputs ``got``) against
-    _rooted_phylo_gradients_autograd, bit for bit, twice each; a second
-    call one replay launching what the eager call launches; new ratios
-    read with no capture."""
+def rooted_autograd_checks(tag, dtype, case, eng, got, slab):
+    """The rooted autograd route's two calls (``got``: its first and its
+    capture's replay, or two eager calls for a ``slab`` key) against
+    _rooted_phylo_gradients_autograd, bit for bit, twice each; a third call
+    one replay (a slab key: none) launching what the eager call launches;
+    new ratios read with no capture."""
     sp, spec, args = case
     what = f"{tag} {str(dtype)[6:]} rooted autograd route"
     reset_counters()
     want = flat(eng._rooted_phylo_gradients_autograd(*args, True))
     eager_launches = nonzero_launches()
     again = flat(eng._rooted_phylo_gradients_autograd(*args, True))
-    bit_for_bit(f"{what}, graph vs eager", got, want)
+    for route in ROUTE_CALLS:
+        bit_for_bit(f"{what}, {route} call vs eager", got[route], want)
     bit_for_bit(f"{what}, eager twice", again, want)
     reset_counters()
     reset_graph_counts()
-    second = flat(rooted_autograd(eng, args))
+    third = flat(rooted_autograd(eng, args))
     launches = nonzero_launches()
-    if (graph_counts()[1] != {"captures": 0, "replays": 1}
+    replays = 0 if slab else 1
+    if (graph_counts()[1] != {"captures": 0, "replays": replays}
             or launches != eager_launches):
         raise AssertionError(f"{what}: {graph_counts()}, launches {launches},"
                              f" eager {eager_launches}")
-    bit_for_bit(f"{what}, graph twice", second, got)
+    bit_for_bit(f"{what}, graph twice", third, got["graph"])
     sched, bounds, ratios, rates, params = args
     ratios2 = ratios.copy()
     ratios2[:, :-1] = np.clip(ratios2[:, :-1] * 0.97, 1e-4, 1 - 1e-4)
     args2 = (sched, bounds, ratios2, rates, params)
     new = flat(rooted_autograd(eng, args2))
-    if graph_counts()[1] != {"captures": 0, "replays": 2}:
+    if graph_counts()[1] != {"captures": 0, "replays": 2 * replays}:
         raise AssertionError(f"{what}: new ratios {graph_counts()}")
     bit_for_bit(f"{what}, new ratios, graph vs eager", new,
                 flat(eng._rooted_phylo_gradients_autograd(*args2, True)))
-    if torch.equal(new[0], got[0]):
+    if torch.equal(new[0], got["graph"][0]):
         raise AssertionError(f"{what}: new ratios gave the old outputs")
-    print(f"  {what}: one replay a call, launches {launches} (the eager "
-          "call's)")
+    print(f"  {what}: {'eager (slab routes)' if slab else 'one replay'} a "
+          f"call, launches {launches} (the eager call's)")
 
 
 def burrito_replay_check():
     """A Burrito step (a new topology set, so a new schedule object of the
-    same shapes) replays its graphs and captures none."""
+    same shapes) replays its graphs and captures none, once its first step
+    has run them eagerly and its second has captured them."""
     burro = vip_burrito(DEV)
-    burro.gradient_steps(1)
+    burro.gradient_steps(2)
     reset_counters()
     reset_graph_counts()
     burro.gradient_steps(1)
@@ -3880,11 +3857,13 @@ def engine_graph_calls():
 
 def time_engine_graphs(smi):
     """Host-clock ms a call of each (what, route) of engine_graph_calls,
-    synchronised, from host arrays, after a warm-up (the captures), in
-    turns graph, eager, eager, graph: {(what, route): [median, median]}."""
+    synchronised, from host arrays, after two warm-up calls (a graph
+    route's first runs eagerly, its second captures), in turns graph,
+    eager, eager, graph: {(what, route): [median, median]}."""
     print(f"  [16] timings, float32, from host arrays, host clock ({smi}):")
     calls = engine_graph_calls()
     for fn in calls.values():
+        fn()
         fn()
     out = {}
     for route in ("graph", "eager", "eager", "graph"):
@@ -3907,40 +3886,152 @@ def time_engine_graphs(smi):
     return out
 
 
+def htod_copies(fn, calls=GRAPH_RUNS):
+    """Host-to-device copies a call of fn on the card (torch.profiler's
+    "Memcpy HtoD" device events), after two warm-up calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if "Memcpy HtoD" in e.key) / calls
+
+
 def trace_engine_graphs():
-    """host_and_device's line for every call of engine_graph_calls: run in
-    a fresh process (see trace_one_k1)."""
-    return {f"{what}, {route}": host_and_device(fn, GRAPH_RUNS)[0]
-            for (what, route), fn in engine_graph_calls().items()}
+    """host_and_device's line for every call of engine_graph_calls, and the
+    host-to-device copies a call of the engine's calls (the same schedule
+    object each call): run in a fresh process (see trace_one_k1)."""
+    calls = engine_graph_calls()
+    out = {f"{what}, {route}": host_and_device(fn, GRAPH_RUNS)[0]
+           for (what, route), fn in calls.items()}
+    for (what, route), fn in calls.items():
+        if what.startswith("engine."):
+            out[f"{what}, {route}: host-to-device copies a call"] = (
+                f"{htod_copies(fn):g} (torch.profiler)")
+    return out
 
 
 def final_elbo_key(smi):
     """The B = FINAL_ELBO_PARTICLES float64 JC69 log_likelihoods key (vi.
-    benchmark.fixed's final ELBO) on the headline recipe: the MB its
-    capture holds, the seconds of its first call (warm-up, capture,
-    replay) and of a replay and of an eager call."""
+    benchmark.fixed's final ELBO, called once) on the headline recipe:
+    the first call of a fresh engine on a fresh schedule object, by a graph
+    engine and an eager one in turns (graph, eager, eager, graph), with the
+    programs the graph engine keeps (none) and the memory it leaves
+    reserved (within one 2 MB segment); then a graph engine's second call
+    (the capture) and replays, and an eager engine's later calls, on one
+    schedule object, with the int32 copies of the replays (none)."""
     sp, sched, bl = headline_batch(FINAL_ELBO_PARTICLES)
     spec = lt.PhyloModelSpec("JC69", "constant", "strict")
     params = default_parameters(spec, device=DEV)
-    out = {}
-    for graphs in (True, False):
-        eng = LikelihoodEngine(sp, spec, dtype=torch.float64, device=DEV,
-                               cuda_graphs=graphs)
+
+    def engine(route):
+        return LikelihoodEngine(sp, spec, dtype=torch.float64, device=DEV,
+                                cuda_graphs=route == "graph")
+
+    def timed(fn):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, mb = key_mb(lambda: eng.log_likelihoods(sched, bl, params))
-        first = time.perf_counter() - t0
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            eng.log_likelihoods(sched, bl, params)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        out[graphs] = (mb, first, statistics.median(times))
-    (mb, first, replay), (_, _, eager) = out[True], out[False]
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    first, left = {}, {}
+    for route in ("graph", "eager", "eager", "graph"):
+        eng, s = engine(route), copy_schedule(sched)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        first.setdefault(route, []).append(
+            timed(lambda: eng.log_likelihoods(s, bl, params)))
+        torch.cuda.empty_cache()
+        left.setdefault(route, []).append(
+            (torch.cuda.memory_reserved() - before) / 2**20)
+        if route == "graph" and (len(eng.unrooted_graphs.programs)
+                                 or left[route][-1] > 2):
+            raise AssertionError(
+                f"final-ELBO key: {len(eng.unrooted_graphs.programs)} "
+                f"programs kept, {left[route][-1]:.2f} MB left reserved")
+        del eng, s
+    later = {}
+    for route in ("graph", "eager"):
+        eng, s = engine(route), copy_schedule(sched)
+        call = (lambda: eng.log_likelihoods(s, bl, params))
+        timed(call)
+        later[route] = [timed(call) for _ in range(4)]
+        if route == "graph":
+            uploads = eng.unrooted_graphs.programs.uploads
+            copied = dict(uploads)
+            timed(call)
+            if uploads["ints"] != copied["ints"]:
+                raise AssertionError("final-ELBO key: a replay on the same "
+                                     "schedule object copied its ints")
+        del eng, s
+    g, e = min(first["graph"]), min(first["eager"])
     print(f"  final-ELBO key, B = {FINAL_ELBO_PARTICLES} float64 JC69 "
-          f"log_likelihoods ({smi}): holds {mb:.2f} MB; first call (warm-up,"
-          f" capture, replay) {first:.3f} s; a replay {replay * 1e3:.3f} ms, "
-          f"an eager call {eager * 1e3:.3f} ms (host clock, medians of 3)")
+          f"log_likelihoods, called once on a fresh engine ({smi}): graph "
+          f"engine {', '.join(f'{t * 1e3:.3f}' for t in first['graph'])} ms,"
+          f" eager engine {', '.join(f'{t * 1e3:.3f}' for t in first['eager'])}"
+          f" ms (graph / eager, least of each {g / e:.3f}); no program kept;"
+          f" left reserved {left['graph']} MB (graph), {left['eager']} MB "
+          "(eager)")
+    print(f"  final-ELBO key, later calls on one schedule object: graph "
+          f"engine's second call (capture) {later['graph'][0] * 1e3:.3f} ms,"
+          f" replays {', '.join(f'{t * 1e3:.3f}' for t in later['graph'][1:])}"
+          f" ms (no int32 copy); eager engine "
+          f"{', '.join(f'{t * 1e3:.3f}' for t in later['eager'])} ms")
+
+
+def slab_key_costs(smi, case):
+    """The float64 JC69 + Weibull+4 rooted autograd key on fluA x 256 (K2/K3
+    on their slab routes): host-clock ms a call by the engine's policy
+    (eager: the caching allocator keeps the slab scratch between calls
+    until it is released) against a graph of its own holding the scratch
+    in its pool (a PackedPrograms shown no slab counter), and the MB each
+    leaves reserved."""
+    sp, spec, args = case
+
+    def time_calls(fn, n=3):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    eng = LikelihoodEngine(sp, spec, dtype=torch.float64, device=DEV)
+    _, eager_mb = key_mb(lambda: both_calls(
+        lambda: rooted_autograd(eng, args)))
+    eager_ms = time_calls(lambda: rooted_autograd(eng, args))
+    graphs = rooted_graph.RootedGraphs(eng)
+    graphs.programs = PackedPrograms(eng.device, (), {"captures": 0,
+                                                      "replays": 0})
+    _, graph_mb = key_mb(lambda: both_calls(
+        lambda: graphs.phylo_gradients(*args, True, "autograd")))
+    graph_ms = time_calls(lambda: graphs.phylo_gradients(*args, True,
+                                                         "autograd"))
+    del graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  f64 JC69 + Weibull+4 rooted autograd key, fluA x {B_ROOTED} "
+          f"(slab routes; {smi}): eager (the engine's route) "
+          f"{', '.join(f'{t:.3f}' for t in eager_ms)} ms a call, "
+          f"{eager_mb:.2f} MB held after its calls; captured in a pool of "
+          f"its own {', '.join(f'{t:.3f}' for t in graph_ms)} ms a replay, "
+          f"{graph_mb:.2f} MB held")
+    return eager_mb
+
+
+SLAB_KEY_LIMIT_MB = 200  # what a slab-route key may leave held
+KEY_OUTPUTS_MB = 20  # outputs and buffers a key adds to a shared pool
 
 
 def phase_engine_graphs(smi):
@@ -3948,55 +4039,73 @@ def phase_engine_graphs(smi):
     their CUDA graphs; returns the launch counts of its path."""
     print("[16] one replay per engine call: CUDA graphs of log_likelihoods, "
           "branch_gradients, phylo_gradients (K1-K6) and the rooted "
-          "autograd route")
+          "autograd route, captured from a key's second call into one pool "
+          "an engine")
     t_phase = time.perf_counter()
     cases, rcases = unrooted_graph_cases(), rooted_graph_cases()
-    # The path, with every counter at 0: each call by the graph engine, as
-    # a user calls it on a card; the MB each captured key holds.
+    # The path, with every counter at 0: each call twice by the graph
+    # engine, as a user calls it on a card (the first eagerly, the second
+    # the capture and its replay); the MB each key adds and each engine
+    # holds.
     reset_counters()
     reset_graph_counts()
-    runs, rruns, held = {}, {}, {}
+    runs, rruns, held, totals = {}, {}, {}, {}
+    slabs = set()
     for dtype in GRAPH_DTYPES:
         for tag, (sp, spec, sched, bl, params) in cases.items():
-            eng = LikelihoodEngine(sp, spec, dtype=dtype, device=DEV)
-            got = runs[(tag, dtype)] = {"engine": eng}
-            for call in ENGINE_CALLS:
-                out, held[(tag, dtype, call)] = key_mb(
-                    lambda: getattr(eng, call)(sched, bl, params))
-                got[call] = flat(out)
+            runs[(tag, dtype)], totals[(tag, dtype)] = key_mb(
+                lambda: engine_keys(sp, spec, dtype,
+                                    unrooted_calls(sched, bl, params), held,
+                                    tag))
         for tag, (sp, spec, args) in rcases.items():
-            eng = LikelihoodEngine(sp, spec, dtype=dtype, device=DEV)
-            out, held[(tag, dtype, "rooted autograd")] = key_mb(
-                lambda: rooted_autograd(eng, args))
-            rruns[(tag, dtype)] = (eng, flat(out))
+            if slab_key(spec, dtype, args[0]):
+                slabs.add((tag, dtype))
+            got, _ = key_mb(lambda: engine_keys(
+                sp, spec, dtype,
+                lambda eng: {"rooted autograd": (
+                    lambda: flat(rooted_autograd(eng, args)))}, held, tag))
+            rruns[(tag, dtype)] = (got["engine"], got["rooted autograd"])
     launches = launch_counts(
         "engine graphs path", ["ll_grad_jc69", "ll_jc69", "ll_dea_jc69",
                                "ll_grad_generic", "ll_generic",
                                "ll_dp_generic"],
         ["ll_grad_generic_slab", "ll_generic_slab", "ll_dp_generic_slab"])
     n_unrooted = len(GRAPH_DTYPES) * len(cases) * len(ENGINE_CALLS)
-    n_rooted = len(GRAPH_DTYPES) * len(rcases)
+    n_rooted = len(GRAPH_DTYPES) * len(rcases) - len(slabs)
     counts = graph_counts()
     print(f"  engine graphs path: unrooted programs {counts[0]}, rooted "
-          f"programs {counts[1]}")
+          f"programs {counts[1]} (slab-route keys, eager: {sorted(slabs)})")
     if counts != ({"captures": n_unrooted, "replays": n_unrooted},
                   {"captures": n_rooted, "replays": n_rooted}):
         raise AssertionError("the engine calls did not replay their graphs")
-    print("  MB each captured key holds (device memory reserved over its "
-          "first call, less its outputs):")
+    print("  MB each key adds to its engine (device memory reserved over its "
+          "two calls, less their outputs; the engine's keys share one pool):")
     for (tag, dtype, call), mb in held.items():
         print(f"    {tag}, {str(dtype)[6:]}, {call}: {mb:.2f} MB")
+    for (tag, dtype), mb in totals.items():
+        print(f"    {tag}, {str(dtype)[6:]}: the engine holds {mb:.2f} MB "
+              f"after its {len(ENGINE_CALLS)} keys")
+    for tag, dtype in slabs:
+        mb = held[(tag, dtype, "rooted autograd")]
+        if mb >= SLAB_KEY_LIMIT_MB:
+            raise AssertionError(f"{tag} {dtype}: the slab-route key holds "
+                                 f"{mb:.2f} MB")
     # The checks, after the counters were read.
     for (tag, dtype), got in runs.items():
         engine_graph_checks(tag, dtype, cases[tag], got)
+        interleaved_check(tag, dtype, cases[tag], got)
     for (tag, dtype), (eng, got) in rruns.items():
-        rooted_autograd_checks(tag, dtype, rcases[tag], eng, got)
+        rooted_autograd_checks(tag, dtype, rcases[tag], eng, got,
+                               (tag, dtype) in slabs)
     burrito_replay_check()
+    config2_alone(held, totals)
     print(f"  [16] path and checks: {time.perf_counter() - t_phase:.1f} s")
     final_elbo_key(smi)
+    for tag, dtype in slabs:
+        slab_key_costs(smi, rcases[tag])
     time_engine_graphs(smi)
     print(f"  [16] timings done: {time.perf_counter() - t_phase:.1f} s")
-    # Device time and idle share, traced in a fresh process.
+    # Device time, idle share and copies a call, traced in a fresh process.
     out = subprocess.run(
         [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
          "chip_smoke.trace_engine_graphs()))"],
@@ -4007,6 +4116,51 @@ def phase_engine_graphs(smi):
     for name, line in json.loads(out.stdout.splitlines()[-1]).items():
         print(f"    {name}: {line}")
     print(f"[16] took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def config2_alone(held, totals):
+    """Config 2's keys each alone in an engine of its own (two calls): the
+    MB each holds, against the engine of [16]'s path that holds all three
+    in one pool, which must hold no more than the largest alone plus
+    KEY_OUTPUTS_MB a key."""
+    tag = f"config 2, DS1.100 x {B_GTR}, GTR + Weibull+4"
+    sp, spec, sched, bl, params = unrooted_graph_cases()[tag]
+    for dtype in GRAPH_DTYPES:
+        alone = {}
+        for call in ENGINE_CALLS:
+            calls = unrooted_calls(sched, bl, params)
+            one = {}
+            key_mb(lambda: engine_keys(
+                sp, spec, dtype, lambda eng: {call: calls(eng)[call]}, one,
+                tag))
+            alone[call] = one[(tag, dtype, call)]
+        total, limit = (totals[(tag, dtype)],
+                        max(alone.values()) + KEY_OUTPUTS_MB * len(alone))
+        print(f"  {tag}, {str(dtype)[6:]}: keys alone "
+              f"{', '.join(f'{c} {mb:.2f}' for c, mb in alone.items())} MB "
+              f"(sum {sum(alone.values()):.2f}); one engine with all three "
+              f"holds {total:.2f} MB (at most {limit:.2f})")
+        if total > limit:
+            raise AssertionError(f"{tag} {dtype}: the engine holds "
+                                 f"{total:.2f} MB, over {limit:.2f}")
+
+
+# [17] the parity tier on the card (utils/parity.py).
+
+
+def phase_parity(smi):
+    """[17] the parity tier (python -m libsbn_tpu_torch.utils.parity) in
+    this process, with every counter at 0: each check's line, and every
+    kernel K1-K8 launched; returns the launch counts of its path."""
+    print(f"[17] the parity tier on the card: golden numbers at float32 on "
+          f"the kernels and the engines' graphs ({smi})")
+    t_phase = time.perf_counter()
+    reset_counters()
+    checks = parity.run(DEV, echo=lambda line: print(f"  {line}"))
+    launches = launch_counts("parity path", [k["key"] for k in KERNELS])
+    print(f"  parity: {len(checks)} checks passed; [17] took "
+          f"{time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -4028,6 +4182,7 @@ def main():
     rooted_launches["ll_grad_jc69"] += graph_launches.pop("ll_grad_jc69")
     runs.append(graph_launches)
     runs.append(phase_engine_graphs(smi))
+    runs.append(phase_parity(smi))
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     # K1's rooted launches stand in its second entry below and K2's vip
     # launches in its second; every other kernel's entry counts every path.

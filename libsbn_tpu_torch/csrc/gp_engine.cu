@@ -574,9 +574,10 @@ gp_populate_kernel(const int* __restrict__ rw_g, const int* __restrict__ lw_g,
 // partial sums for f(x) and f(y) side by side (two independent log
 // chains), each warp reduces both by one interleaved butterfly and writes
 // its two sums to shared memory, and after one __syncthreads every thread
-// adds the block's warp sums in warp order. So every thread holds the same f(c) and f(d) and takes the same
-// branch, there are no atomics, and the result repeats exactly from launch
-// to launch. The warp sums alternate between two buffers from step to step:
+// adds the block's warp sums in warp order. So every thread holds the
+// same f(c) and f(d) and takes the same branch, there are no atomics,
+// and the result repeats exactly from launch to launch. The warp sums
+// alternate between two buffers from step to step:
 // a warp can only write a buffer again after the next barrier, which every
 // warp reaches only when it has read that buffer. The steps are f(cur)
 // (paired with itself, so that every step is the same code: one redundant

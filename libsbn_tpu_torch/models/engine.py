@@ -30,9 +30,11 @@ parameters, each of ``log_likelihoods``, ``branch_gradients`` and
 ``phylo_gradients`` (models/unrooted_graph.py) and of
 ``rooted_log_likelihoods`` and ``rooted_phylo_gradients`` (the hand route
 for JC69, the autograd route for GTR; models/rooted_graph.py) is one
-replay of a captured CUDA graph, the counterpart of the JAX engine's
-jitted programs; ``cuda_graphs=False`` runs them eagerly, launch by
-launch, and per-tree parameters and rescale=False always do. GTR's
+replay of a captured CUDA graph from a key's second call on (the first
+runs eagerly, and a key that runs a kernel's slab route stays eager: see
+utils/graphs.py), the counterpart of the JAX engine's jitted programs;
+``cuda_graphs=False`` runs them eagerly, launch by launch, and per-tree
+parameters and rescale=False always do. GTR's
 eigensystem is solved once a call on the host, from the shared parameters,
 by both routes (``_shared_eigen``), so they run the same arithmetic. The
 schedule's index arrays go to the device once per schedule object, which
@@ -132,8 +134,10 @@ class LikelihoodEngine:
         # the JAX engine's attribute of the same name.
         self.heights_method = "sweeps"
         graphed = device.type == "cuda" and cuda_graphs
-        # The rooted programs (``graphs``) and the unrooted ones; None runs
-        # the calls eagerly.
+        # The memory pool of the engine's captured graphs (utils/graphs.py
+        # PackedPrograms), the rooted programs (``graphs``) and the unrooted
+        # ones; None runs the calls eagerly.
+        self.graph_pool = torch.cuda.graph_pool_handle() if graphed else None
         self.graphs = rooted_graph.RootedGraphs(self) if graphed else None
         self.unrooted_graphs = (unrooted_graph.UnrootedGraphs(self)
                                 if graphed else None)

@@ -8,7 +8,9 @@ Eagerly, the port's hand route is a few hundred small launches (64 heights
 sweeps of fluA and their adjoint around one K1 launch), and the autograd
 route that many again for the backward of the sweeps, whose enqueue takes
 the host longer than the card takes to run them. ``RootedGraphs`` captures
-each of the three programs once per key and replays it:
+each of the three programs once per key, on the key's second call (its
+first runs the same function eagerly; a key that runs a kernel's slab
+route stays eager), and replays it:
 
 * the key holds what the JAX cache keys hold, the shapes and the model's
   layout: (route, B, S, N, leaf_count, root_id, n_height_iters,
@@ -16,8 +18,8 @@ each of the three programs once per key and replays it:
   schedule object, which RootedInstance rebuilds on every call;
 * the inputs are two static buffers, filled by one host-to-device copy
   each: the schedule's index arrays packed as int32 (post_children,
-  pre_internal_node, pre_internal_parent, parent; packed once per schedule
-  object and cached on it), and float64 values (bounds, ratios, clock
+  pre_internal_node, pre_internal_parent, parent; not copied again while
+  the schedule object repeats), and float64 values (bounds, ratios, clock
   rates, then the model's parameters: the Weibull shape, GTR's rates and
   frequencies and the eigensystem of its Q, which the host solves ahead
   (``engine._shared_eigen``, as the eager calls do), since a graph cannot
@@ -29,11 +31,14 @@ each of the three programs once per key and replays it:
   K2, K3, K5, K6 and the heights' gathers do); the autograd route runs
   its backward (the custom Functions of K2/K3, K5/K6 and expm_transition)
   inside the capture;
-* outputs are cloned out of the graph's pool.
+* outputs are cloned out of the graph's pool as soon as the replay is
+  enqueued, before any other replay: the engine's rooted and unrooted
+  graphs share one pool.
 
-utils/graphs.py's ``PackedPrograms`` does the packing and ``Graph`` the
-capture (warm-up, pool, launch counts). On the CPU a Graph calls its
-function as is: the CPU tests run the packed path against the eager one.
+utils/graphs.py's ``PackedPrograms`` does the packing and the capture
+policy, and ``Graph`` the capture (warm-up, pool, launch counts). On the
+CPU a Graph calls its function as is: the CPU tests run the packed path
+against the eager one.
 """
 
 from __future__ import annotations
@@ -95,7 +100,9 @@ class RootedGraphs:
 
     def __init__(self, engine):
         self.engine = engine
-        self.programs = PackedPrograms(engine.device, _COUNTERS, COUNTS)
+        # The engine's graphs, rooted and unrooted, share its memory pool.
+        self.programs = PackedPrograms(engine.device, _COUNTERS, COUNTS,
+                                       engine.graph_pool)
 
     def log_likelihoods(self, sched, bounds, ratios, rates, params):
         """(LLs (B,), log-det-Jacobians (B,)) as rooted_log_likelihoods
@@ -152,4 +159,4 @@ class RootedGraphs:
 
         return self.programs.run(
             key, [getattr(sched, n) for n in _INT_NAMES],
-            arrays + [x for _, x in leaves] + list(eigen), make)
+            arrays + [x for _, x in leaves] + list(eigen), make, sched)

@@ -7,7 +7,9 @@ calls are tens of small launches around their kernels (the padding and
 casts of the branch lengths, the model's tensors, GTR's transition
 matrices, the model gradients' autograd), whose enqueue takes the host
 longer than the card takes to run them. ``UnrootedGraphs`` captures each
-route once per key and replays it:
+route once per key, on the key's second call (its first runs the same
+function eagerly; a key that runs a kernel's slab route stays eager;
+utils/graphs.py), and replays it:
 
 * routes: "ll" (``log_likelihoods``: K2, or K5 for GTR), "bgrad"
   (``branch_gradients``: K1, or K4 for GTR) and "phylo"
@@ -19,7 +21,8 @@ route once per key and replays it:
   object, which the instances rebuild on every call, so a new schedule of
   the same shapes replays the same graph;
 * the inputs are two static buffers, each filled by one host-to-device
-  copy a call: the schedule's child table as int32, and float64 values
+  copy a call: the schedule's child table as int32 (not copied again while
+  the schedule object repeats), and float64 values
   (the branch lengths, the model's parameters, and GTR's eigensystem of
   its shared Q, which the host solves ahead as the eager call does,
   ``engine._shared_eigen``);
@@ -29,7 +32,9 @@ route once per key and replays it:
   eager call bit for bit (the sums of K1-K6 have a fixed order); the
   model gradients run their backward (K3, K6 and expm_transition's)
   inside the capture;
-* outputs are cloned out of the graph's pool.
+* outputs are cloned out of the graph's pool as soon as the replay is
+  enqueued, before any other replay: the engine's unrooted and rooted
+  graphs share one pool.
 
 The schedule is checked once per schedule object before the replay
 (``engine._sched_cache``). On the CPU a Graph calls its function as is:
@@ -63,7 +68,9 @@ class UnrootedGraphs:
 
     def __init__(self, engine):
         self.engine = engine
-        self.programs = PackedPrograms(engine.device, _COUNTERS, COUNTS)
+        # The engine's graphs, rooted and unrooted, share its memory pool.
+        self.programs = PackedPrograms(engine.device, _COUNTERS, COUNTS,
+                                       engine.graph_pool)
 
     def log_likelihoods(self, sched, branch_lengths, params):
         """(B,) LLs as log_likelihoods computes them, by one replay."""
@@ -114,4 +121,4 @@ class UnrootedGraphs:
         return self.programs.run(
             key, [sched.post_children],
             [host_f64(branch_lengths)] + [x for _, x in leaves] + list(eigen),
-            make)
+            make, sched)

@@ -9,8 +9,9 @@ replays them in one call. ``Graph`` holds one such function:
 * ``fn`` reads and writes only static buffers (tensors that the caller
   allocates once and fills between calls, each by one host-to-device copy
   or an in-place copy) and the tensors it allocates itself, which come from
-  the graph's own memory pool; whatever it returns stays in that pool and
-  is overwritten by the next replay, so callers clone what they keep;
+  the graph's memory pool (its own, or one it shares); whatever it returns
+  stays in that pool and is overwritten by the next replay, so callers
+  clone what they keep;
 * before the capture, ``warmup`` (by default ``fn``) runs once on a side
   stream and its result is dropped (PyTorch's rule for capture; it also
   loads the kernels' library, which may run nvcc); its launches are
@@ -29,16 +30,37 @@ On a device that is not CUDA a Graph calls ``fn`` as it is, so the CPU
 tests run the same functions over the same buffers.
 
 ``PackedPrograms`` keeps such Graphs by key over two static buffers each,
-one int32 and one float64: a call packs its host arrays into them with one
-host-to-device copy each and replays the key's graph, whose function reads
-views of the buffers (the engines' graphs, models/rooted_graph.py and
-models/unrooted_graph.py).
+one int32 and one float64, for one engine (models/rooted_graph.py and
+models/unrooted_graph.py). It holds what the JAX engine's compiled
+programs hold, and no more:
+
+* a key's first call runs eagerly: the function it would capture, over
+  freshly uploaded buffers, so it equals the graph bit for bit and leaves
+  nothing behind but a record that the key was seen; its second call
+  captures, and every later call is one replay. A one-off key (a final
+  ELBO over 10,000 particles) never makes a graph or a pool;
+* a key whose first call launched a kernel's slab route (counted as
+  ``*_slab`` in the launch counters; its scratch is a slab per tree) stays
+  eager, so that scratch goes back to the caching allocator after each
+  call instead of staying in a pool;
+* the engine's graphs share one memory pool (``pool``), which then holds
+  about the largest key's temporaries plus every key's outputs, not the
+  sum of all keys' temporaries. Two rules make that safe: no two of the
+  engine's replays overlap (one stream, in order), and every caller copies
+  a replay's outputs out before the next replay of any key, since another
+  key's replay may write where they lie (the engines' graphs clone them
+  as soon as the replay is enqueued);
+* a call copies its floats into the key's buffer, and its ints only when
+  they come from another schedule object than the last call's, held by a
+  weak reference (an address can be recycled, an object cannot), as the
+  JAX engine's ``_sched_dev`` uploads a schedule once.
 """
 
 from __future__ import annotations
 
 import gc
-from typing import NamedTuple
+import weakref
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -52,8 +74,12 @@ class Graph:
     capture-time counts a replay adds; counts: a dict with "captures" and
     "replays", the owner's record of what ran."""
 
-    def __init__(self, fn, device, counters, counts, warmup=None):
+    def __init__(self, fn, device, counters, counts, warmup=None, pool=None):
+        """pool: a memory pool handle (torch.cuda.graph_pool_handle()) that
+        the capture shares with other graphs, or None for a pool of its
+        own."""
         self.fn = fn
+        self.pool = pool
         self.warmup = fn if warmup is None else warmup
         self.device = torch.device(device)
         self.counters = tuple(counters)
@@ -93,7 +119,7 @@ class Graph:
             gc.collect()
             gc.disable()
             try:
-                with torch.cuda.graph(graph):
+                with torch.cuda.graph(graph, pool=self.pool):
                     outputs = self.fn()
             finally:
                 if collecting:
@@ -116,59 +142,109 @@ def host_f64(x):
     return np.asarray(x, np.float64)
 
 
-class Packed(NamedTuple):
-    graph: Graph
-    ints: torch.Tensor  # int32, the packed int arrays
-    floats: torch.Tensor  # float64, the packed float arrays
+class Packed:
+    """A captured key: its graph, its static buffers and the schedule object
+    whose int arrays its int32 buffer holds (a weak reference, or None)."""
+
+    def __init__(self, graph, ints, floats, source):
+        self.graph = graph
+        self.ints = ints  # int32, the packed int arrays
+        self.floats = floats  # float64, the packed float arrays
+        self.source = source
+
+
+# Keys seen once and not captured that a PackedPrograms (one an engine and
+# route family) remembers; the oldest is forgotten first, and a forgotten
+# key's next call runs eagerly again.
+SEEN_CAP = 256
 
 
 class PackedPrograms:
     """Graphs by key, each over one int32 and one float64 static buffer
-    on ``device``; counters and counts as Graph takes them."""
+    on ``device``; counters and counts as Graph takes them; ``pool`` the
+    memory pool every capture shares (None: a pool each)."""
 
-    def __init__(self, device, counters, counts):
+    def __init__(self, device, counters, counts, pool=None):
         self.device = torch.device(device)
         self.counters = tuple(counters)
         self.counts = counts
+        self.pool = pool
         self.programs = {}
+        # key -> "eager" for a key whose first call launched a slab route,
+        # else "seen": called once and not yet captured.
+        self.seen = OrderedDict()
+        # Host-to-device copies of the packed arrays, by buffer.
+        self.uploads = {"ints": 0, "floats": 0}
 
     def __len__(self):
         return len(self.programs)
 
-    def run(self, key, ints, floats, make):
-        """Replay the program of ``key`` once on ``ints`` (host int arrays,
-        packed as int32) and ``floats`` (host float64 arrays), capturing it
-        first if its key is new: ``make(int_views, float_views)`` then
-        returns the function to capture, which reads the buffers' views of
-        the arrays' shapes, in order. The key is extended by the arrays'
-        shapes. Returns the function's outputs, in the graph's pool."""
+    def run(self, key, ints, floats, make, source=None):
+        """Run the program of ``key`` once on ``ints`` (host int arrays,
+        packed as int32) and ``floats`` (host float64 arrays):
+        ``make(int_views, float_views)`` returns the function, which reads
+        the buffers' views of the arrays' shapes, in order. The key is
+        extended by the arrays' shapes. Its first call runs the function
+        eagerly, its second captures it, later calls replay it (see the
+        module docstring). ``source``: the object the int arrays come from
+        (the schedule); on a replay, the same object as the last call's
+        skips their copy. Returns the function's outputs (in the pool on
+        a replay)."""
         ints = [np.asarray(x) for x in ints]
         floats = [np.asarray(x, np.float64) for x in floats]
         int_shapes = tuple(x.shape for x in ints)
         float_shapes = tuple(x.shape for x in floats)
         key = (key, int_shapes, float_shapes)
-        flat_i = _flat(ints, np.int32)
-        flat_f = _flat(floats, np.float64)
         prog = self.programs.get(key)
         if prog is not None:
-            prog.ints.copy_(torch.from_numpy(flat_i))
-            prog.floats.copy_(torch.from_numpy(flat_f))
+            if source is None or prog.source is None or (
+                    prog.source() is not source):
+                prog.ints.copy_(torch.from_numpy(_flat(ints, np.int32)))
+                prog.source = _ref(source)
+                self.uploads["ints"] += 1
+            prog.floats.copy_(torch.from_numpy(_flat(floats, np.float64)))
+            self.uploads["floats"] += 1
             return prog.graph()
-        ints_t = torch.tensor(flat_i, device=self.device)
-        floats_t = torch.tensor(flat_f, device=self.device)
+        ints_t = torch.tensor(_flat(ints, np.int32), device=self.device)
+        floats_t = torch.tensor(_flat(floats, np.float64), device=self.device)
+        self.uploads["ints"] += 1
+        self.uploads["floats"] += 1
         fn = make(_views(ints_t, int_shapes), _views(floats_t, float_shapes))
-        prog = Packed(Graph(fn, self.device, self.counters, self.counts),
-                      ints_t, floats_t)
+        state = self.seen.get(key)
+        if state is None:  # the first call
+            slabs = self._slab_launches()
+            out = fn()
+            self.seen[key] = ("eager" if self._slab_launches() != slabs
+                              else "seen")
+            if len(self.seen) > SEEN_CAP:
+                self.seen.popitem(last=False)
+            return out
+        if state == "eager":
+            return fn()
+        del self.seen[key]
+        prog = Packed(Graph(fn, self.device, self.counters, self.counts,
+                            pool=self.pool), ints_t, floats_t, _ref(source))
         out = prog.graph()
         # Kept only once its graph has been captured and replayed.
         self.programs[key] = prog
         return out
 
+    def _slab_launches(self):
+        """The counters' slab-route launches so far."""
+        return [c[k] for c in self.counters for k in c if k.endswith("_slab")]
+
+
+def _ref(source):
+    return None if source is None else weakref.ref(source)
+
 
 def _flat(arrays, dtype):
-    """The arrays back to back in one flat array of ``dtype``."""
+    """The arrays back to back in one flat array of ``dtype`` (a single
+    contiguous array of that dtype is not copied)."""
     if not arrays:
         return np.zeros(0, dtype)
+    if len(arrays) == 1:
+        return np.ascontiguousarray(arrays[0], dtype).ravel()
     return np.concatenate([x.ravel() for x in arrays]).astype(dtype,
                                                               copy=False)
 

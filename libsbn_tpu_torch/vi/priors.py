@@ -1,8 +1,9 @@
 """Branch-length prior: iid Exponential(10) across branches.
 
 A copy of libsbn_tpu.vi.priors (the reference's vip/priors.py: two
-functions, the same call signatures), numpy on the host, re-expressed as an elementwise log-density reduced over the branch axis so
-the per-branch terms are reusable (e.g. for per-branch diagnostics).
+functions, the same call signatures), numpy on the host, re-expressed
+as an elementwise log-density reduced over the branch axis so the
+per-branch terms are reusable (e.g. for per-branch diagnostics).
 """
 
 from __future__ import annotations

@@ -633,10 +633,10 @@ def test_gtr_engine_on_card_matches_cpu():
     """The f64 GTR + Weibull+4 path through UnrootedInstance on the card
     against the same on the CPU: LLs within rtol 1e-12, every gradient
     within rtol 1e-9 / atol 1e-8 (summation order only). The card's run
-    launches K4, K5 and K6 and calls no twin: each call is its graph's
-    first, so its kernels launch twice, in the capture's warm-up and in
-    the replay (log_likelihoods: K5; phylo_gradients: K4, then K5 + K6
-    for the model gradients)."""
+    launches K4, K5 and K6 and calls no twin: each call is its key's
+    first, which runs eagerly (utils/graphs.py), so its kernels launch
+    once (log_likelihoods: K5; phylo_gradients: K4, then K5 + K6 for the
+    model gradients)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cpu, card = _gtr_instance("cpu"), _gtr_instance("cuda")
@@ -645,10 +645,10 @@ def test_gtr_engine_on_card_matches_cpu():
         m.reset_counters()
     got_ll, got = card.log_likelihoods(), card.phylo_gradients()
     torch.cuda.synchronize()
-    assert pruning_generic.LAUNCHES == {"ll_grad_generic": 2,
+    assert pruning_generic.LAUNCHES == {"ll_grad_generic": 1,
                                         "ll_grad_generic_slab": 0}
-    assert pruning_vjp.LAUNCHES == {"ll_generic": 4, "ll_generic_slab": 0,
-                                    "ll_dp_generic": 2, "ll_dp_generic_slab": 0}
+    assert pruning_vjp.LAUNCHES == {"ll_generic": 2, "ll_generic_slab": 0,
+                                    "ll_dp_generic": 1, "ll_dp_generic_slab": 0}
     for m in (pruning_jc, pruning_generic, pruning_vjp):
         assert not any(m.TWIN_CALLS.values())
     np.testing.assert_allclose(got_ll, want_ll, rtol=1e-12)
@@ -971,9 +971,10 @@ def test_rooted_engine_on_card_matches_cpu(route, dtype, K):
     """The rooted engine on fluA x 4 perturbed trees on the card against the
     same on the CPU (the kernels' twins), at the kernels' tolerances: the
     LLs + ldjs of rooted_log_likelihoods and every gradient of each route.
-    The route is read from the launch counters of a second call (the
-    first captures the hand route's graph): its kernels, on chip or on
-    their slab routes (f64 K = 4 exceeds K1-K3's plan), and no twin."""
+    The route is read from the launch counters of a third call (the
+    first runs eagerly and the second captures a graph route's key): its
+    kernels, on chip or on their slab routes (f64 K = 4 exceeds K1-K3's
+    plan, and such a key stays eager), and no twin."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     sub, method, launches = ROOTED_ROUTES[route]
@@ -983,7 +984,8 @@ def test_rooted_engine_on_card_matches_cpu(route, dtype, K):
     extra = () if method == "rooted_phylo_gradients" else (True,)
     want = getattr(cpu.engine, method)(*cpu_args, *extra)
     want_ll = cpu.engine.rooted_log_likelihoods(*cpu_args)
-    getattr(card.engine, method)(*card_args, *extra)
+    for _ in range(2):
+        getattr(card.engine, method)(*card_args, *extra)
     for m in (pruning_jc, pruning_generic, pruning_vjp):
         m.reset_counters()
     got = getattr(card.engine, method)(*card_args, *extra)
@@ -1051,7 +1053,8 @@ def test_burrito_on_card_matches_cpu(data, branch_model):
     SBN parameters at rel 1e-9; the card run launches K1 and K2 and calls
     no twin: once a step each, and once more each for the warm-up before
     the capture of its graph (branch_gradients and log_likelihoods, the
-    same key every step)."""
+    same key every step: the first step runs them eagerly, the second
+    captures them, each later step replays them)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     cpu = _burrito("cpu", data, branch_model)
@@ -1063,7 +1066,7 @@ def test_burrito_on_card_matches_cpu(data, branch_model):
     torch.cuda.synchronize()
     assert pruning_jc.LAUNCHES["ll_grad_jc69"] == 5 + 1
     assert pruning_jc.LAUNCHES["ll_jc69"] == 5 + 1
-    assert unrooted_graph.COUNTS == {"captures": 2, "replays": 10}
+    assert unrooted_graph.COUNTS == {"captures": 2, "replays": 8}
     assert not any(pruning_jc.TWIN_CALLS.values())
     _rel_close(card.elbo_trace, cpu.elbo_trace, 1e-9)
     _rel_close(card.scalar_model.q_params, cpu.scalar_model.q_params, 1e-9)
@@ -1520,30 +1523,38 @@ def _equal(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_rooted_graph_equals_eager(dtype, K):
     """The rooted hand route and rooted_log_likelihoods on fluA x 4 perturbed
-    trees, by their graphs and eagerly on the card: bit for bit, each graph
-    call one replay (K1 once, and K2 + K3 once for Weibull+4's shape
-    gradient; K2 once for the LLs), two calls of each route with the same
-    inputs equal bit for bit (the heights adjoint has no atomics), new
-    ratios read on the next replay, and a new batch size a new capture."""
+    trees, by their graphs and eagerly on the card: bit for bit; a key's
+    first call runs eagerly, its second captures, its third is one replay
+    (K1 once, and K2 + K3 once for Weibull+4's shape gradient; K2 once for
+    the LLs), except at f64 K = 4, whose keys run K1-K3's slab routes and
+    stay eager; two calls of each route with the same inputs equal bit for
+    bit (the heights adjoint has no atomics), new ratios read on the next
+    replay, and a new batch size a new key."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     site = "constant" if K == 1 else "weibull+4"
     card, args = _rooted_instance("cuda", dtype, "JC69", site)
     eng = card.engine
+    slab = pruning_jc.onchip_plan(dtype, K, 68, 69, "ll") is None
     per_call = {"hand": {"ll_grad_jc69": 1} if K == 1 else
                 {"ll_grad_jc69": 1, "ll_jc69": 1, "ll_dea_jc69": 1},
                 "ll": {"ll_jc69": 1}}
+    captured = {"captures": 0 if slab else 1, "replays": 0 if slab else 1}
     for hand in (True, False):
         route = "hand" if hand else "ll"
         first = _rooted_call(eng, args, hand)
-        assert first[2]["captures"] == 1
+        assert first[2] == {"captures": 0, "replays": 0}, first[2]
+        assert first[1] == per_call[route], first[1]
+        second = _rooted_call(eng, args, hand)
+        assert second[2] == captured, second[2]
         got = _rooted_call(eng, args, hand)
         want = _rooted_call(eng, args, hand, eager=True)
         again = _rooted_call(eng, args, hand, eager=True)
         _equal(got[0], want[0])
         _equal(first[0], got[0])
+        _equal(second[0], got[0])
         _equal(again[0], want[0])
-        assert got[2] == {"captures": 0, "replays": 1}, got[2]
+        assert got[2] == {"captures": 0, "replays": 0 if slab else 1}, got[2]
         assert got[1] == per_call[route], got[1]
         assert want[1] == per_call[route] and want[2]["replays"] == 0
         sched, bounds, ratios, rates, params = args
@@ -1554,9 +1565,11 @@ def test_rooted_graph_equals_eager(dtype, K):
         _equal(got2[0], _rooted_call(eng, args2, hand, eager=True)[0])
         assert not torch.equal(got2[0][0], got[0][0])
         small = _rooted_instance("cuda", dtype, "JC69", site, batch=2)[1]
-        got3 = _rooted_call(eng, small, hand)
-        assert got3[2] == {"captures": 1, "replays": 1}
-        _equal(got3[0], _rooted_call(eng, small, hand, eager=True)[0])
+        want3 = _rooted_call(eng, small, hand, eager=True)[0]
+        for counts in ({"captures": 0, "replays": 0}, captured):
+            got3 = _rooted_call(eng, small, hand)
+            assert got3[2] == counts, got3[2]
+            _equal(got3[0], want3)
 
 
 @pytest.mark.cuda
@@ -1569,7 +1582,8 @@ def test_rooted_gtr_ll_graph_equals_eager(dtype):
         pytest.skip("needs a CUDA card")
     card, args = _rooted_instance("cuda", dtype, "GTR", "constant")
     eng = card.engine
-    eng.rooted_log_likelihoods(*args)
+    for _ in range(2):  # the key's eager first call, then its capture
+        eng.rooted_log_likelihoods(*args)
     pruning_vjp.reset_counters()
     rooted_graph.reset_counters()
     got = eng.rooted_log_likelihoods(*args, return_parts=True)
@@ -1888,10 +1902,13 @@ def _counted(fn):
 def test_unrooted_graph_equals_eager(model, dtype):
     """log_likelihoods, branch_gradients and phylo_gradients on ten
     DS1.100_topologies trees (seeded lengths and parameters), by the
-    engine's graphs (cuda_graphs=True) and eagerly: bit for bit; a call
-    after the capture is one replay that launches each kernel of the route
-    as the eager call does; a second call with new inputs reads them with
-    no new capture; a new schedule object of the same shapes replays."""
+    engine's graphs (cuda_graphs=True) and eagerly: bit for bit; a key's
+    first call runs eagerly and launches what the eager call launches, its
+    second captures the key (the warm-up and the replay launch it twice),
+    and a call after the capture is one replay that launches each kernel
+    of the route as the eager call does; a call with new inputs reads them
+    with no new capture; a new schedule object of the same shapes
+    replays."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     graph, eager, sched, (bl, params) = _unrooted_engines(model, dtype)
@@ -1899,11 +1916,16 @@ def test_unrooted_graph_equals_eager(model, dtype):
     for route, method in ENGINE_METHODS.items():
         call_g, call_e = getattr(graph, method), getattr(eager, method)
         first = _counted(lambda: call_g(sched, bl, params))
-        assert first[2][0] == {"captures": 1, "replays": 1}, first[2]
+        assert first[2][0] == {"captures": 0, "replays": 0}, first[2]
+        assert first[1] == per_call[route], first[1]
+        second = _counted(lambda: call_g(sched, bl, params))
+        assert second[2][0] == {"captures": 1, "replays": 1}, second[2]
+        assert second[1] == {k: 2 * v for k, v in per_call[route].items()}
         got = _counted(lambda: call_g(sched, bl, params))
         want = _counted(lambda: call_e(sched, bl, params))
         _equal(got[0], want[0])
         _equal(first[0], got[0])
+        _equal(second[0], got[0])
         assert got[2][0] == {"captures": 0, "replays": 1}, got[2]
         assert got[1] == want[1] == per_call[route], (got[1], want[1])
         bl2, params2 = _unrooted_inputs(model, sched, 1)
@@ -1929,13 +1951,18 @@ def test_rooted_autograd_graph_equals_eager(model, dtype):
     """The rooted autograd route on fluA x 4 perturbed trees by its graph
     (rooted_phylo_gradients on GTR; RootedGraphs' "autograd" route on JC69
     + Weibull+4, whose engine call takes the hand route) against
-    _rooted_phylo_gradients_autograd, bit for bit, twice each: one replay
-    a call, with K5 + K6 (GTR) or K2 + K3 launched as the eager call
-    launches them; new ratios read with no new capture."""
+    _rooted_phylo_gradients_autograd, bit for bit, twice each: the key's
+    first call eager, its second a capture, then one replay a call, with
+    K5 + K6 (GTR) or K2 + K3 launched as the eager call launches them; new
+    ratios read with no new capture. JC69 + Weibull+4 at f64 runs K2/K3's
+    slab routes on fluA: that key stays eager, every call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     card, args = _rooted_instance("cuda", dtype, *model)
     eng = card.engine
+    slab = model[0] == "JC69" and pruning_jc.onchip_plan(
+        dtype, 4, 68, 69, "ll") is None
+    replay = {"captures": 0, "replays": 0 if slab else 1}
 
     def graph(a):
         if model[0] == "GTR":
@@ -1943,21 +1970,26 @@ def test_rooted_autograd_graph_equals_eager(model, dtype):
         return eng.graphs.phylo_gradients(*a, True, "autograd")
 
     first = _counted(lambda: graph(args))
-    assert first[2][1] == {"captures": 1, "replays": 1}, first[2]
+    assert first[2][1] == {"captures": 0, "replays": 0}, first[2]
+    second = _counted(lambda: graph(args))
+    assert second[2][1] == ({"captures": 0, "replays": 0} if slab else
+                            {"captures": 1, "replays": 1}), second[2]
     got = _counted(lambda: graph(args))
     want = _counted(lambda: eng._rooted_phylo_gradients_autograd(*args, True))
     again = _counted(lambda: eng._rooted_phylo_gradients_autograd(*args, True))
     _equal(got[0], want[0])
     _equal(first[0], got[0])
+    _equal(second[0], got[0])
     _equal(again[0], want[0])
-    assert got[2][1] == {"captures": 0, "replays": 1}, got[2]
-    assert got[1] == want[1], (got[1], want[1])
+    assert got[2][1] == replay, got[2]
+    assert got[1] == want[1] == first[1], (got[1], want[1], first[1])
+    assert len(eng.graphs.programs) == (0 if slab else 1)
     sched, bounds, ratios, rates, params = args
     ratios2 = ratios.copy()
     ratios2[:, :-1] *= 0.98
     args2 = (sched, bounds, ratios2, rates, params)
     got2 = _counted(lambda: graph(args2))
-    assert got2[2][1] == {"captures": 0, "replays": 1}
+    assert got2[2][1] == replay
     _equal(got2[0], _counted(
         lambda: eng._rooted_phylo_gradients_autograd(*args2, True))[0])
     assert not torch.equal(got2[0][0], got[0][0])
@@ -1973,13 +2005,17 @@ want = eager.log_likelihoods(sched, bl, params)
 # The eigensystem left to be solved inside the call: expm_transition then
 # reads Q on the host, which the capture cannot do.
 graph._shared_eigen = lambda params: None
+# The key's first call runs eagerly, where the host read is allowed.
+first = graph.log_likelihoods(sched, bl, params)
 unrooted_graph.reset_counters()
 try:
-    out = graph.log_likelihoods(sched, bl, params)
+    out = graph.log_likelihoods(sched, bl, params)  # the capture
     error = None
 except RuntimeError as err:
     out, error = None, str(err)
 print(json.dumps({"error": error, "out": out is not None,
+                  "first_close": bool(torch.allclose(first, want, rtol=1e-10,
+                                                     atol=0.0)),
                   "counts": unrooted_graph.COUNTS,
                   "programs": len(graph.unrooted_graphs.programs),
                   "want_finite": bool(torch.isfinite(want).all())}))
@@ -1989,9 +2025,11 @@ print(json.dumps({"error": error, "out": out is not None,
 @pytest.mark.cuda
 def test_unrooted_capture_reading_the_host_raises():
     """A GTR log_likelihoods whose eigensystem is left to be solved inside
-    the captured function (a host read under capture) raises out of the
-    engine call: no result, no replay, no graph kept, nothing run eagerly
-    in its place. In a process of its own, so that the failed capture
+    the captured function (a host read under capture): the key's first
+    call runs eagerly, within rel 1e-10 of the eager engine's (its own
+    eigen solve takes another path); its second, the
+    capture, raises out of the engine call: no result, no replay, no graph
+    kept, nothing run eagerly in its place. In a process of its own, so that the failed capture
     touches no other test."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -2008,4 +2046,102 @@ def test_unrooted_capture_reading_the_host_raises():
     got = json.loads(out.stdout.splitlines()[-1])
     assert got["error"] and not got["out"], got
     assert got["counts"] == {"captures": 0, "replays": 0}
-    assert got["programs"] == 0 and got["want_finite"]
+    assert got["programs"] == 0 and got["want_finite"] and got["first_close"]
+
+
+# -- what captured keys keep (utils/graphs.py PackedPrograms) -----------------
+
+
+def _reserved_after(fn):
+    """(fn's outputs, device memory reserved after fn() less before it, in
+    MB), unused cache released before and after."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    out = fn()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, (torch.cuda.memory_reserved() - before) / 2**20
+
+
+@pytest.mark.cuda
+def test_one_off_key_leaves_no_pool():
+    """A key called once (log_likelihoods of DS1 tiled to 10,000 trees at
+    f64, as vi.benchmark.fixed's final ELBO): it runs eagerly, keeps no
+    program and leaves the reserved memory within one 2 MB segment of
+    what it was; its LLs equal an eager engine's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from libsbn_tpu_torch.models.engine import LikelihoodEngine
+
+    tops, bls, ttm = newick.parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
+    sp = SitePattern(Alignment.read_fasta(f"{DATA}/DS1.fasta"), ttm)
+    sched = schedule.schedules_of_topologies(tops * 1000)
+    bl = np.tile(np.stack(bls), (1000, 1))
+    bl = bl * np.random.default_rng(3).uniform(0.8, 1.2, bl.shape)
+    spec = libsbn_tpu_torch.PhyloModelSpec("JC69", "constant", "strict")
+    params = {"clock": {"rate": torch.tensor(1.0, dtype=torch.float64,
+                                             device="cuda")}}
+    graph, eager = (LikelihoodEngine(sp, spec, device="cuda",
+                                     cuda_graphs=g) for g in (True, False))
+    got, left = _reserved_after(lambda: graph.log_likelihoods(sched, bl,
+                                                               params))
+    left -= got.numel() * got.element_size() / 2**20
+    assert len(graph.unrooted_graphs.programs) == 0
+    assert left <= 2.0, left
+    _equal([got], [eager.log_likelihoods(sched, bl, params)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_interleaved_keys_equal_eager_on_card(dtype):
+    """Three keys of one engine, their graphs in one pool (log_likelihoods
+    and phylo_gradients on ten DS1.100_topologies trees, log_likelihoods on
+    seven), called in turns A, B, C three times round with new branch
+    lengths and parameters every call: each call equals the eager engine's
+    bit for bit; from the third round on every call is one replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    graph, eager, sched, _ = _unrooted_engines("gtr_weibull", dtype)
+    small = schedule.schedules_of_topologies(_topologies(sched)[:7])
+    keys = [("log_likelihoods", sched), ("phylo_gradients", sched),
+            ("log_likelihoods", small)]
+    seed = 10
+    for turn in range(3):
+        for method, s in keys:
+            bl, params = _unrooted_inputs("gtr_weibull", s, seed)
+            seed += 1
+            got = _counted(lambda: getattr(graph, method)(s, bl, params))
+            want = _counted(lambda: getattr(eager, method)(s, bl, params))
+            _equal(got[0], want[0])
+            if turn == 2:
+                assert got[2][0] == {"captures": 0, "replays": 1}, got[2]
+    assert len(graph.unrooted_graphs.programs) == 3
+
+
+@pytest.mark.cuda
+def test_slab_rooted_key_holds_little():
+    """The f64 JC69 + Weibull+4 rooted autograd route on fluA x 256 runs
+    K2/K3's slab routes: the key stays eager (no program kept) and, after
+    two calls, the engine holds under 200 MB (a captured key kept 2,862 MB
+    of slab scratch in its pool on an H100); each call equals
+    _rooted_phylo_gradients_autograd bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    card, args = _rooted_instance("cuda", torch.float64, "JC69", "weibull+4",
+                                  batch=256)
+    eng = card.engine
+    assert pruning_jc.onchip_plan(torch.float64, 4, 68, 69, "ll") is None
+    got, held = _reserved_after(lambda: [
+        eng.graphs.phylo_gradients(*args, True, "autograd")
+        for _ in range(2)])
+    held -= sum(v.numel() * v.element_size() for d in got
+                for v in d.values()) / 2**20
+    assert len(eng.graphs.programs) == 0
+    assert held < 200, held
+    want = eng._rooted_phylo_gradients_autograd(*args, True)
+    for out in got:
+        _equal([out[k] for k in sorted(out)], [want[k] for k in sorted(want)])
