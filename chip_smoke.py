@@ -150,10 +150,15 @@ Phases, each of which raises on failure:
      f32 forest with bf16 gathers against f64 within the bench's gate on the
      first set (every set's error printed); the f64 split gradient against
      the per-tree gradients summed onto splits, twice, equal bit for bit;
-     20 f32 Adam steps of forest_branch_ascent rising; then the full path,
-     ll_only and the split gradient timed (host-clock median, device time,
-     launches, idle share, peak memory, evals/s), and ll_only and the
-     split gradient on a 1,000-tree SBN-sampled support; the forest runs
+     20 f32 Adam steps of forest_branch_ascent rising; every surface (the
+     LLs, the LLs with per-tree gradients and bf16 gathers, the split
+     gradient) at f32, and at f64 on DS1.100, eagerly twice and by its
+     graph (libsbn_tpu_torch/ops/forest_graph.py: the first call eager, the
+     second a capture and replay, the third a replay, then a replay with
+     new lengths), each equal to the eager call bit for bit, on DS1.100 x 8
+     and on a 1,000-tree SBN-sampled support; then the three surfaces
+     timed by both routes on both supports (host-clock median, device
+     time, launches, idle share, peak memory, evals/s); the forest runs
      torch ops only: the counters show no kernel, twin or scan-engine call.
   13. the parallel layer and the helpers (after [12]): two ranks of
      libsbn_tpu_torch/parallel/multihost_demo.py on the card with gloo
@@ -245,13 +250,31 @@ Phases, each of which raises on failure:
      Weibull+4, fluA rooted strict clock, GTR and Weibull+4, GP hello and
      five_taxon on both routes, one VBPI step, config 2's GTR gradients),
      one line a check, with K1-K8 all launched.
+  18. the scale tools (run after [7], before the main paths, while
+     torch.profiler is fresh in the process): with the counters at 0,
+     libsbn_tpu_torch/utils/scale_compare.py's run() at 1,024 patterns x
+     64 trees over its sweep (27, 200, 433 and 434 taxa, the two sides of
+     K1's f32 on-chip plan, and 1,000), K1 at f32 and f64 against the
+     native f64 baseline: the JAX tool's gate at 200 taxa, f64 K1 against
+     native f64 at rel 1e-9 wherever native's LLs are finite, finite f32
+     results and the expected route at every point; gp_scale.run() at 200
+     taxa x 4,096 sites, f64 and f32: at f64 the streamed (K7) ascent
+     within the JAX tool's bound of the fused (K7 + K8) and of the
+     in-memory Newton ascent, at f32 finite marginals with both gaps
+     printed (neither f32 fit meets that bound: a finding, PERF.md);
+     forest_scale.run() at 1,000
+     sampled trees, the three surfaces by graph and eagerly, graph = eager
+     bit for bit; K1, K7 and K8 launched and no twin called; then, after
+     the counters are read, K1 f32 on chip against its slab route at 200
+     and 433 taxa (CUDA events). Throughput windows of 0.5 s, not the
+     tools' 2 s, to keep the script inside its time limit.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its paths, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the peak of their type (float64's
 for a float64 launch, float32's otherwise) and its inputs and outputs at
 the HBM rate; K1 has two entries, the first counting the unrooted, vip,
-parallel, soak, engine-graph and parity paths (the ranks' launches of [13]
-included), the second the
+parallel, soak, engine-graph, parity and scale-tool paths (the ranks'
+launches of [13] included), the second the
 rooted batch and path ([10] and [15]); K2 has two,
 the first counting every path but the vip path, the second the vip path's
 launches with the B = 10,000 launch's time and bound), the card's
@@ -290,10 +313,13 @@ from libsbn_tpu_torch.models.phylo_model import default_parameters  # noqa: E402
 from libsbn_tpu_torch.ops import (  # noqa: E402
     _kernels, pruning, pruning_generic, pruning_jc, pruning_vjp, schedule,
 )
-from libsbn_tpu_torch.ops import forest, substitution, transforms  # noqa: E402
+from libsbn_tpu_torch.ops import forest, forest_graph  # noqa: E402
+from libsbn_tpu_torch.ops import substitution, transforms  # noqa: E402
 from libsbn_tpu_torch.ops.site_model import weibull_rates  # noqa: E402
 from libsbn_tpu_torch.parallel.sharding import make_mesh  # noqa: E402
 from libsbn_tpu_torch.utils import cpu_baseline, parity, profiling  # noqa: E402
+from libsbn_tpu_torch.utils import forest_scale, gp_scale  # noqa: E402
+from libsbn_tpu_torch.utils import scale_compare  # noqa: E402
 from libsbn_tpu_torch.utils.graphs import PackedPrograms  # noqa: E402
 # The golden numbers, kept by the parity tier.
 from libsbn_tpu_torch.utils.parity import (  # noqa: E402
@@ -2587,13 +2613,73 @@ def forest_per_tree(tops, split_ids, bl_sets, sp):
             grads.reshape(R, T, -1).cpu().numpy())
 
 
+# The forest surfaces a graph replays: (forest_graph surface, gather dtype,
+# name in the timings).
+FOREST_SURFACES = (
+    ("ll", None, "ll_only"),
+    ("grad", torch.bfloat16,
+     "full path (LL + per-tree gradients, bf16 gathers)"),
+    ("split", None, "split gradient"),
+)
+
+
+def forest_graph_checks(tag, fs, bl, bl_new, tips, w, graphs, dtype):
+    """Every forest surface at ``dtype``: two eager calls equal bit for bit;
+    then the graph route's first call (eager), second (a capture and its
+    replay) and third (a replay), each equal to the eager call bit for
+    bit, and a replay with the lengths ``bl_new`` equal to an eager call
+    on them; one capture and three replays a surface."""
+    for surface, gd, what in FOREST_SURFACES:
+        def eager(b):
+            return forest_graph.eager(surface, fs, b, tips, w, dtype, gd)
+
+        want = eager(bl)
+        if not forest_graph.bit_for_bit(want, eager(bl)):
+            raise AssertionError(f"forest {what} ({tag}, {dtype}): two eager "
+                                 "calls differ")
+        before = dict(forest_graph.COUNTS)
+        for call in ("eager", "capture", "replay"):
+            if not forest_graph.bit_for_bit(
+                    graphs.run(surface, fs, bl, dtype, gd), want):
+                raise AssertionError(f"forest {what} ({tag}, {dtype}): the "
+                                     f"graph route's {call} call differs")
+        want_new = eager(bl_new)
+        if not forest_graph.bit_for_bit(
+                graphs.run(surface, fs, bl_new, dtype, gd), want_new):
+            raise AssertionError(f"forest {what} ({tag}, {dtype}): a replay "
+                                 "with new lengths differs")
+        counts = {k: forest_graph.COUNTS[k] - before[k] for k in before}
+        if counts != {"captures": 1, "replays": 3}:
+            raise AssertionError(f"forest {what} ({tag}): graph counts "
+                                 f"{counts}")
+    print(f"  ok  forest graphs, {tag}, {str(dtype)[6:]}: every surface "
+          "equal to its eager call bit for bit (two eager calls equal; the "
+          "graph's eager call, capture, replay and a replay with new "
+          "lengths)")
+
+
+def time_forest_surfaces(fs, bl, tips, w, graphs, calls, evals):
+    """Each surface at f32 by its graph and eagerly: host_and_device's
+    line and peak memory."""
+    for surface, gd, what in FOREST_SURFACES:
+        for route, fn in (
+                ("graph", lambda: graphs.run(surface, fs, bl, torch.float32,
+                                             gd)),
+                ("eager", lambda: forest_graph.eager(surface, fs, bl, tips,
+                                                     w, torch.float32, gd))):
+            line, peak = host_and_device(fn, calls, evals=evals)
+            print(f"    {what}, {route}: {line}; peak {peak:.3f} GiB")
+
+
 def phase_forest(smi, calls=10):
     """[12] Forest mode on the card: DS1.100_topologies under R = 8
     split-keyed length sets, U(0.8, 1.2) from default_rng(0) times the
     per-split means, as the JAX bench's forest_shared_ds1_100; correctness
-    against the per-tree engine (K1) and the bench's gate, then timings,
-    then the SBN-sampled 1,000-tree support. The forest runs torch ops and
-    no kernel of this package: the counters show no launch and no twin."""
+    against the per-tree engine (K1) and the bench's gate, every surface's
+    graph against its eager call bit for bit, then timings of both routes,
+    then the same on the SBN-sampled 1,000-tree support. The forest runs
+    torch ops and no kernel of this package: the counters show no launch
+    and no twin."""
     print("[12] forest: DS1.100_topologies, split-keyed lengths, R = "
           f"{FOREST_R}, on cuda")
     t_phase = time.perf_counter()
@@ -2662,19 +2748,16 @@ def phase_forest(smi, calls=10):
     print(f"  ok  forest_branch_ascent, {FOREST_ASCENT_STEPS} Adam steps, "
           f"f32: objective {trace[0]:.4f} -> {trace[-1]:.4f}")
 
+    graphs = {dt: forest_graph.ForestGraphs(t, w) for dt, t, w in (
+        (f32, tips32, w32), (f64, tips64, w64))}
+    new_bl = rng.uniform(0.8, 1.2, (FOREST_R, fs.n_splits)) * means[None, :]
+    forest_graph_checks("DS1.100", fs, bl64, dev(new_bl, f64), tips64, w64,
+                        graphs[f64], f64)
+    forest_graph_checks("DS1.100", fs, bl32, dev(new_bl, f32), tips32, w32,
+                        graphs[f32], f32)
     print(f"  timings, f32, R = {FOREST_R} x T = {T} ({smi}):")
-    timed = {
-        "full path (LL + per-tree gradients, bf16 gathers)":
-            lambda: forest.forest_jc_log_likelihoods_and_gradients(
-                fs, bl32, tips32, w32, gather_dtype=torch.bfloat16),
-        "ll_only": lambda: forest.forest_jc_log_likelihoods_and_gradients(
-            fs, bl32, tips32, w32, ll_only=True),
-        "split gradient": lambda: forest.forest_jc_weighted_ll_and_split_gradient(
-            fs, bl32, tips32, w32),
-    }
-    for what, fn in timed.items():
-        line, peak = host_and_device(fn, calls, evals=FOREST_R * T)
-        print(f"    {what}: {line}; peak {peak:.3f} GiB")
+    time_forest_surfaces(fs, bl32, tips32, w32, graphs[f32], calls,
+                         FOREST_R * T)
 
     inst = lt.UnrootedInstance("forest-sampled")
     inst.read_newick_file(f"{DATA}/DS1.100_topologies.nwk")
@@ -2687,21 +2770,15 @@ def phase_forest(smi, calls=10):
     build_s = time.perf_counter() - t0
     print(f"  SBN-sampled support: build_forest {build_s:.3f} s (host); "
           f"forest_stats {forest.forest_stats(fs_s)}")
-    bl_s = dev(np.random.default_rng(1).uniform(
-        0.02, 0.2, (FOREST_R, fs_s.n_splits)), f32)
-    for what, fn in (
-            ("ll_only", lambda: forest.forest_jc_log_likelihoods_and_gradients(
-                fs_s, bl_s, tips32, w32, ll_only=True)),
-            ("split gradient",
-             lambda: forest.forest_jc_weighted_ll_and_split_gradient(
-                 fs_s, bl_s, tips32, w32))):
-        ll_s = fn()[0]
-        if not torch.isfinite(ll_s).all() or ll_s.shape != (FOREST_R,
-                                                            FOREST_SAMPLED):
-            raise AssertionError(f"sampled support {what}: {ll_s.shape}")
-        line, peak = host_and_device(fn, calls, evals=FOREST_R * FOREST_SAMPLED)
-        print(f"    {what}, R = {FOREST_R} x T = {FOREST_SAMPLED}: {line}; "
-              f"peak {peak:.3f} GiB")
+    rng_s = np.random.default_rng(1)
+    bl_s, bl_s_new = (dev(rng_s.uniform(0.02, 0.2, (
+        FOREST_R, fs_s.n_splits)), f32) for _ in range(2))
+    forest_graph_checks(f"{FOREST_SAMPLED} sampled trees", fs_s, bl_s,
+                        bl_s_new, tips32, w32, graphs[f32], f32)
+    print(f"  timings, f32, R = {FOREST_R} x T = {FOREST_SAMPLED} ({smi}):")
+    time_forest_surfaces(fs_s, bl_s, tips32, w32, graphs[f32], calls,
+                         FOREST_R * FOREST_SAMPLED)
+    del graphs
     torch.cuda.synchronize()
     counts = vip_counts()
     print(f"  forest path: launches, twin and scan-engine calls {counts}")
@@ -4164,6 +4241,115 @@ def phase_parity(smi):
     return launches
 
 
+# [18] the scale tools (libsbn_tpu_torch/utils/scale_compare.py,
+# gp_scale.py and forest_scale.py) at their defaults.
+SCALE_PATTERNS, SCALE_BATCH = 1024, 64  # scale_compare's defaults
+SCALE_GATED_TAXA = 200  # its default point, where the JAX tool's gate holds
+GP_SCALE = (200, 4096)  # gp_scale's defaults: taxa, sites
+FOREST_SCALE_TREES = 1000  # forest_scale's default
+
+
+SCALE_WINDOW_S = 0.5  # timed_evals_per_sec's window in [18] (default 2 s)
+
+
+def k1_routes_at_scale(taxa):
+    """K1 f32 on chip against its slab route on scale_compare's inputs at
+    ``taxa`` (which the plan must fit), in turns slab, chip, chip, slab
+    (CUDA events): (chip ms, slab ms) a call."""
+    inp = scale_compare.make_inputs(taxa, SCALE_PATTERNS, SCALE_BATCH)
+    f32 = torch.float32
+    one = torch.ones(1, dtype=f32, device=DEV)
+    pc = torch.as_tensor(inp["pc"], device=DEV)
+    ea = pruning_jc.exp_factors(torch.as_tensor(inp["bl"], device=DEV), one,
+                                f32)
+    tips, w = (torch.as_tensor(inp[k], device=DEV) for k in ("tips", "w"))
+    r = inp["sched"].root_id
+    args = (pc, ea, one, one, tips, w)
+    dims = (SCALE_BATCH, taxa, pc.shape[1], r + 2, 1, SCALE_PATTERNS)
+    lib = _kernels.load("pruning_jc")
+
+    def chip():
+        return pruning_jc.ll_grad_jc69_cuda(*args, root_id=r)
+
+    def slab():
+        return pruning_jc._ll_grad_jc69_slab(lib, dims, *args)
+
+    times = [time_ms(fn, reps=3, inner=3) for fn in (slab, chip, chip, slab)]
+    return min(times[1:3]), min(times[0], times[3])
+
+
+def phase_scale_tools(smi):
+    """[18] the three scale tools in this process, with the counters at 0:
+    scale_compare over its sweep (the gate at 200 taxa, the routes on both
+    sides of K1's f32 plan), gp_scale at f32 and f64, forest_scale at
+    1,000 trees; each tool's check raises on a missed gate. Returns the
+    launch counts of its path."""
+    print(f"[18] scale tools on the card ({smi})")
+    t_phase = time.perf_counter()
+    reset_counters()
+    points = scale_compare.sweep_points()
+    edge = points[2]
+    for taxa in points:
+        r = scale_compare.run(taxa, SCALE_PATTERNS, SCALE_BATCH, DEV,
+                              target_s=SCALE_WINDOW_S)
+        for line in scale_compare.describe(r, smi):
+            print(f"  {line}")
+        scale_compare.check(r, gated=taxa == SCALE_GATED_TAXA)
+        want = "on-chip" if taxa <= edge else "slab"
+        if r["route"]["f32"] != want:
+            raise AssertionError(f"{taxa} taxa: K1 f32 took the "
+                                 f"{r['route']['f32']} route, not {want}")
+        del r
+        torch.cuda.empty_cache()
+    print(f"  ok  scale_compare: the gate at {SCALE_GATED_TAXA} taxa, f64 K1 "
+          "against native f64 wherever native is finite, finite f32 results "
+          f"and K1 f32 on chip up to {edge} taxa, the slab route past it")
+    for dtype in (torch.float64, torch.float32):
+        # Device time and idle share at the production dtype only.
+        r = gp_scale.run(*GP_SCALE, dtype, DEV,
+                         timing=dtype == torch.float32)
+        for line in gp_scale.describe(r, smi):
+            print(f"  {line}")
+        marginals = [r[k]["marginal"] for k in ("fused", "streamed", "newton")]
+        if not np.all(np.isfinite(marginals)):
+            raise AssertionError(f"gp_scale {dtype}: marginals {marginals}")
+        if dtype == torch.float64:
+            gp_scale.check(r)
+            gp_scale.check(r, "newton")
+            print("  ok  gp_scale, f64: the streamed marginal within the JAX "
+                  "tool's bound of the fused (K7 + K8) and of the in-memory "
+                  "Newton ascent")
+        else:
+            # A finding, not a gate: the JAX package's own f32 fit of this
+            # instance on the CPU gives a fused marginal of -inf.
+            print(f"  f32: gaps {r['gap']:.3e} (fused) and "
+                  f"{r['gap_newton']:.3e} (Newton) against the JAX tool's "
+                  f"bound {r['bound']:.3e}: recorded, not asserted")
+        del r
+        torch.cuda.empty_cache()
+    r = forest_scale.run(FOREST_SCALE_TREES, DEV, target_s=SCALE_WINDOW_S)
+    for line in forest_scale.describe(r, smi):
+        print(f"  {line}")
+    forest_scale.check(r)
+    if not all(r["bit_for_bit"].values()):
+        raise AssertionError(f"forest_scale: {r['bit_for_bit']}")
+    del r
+    torch.cuda.empty_cache()
+    print("  ok  forest_scale: every surface finite, graph = eager bit for "
+          "bit")
+    launches = launch_counts("scale tools path", [
+        "ll_grad_jc69", "ll_grad_jc69_slab", "populate_plvs", "golden_sweep"])
+    # After the counters are read: K1's on-chip route against its slab
+    # route inside the plan, f32, CUDA events.
+    for taxa in (SCALE_GATED_TAXA, edge):
+        chip, slab = k1_routes_at_scale(taxa)
+        print(f"  K1 f32 at {taxa} taxa x {SCALE_PATTERNS} x {SCALE_BATCH}: on "
+              f"chip {chip:.3f} ms, slab route {slab:.3f} ms a call "
+              f"({slab / chip:.2f}x) ({smi})")
+    print(f"[18] took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -4171,6 +4357,8 @@ def main():
     errs = phase_kernel_vs_twin()
     errs.update(phase_generic_vs_twin())
     errs.update(phase_gp_vs_twin())
+    # [18] runs here, while torch.profiler is fresh in the process.
+    scale_launches = phase_scale_tools(smi)
     runs = [phase_main_path(), phase_gtr_path(), phase_vbpi(), phase_gp_path()]
     rooted_launches, rooted_errs = phase_rooted_path()
     vip_launches, vip_errs, vip_k2 = phase_vip(smi)
@@ -4183,6 +4371,7 @@ def main():
     runs.append(graph_launches)
     runs.append(phase_engine_graphs(smi))
     runs.append(phase_parity(smi))
+    runs.append(scale_launches)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     # K1's rooted launches stand in its second entry below and K2's vip
     # launches in its second; every other kernel's entry counts every path.

@@ -11,7 +11,9 @@ LLs to K1's twin; so are the GP ascent's phase graphs (gp/ascent_graph.py:
 the kernel route bit for bit, the level route at rel 1e-12) and the
 rooted engine's (models/rooted_graph.py: one replay a call, the hand and
 the autograd routes) and the unrooted engine's (models/unrooted_graph.py:
-log_likelihoods, branch_gradients and phylo_gradients, one replay a call).
+log_likelihoods, branch_gradients and phylo_gradients, one replay a call),
+and forest's surfaces (ops/forest_graph.py). The scale tools' K1 routes
+on both sides of its float32 plan and a small gp_scale fit run here too.
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so that it also runs on a machine with the card and no JAX installed:
 
@@ -35,10 +37,12 @@ from libsbn_tpu_torch.io import newick
 from libsbn_tpu_torch.io.fasta import Alignment
 from libsbn_tpu_torch.models import rooted_graph, unrooted_graph
 from libsbn_tpu_torch.ops import (
-    forest, pruning_generic, pruning_jc, pruning_vjp, schedule, substitution,
+    forest, forest_graph, pruning_generic, pruning_jc, pruning_vjp, schedule,
+    substitution,
 )
 from libsbn_tpu_torch.ops.site_model import weibull_rates
 from libsbn_tpu_torch.parallel.sharding import make_mesh
+from libsbn_tpu_torch.utils import gp_scale, scale_compare
 from libsbn_tpu_torch.vi import JitVBPI, jit_step, step_graph
 
 torch.set_num_threads(1)
@@ -2145,3 +2149,105 @@ def test_slab_rooted_key_holds_little():
     want = eng._rooted_phylo_gradients_autograd(*args, True)
     for out in got:
         _equal([out[k] for k in sorted(out)], [want[k] for k in sorted(want)])
+
+
+# -- forest graphs and the scale tools -------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("surface,gather", [("ll", None),
+                                            ("grad", torch.bfloat16),
+                                            ("grad", None), ("split", None)])
+def test_forest_graph_equals_eager_on_card(surface, gather, dtype):
+    """A forest surface by ForestGraphs on DS1.100 (two seeded length
+    sets): the key's first call runs eagerly, its second captures it and
+    replays, its third replays; each equals the eager call bit for bit, and
+    so does a replay with new lengths."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    fs, tips, w, bl = _ds1_100_forest()
+    tips_c, w_c, bl_c = (torch.as_tensor(x).to(dtype).cuda()
+                         for x in (tips, w, bl))
+    graphs = forest_graph.ForestGraphs(tips_c, w_c)
+
+    def eager(b):
+        return forest_graph.eager(surface, fs, b, tips_c, w_c, dtype, gather)
+
+    want = eager(bl_c)
+    assert forest_graph.bit_for_bit(want, eager(bl_c))
+    forest_graph.reset_counters()
+    for captures, replays in ((0, 0), (1, 1), (1, 2)):
+        assert forest_graph.bit_for_bit(
+            graphs.run(surface, fs, bl_c, dtype, gather), want)
+        assert forest_graph.COUNTS == {"captures": captures,
+                                       "replays": replays}
+    bl_new = bl_c.flip(0).contiguous()
+    assert forest_graph.bit_for_bit(
+        graphs.run(surface, fs, bl_new, dtype, gather), eager(bl_new))
+    assert forest_graph.COUNTS == {"captures": 1, "replays": 3}
+    assert len(graphs) == 1
+
+
+def _conserved(inp, seed=1, changed=0.03):
+    """scale_compare's inputs with conserved tips: each taxon shows state 0
+    at a site but for a ``changed`` share of (taxon, site) pairs drawn from
+    ``default_rng(seed)``, so that the native float64 baseline, which does
+    not rescale, stays finite on trees of 400 taxa and more (on the
+    tool's random tips it underflows from about 400 taxa)."""
+    rng = np.random.default_rng(seed)
+    L, _, P = inp["tips"].shape
+    states = np.where(rng.random((L, P)) < changed,
+                      rng.integers(0, 4, (L, P)), 0)
+    tips = np.zeros_like(inp["tips"])
+    tips[np.arange(L)[:, None], states, np.arange(P)[None, :]] = 1.0
+    return dict(inp, tips=tips)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["on-chip", "slab"])
+def test_k1_scale_gate_across_the_plan_edge(side):
+    """K1 float32 on the largest tree of its on-chip plan and on one taxon
+    more (the slab route), scale_compare's trees and lengths at 256
+    patterns x 8 trees: on the tool's random tips, finite and within the
+    JAX tool's gate of K1 float64; and K1 float64 within rel 1e-9 of the
+    native float64 baseline on conserved tips (on the random tips native
+    underflows at these sizes), so the float32 route is held to native
+    through the float64 kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    edge = scale_compare.onchip_limit()
+    taxa = edge if side == "on-chip" else edge + 1
+    dev = torch.device("cuda")
+    inp = scale_compare.make_inputs(taxa, 256, 8)
+    edges = inp["sched"].node_count - 1
+    f32, route32, _ = scale_compare.first_call(
+        scale_compare.k1_call(inp, torch.float32, dev), dev)
+    f64, _, _ = scale_compare.first_call(
+        scale_compare.k1_call(inp, torch.float64, dev), dev)
+    assert route32 == side
+    assert all(np.all(np.isfinite(x)) for x in f32)
+    assert scale_compare.gate_value(f32[1], f64[1], edges) < scale_compare.GATE
+    conserved = _conserved(inp)
+    ll, grad = scale_compare.first_call(
+        scale_compare.k1_call(conserved, torch.float64, dev), dev)[0]
+    ll_n, g_n = scale_compare.native_call(conserved)()
+    assert np.all(np.isfinite(ll_n))
+    assert scale_compare.rel_err(ll, ll_n) < scale_compare.F64_REL
+    assert scale_compare.rel_err(grad, g_n[:, :edges]) < scale_compare.F64_REL
+
+
+@pytest.mark.cuda
+def test_gp_scale_small_on_card():
+    """gp_scale at 40 taxa x 1,000 sites on the card, float64: the fused
+    ascent runs K7 + K8, the streamed K7, and the streamed marginal lies
+    within the JAX tool's bound of the in-memory Newton ascent's (the
+    ascent the JAX tool compares it with on the CPU; K8's golden section
+    takes another path and neither converges in 20 sweeps here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    r = gp_scale.run(40, 1000, torch.float64, device="cuda", timing=False)
+    assert "K7" in r["fused"]["route"] and "K8" in r["fused"]["route"]
+    assert "K7" in r["streamed"]["route"]
+    assert r["newton"]["route"].startswith("level route")
+    gp_scale.check(r, "newton")
