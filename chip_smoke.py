@@ -78,7 +78,7 @@ Phases, each of which raises on failure:
      kernel route's fit within 1e-2 of the optimum; the streamed ascent
      run_branch_ascent_streamed(1e-6, 100, 100) (fluA's 238 patterns in
      three chunks, the last padded at weight 0, K7 a chunk, Newton on the
-     host) in f64
+     host, the chunk programs by their CUDA graphs) in f64
      with A and B in host RAM and in an np.memmap, within 1e-7 of the
      optimum and of the level route's fit, and in f32 within 1e-2; the
      counters show K7 and K8 launched and no twin called; then K7 against
@@ -90,7 +90,8 @@ Phases, each of which raises on failure:
      run_branch_ascent(1e-2, 10) from the same starting lengths each run)
      on both routes, in ms per ascent, with device time per ascent and the
      device's idle share as in phase 6, and the streamed ascent
-     run_branch_ascent_streamed(1e-2, 10, 100) the same way;
+     run_branch_ascent_streamed(1e-2, 10, 100) the same way, by its chunk
+     programs' graphs and eagerly;
   10. rooted time trees: RootedInstance on the card, fluA (dates from the
      taxon names, strict clock at 0.001), float64, against the physher and
      phylotorch goldens (JC69 LL, log-det-Jacobian and the 68 ratio and
@@ -115,8 +116,8 @@ Phases, each of which raises on failure:
      gradient evaluations per second;
   11. the vip path (after [10], before the timing phases): after reference
      runs on the CPU (device="cpu", the kernels' twins), with the counters
-     at 0: (a) EM on DS1.100_topologies on the card, (0, 23) and (0.5,
-     100), against the zcrabbit goldens of tests/golden_sbn.py and the CPU
+     at 0: (a) EM on DS1.100_topologies on the card (the step's CUDA
+     graph), (0, 23) and (0.5, 100), against the zcrabbit goldens of tests/golden_sbn.py and the CPU
      reference, and run twice, equal bit for bit; (b) GTR + Weibull+4
      rows per tree on DS1.subsampled_10, float64, log_likelihoods (K5)
      and phylo_gradients (the scan engine for the branch gradients, K5 +
@@ -261,13 +262,37 @@ Phases, each of which raises on failure:
      taxa x 4,096 sites, f64 and f32: at f64 the streamed (K7) ascent
      within the JAX tool's bound of the fused (K7 + K8) and of the
      in-memory Newton ascent, at f32 finite marginals with both gaps
-     printed (neither f32 fit meets that bound: a finding, PERF.md);
+     printed (neither f32 fit meets that bound: a finding, PERF.md); at
+     both dtypes the streamed ascent by its chunk programs' graphs equal
+     to the same ascent with cuda_graphs=False bit for bit (marginal,
+     sweeps, branch lengths), each timed at f32, and the graphs' pool MB;
      forest_scale.run() at 1,000
      sampled trees, the three surfaces by graph and eagerly, graph = eager
      bit for bit; K1, K7 and K8 launched and no twin called; then, after
      the counters are read, K1 f32 on chip against its slab route at 200
-     and 433 taxa (CUDA events). Throughput windows of 0.5 s, not the
+     and 433 taxa (CUDA events). Throughput windows of 0.25 s, not the
      tools' 2 s, to keep the script inside its time limit.
+  19. the JAX package's last compiled programs as CUDA graphs (after
+     [17]): with the counters at 0, the path, each entry point as a user
+     calls it on the card: run_branch_ascent_streamed(1e-6, 100, 100) on
+     fluA by its chunk programs' graphs (gp/streamed_graph.py; f64 with A
+     and B in host RAM and in an np.memmap, f32), calculate_hybrid_marginals
+     three times each (gp/hybrid_graph.py: the first call eager, the
+     second a capture) on fluA at f64 and f32 and on gp_scale's 200-taxon
+     x 4,096-site DAG at f64, and EM(0, 23) and EM(0.5, 100) on
+     DS1.100_topologies (the step's graph, sbn/probability.py
+     EMStepGraph); the counters must show three captures a streamed fit,
+     one a hybrid engine and one an EM call, a replay an EM iteration, and
+     K7 once a chunk a statistics refresh, once at the statistics graph's
+     warm-up, once at finalize and once a hybrid call; then each against
+     cuda_graphs=False bit for bit (the streamed marginal, sweeps and
+     branch lengths, and K7 one launch fewer; the hybrid values of every
+     call; EM's scores, parameters and probabilities), each streamed fit
+     within GP_FLUA_TOL of libsbn_tpu's optimum, the f64 hybrid values
+     within rel 1e-10 of the port's CPU run, fluA's hybrid in chunks of 16
+     (the last padded) by graph and eagerly; the graphs' MB; then each
+     path's host ms, device ms and idle share by route, traced in a fresh
+     process.
 The last lines are the {"kernels": [...]} report (each kernel's launches
 on its paths, its error against its twin, its time, its twin's, and its
 bound: the larger of its operations at the peak of their type (float64's
@@ -303,7 +328,9 @@ import libsbn_tpu_torch as lt  # noqa: E402
 from libsbn_tpu_torch.core.site_pattern import SitePattern  # noqa: E402
 from libsbn_tpu_torch.core.tree import RootedTree, RootedTreeCollection  # noqa: E402
 from libsbn_tpu_torch.gp import GPInstance, ascent_graph, engine_kernels  # noqa: E402
+from libsbn_tpu_torch.gp import hybrid_graph, streamed_graph  # noqa: E402
 from libsbn_tpu_torch.gp.engine import _jc69_transition  # noqa: E402
+from libsbn_tpu_torch.gp.quartet import quartet_hybrid_request_of  # noqa: E402
 from libsbn_tpu_torch.io import newick  # noqa: E402
 from libsbn_tpu_torch.io.fasta import Alignment  # noqa: E402
 from libsbn_tpu_torch.models import rooted_graph  # noqa: E402
@@ -317,6 +344,7 @@ from libsbn_tpu_torch.ops import forest, forest_graph  # noqa: E402
 from libsbn_tpu_torch.ops import substitution, transforms  # noqa: E402
 from libsbn_tpu_torch.ops.site_model import weibull_rates  # noqa: E402
 from libsbn_tpu_torch.parallel.sharding import make_mesh  # noqa: E402
+from libsbn_tpu_torch.sbn import probability as sbn_probability  # noqa: E402
 from libsbn_tpu_torch.utils import cpu_baseline, parity, profiling  # noqa: E402
 from libsbn_tpu_torch.utils import forest_scale, gp_scale  # noqa: E402
 from libsbn_tpu_torch.utils import scale_compare  # noqa: E402
@@ -1859,9 +1887,10 @@ def gp_chunk_tips(eng, c):
 
 def gp_streamed_fit(dtype, memmap_dir=None, tol=1e-6, max_iter=100):
     """run_branch_ascent_streamed(tol, max_iter, GP_CHUNK) on fluA on the
-    kernel route, its A and B in host RAM or under ``memmap_dir``, against
-    libsbn_tpu's optimum; fails unless every chunk of every statistics
-    refresh, and finalize's full-width populate, launched K7 and K8 did not
+    kernel route by its chunk programs' graphs, its A and B in host RAM or
+    under ``memmap_dir``, against libsbn_tpu's optimum; fails unless every
+    chunk of every statistics refresh, the statistics graph's capture
+    warm-up and finalize's full-width populate launched K7 and K8 did not
     launch. Returns (marginal, engine)."""
     eng = gp_instance("fluA.fa", "fluA.tree", dtype).get_engine()
     before = dict(engine_kernels.LAUNCHES)
@@ -1872,7 +1901,9 @@ def gp_streamed_fit(dtype, memmap_dir=None, tol=1e-6, max_iter=100):
     seconds = time.perf_counter() - t0
     added = {k: v - before[k] for k, v in engine_kernels.LAUNCHES.items()}
     chunks = -(-eng.patterns // GP_CHUNK)
-    k7 = added["populate_plvs"] - 1  # less finalize's full-width populate
+    # Less finalize's full-width populate and the capture warm-up of the
+    # statistics program's graph (gp/streamed_graph.py, the default).
+    k7 = added["populate_plvs"] - 2
     if (k7 < chunks * (sweeps + 1) or k7 % chunks
             or added["golden_sweep"] or added["golden_sweep_slab"]
             or added["populate_plvs_slab"]):
@@ -1948,18 +1979,21 @@ def phase_gp_timing(smi, runs=5):
                  else "level route") + ", eager"
         print(f"  run_branch_ascent(1e-2, 10), {route}, per ascent: {line}; "
               f"{sweeps} sweeps, marginal {marginal:.6f}")
-    eng = gp_instance("fluA.fa", "fluA.tree", torch.float32).get_engine()
-    bl0 = eng.branch_lengths.copy()
+    for graphs in (True, False):
+        eng = gp_instance("fluA.fa", "fluA.tree", torch.float32,
+                          cuda_graphs=graphs).get_engine()
+        bl0 = eng.branch_lengths.copy()
 
-    def streamed():
-        eng.branch_lengths = bl0.copy()
-        return eng.run_branch_ascent_streamed(1e-2, 10, GP_CHUNK)
+        def streamed(eng=eng, bl0=bl0):
+            eng.branch_lengths = bl0.copy()
+            return eng.run_branch_ascent_streamed(1e-2, 10, GP_CHUNK)
 
-    line, _ = host_and_device(streamed, runs)
-    marginal, sweeps = streamed()
-    print(f"  run_branch_ascent_streamed(1e-2, 10, {GP_CHUNK}), kernel route "
-          f"(K7 per chunk, Newton on the host), per ascent: {line}; {sweeps} "
-          f"sweeps, marginal {marginal:.6f}")
+        line, _ = host_and_device(streamed, runs)
+        marginal, sweeps = streamed()
+        route = "chunk programs' graphs" if graphs else "eager"
+        print(f"  run_branch_ascent_streamed(1e-2, 10, {GP_CHUNK}), kernel "
+              f"route (K7 per chunk, Newton on the host), {route}, per "
+              f"ascent: {line}; {sweeps} sweeps, marginal {marginal:.6f}")
     return out, bounds
 
 
@@ -2290,6 +2324,7 @@ def vip_burrito(device, spec=("JC69", "constant", "strict"),
         device=device, dtype=torch.float64)
 
 
+EM_CASES = ((0.0, 23), (0.5, 100))  # (alpha, iterations)
 VIP_RUNS = (  # (tag, model, branch model, steps)
     ("JC69 split", ("JC69", "constant", "strict"), "split", VIP_STEPS),
     ("GTR + Weibull+4 split", ("GTR", "weibull+4", "strict"), "split", 2),
@@ -2297,17 +2332,23 @@ VIP_RUNS = (  # (tag, model, branch model, steps)
 )
 
 
-def em_runs(device):
-    """EM(0, 23) and EM(0.5, 100) on DS1.100_topologies on ``device``:
-    {(alpha, iterations): (scores, parameters, probabilities, seconds)}."""
+def em_instance():
     inst = lt.UnrootedInstance("charlie")
     inst.read_newick_file(f"{DATA}/DS1.100_topologies.nwk")
     inst.process_loaded_trees()
+    return inst
+
+
+def em_runs(device, cuda_graphs=True):
+    """EM(0, 23) and EM(0.5, 100) on DS1.100_topologies on ``device`` (on
+    the card by the step's graph unless ``cuda_graphs`` is False):
+    {(alpha, iterations): (scores, parameters, probabilities, seconds)}."""
+    inst = em_instance()
     out = {}
-    for alpha, iters in ((0.0, 23), (0.5, 100)):
+    for alpha, iters in EM_CASES:
         t0 = time.perf_counter()
-        scores = inst.train_expectation_maximization(alpha, iters,
-                                                     device=device)
+        scores = inst.train_expectation_maximization(
+            alpha, iters, device=device, cuda_graphs=cuda_graphs)
         seconds = time.perf_counter() - t0
         out[(alpha, iters)] = (scores, inst.sbn_parameters.copy(),
                                inst.calculate_sbn_probabilities(), seconds)
@@ -3701,7 +3742,7 @@ def nonzero_launches():
 def key_mb(fn):
     """(fn's outputs, MB of device memory that stays reserved over fn(),
     less the outputs' own bytes), unused cache released before and after."""
-    gc.collect()  # as a capture does: nothing freed then counts here
+    gc.collect()  # nothing dead from before counts here
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_reserved()
@@ -4249,7 +4290,7 @@ GP_SCALE = (200, 4096)  # gp_scale's defaults: taxa, sites
 FOREST_SCALE_TREES = 1000  # forest_scale's default
 
 
-SCALE_WINDOW_S = 0.5  # timed_evals_per_sec's window in [18] (default 2 s)
+SCALE_WINDOW_S = 0.25  # timed_evals_per_sec's window in [18] (default 2 s)
 
 
 def k1_routes_at_scale(taxa):
@@ -4313,6 +4354,11 @@ def phase_scale_tools(smi):
         marginals = [r[k]["marginal"] for k in ("fused", "streamed", "newton")]
         if not np.all(np.isfinite(marginals)):
             raise AssertionError(f"gp_scale {dtype}: marginals {marginals}")
+        gp_scale.check_graphs(r)
+        print(f"  ok  gp_scale, {str(dtype)[6:]}: the streamed ascent by its "
+              "chunk programs' graphs equals the eager one bit for bit "
+              f"(marginal {r['streamed']['marginal']!r}, "
+              f"{r['streamed']['sweeps']} sweeps, the branch lengths)")
         if dtype == torch.float64:
             gp_scale.check(r)
             gp_scale.check(r, "newton")
@@ -4350,6 +4396,267 @@ def phase_scale_tools(smi):
     return launches
 
 
+# [19] the streamed ascent's chunk programs, the hybrid marginals' program
+# and EM's step as CUDA graphs.
+# The streamed fits of the path: (dtype, A and B in an np.memmap).
+STREAMED_CASES = ((torch.float64, False), (torch.float64, True),
+                  (torch.float32, False))
+# The hybrid marginals of the path: (data, dtype); "gp_scale" is the scale
+# tool's 200-taxon tree and 4,096 random sites.
+HYBRID_CASES = (("fluA", torch.float64), ("fluA", torch.float32),
+                ("gp_scale", torch.float64))
+HYBRID_CALLS = 3  # a program's first call eager, its second a capture
+HYBRID_CHUNK = 16  # rows a chunk: fluA's 65 combinations in five, padded
+HYBRID_CPU_REL = 1e-10  # the f64 hybrid values against the port's CPU run
+PROGRAM_RUNS = 5  # host_and_device's calls a route for fluA's hybrid; 2
+# for the others (the profiler's pass over 7,000-9,000 kernels a call takes
+# seconds)
+
+
+def hybrid_gp(data, dtype, tmp, device=DEV, cuda_graphs=True):
+    """GPInstance for the hybrid marginals on ``device`` at seeded lengths
+    U(0.01, 0.3): fluA, or gp_scale's 200 x 4,096 data written under
+    ``tmp``."""
+    if data == "fluA":
+        files = (f"{DATA}/fluA.tree", f"{DATA}/fluA.fa")
+    else:
+        files = gp_scale.make_data(*GP_SCALE, tmp)
+    inst = GPInstance()
+    inst.read_newick_file(files[0])
+    inst.read_fasta_file(files[1])
+    inst.make_engine(dtype=dtype, device=device, cuda_graphs=cuda_graphs)
+    eng = inst.get_engine()
+    eng.branch_lengths = np.random.default_rng(2).uniform(
+        0.01, 0.3, eng.branch_lengths.size)
+    return inst
+
+
+def hybrid_calls(inst, calls=HYBRID_CALLS, chunk=None):
+    """The hybrid values of ``calls`` calls: calculate_hybrid_marginals, or
+    with ``chunk`` process_quartet_hybrid_requests over the same requests
+    in chunks of that many rows (after one populate)."""
+    eng = inst.get_engine()
+    if chunk is not None:
+        eng.populate_plvs()
+        reqs = [quartet_hybrid_request_of(inst.dag, p, r, c) for p, r, c, _
+                in inst.dag.reverse_postorder_index_traversal()]
+    out = []
+    for _ in range(calls):
+        eng.hybrid_marginal_log_likelihoods[:] = -np.inf
+        if chunk is None:
+            inst.calculate_hybrid_marginals()
+        else:
+            eng.process_quartet_hybrid_requests(reqs, chunk=chunk)
+        out.append(eng.hybrid_marginal_log_likelihoods.copy())
+    return out
+
+
+def streamed_fit(dtype, memmap_dir, cuda_graphs, tol=1e-6, max_iter=100):
+    """fluA's streamed fit in chunks of GP_CHUNK by route: (marginal,
+    sweeps, branch lengths, K7 launches, the graphs' MB or None)."""
+    eng = gp_instance("fluA.fa", "fluA.tree", dtype,
+                      cuda_graphs=cuda_graphs).get_engine()
+    before = engine_kernels.LAUNCHES["populate_plvs"]
+    m, sweeps = eng.run_branch_ascent_streamed(tol, max_iter, GP_CHUNK,
+                                               memmap_dir=memmap_dir)
+    torch.cuda.synchronize()
+    return (m, sweeps, eng.branch_lengths.copy(),
+            engine_kernels.LAUNCHES["populate_plvs"] - before,
+            eng.last_streamed_graphs)
+
+
+def array_equal(name, got, want):
+    """Fail unless the numpy arrays are equal bit for bit (NaN at the same
+    places)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.array_equal(got, want,
+                                                     equal_nan=True):
+        raise AssertionError(f"{name}: differs, max abs "
+                             f"{np.nanmax(np.abs(got - want)):.3e}")
+    print(f"  ok  {name}: bit for bit")
+
+
+def program_counts():
+    return (dict(streamed_graph.COUNTS), dict(hybrid_graph.COUNTS),
+            dict(sbn_probability.COUNTS))
+
+
+def program_calls():
+    """{(what, route): call} of [19]'s timings at float32 (EM: float64, its
+    only dtype): the streamed ascent run_branch_ascent_streamed(1e-2, 10,
+    GP_CHUNK) on fluA, calculate_hybrid_marginals on fluA and on gp_scale's
+    data, EM(0.5, 100); each by its graphs and eagerly."""
+    calls = {}
+    tmp = tempfile.mkdtemp()
+    try:
+        for graphs in (True, False):
+            route = "graph" if graphs else "eager"
+            eng = gp_instance("fluA.fa", "fluA.tree", torch.float32,
+                              cuda_graphs=graphs).get_engine()
+            bl0 = eng.branch_lengths.copy()
+
+            def streamed(eng=eng, bl0=bl0):
+                eng.branch_lengths = bl0.copy()
+                return eng.run_branch_ascent_streamed(1e-2, 10, GP_CHUNK)
+
+            calls[("streamed ascent, fluA", route)] = streamed
+            for data in ("fluA", "gp_scale"):
+                inst = hybrid_gp(data, torch.float32, tmp,
+                                 cuda_graphs=graphs)
+                calls[(f"hybrid marginals, {data}", route)] = (
+                    inst.calculate_hybrid_marginals)
+            em = em_instance()
+            calls[("EM(0.5, 100), DS1.100", route)] = (
+                lambda em=em, graphs=graphs: em.train_expectation_maximization(
+                    0.5, 100, cuda_graphs=graphs))
+    finally:
+        for name in os.listdir(tmp):
+            os.unlink(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    return calls
+
+
+def trace_programs():
+    """host_and_device's line for every call of program_calls: run in a
+    fresh process (see trace_one_k1)."""
+    return {f"{what}, {route}": host_and_device(
+        fn, PROGRAM_RUNS if what == "hybrid marginals, fluA" else 2)[0]
+        for (what, route), fn in program_calls().items()}
+
+
+def phase_programs(smi):
+    """[19] the streamed ascent, the hybrid marginals and EM by their CUDA
+    graphs; returns the launch counts of its path."""
+    print("[19] the JAX package's last compiled GP and SBN programs as CUDA "
+          "graphs: the streamed ascent's chunk programs, the hybrid "
+          f"marginals' chunk and EM's step ({smi})")
+    t_phase = time.perf_counter()
+    # The path, with every counter at 0: each entry point as a user calls
+    # it on the card (cuda_graphs on, the default).
+    reset_counters()
+    streamed_graph.reset_counters()
+    hybrid_graph.reset_counters()
+    sbn_probability.reset_counters()
+    streamed, hybrid, held = {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for dtype, memmap in STREAMED_CASES:
+            streamed[(dtype, memmap)] = streamed_fit(
+                dtype, tmp if memmap else None, True)
+        if os.listdir(tmp):
+            raise AssertionError(f"the streamed ascent left {os.listdir(tmp)}")
+        for data, dtype in HYBRID_CASES:
+            inst = hybrid_gp(data, dtype, tmp)
+            hybrid[(data, dtype)] = hybrid_calls(inst)
+            held[(data, dtype)] = inst.get_engine().hybrid_graphs.held_mb()
+    em = em_runs(DEV)
+    launches = launch_counts("programs path", ["populate_plvs"],
+                             ["populate_plvs_slab", "golden_sweep",
+                              "golden_sweep_slab"])
+    counts = program_counts()
+    print(f"  programs path: streamed {counts[0]}, hybrid {counts[1]}, "
+          f"EM {counts[2]}")
+    k7_streamed = sum(r[3] for r in streamed.values())
+    want = (
+        {"captures": 3 * len(STREAMED_CASES),
+         "eager": 3 * len(STREAMED_CASES)},
+        {"captures": len(HYBRID_CASES),
+         "replays": (HYBRID_CALLS - 1) * len(HYBRID_CASES),
+         "eager": len(HYBRID_CASES)},
+        {"captures": len(EM_CASES),
+         "replays": sum(iters for _, iters in EM_CASES)})
+    got = ({k: counts[0][k] for k in ("captures", "eager")},) + counts[1:]
+    k7_want = k7_streamed + HYBRID_CALLS * len(HYBRID_CASES)
+    if got != want or launches["populate_plvs"] != k7_want:
+        raise AssertionError(f"programs path: {got}, K7 "
+                             f"{launches['populate_plvs']}; want {want}, "
+                             f"K7 {k7_want}")
+    print(f"  ok  programs path: {counts[0]['replays']} streamed replays; K7 "
+          f"{launches['populate_plvs']} = the streamed fits' {k7_streamed} "
+          f"+ one populate a hybrid call")
+    # The checks, after the counters were read.
+    with tempfile.TemporaryDirectory() as tmp:
+        for (dtype, memmap), got in streamed.items():
+            tag = (f"fluA streamed fit (1e-6, 100, {GP_CHUNK}), "
+                   f"{str(dtype)[6:]}, A and B in "
+                   f"{'an np.memmap' if memmap else 'host RAM'}")
+            want = streamed_fit(dtype, tmp if memmap else None, False)
+            if got[:2] != want[:2] or got[3] != want[3] + 1:
+                raise AssertionError(f"{tag}: graph {got[:2]}, K7 {got[3]}; "
+                                     f"eager {want[:2]}, K7 {want[3]}")
+            array_equal(f"{tag}: branch lengths, graph vs eager", got[2],
+                        want[2])
+            chunks = -(-238 // GP_CHUNK)
+            print(f"  ok  {tag}: graph vs eager bit for bit (marginal "
+                  f"{got[0]!r}, {got[1]} sweeps), K7 {got[3]} = {chunks} "
+                  f"chunks x {(got[3] - 2) // chunks} refreshes + the capture "
+                  f"warm-up + finalize (eager {want[3]}); the graphs' pool "
+                  f"{got[4]['pool_mb']:.1f} MB, buffers "
+                  f"{got[4]['buffers_mb']:.2f} MB while they lived ({smi})")
+            close(f"{tag} vs libsbn_tpu's optimum", got[0], GP_FLUA,
+                  (0.0, GP_FLUA_TOL[dtype]))
+        for (data, dtype), calls in hybrid.items():
+            tag = f"hybrid marginals, {data}, {str(dtype)[6:]}"
+            eager = hybrid_calls(hybrid_gp(data, dtype, tmp,
+                                           cuda_graphs=False), 1)[0]
+            fin = np.isfinite(eager)
+            for i, got in enumerate(calls):
+                array_equal(f"{tag}, call {i + 1} "
+                            f"({('eager', 'capture', 'replay')[min(i, 2)]}) "
+                            "vs cuda_graphs=False", got, eager)
+            print(f"  {tag}: {int(fin.sum())} central edges; the engine "
+                  f"holds {held[(data, dtype)]:.1f} MB for its program "
+                  f"({smi})")
+            if dtype == torch.float64:
+                cpu = hybrid_calls(hybrid_gp(data, dtype, tmp, device="cpu"),
+                                   1)[0]
+                if not np.array_equal(np.isfinite(cpu), fin):
+                    raise AssertionError(f"{tag}: finite entries differ")
+                close(f"{tag} vs the port's CPU run", eager[fin], cpu[fin],
+                      (HYBRID_CPU_REL, 0.0))
+        # Chunks of HYBRID_CHUNK rows, the last padded with rows of zeros.
+        hybrid_graph.reset_counters()
+        for dtype in (torch.float64, torch.float32):
+            tag = f"hybrid marginals, fluA, {str(dtype)[6:]}, chunks of " \
+                  f"{HYBRID_CHUNK}"
+            got = hybrid_calls(hybrid_gp("fluA", dtype, tmp), chunk=HYBRID_CHUNK)
+            eager = hybrid_calls(hybrid_gp("fluA", dtype, tmp,
+                                           cuda_graphs=False), 1,
+                                 chunk=HYBRID_CHUNK)[0]
+            for i, values in enumerate(got):
+                array_equal(f"{tag}, call {i + 1} vs cuda_graphs=False",
+                            values, eager)
+            whole = hybrid[("fluA", dtype)][0]
+            fin = np.isfinite(whole)
+            close(f"{tag} vs one chunk", eager[fin], whole[fin],
+                  (1e-12 if dtype == torch.float64 else 1e-5, 0.0))
+        chunks = -(-65 // HYBRID_CHUNK)
+        if hybrid_graph.COUNTS != {
+                "captures": 2, "replays": 2 * 2 * chunks,
+                "eager": 2 * chunks + 2 * chunks}:
+            raise AssertionError(f"hybrid chunks: {hybrid_graph.COUNTS}")
+    em_eager = em_runs(DEV, cuda_graphs=False)
+    for key, (scores, params, probs, _) in em.items():
+        tag = f"EM{key}"
+        for name, a, b in (("scores", scores, em_eager[key][0]),
+                           ("parameters", params, em_eager[key][1]),
+                           ("probabilities", probs, em_eager[key][2])):
+            array_equal(f"{tag} {name}, graph vs cuda_graphs=False", a, b)
+    print(f"  [19] path and checks: {time.perf_counter() - t_phase:.1f} s")
+    # Device time and idle share by route, traced in a fresh process.
+    out = subprocess.run(
+        [sys.executable, "-c", "import json, chip_smoke; print(json.dumps("
+         "chip_smoke.trace_programs()))"],
+        cwd=REPO, capture_output=True, text=True, timeout=RANK_TIMEOUT_S)
+    if out.returncode != 0:
+        raise AssertionError(f"trace of [19]'s calls failed:\n"
+                             f"{out.stderr[-4000:]}")
+    print(f"  [19] timings, by route ({smi}):")
+    for name, line in json.loads(out.stdout.splitlines()[-1]).items():
+        print(f"    {name}: {line}")
+    print(f"[19] took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     t_start = time.perf_counter()
     name, smi = phase_device()
@@ -4371,6 +4678,7 @@ def main():
     runs.append(graph_launches)
     runs.append(phase_engine_graphs(smi))
     runs.append(phase_parity(smi))
+    runs.append(phase_programs(smi))
     runs.append(scale_launches)
     launches = {k: sum(run.get(k, 0) for run in runs) for k in runs[0]}
     # K1's rooted launches stand in its second entry below and K2's vip

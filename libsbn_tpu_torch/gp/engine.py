@@ -62,7 +62,7 @@ from ..core.site_pattern import SitePattern
 from ..ops import substitution
 from ..parallel.sharding import check_mesh, pad_to_multiple, pattern_sharding
 from ..utils.device import DEFAULT_DEVICE, compute_device
-from . import ascent_graph, engine_kernels
+from . import ascent_graph, engine_kernels, hybrid_graph, streamed_graph
 from .engine_kernels import MAX_LOG_BL, MIN_LOG_BL
 
 DEFAULT_BRANCH_LENGTH = 0.1
@@ -146,8 +146,12 @@ class GPEngine:
         self.last_ascent_converged = None
         self.cuda_graphs = cuda_graphs
         # The ascent's phase graphs (gp/ascent_graph.py), made at the first
-        # graphed ascent.
+        # graphed ascent; the hybrid marginals' programs
+        # (gp/hybrid_graph.py), made at the first graphed call; the MB the
+        # last graphed streamed ascent's graphs held (gp/streamed_graph.py).
         self.graphs = None
+        self.hybrid_graphs = None
+        self.last_streamed_graphs = None
 
         self.rootward_levels, self.leafward_levels = dag.level_schedules()
         self.root_ids = np.asarray(dag.rootsplit_node_ids(), dtype=np.int32)
@@ -458,7 +462,22 @@ class GPEngine:
         Newton ascent (the level route) to float tolerance. The last chunk
         is padded with copies of the last pattern at zero weight. ``finalize``
         repopulates at full width and computes the likelihood rows.
-        Returns (marginal, sweeps)."""
+        Returns (marginal, sweeps).
+
+        On a CUDA device with cuda_graphs, each chunk call replays a
+        captured graph of its program (gp/streamed_graph.py), made for the
+        call and dropped at its end (``last_streamed_graphs`` then holds
+        their pool's and buffers' MB); cuda_graphs=False runs them
+        eagerly."""
+        return self._run_streamed(
+            tol, max_iter, pattern_chunk, memmap_dir, finalize, rtol,
+            graphed=self.cuda_graphs and self.device.type == "cuda")
+
+    def _run_streamed(self, tol, max_iter, pattern_chunk, memmap_dir,
+                      finalize, rtol, graphed):
+        """run_branch_ascent_streamed with its chunk programs eager or, with
+        ``graphed``, over static buffers as graphs (on the CPU: the same
+        functions over the same buffers, called as they are)."""
         if pattern_chunk < 1:
             raise ValueError(f"pattern_chunk must be >= 1, got {pattern_chunk}")
         dt = np.float64 if self.dtype == torch.float64 else np.float32
@@ -488,7 +507,7 @@ class GPEngine:
             AB = np.empty((2, E, Sp), dt)
         try:
             cur, sweeps, self.branch_lengths = self._streamed_ascent(
-                AB, tips_c, w_c, tol, max_iter, rtol)
+                AB, tips_c, w_c, tol, max_iter, rtol, graphed)
         finally:
             if tmp is not None:
                 del AB
@@ -500,68 +519,30 @@ class GPEngine:
             self.compute_likelihoods()
         return cur, sweeps
 
-    def _streamed_ascent(self, AB, tips_c, w_c, tol, max_iter, rtol):
+    def _streamed_ascent(self, AB, tips_c, w_c, tol, max_iter, rtol,
+                         graphed):
         """The chunked ascent of run_branch_ascent_streamed over the (2, E,
-        C chunk) statistics array AB; returns (marginal, sweeps, branch
-        lengths)."""
-        dt = AB.dtype
-        C, chunk = w_c.shape
-        E = AB.shape[1]
-        q = self._tensor(self.q)
+        C chunk) statistics array AB, its chunk programs eager or, with
+        ``graphed``, replays of their graphs (gp/streamed_graph.py); returns
+        (marginal, sweeps, branch lengths)."""
+        programs = (streamed_graph.StreamedGraphs if graphed
+                    else streamed_graph.StreamedEager)(self, AB, tips_c, w_c)
+        try:
+            return self._streamed_loop(programs, tol, max_iter, rtol)
+        finally:
+            programs.close()
+            if graphed:
+                self.last_streamed_graphs = {
+                    "pool_mb": programs.pool_mb,
+                    "buffers_mb": programs.buffers_mb}
 
-        def chunk_of(array, c):
-            return torch.as_tensor(array[c], device=self.device)
-
-        def refresh_ab(bl_np):
-            """A and B of every chunk into AB at branch lengths bl_np; the
-            marginal, summed over the chunks."""
-            blt = self._tensor(bl_np)
-            total = 0.0
-            for c in range(C):
-                w_chunk = chunk_of(w_c, c)
-                plvs = self._populate(blt, q, chunk_of(tips_c, c))
-                A, B = engine_kernels.sweep_stats(plvs, self._pa, self._ch,
-                                                  self._rot)
-                m = self._marginal_of_plvs(plvs, q, w_chunk)
-                sl = slice(c * chunk, (c + 1) * chunk)
-                AB[0, :, sl] = A.cpu().numpy()
-                AB[1, :, sl] = B.cpu().numpy()
-                total += float(m)
-            return total
-
-        def chunk_ab(c):
-            sl = slice(c * chunk, (c + 1) * chunk)
-            return (torch.as_tensor(AB[0, :, sl], device=self.device),
-                    torch.as_tensor(AB[1, :, sl], device=self.device),
-                    chunk_of(w_c, c)[None, :])
-
-        def acc_phi(u):
-            """(phi, dphi) per edge at u (E,), summed over the chunks on the
-            device in chunk order."""
-            ut = torch.as_tensor(np.asarray(u, dt), device=self.device)
-            phi = torch.zeros(E, dtype=self.dtype, device=self.device)
-            dphi = torch.zeros_like(phi)
-            for c in range(C):
-                A, B, wc = chunk_ab(c)
-                denom = A + ut[:, None] * B
-                ratio = torch.where(denom > 0, B / denom,
-                                    torch.zeros_like(denom))
-                phi += torch.sum(wc * ratio, dim=-1)
-                dphi += -torch.sum(wc * ratio * ratio, dim=-1)
-            return phi.cpu().numpy(), dphi.cpu().numpy()
-
-        def acc_obj(u):
-            """Per-edge negative log likelihood at u (E,), summed over the
-            chunks; padded patterns (weight 0) add nothing."""
-            ut = torch.as_tensor(np.asarray(u, dt), device=self.device)
-            obj = torch.zeros(E, dtype=self.dtype, device=self.device)
-            for c in range(C):
-                A, B, wc = chunk_ab(c)
-                lik = A + ut[:, None] * B
-                obj += -torch.sum(
-                    torch.where(wc > 0, torch.log(lik),
-                                torch.zeros_like(lik)) * wc, dim=-1)
-            return obj.cpu().numpy()
+    def _streamed_loop(self, programs, tol, max_iter, rtol):
+        """The JAX package's host loop of the streamed ascent over the chunk
+        programs' refresh (A and B, the marginal), phi and obj."""
+        dt = programs.np_dtype
+        E = programs.E
+        refresh_ab, acc_phi, acc_obj = (programs.refresh, programs.phi,
+                                        programs.obj)
 
         c_jc = 4.0 / 3.0
 
@@ -906,9 +887,25 @@ class GPEngine:
     def process_quartet_hybrid_requests(self, requests, chunk: int = 4096):
         """Batched form of process_quartet_hybrid_request: flattens every
         quartet combination (rootward x sister x rotated x sorted) across
-        ALL requests into index arrays and evaluates them on the device,
-        ``chunk`` combinations at a time, as (C, 4, S) JC69 applies and a
-        final per-central-edge logsumexp."""
+        ALL requests into index rows and evaluates them on the device,
+        ``chunk`` rows a program call (gp/hybrid_graph.py ``hybrid_chunk``:
+        (rows, 4, S) JC69 applies), then a per-central-edge logsumexp on the
+        host. As in the JAX package, when the rows outnumber ``chunk`` the
+        last chunk is padded with rows of zeros, whose values are dropped.
+
+        On a CUDA device with cuda_graphs the program is a captured graph
+        kept on the engine (``hybrid_graphs``), as the JAX engine keeps its
+        jit: a shape's first call runs eagerly, its second captures, later
+        calls replay it over copies of the PLVs made once a call;
+        cuda_graphs=False runs it eagerly."""
+        self._process_hybrid(
+            requests, chunk,
+            graphed=self.cuda_graphs and self.device.type == "cuda")
+
+    def _process_hybrid(self, requests, chunk, graphed):
+        """process_quartet_hybrid_requests with its program eager or, with
+        ``graphed``, by hybrid_graph's policy (on the CPU: the same function
+        over the same buffers, called as it is)."""
         from scipy.special import logsumexp
 
         reqs = [r for r in requests if r.is_fully_formed()]
@@ -933,42 +930,23 @@ class GPEngine:
                                 )
                             )
                             segs.append(seg)
-        idx = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+        idx = np.asarray(rows, np.int64)
         segs = np.asarray(segs, np.int64)
-        plvs = self.plvs
-        dt = plvs["p"].dtype
-        bl = self._tensor(self.branch_lengths).to(dt)
-        qv = self._tensor(self.q).to(dt)
-        log_inv_prior = torch.log(self._tensor(self.inverted_sbn_prior).to(dt))
-        log_node_prob = torch.log(
-            self._tensor(self.unconditional_node_probabilities).to(dt))
-        w = self._w.to(dt)
-        vals = []
-        for start in range(0, idx.shape[0], chunk):
-            (rn, rrot, rg, sn, sg, cg, tn, tg, un, ug) = idx[start:start + chunk].T
-            rrot = rrot.bool()
-            per_node = plvs["ls_r"].dim() == 1
-            r_plv = torch.where(rrot[:, None, None], plvs["rtilde"][rn],
-                                plvs["r"][rn])
-            ls_root = torch.where(rrot if per_node else rrot[:, None],
-                                  plvs["ls_rtilde"][rn], plvs["ls_r"][rn])
-            quartet_root = _jc69_evolve(bl[rg], r_plv)
-            r_s = quartet_root * _jc69_evolve(bl[sg], plvs["p"][sn])
-            q_s = _jc69_evolve(bl[cg], r_s)
-            r_sorted = q_s * _jc69_evolve(bl[tg], plvs["p"][tn])
-            lik = torch.sum(r_sorted * _jc69_evolve(bl[ug], plvs["p"][un]),
-                            dim=1)
-            # ls_* are per-PLV log-scales; the reference instead asserts
-            # zero rescaling here (gp_engine.cpp:398-400).
-            lnp = log_node_prob[rn]
-            ls = (ls_root + plvs["ls_p"][sn] + plvs["ls_p"][tn]
-                  + plvs["ls_p"][un])
-            per_pattern = torch.log(lik) + _b(
-                ls - (lnp if per_node else lnp[:, None]))
-            non_seq = (log_inv_prior[rg] + torch.log(qv[sg])
-                       + torch.log(qv[tg]) + torch.log(qv[ug]))
-            vals.append(non_seq + per_pattern @ w)
-        vals = torch.cat(vals).cpu().numpy()
+        C = idx.shape[0]
+        width = chunk if C > chunk else C  # the rows of one program call
+        if not graphed:
+            run = hybrid_graph.HybridEager(self, width)
+        else:
+            if self.hybrid_graphs is None:
+                self.hybrid_graphs = hybrid_graph.HybridGraphs(self)
+            run = self.hybrid_graphs.program(width)
+        vals = np.empty(C)
+        for start in range(0, C, chunk):
+            ix = idx[start:start + chunk]
+            pad = width - ix.shape[0]
+            if pad:
+                ix = np.pad(ix, ((0, pad), (0, 0)))
+            vals[start:start + chunk] = run(ix)[:width - pad]
         for seg, central in enumerate(centrals):
             self.hybrid_marginal_log_likelihoods[central] = logsumexp(
                 vals[segs == seg]

@@ -26,11 +26,14 @@ class UnrootedInstance(GenericSBNInstance):
     def train_expectation_maximization(
         self, alpha: float, max_iter: int, score_epsilon: float = 0.0,
         progress: bool = False, *, device=DEFAULT_DEVICE,
+        cuda_graphs: bool = True,
     ) -> np.ndarray:
         """EM training of the SBN parameters (sbn_probability.cpp
         ExpectationMaximization) in float64 on ``device``: the card unless
-        the caller passes device="cpu". Stores a writable float64 numpy
-        copy of the parameters and returns the score history."""
+        the caller passes device="cpu", where each iteration replays the
+        step's CUDA graph unless ``cuda_graphs`` is False. Stores a writable
+        float64 numpy copy of the parameters and returns the score
+        history."""
         self._check_support()
         reps, counts = self._dense_counter()
         dev = compute_device(device)
@@ -40,7 +43,7 @@ class UnrootedInstance(GenericSBNInstance):
             torch.as_tensor(self.sbn_support.segment_ids(), device=dev),
             self.sbn_support.gpcsp_count,
             alpha=alpha, max_iter=max_iter, score_epsilon=score_epsilon,
-            progress=progress,
+            progress=progress, cuda_graphs=cuda_graphs,
         )
         self.sbn_parameters = params.cpu().numpy().copy()
         self._sampler = None

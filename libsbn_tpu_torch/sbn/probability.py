@@ -11,7 +11,9 @@ their inputs are on; EM runs in float64, one iteration a handful of
 gathers, segment logsumexps and one scatter, each sum in a fixed order (a
 run on a card repeats bit for bit), and reads one
 pair of numbers back to the host per iteration (the score, for the
-monotonicity assertion, and the underflow count).
+monotonicity assertion, and the underflow count). On a card the step is a
+CUDA graph captured once an EM call (``EMStepGraph``), equal to the eager
+step bit for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import warnings
 
 import numpy as np
 import torch
+
+from ..utils.graphs import Graph
 
 NEG_INF = float("-inf")
 
@@ -118,9 +122,53 @@ def _em_step(params, reps, counts, log_m_tilde_alpha, m_tilde_pos,
     return new, score, underflowed
 
 
+class EMStepGraph:
+    """EM's step over a static parameter buffer, a Graph captured at its
+    first call (the JAX package jits the step once an EM call): the step
+    reads ``params`` and writes the new parameters back into it, and the
+    score and underflow count into ``read``, which the host reads once an
+    iteration. On the CPU the same function runs over the same buffers."""
+
+    def __init__(self, params, step):
+        self.params = params.clone()
+        self.read = params.new_zeros(2)
+        self.step = step
+        self.graph = Graph(lambda: self._commit(self._compute()),
+                           params.device, (), COUNTS, warmup=self._compute)
+
+    def _compute(self):
+        return self.step(self.params)
+
+    def _commit(self, out):
+        new, score, underflowed = out
+        self.params.copy_(new)
+        self.read.copy_(torch.stack([score, underflowed.to(torch.float64)]))
+
+    def __call__(self):
+        """One iteration: (score, underflowed count) as host numbers."""
+        self.graph()
+        return self.read.tolist()
+
+    def close(self):
+        """Drop the graph (its capture refers back to this object), so its
+        pool goes at once; returns the parameters."""
+        self.graph = None
+        return self.params
+
+
+# Captures and replays of EM's step graphs; reset_counters() sets them to 0.
+COUNTS = {"captures": 0, "replays": 0}
+
+
+def reset_counters():
+    for name in COUNTS:
+        COUNTS[name] = 0
+
+
 def expectation_maximization(
     reps, counts, segment_ids, gpcsp_count: int, alpha: float = 0.0,
     max_iter: int = 100, score_epsilon: float = 0.0, progress: bool = False,
+    cuda_graphs: bool = True,
 ):
     """EM training (ExpectationMaximization), on the device of ``reps``.
     Returns (params (G,) float64 tensor, score history as float64 numpy).
@@ -130,7 +178,20 @@ def expectation_maximization(
     iteration as in the reference, on the relative change, or on the
     absolute change where the previous score is exactly 0 (a degenerate
     support such as one 3-taxon tree); the loop stops early once the change
-    is below ``score_epsilon``. A non-finite score warns."""
+    is below ``score_epsilon``. A non-finite score warns. On a CUDA device
+    with ``cuda_graphs`` each iteration replays the step captured once a
+    call (``EMStepGraph``); cuda_graphs=False runs it eagerly."""
+    reps = torch.as_tensor(reps).long()
+    return _expectation_maximization(
+        reps, counts, segment_ids, gpcsp_count, alpha, max_iter,
+        score_epsilon, progress, cuda_graphs and reps.device.type == "cuda")
+
+
+def _expectation_maximization(reps, counts, segment_ids, gpcsp_count, alpha,
+                              max_iter, score_epsilon, progress, graphed):
+    """expectation_maximization with its step eager or, with ``graphed``,
+    an EMStepGraph (on the CPU: the same function over the same buffers,
+    called as it is)."""
     reps = torch.as_tensor(reps).long()
     dev = reps.device
     counts = torch.as_tensor(counts, dtype=torch.float64, device=dev)
@@ -149,17 +210,22 @@ def expectation_maximization(
     else:
         log_m_tilde_alpha = m_tilde_pos = None
 
+    def step(p):
+        return _em_step(p, reps, counts, log_m_tilde_alpha, m_tilde_pos,
+                        segment_ids, num_segments, alpha_positive)
+
+    graph = EMStepGraph(params, step) if graphed else None
     score_history = []
     max_underflowed = 0
     underflow_iters = 0
     for em_idx in range(max_iter):
-        params, score, underflowed = _em_step(
-            params, reps, counts, log_m_tilde_alpha, m_tilde_pos,
-            segment_ids, num_segments, alpha_positive,
-        )
         # One read back to the host per iteration.
-        score, underflowed = torch.stack(
-            [score, underflowed.to(torch.float64)]).tolist()
+        if graph is not None:
+            score, underflowed = graph()
+        else:
+            params, score, underflowed = step(params)
+            score, underflowed = torch.stack(
+                [score, underflowed.to(torch.float64)]).tolist()
         underflowed = int(underflowed)
         if underflowed:
             underflow_iters += 1
@@ -173,7 +239,7 @@ def expectation_maximization(
             warnings.warn(
                 f"EM iteration {em_idx}: non-finite score {score} "
                 "(ReportFloatingPointEnvironmentExceptions analog)",
-                RuntimeWarning, stacklevel=2,
+                RuntimeWarning, stacklevel=3,
             )
         score_history.append(score)
         if em_idx > 0:
@@ -190,8 +256,10 @@ def expectation_maximization(
             f"{len(score_history)} iterations); their M-step contributions "
             "were dropped (reference clamps these to DOUBLE_MINIMUM and "
             "reports the FE exception, sbn_probability.cpp:278-281)",
-            RuntimeWarning, stacklevel=2,
+            RuntimeWarning, stacklevel=3,
         )
+    if graph is not None:
+        params = graph.close()
     return params, np.asarray(score_history)
 
 

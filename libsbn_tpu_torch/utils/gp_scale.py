@@ -17,6 +17,10 @@ different path to the optimum, and neither ascent converges in 20 sweeps
 on this noise alignment (a near-flat objective). So on a card the
 in-memory Newton ascent (the level route, ``use_kernels=False``) runs as
 well, and its gap to the streamed fit is reported beside the JAX tool's.
+On a card the streamed ascent replays its chunk programs' CUDA graphs
+(gp/streamed_graph.py); it runs again from the same lengths with them off
+(``cuda_graphs=False``), must equal that eager run bit for bit, and the
+graphs' memory pool is reported.
 
     python -m libsbn_tpu_torch.utils.gp_scale [taxa] [sites] [--f32]
         [--device cpu]
@@ -93,7 +97,7 @@ def _counters():
     return dict(engine_kernels.LAUNCHES), dict(engine_kernels.TWIN_CALLS)
 
 
-def _ascent(eng, kind):
+def _ascent(eng, kind, cuda_graphs=True):
     """(marginal, sweeps) of one ascent of ``kind`` from float64 lengths of
     RESET_LENGTH. (The JAX tool resets with np.full_like, whose dtype
     follows the last ascent's lengths: after a float32 fused ascent, 0.1
@@ -103,8 +107,12 @@ def _ascent(eng, kind):
     if kind == "fused":
         return eng.run_branch_ascent(*FUSED)
     tol, max_iter, chunk = STREAMED
-    return eng.run_branch_ascent_streamed(tol, max_iter, pattern_chunk=chunk,
-                                          finalize=False)
+    graphs, eng.cuda_graphs = eng.cuda_graphs, cuda_graphs
+    try:
+        return eng.run_branch_ascent_streamed(
+            tol, max_iter, pattern_chunk=chunk, finalize=False)
+    finally:
+        eng.cuda_graphs = graphs
 
 
 def run(taxa=200, sites=4096, dtype=torch.float64, device=DEFAULT_DEVICE,
@@ -116,7 +124,10 @@ def run(taxa=200, sites=4096, dtype=torch.float64, device=DEFAULT_DEVICE,
     first run, host clock, synchronised), ``route`` and, with ``timing``,
     profiling.host_and_device's dict of two more runs of the fused and
     the streamed ascent (``times``); ``gap`` is |m - m2|, ``gap_newton``
-    the Newton ascent's, and ``bound`` max(1e-3, 1e-6 |m|)."""
+    the Newton ascent's, and ``bound`` max(1e-3, 1e-6 |m|). On a card also
+    "streamed_eager" (the streamed ascent with cuda_graphs=False, timed as
+    the streamed one), ``graph_equals_eager`` (marginal, sweeps and
+    branch lengths bit for bit) and the streamed graphs' ``pool_mb``."""
     device = compute_device(device)
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else (lambda: None))
@@ -137,21 +148,31 @@ def run(taxa=200, sites=4096, dtype=torch.float64, device=DEFAULT_DEVICE,
            "build_s": time.perf_counter() - t0}
     kinds = ["fused", "streamed"]
     if device.type == "cuda":
-        kinds.append("newton")
+        kinds += ["streamed_eager", "newton"]
     for kind in kinds:
         if kind == "newton":
             inst.make_engine(dtype=dtype, device=device, use_kernels=False)
             eng = inst.get_engine()
+        how = {"newton": ("fused", True),
+               "streamed_eager": ("streamed", False)}.get(kind, (kind, True))
         before = _counters()
         sync()
         t0 = time.perf_counter()
-        m, sweeps = _ascent(eng, "fused" if kind == "newton" else kind)
+        m, sweeps = _ascent(eng, *how)
         sync()
         res = {"marginal": m, "sweeps": sweeps,
-               "seconds": time.perf_counter() - t0, "route": route_of(before)}
+               "seconds": time.perf_counter() - t0, "route": route_of(before),
+               "branch_lengths": np.array(eng.branch_lengths, copy=True)}
+        if kind == "streamed" and eng.last_streamed_graphs is not None:
+            out["pool_mb"] = eng.last_streamed_graphs["pool_mb"]
         if timing and kind != "newton":
-            res["times"] = host_and_device(lambda: _ascent(eng, kind), 1)
+            res["times"] = host_and_device(lambda: _ascent(eng, *how), 1)
         out[kind] = res
+    if "streamed_eager" in out:
+        a, b = out["streamed"], out["streamed_eager"]
+        out["graph_equals_eager"] = bool(
+            a["marginal"] == b["marginal"] and a["sweeps"] == b["sweeps"]
+            and np.array_equal(a["branch_lengths"], b["branch_lengths"]))
     m2 = out["streamed"]["marginal"]
     out["gap"] = abs(out["fused"]["marginal"] - m2)
     out["bound"] = max(1e-3, 1e-6 * abs(out["fused"]["marginal"]))
@@ -175,6 +196,18 @@ def check(result, against="fused"):
             f"{result['bound']}")
 
 
+def check_graphs(result):
+    """Raise AssertionError unless the streamed ascent by its graphs equals
+    the eager streamed ascent bit for bit (where both ran: on a card)."""
+    if not result.get("graph_equals_eager", True):
+        a, b = result["streamed"], result["streamed_eager"]
+        raise AssertionError(
+            f"streamed ascent by its graphs {a['marginal']!r} in "
+            f"{a['sweeps']} sweeps vs eager {b['marginal']!r} in "
+            f"{b['sweeps']}; lengths equal: "
+            f"{np.array_equal(a['branch_lengths'], b['branch_lengths'])}")
+
+
 def describe(result, where):
     r = result
     lines = [
@@ -182,19 +215,26 @@ def describe(result, where):
         f"dag_nodes={r['dag_nodes']} gpcsps={r['gpcsps']} PLV arena="
         f"{r['arena_mb']:.0f} MB ({str(r['dtype']).split('.')[-1]}); build "
         f"{r['build_s']:.1f}s"]
-    for kind in ("fused", "streamed", "newton"):
+    for kind in ("fused", "streamed", "streamed_eager", "newton"):
         if kind not in r:
             continue
         a = r[kind]
         extra = (f" (chunk={STREAMED[2]}; device arena "
                  f"{r['arena_mb'] * STREAMED[2] / r['patterns']:.0f} MB)"
-                 if kind == "streamed" else "")
+                 if kind.startswith("streamed") else "")
+        if kind == "streamed" and "pool_mb" in r:
+            extra += (f"; CUDA graphs of the chunk programs, their pool "
+                      f"{r['pool_mb']:.1f} MB [{where}]")
         lines.append(f"{kind} ascent: marginal={a['marginal']:.4f} "
                      f"sweeps={a['sweeps']} time={a['seconds']:.2f}s{extra}; "
                      f"{a['route']}")
         if "times" in a:
             lines.append(f"  again from the same lengths: "
                          f"{format_host_and_device(a['times'])} [{where}]")
+    if "graph_equals_eager" in r:
+        lines.append("streamed ascent by its graphs = eager (cuda_graphs="
+                     "False): " + ("bit for bit" if r["graph_equals_eager"]
+                                   else "DIFFERENT"))
     lines.append(f"|m - m2| = {r['gap']:.3e} (bound {r['bound']:.3e})")
     if "gap_newton" in r:
         lines.append(f"|m_newton - m2| = {r['gap_newton']:.3e} (the "
@@ -221,6 +261,7 @@ def main(argv=None):
         print(line)
     try:
         check(result)
+        check_graphs(result)
     except AssertionError as err:
         print(f"FAIL {err}")
         return 1

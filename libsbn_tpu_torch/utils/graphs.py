@@ -15,14 +15,20 @@ replays them in one call. ``Graph`` holds one such function:
 * before the capture, ``warmup`` (by default ``fn``) runs once on a side
   stream and its result is dropped (PyTorch's rule for capture; it also
   loads the kernels' library, which may run nvcc); its launches are
-  launches like any other and are counted;
+  launches like any other and are counted. Every capture on a device warms
+  up on one side stream of that device (``_side_stream``): cuBLAS keeps a
+  32 MB workspace for each stream it has run on, so a new stream a capture
+  would add one each time;
 * the kernel wrappers count launches in Python, so a capture would count
   launches that did not run: the capture's counts are taken back, and each
   replay adds them;
-* the cyclic garbage collector runs before the capture and not during
-  it: a dead cycle freed mid-capture may free pinned host memory (a VBPI
-  trainer's parameter copy), whose event record on the default stream
-  invalidates the capture, and PyTorch no longer collects at capture;
+* the cyclic garbage collector is paused during the capture: a dead
+  cycle freed mid-capture may free pinned host memory (a VBPI trainer's
+  parameter copy), whose event record on the default stream invalidates
+  the capture. It is not run before the capture (a full collection takes
+  about 0.1 s in a process that has imported torch, which a program
+  captured once a call, as the streamed GP ascent's are, would pay each
+  call);
 * a failed capture or replay raises; nothing here falls back to eager
   launches.
 
@@ -54,6 +60,11 @@ programs hold, and no more:
   they come from another schedule object than the last call's, held by a
   weak reference (an address can be recycled, an object cannot), as the
   JAX engine's ``_sched_dev`` uploads a schedule once.
+
+``LazyGraph`` applies the same first-call, slab and capture rules to one
+function over buffers its owner keeps (the streamed GP ascent's chunk
+programs, gp/streamed_graph.py), and ``pool_mb`` reads what a memory pool
+holds from the caching allocator's segments.
 """
 
 from __future__ import annotations
@@ -108,7 +119,7 @@ class Graph:
 
     def _capture(self):
         with torch.cuda.device(self.device):
-            side = torch.cuda.Stream()
+            side = _side_stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 self.warmup()
@@ -116,7 +127,6 @@ class Graph:
             before = [dict(c) for c in self.counters]
             graph = torch.cuda.CUDAGraph()
             collecting = gc.isenabled()
-            gc.collect()
             gc.disable()
             try:
                 with torch.cuda.graph(graph, pool=self.pool):
@@ -133,6 +143,18 @@ class Graph:
                     c.update(was)
         self.graph, self.outputs = graph, outputs
         self.counts["captures"] += 1
+
+
+# The side stream of each device on which captures warm up.
+_SIDE_STREAMS = {}
+
+
+def _side_stream():
+    """The current device's warm-up stream, made at its first capture."""
+    device = torch.cuda.current_device()
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
 
 
 def host_f64(x):
@@ -212,9 +234,9 @@ class PackedPrograms:
         fn = make(_views(ints_t, int_shapes), _views(floats_t, float_shapes))
         state = self.seen.get(key)
         if state is None:  # the first call
-            slabs = self._slab_launches()
+            slabs = slab_launches(self.counters)
             out = fn()
-            self.seen[key] = ("eager" if self._slab_launches() != slabs
+            self.seen[key] = ("eager" if slab_launches(self.counters) != slabs
                               else "seen")
             if len(self.seen) > SEEN_CAP:
                 self.seen.popitem(last=False)
@@ -229,9 +251,57 @@ class PackedPrograms:
         self.programs[key] = prog
         return out
 
-    def _slab_launches(self):
-        """The counters' slab-route launches so far."""
-        return [c[k] for c in self.counters for k in c if k.endswith("_slab")]
+
+def slab_launches(counters):
+    """The slab-route launches so far in ``counters`` (dicts of launch
+    counts), by name."""
+    return [c[k] for c in counters for k in c if k.endswith("_slab")]
+
+
+class LazyGraph:
+    """``commit(compute())`` over static buffers, captured from its second
+    call, as PackedPrograms captures a key: the first call runs it eagerly
+    (what the capture records, so the graph equals it bit for bit); a first
+    call that launched a kernel's slab route keeps every later call eager;
+    the second call captures it and replays it, with ``compute`` alone as
+    the warm-up (so the warm-up writes no buffer); later calls replay it.
+    ``counts`` holds "captures", "replays" and "eager" (the calls run
+    eagerly)."""
+
+    def __init__(self, compute, commit, device, counters, counts, pool=None):
+        self.compute, self.commit = compute, commit
+        self.device = torch.device(device)
+        self.counters = tuple(counters)
+        self.counts = counts
+        self.pool = pool
+        self.graph = None
+        self.calls = 0
+        self.slab = False
+
+    def __call__(self):
+        if self.graph is None and (self.calls == 0 or self.slab):
+            before = slab_launches(self.counters)
+            self.commit(self.compute())
+            self.slab = self.slab or slab_launches(self.counters) != before
+            self.counts["eager"] += 1
+        else:
+            if self.graph is None:
+                self.graph = Graph(lambda: self.commit(self.compute()),
+                                   self.device, self.counters, self.counts,
+                                   warmup=self.compute, pool=self.pool)
+            self.graph()
+        self.calls += 1
+
+
+def pool_mb(pool):
+    """MB of device memory that the graph memory pool ``pool`` (a
+    torch.cuda.graph_pool_handle()) holds now, from the caching allocator's
+    segments; 0 for None."""
+    if pool is None:
+        return 0.0
+    pool = tuple(pool)
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == pool) / 2**20
 
 
 def _ref(source):

@@ -12,7 +12,10 @@ the kernel route bit for bit, the level route at rel 1e-12) and the
 rooted engine's (models/rooted_graph.py: one replay a call, the hand and
 the autograd routes) and the unrooted engine's (models/unrooted_graph.py:
 log_likelihoods, branch_gradients and phylo_gradients, one replay a call),
-and forest's surfaces (ops/forest_graph.py). The scale tools' K1 routes
+and forest's surfaces (ops/forest_graph.py), the streamed ascent's chunk
+programs (gp/streamed_graph.py), the hybrid marginals' program
+(gp/hybrid_graph.py) and EM's step (sbn/probability.py EMStepGraph), each
+bit for bit, and a failed capture of each raises. The scale tools' K1 routes
 on both sides of its float32 plan and a small gp_scale fit run here too.
 These tests need a CUDA card and skip without one. The file imports no JAX,
 so that it also runs on a machine with the card and no JAX installed:
@@ -1259,9 +1262,10 @@ def test_forest_split_gradient_repeats_bit_for_bit(dtype):
 @pytest.mark.cuda
 def test_streamed_ascent_on_card_matches_level_route():
     """run_branch_ascent_streamed(1e-6, 100, 100) on fluA, f64, on the kernel
-    route (K7 a chunk: 238 patterns in three chunks, the last padded) lands
-    within 1e-7 of the in-memory level-route fit on the card and of
-    libsbn_tpu's optimum; K7 launched, K8 and the twins did not."""
+    route (K7 a chunk: 238 patterns in three chunks, the last padded; by
+    the chunk programs' graphs, the engine's default) lands within 1e-7 of
+    the in-memory level-route fit on the card and of libsbn_tpu's optimum;
+    K7 launched, K8 and the twins did not."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     level = _gp_instance("fluA", "cuda", use_kernels=False).get_engine()
@@ -1271,7 +1275,8 @@ def test_streamed_ascent_on_card_matches_level_route():
     engine_kernels.reset_counters()
     m, sweeps = eng.run_branch_ascent_streamed(1e-6, 100, 100)
     torch.cuda.synchronize()
-    k7 = engine_kernels.LAUNCHES["populate_plvs"] - 1  # less finalize's
+    # Less finalize's launch and the statistics graph's capture warm-up.
+    k7 = engine_kernels.LAUNCHES["populate_plvs"] - 2
     assert k7 >= 3 * (sweeps + 1) and k7 % 3 == 0
     assert engine_kernels.LAUNCHES["golden_sweep"] == 0
     assert sum(engine_kernels.TWIN_CALLS.values()) == 0
@@ -1314,16 +1319,23 @@ def test_streamed_chunks_beyond_the_plan_take_the_slab_route():
     """K7's plan depends on the DAG, not on the chunk width: on the 600-taxon
     synthetic tree (_synthetic_gp), beyond the plan at f64, every chunk of
     the streamed ascent takes K7's slab route, and the fit lands where the
-    level route's streamed fit does."""
+    level route's streamed fit does. The statistics program, whose first
+    call ran the slab route, stays eager (no capture, no warm-up launch);
+    the derivative and objective programs are captured."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    from libsbn_tpu_torch.gp import streamed_graph
+
     eng = _synthetic_gp(600, 200)
     engine_kernels.reset_counters()
+    streamed_graph.reset_counters()
     m, sweeps = eng.run_branch_ascent_streamed(1e-2, 3, 64, finalize=False)
     torch.cuda.synchronize()
     assert engine_kernels.LAUNCHES["populate_plvs"] == 0
     slab = engine_kernels.LAUNCHES["populate_plvs_slab"]
     assert slab >= 4 * (sweeps + 1) and slab % 4 == 0
+    assert streamed_graph.COUNTS["captures"] == 2
+    assert streamed_graph.COUNTS["eager"] == slab + 2
     level = _synthetic_gp(600, 200)
     level.use_kernels = False
     m_level, sweeps_level = level.run_branch_ascent_streamed(
@@ -2243,7 +2255,8 @@ def test_gp_scale_small_on_card():
     ascent runs K7 + K8, the streamed K7, and the streamed marginal lies
     within the JAX tool's bound of the in-memory Newton ascent's (the
     ascent the JAX tool compares it with on the CPU; K8's golden section
-    takes another path and neither converges in 20 sweeps here)."""
+    takes another path and neither converges in 20 sweeps here); the
+    streamed ascent by its graphs equals its eager run bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     r = gp_scale.run(40, 1000, torch.float64, device="cuda", timing=False)
@@ -2251,3 +2264,247 @@ def test_gp_scale_small_on_card():
     assert "K7" in r["streamed"]["route"]
     assert r["newton"]["route"].startswith("level route")
     gp_scale.check(r, "newton")
+    gp_scale.check_graphs(r)
+
+
+# -- the streamed ascent's chunk programs, the hybrid marginals' program and
+# EM's step as CUDA graphs (gp/streamed_graph.py, gp/hybrid_graph.py,
+# sbn/probability.py EMStepGraph) ---------------------------------------------
+
+
+def _streamed(eng, bl0, memmap_dir=None):
+    """run_branch_ascent_streamed(1e-6, 100, 100) on fluA from bl0, without
+    finalize, with the counters at 0 first: (marginal, sweeps, branch
+    lengths, K7/K8 launches, the chunk programs' counts)."""
+    from libsbn_tpu_torch.gp import streamed_graph
+
+    eng.branch_lengths = bl0.copy()
+    engine_kernels.reset_counters()
+    streamed_graph.reset_counters()
+    m, sweeps = eng.run_branch_ascent_streamed(1e-6, 100, 100,
+                                               memmap_dir=memmap_dir,
+                                               finalize=False)
+    torch.cuda.synchronize()
+    return (m, sweeps, eng.branch_lengths.copy(),
+            {k: v for k, v in engine_kernels.LAUNCHES.items() if v},
+            dict(streamed_graph.COUNTS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("memmap", [False, True], ids=["host_ram", "memmap"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_streamed_graphs_equal_eager_on_card(dtype, memmap, tmp_path):
+    """The streamed ascent on fluA in chunks of 100 by its chunk programs'
+    graphs against cuda_graphs=False, bit for bit (marginal, sweeps, branch
+    lengths), A and B in host RAM or an np.memmap: three programs, each
+    called eagerly once and captured once; K7 once a chunk a statistics
+    refresh, as eagerly, plus the statistics capture's warm-up; no K8. The
+    graphs are gone after the call: the allocated memory back where it
+    was, the reserved memory too once the cache is emptied, and their pool
+    O(DAG nodes x chunk) while they lived."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    graph_eng, eager_eng = (_gp_instance("fluA", "cuda", dtype,
+                                         cuda_graphs=g).get_engine()
+                            for g in (True, False))
+    bl0 = graph_eng.branch_lengths.copy()
+    mm = str(tmp_path) if memmap else None
+    want = _streamed(eager_eng, bl0, mm)
+    _streamed(graph_eng, bl0 * 1.1, mm)  # K7's streams built, caches warm
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    allocated, reserved = (torch.cuda.memory_allocated(),
+                           torch.cuda.memory_reserved())
+    got = _streamed(graph_eng, bl0, mm)
+    assert got[:2] == want[:2]
+    np.testing.assert_array_equal(got[2], want[2])
+    assert want[4] == {"captures": 0, "replays": 0, "eager": 0}
+    assert got[4]["captures"] == 3 and got[4]["eager"] == 3
+    assert got[4]["replays"] > 3 * got[1]
+    k7 = want[3]["populate_plvs"]
+    assert k7 % 3 == 0 and k7 >= 3 * (want[1] + 1)
+    assert got[3] == {"populate_plvs": k7 + 1}
+    assert torch.cuda.memory_allocated() == allocated
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= reserved
+    held = graph_eng.last_streamed_graphs
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nodes = graph_eng.dag.node_count()
+    assert 0 < held["pool_mb"] <= 64 * nodes * 100 * itemsize / 2**20 + 20
+    assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_hybrid_graph_equals_eager_on_card(dtype):
+    """calculate_hybrid_marginals on fluA by the engine's hybrid program
+    against cuda_graphs=False, bit for bit: the first call eager, the
+    second a capture and one replay, a third one replay and no capture;
+    then chunks of 16 rows (65 combinations: five chunks, the last padded)
+    the same way, a program of its own, within rounding of one chunk of
+    65; at float64 within rel 1e-10 of the port's CPU run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from libsbn_tpu_torch.gp import hybrid_graph
+    from libsbn_tpu_torch.gp.quartet import quartet_hybrid_request_of
+
+    insts = [_gp_instance("fluA", dev, dtype, cuda_graphs=g)
+             for dev, g in (("cuda", True), ("cuda", False), ("cpu", False))]
+    bl = insts[0].get_engine().branch_lengths
+    bl = bl * np.random.default_rng(2).uniform(0.5, 1.5, bl.shape)
+    for inst in insts:
+        inst.get_engine().branch_lengths = bl.copy()
+    insts[2].calculate_hybrid_marginals()
+    cpu = insts[2].get_engine().hybrid_marginal_log_likelihoods.copy()
+    insts[1].calculate_hybrid_marginals()
+    want = insts[1].get_engine().hybrid_marginal_log_likelihoods.copy()
+    eng = insts[0].get_engine()
+    hybrid_graph.reset_counters()
+    counts = []
+    for _ in range(3):
+        eng.hybrid_marginal_log_likelihoods[:] = -np.inf
+        insts[0].calculate_hybrid_marginals()
+        np.testing.assert_array_equal(eng.hybrid_marginal_log_likelihoods,
+                                      want)
+        counts.append(dict(hybrid_graph.COUNTS))
+    assert counts == [{"captures": 0, "replays": 0, "eager": 1},
+                      {"captures": 1, "replays": 1, "eager": 1},
+                      {"captures": 1, "replays": 2, "eager": 1}]
+    fin = np.isfinite(want)
+    assert fin.sum() == 65
+    if dtype == torch.float64:
+        np.testing.assert_allclose(want[fin], cpu[fin], rtol=1e-10)
+    reqs = [quartet_hybrid_request_of(insts[0].dag, p, r, c) for p, r, c, _
+            in insts[0].dag.reverse_postorder_index_traversal()]
+    small = []
+    for e in (eng, insts[1].get_engine()):
+        e.populate_plvs()
+        for _ in range(3):
+            e.hybrid_marginal_log_likelihoods[:] = -np.inf
+            e.process_quartet_hybrid_requests(reqs, chunk=16)
+            small.append(e.hybrid_marginal_log_likelihoods.copy())
+    for got in small[1:]:
+        np.testing.assert_array_equal(got, small[0])
+    np.testing.assert_allclose(small[0][fin], want[fin],
+                               rtol=1e-12 if dtype == torch.float64 else 1e-5)
+    assert hybrid_graph.COUNTS["captures"] == 2
+    assert len(eng.hybrid_graphs.programs) == 2
+    assert eng.hybrid_graphs.held_mb() > 0
+
+
+@pytest.mark.cuda
+def test_em_graph_equals_eager_on_card():
+    """EM(0, 23) and EM(0.5, 100) on DS1.100_topologies by the step's graph
+    (the default) against cuda_graphs=False, bit for bit (scores and
+    parameters; EM runs in float64 only): one capture a call and one replay
+    an iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from libsbn_tpu_torch.sbn import probability as tprob
+
+    insts = []
+    for _ in range(2):
+        inst = libsbn_tpu_torch.UnrootedInstance("charlie")
+        inst.read_newick_file(f"{DATA}/DS1.100_topologies.nwk")
+        inst.process_loaded_trees()
+        insts.append(inst)
+    for alpha, iters in ((0.0, 23), (0.5, 100)):
+        tprob.reset_counters()
+        scores = insts[0].train_expectation_maximization(alpha, iters)
+        assert tprob.COUNTS == {"captures": 1, "replays": iters}
+        want = insts[1].train_expectation_maximization(alpha, iters,
+                                                       cuda_graphs=False)
+        assert tprob.COUNTS == {"captures": 1, "replays": iters}
+        np.testing.assert_array_equal(scores, want)
+        np.testing.assert_array_equal(insts[0].sbn_parameters,
+                                      insts[1].sbn_parameters)
+
+
+_PROGRAM_CAPTURE_FAILURE = r"""
+import json, sys
+import numpy as np
+import torch
+from libsbn_tpu_torch.gp import hybrid_graph, streamed_graph
+from libsbn_tpu_torch.sbn import probability as tprob
+from test_torch_cuda import DATA, _gp_instance
+import libsbn_tpu_torch
+
+which = sys.argv[1]
+
+
+def reads_host(fn):
+    def wrapped(*args):
+        float(torch.as_tensor(0.0, device="cuda") + 1)  # forbidden in capture
+        return fn(*args)
+    return wrapped
+
+
+out = {"error": None}
+if which == "streamed":
+    streamed_graph.chunk_obj = reads_host(streamed_graph.chunk_obj)
+    eng = _gp_instance("fluA", "cuda").get_engine()
+    bl0 = eng.branch_lengths.copy()
+    try:
+        eng.run_branch_ascent_streamed(1e-6, 100, 100, finalize=False)
+    except Exception as err:
+        out["error"] = type(err).__name__
+    out["unchanged"] = bool(np.array_equal(eng.branch_lengths, bl0))
+    out["counts"] = dict(streamed_graph.COUNTS)
+elif which == "hybrid":
+    hybrid_graph.hybrid_chunk = reads_host(hybrid_graph.hybrid_chunk)
+    inst = _gp_instance("fluA", "cuda")
+    inst.calculate_hybrid_marginals()
+    eng = inst.get_engine()
+    eng.hybrid_marginal_log_likelihoods[:] = -np.inf
+    try:
+        inst.calculate_hybrid_marginals()
+    except Exception as err:
+        out["error"] = type(err).__name__
+    out["unchanged"] = bool(np.all(np.isneginf(
+        eng.hybrid_marginal_log_likelihoods)))
+    out["counts"] = dict(hybrid_graph.COUNTS)
+    out["programs"] = len(eng.hybrid_graphs.programs)
+else:
+    tprob._em_step = reads_host(tprob._em_step)
+    inst = libsbn_tpu_torch.UnrootedInstance("charlie")
+    inst.read_newick_file(f"{DATA}/DS1.100_topologies.nwk")
+    inst.process_loaded_trees()
+    before = np.array(inst.sbn_parameters, copy=True)
+    try:
+        inst.train_expectation_maximization(0.0, 5)
+    except Exception as err:
+        out["error"] = type(err).__name__
+    out["unchanged"] = bool(np.array_equal(inst.sbn_parameters, before))
+    out["counts"] = dict(tprob.COUNTS)
+print(json.dumps(out))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("program", ["streamed", "hybrid", "em"])
+def test_program_capture_failure_raises(program):
+    """A capture that fails (a host read inside the program, which stream
+    capture forbids) raises out of the entry point, and nothing falls back
+    to eager launches: the streamed ascent's lengths, the hybrid values and
+    EM's parameters as they were, no replay of the failed program, no
+    hybrid program kept. In a process of its own, so that the failed
+    capture touches no other test."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here, os.path.dirname(here), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run([sys.executable, "-c", _PROGRAM_CAPTURE_FAILURE,
+                          program], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-4000:]
+    got = json.loads(out.stdout.splitlines()[-1])
+    assert got["error"] and got["unchanged"], got
+    if program == "hybrid":
+        assert got["counts"]["captures"] == 0 and got["programs"] == 0
+    if program == "em":
+        assert got["counts"] == {"captures": 0, "replays": 0}

@@ -14,7 +14,12 @@ plain calls over the same buffers (``_run_branch_ascent_graphed``), so:
   the K7/K8 twins): marginal, branch lengths, sweeps, the converged flag
   and the PLVs bit for bit;
 * ``_newton_sweep`` run for all NEWTON_ITERS (as a graph must) against the
-  early-exit version, bit for bit.
+  early-exit version, bit for bit;
+* the quartet hybrid marginals' program over static buffers
+  (gp/hybrid_graph.py, as a card runs it from an engine's second call):
+  against libsbn_tpu in chunks smaller than the combinations (the last
+  padded with rows of zeros) and in one, at atol 1e-12, and against the
+  eager program bit for bit on both routes, reading each call's PLVs.
 """
 
 import numpy as np
@@ -126,3 +131,106 @@ def test_cuda_graphs_switch_is_ignored_on_cpu(data_dir):
     eng = make_port(data_dir, *FIVE).get_engine()
     eng.run_branch_ascent(1e-6, 5)
     assert eng.graphs is None and eng.cuda_graphs
+
+
+# -- the quartet hybrid marginals' program (gp/hybrid_graph.py) -------------
+# tests/test_gp_hybrid.py's two DAGs and their length seeds; 9 and 13
+# quartet rows.
+HYBRID = {"simplest": 7, "second_simplest": 11}
+
+
+def hybrid_pair(data_dir, which, **kw):
+    """(libsbn_tpu instance, port instance) on a hybrid DAG at the seeded
+    lengths, PLVs populated; ``kw`` goes to the port's make_engine."""
+    files = ("7-taxon-slice-of-ds1.fasta",
+             f"{which.replace('_', '-')}-hybrid-marginal.nwk")
+    jinst, inst = make_pair(data_dir, *files, **kw)
+    bl = np.random.default_rng(HYBRID[which]).uniform(
+        1e-6, 0.1, inst.dag.gpcsp_count_with_fake())
+    for i in (jinst, inst):
+        i.get_engine().branch_lengths = bl.copy()
+        i.populate_plvs()
+    return jinst, inst
+
+
+def hybrid_requests(inst, quartet_hybrid_request_of):
+    return [quartet_hybrid_request_of(inst.dag, p, r, c)
+            for p, r, c, _ in inst.dag.reverse_postorder_index_traversal()]
+
+
+def hybrid_values(eng, reqs, chunk, graphed):
+    eng.hybrid_marginal_log_likelihoods[:] = -np.inf
+    eng._process_hybrid(reqs, chunk, graphed=graphed)
+    return eng.hybrid_marginal_log_likelihoods.copy()
+
+
+@pytest.mark.parametrize("chunk", [2, 4, 4096])
+@pytest.mark.parametrize("which", sorted(HYBRID))
+def test_padded_hybrid_program_matches_jax(data_dir, which, chunk):
+    """Chunks of 2 and 4 rows (fewer than the 9 and 13 combinations: the
+    last chunk padded with rows of zeros, as libsbn_tpu pads it) and of
+    4,096 (one unpadded chunk): the program over static buffers, called
+    three times (its first call eager, then the program made and reused),
+    against libsbn_tpu's process_quartet_hybrid_requests with the same
+    chunk at atol 1e-12, and each call equal to the eager route bit for
+    bit. On the CPU a Graph is a plain call: only the first call's chunks
+    count as eager."""
+    from libsbn_tpu.gp.quartet import quartet_hybrid_request_of as jq
+    from libsbn_tpu_torch.gp import hybrid_graph
+    from libsbn_tpu_torch.gp.quartet import quartet_hybrid_request_of as tq
+
+    jinst, inst = hybrid_pair(data_dir, which)
+    jeng, eng = jinst.get_engine(), inst.get_engine()
+    jeng.process_quartet_hybrid_requests(hybrid_requests(jinst, jq),
+                                         chunk=chunk)
+    want = np.asarray(jeng.hybrid_marginal_log_likelihoods)
+    fin = np.isfinite(want)
+    assert fin.any()
+    reqs = hybrid_requests(inst, tq)
+    eager = hybrid_values(eng, reqs, chunk, graphed=False)
+    hybrid_graph.reset_counters()
+    for _ in range(3):
+        got = hybrid_values(eng, reqs, chunk, graphed=True)
+        np.testing.assert_array_equal(got, eager)
+        np.testing.assert_array_equal(np.isfinite(got), fin)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=0, atol=1e-12)
+    rows = 9 if which == "simplest" else 13
+    assert hybrid_graph.COUNTS == {"captures": 0, "replays": 0,
+                                   "eager": -(-rows // chunk)}
+    graphs = eng.hybrid_graphs
+    assert len(graphs.programs) == 1 and not graphs.seen
+    assert graphs.held_mb() > 0
+
+
+@pytest.mark.parametrize("use_kernels", [False, True],
+                         ids=["level", "kernel_twins"])
+def test_hybrid_program_reads_each_calls_plvs(data_dir, use_kernels):
+    """populate_plvs replaces the engine's PLV tensors: once the program is
+    made, a call at new branch lengths (new PLVs, new parameters) equals the
+    eager route at those lengths bit for bit, on both routes."""
+    from libsbn_tpu_torch.gp.quartet import quartet_hybrid_request_of as tq
+
+    _, inst = hybrid_pair(data_dir, "second_simplest",
+                          use_kernels=use_kernels)
+    eng = inst.get_engine()
+    reqs = hybrid_requests(inst, tq)
+    for _ in range(2):
+        hybrid_values(eng, reqs, 4, graphed=True)
+    eng.branch_lengths = random_lengths(eng.branch_lengths.size, seed=9)
+    eng.q = eng.q * 0.9
+    inst.populate_plvs()
+    got = hybrid_values(eng, reqs, 4, graphed=True)
+    want = hybrid_values(eng, reqs, 4, graphed=False)
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got).sum() == 10
+
+
+def test_hybrid_marginals_stay_eager_on_cpu(data_dir):
+    """GPInstance.calculate_hybrid_marginals on the CPU runs the eager
+    program: no hybrid graphs are made."""
+    inst = make_port(data_dir, "7-taxon-slice-of-ds1.fasta",
+                     "simplest-hybrid-marginal.nwk")
+    inst.calculate_hybrid_marginals()
+    eng = inst.get_engine()
+    assert eng.hybrid_graphs is None
+    assert np.isfinite(eng.hybrid_marginal_log_likelihoods).sum() == 6

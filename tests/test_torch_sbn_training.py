@@ -101,6 +101,55 @@ def test_em_function_matches_libsbn_tpu_with_epsilon(pair):
     rel_close(tparams.numpy(), np.asarray(jparams), 1e-12)
 
 
+@pytest.mark.parametrize("alpha, max_iter, epsilon, golden, atol", [
+    (0.0, 23, 0.0, EXPECTED_EM_0_23, 1e-12),
+    (0.5, 100, 0.0, EXPECTED_EM_05_100, 1e-5),
+    (0.3, 50, 1e-5, None, None),
+])
+def test_em_step_graph_equals_eager(pair, alpha, max_iter, epsilon, golden,
+                                    atol):
+    """EM with its step over a static parameter buffer (EMStepGraph, as a
+    card runs it; on the CPU the same function over the same buffers)
+    against the eager step: parameters and scores bit for bit; and against
+    libsbn_tpu's expectation_maximization at rel 1e-12 and the goldens at
+    their tolerances."""
+    j, t = pair
+    reps, counts = t._dense_counter()
+    seg = t.sbn_support.segment_ids()
+    G = t.sbn_support.gpcsp_count
+    tprob.reset_counters()
+    (gp, gs), (ep, es) = (
+        tprob._expectation_maximization(
+            torch.as_tensor(reps).long(), counts, torch.as_tensor(seg), G,
+            alpha, max_iter, epsilon, False, graphed=graphed)
+        for graphed in (True, False))
+    assert tprob.COUNTS == {"captures": 0, "replays": 0}
+    assert torch.equal(gp, ep)
+    np.testing.assert_array_equal(gs, es)
+    jparams, jscores = jprob.expectation_maximization(
+        reps, counts, seg, G, alpha=alpha, max_iter=max_iter,
+        score_epsilon=epsilon)
+    assert len(gs) == len(jscores)
+    rel_close(gs, jscores, 1e-12)
+    rel_close(gp.numpy(), np.asarray(jparams), 1e-12)
+    if golden is not None:
+        t.sbn_parameters = gp.numpy().copy()
+        np.testing.assert_allclose(t.calculate_sbn_probabilities(), golden,
+                                   atol=atol)
+
+
+def test_em_cuda_graphs_switch_keeps_the_cpu_eager(pair):
+    """On the CPU train_expectation_maximization runs the eager step with
+    or without cuda_graphs, and both give the same scores."""
+    _, t = pair
+    tprob.reset_counters()
+    a = t.train_expectation_maximization(0.0, 5, device="cpu")
+    b = t.train_expectation_maximization(0.0, 5, device="cpu",
+                                         cuda_graphs=False)
+    np.testing.assert_array_equal(a, b)
+    assert tprob.COUNTS == {"captures": 0, "replays": 0}
+
+
 def test_em_degenerate_support_scores_zero(data_dir):
     """One 3-taxon tree: the score is exactly 0 every iteration, and the
     monotonicity check falls back to the absolute change (no error)."""
