@@ -35,6 +35,9 @@ route stays eager), and replays it:
   enqueued, before any other replay: the engine's rooted and unrooted
   graphs share one pool.
 
+A call opens the spans of an unrooted call (models/unrooted_graph.py), in
+the same order.
+
 utils/graphs.py's ``PackedPrograms`` does the packing and the capture
 policy, and ``Graph`` the capture (warm-up, pool, launch counts). On the
 CPU a Graph calls its function as is: the CPU tests run the packed path
@@ -48,6 +51,7 @@ import torch
 
 from ..ops import pruning_jc, pruning_vjp
 from ..utils.graphs import PackedPrograms, host_f64
+from ..utils.profiling import annotate
 
 # Captures and replays of the rooted programs; reset_counters() sets them
 # to 0.
@@ -77,13 +81,16 @@ def model_leaves(spec, params):
 def model_inputs(engine, params):
     """(the parameter leaves, GTR's eigensystem as host arrays or ()) that
     a graph of ``engine`` packs for ``params``; the eigensystem is solved
-    from the leaves' host copies, so the card is read once a leaf."""
-    leaves = model_leaves(engine.spec, params)
-    host = {}
-    for (group, name), x in leaves:
-        host.setdefault(group, {})[name] = torch.from_numpy(x)
-    eigen = engine._shared_eigen(host)
-    return leaves, () if eigen is None else tuple(x.numpy() for x in eigen)
+    from the leaves' host copies, so the card is read once a leaf. Span
+    ``libsbn.engine.model_inputs``."""
+    with annotate("libsbn.engine.model_inputs"):
+        leaves = model_leaves(engine.spec, params)
+        host = {}
+        for (group, name), x in leaves:
+            host.setdefault(group, {})[name] = torch.from_numpy(x)
+        eigen = engine._shared_eigen(host)
+        return leaves, () if eigen is None else tuple(x.numpy()
+                                                      for x in eigen)
 
 
 def unpack_model(names, views):
@@ -107,8 +114,11 @@ class RootedGraphs:
     def log_likelihoods(self, sched, bounds, ratios, rates, params):
         """(LLs (B,), log-det-Jacobians (B,)) as rooted_log_likelihoods
         computes them, by one replay."""
-        lls, ldjs = self._run("ll", sched, (bounds, ratios, rates), params)
-        return lls.clone(), ldjs.clone()
+        with annotate("libsbn.engine.call"):
+            lls, ldjs = self._run("ll", sched, (bounds, ratios, rates),
+                                  params)
+            with annotate("libsbn.engine.clone"):
+                return lls.clone(), ldjs.clone()
 
     def phylo_gradients(self, sched, bounds, ratios, rates, params,
                         strict_clock, route="hand"):
@@ -116,9 +126,11 @@ class RootedGraphs:
         autograd route, by one replay."""
         if route not in ("hand", "autograd"):
             raise ValueError(f"route must be hand or autograd, got {route!r}")
-        out = self._run((route, bool(strict_clock)), sched,
-                        (bounds, ratios, rates), params)
-        return {k: v.clone() for k, v in out.items()}
+        with annotate("libsbn.engine.call"):
+            out = self._run((route, bool(strict_clock)), sched,
+                            (bounds, ratios, rates), params)
+            with annotate("libsbn.engine.clone"):
+                return {k: v.clone() for k, v in out.items()}
 
     def _run(self, route, sched, arrays, params):
         """Fill the program's buffers (capturing it first if its key is

@@ -36,6 +36,15 @@ utils/graphs.py), and replays it:
   enqueued, before any other replay: the engine's unrooted and rooted
   graphs share one pool.
 
+A call's spans (utils/profiling.py ``annotate``, recorded only under
+torch.profiler; none inside the captured function): ``libsbn.engine.call``
+around the whole call (its time outside the others is the host's own
+dispatch), and inside it, in order, ``libsbn.engine.model_inputs`` (the
+parameters to the host, GTR's eigen solve), utils/graphs.py's
+``libsbn.graphs.pack``, ``upload_ints`` (when the schedule object differs
+from the key's last call's), ``upload_floats`` and ``replay`` (``eager``
+or ``capture`` on a key's first calls), then ``libsbn.engine.clone``.
+
 The schedule is checked once per schedule object before the replay
 (``engine._sched_cache``). On the CPU a Graph calls its function as is:
 the CPU tests run the packed path against the eager one.
@@ -47,6 +56,7 @@ import numpy as np
 
 from ..ops import pruning_generic, pruning_jc, pruning_vjp
 from ..utils.graphs import PackedPrograms, host_f64
+from ..utils.profiling import annotate
 from .rooted_graph import model_inputs, unpack_model
 
 # Captures and replays of the unrooted programs; reset_counters() sets
@@ -74,17 +84,24 @@ class UnrootedGraphs:
 
     def log_likelihoods(self, sched, branch_lengths, params):
         """(B,) LLs as log_likelihoods computes them, by one replay."""
-        return self.run("ll", sched, branch_lengths, params).clone()
+        with annotate("libsbn.engine.call"):
+            lls = self.run("ll", sched, branch_lengths, params)
+            with annotate("libsbn.engine.clone"):
+                return lls.clone()
 
     def branch_gradients(self, sched, branch_lengths, params):
         """(LLs (B,), branch gradients (B, N-1)), by one replay."""
-        lls, grads = self.run("bgrad", sched, branch_lengths, params)
-        return lls.clone(), grads.clone()
+        with annotate("libsbn.engine.call"):
+            lls, grads = self.run("bgrad", sched, branch_lengths, params)
+            with annotate("libsbn.engine.clone"):
+                return lls.clone(), grads.clone()
 
     def phylo_gradients(self, sched, branch_lengths, params):
         """phylo_gradients' dict, by one replay."""
-        out = self.run("phylo", sched, branch_lengths, params)
-        return {k: v.clone() for k, v in out.items()}
+        with annotate("libsbn.engine.call"):
+            out = self.run("phylo", sched, branch_lengths, params)
+            with annotate("libsbn.engine.clone"):
+                return {k: v.clone() for k, v in out.items()}
 
     def run(self, route, sched, branch_lengths, params):
         """Fill the route's buffers (capturing it first if its key is new)

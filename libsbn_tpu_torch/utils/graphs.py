@@ -65,6 +65,15 @@ programs hold, and no more:
 function over buffers its owner keeps (the streamed GP ascent's chunk
 programs, gp/streamed_graph.py), and ``pool_mb`` reads what a memory pool
 holds from the caching allocator's segments.
+
+Spans (utils/profiling.py ``annotate``, recorded only while torch.profiler
+records; none inside a captured function): ``libsbn.graphs.pack`` (a
+PackedPrograms call's host arrays made flat), ``libsbn.graphs.upload_ints``
+and ``libsbn.graphs.upload_floats`` (one a copy into a static buffer, so
+their count is ``uploads``'), ``libsbn.graphs.eager`` (a call run eagerly),
+``libsbn.graphs.capture`` (a capture with its warm-up) and
+``libsbn.graphs.replay`` (a replay and its counts; on a device that is not
+CUDA, the plain call that stands in for it).
 """
 
 from __future__ import annotations
@@ -75,6 +84,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from .profiling import annotate
 
 
 class Graph:
@@ -105,20 +116,23 @@ class Graph:
         """Run fn once: a replay on a CUDA device (capturing first on the
         first call), a plain call elsewhere. Returns fn's outputs."""
         if self.device.type != "cuda":
-            self.outputs = self.fn()
+            with annotate("libsbn.graphs.replay"):
+                self.outputs = self.fn()
             return self.outputs
         if self.graph is None:
             self._capture()
-        self.graph.replay()
-        self.replays += 1
-        self.counts["replays"] += 1
-        for counter, n in zip(self.counters, self.counted):
-            for name, k in n.items():
-                counter[name] += k
+        with annotate("libsbn.graphs.replay"):
+            self.graph.replay()
+            self.replays += 1
+            self.counts["replays"] += 1
+            for counter, n in zip(self.counters, self.counted):
+                for name, k in n.items():
+                    counter[name] += k
         return self.outputs
 
     def _capture(self):
-        with torch.cuda.device(self.device):
+        with annotate("libsbn.graphs.capture"), torch.cuda.device(
+                self.device):
             side = _side_stream()
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -212,37 +226,47 @@ class PackedPrograms:
         (the schedule); on a replay, the same object as the last call's
         skips their copy. Returns the function's outputs (in the pool on
         a replay)."""
-        ints = [np.asarray(x) for x in ints]
-        floats = [np.asarray(x, np.float64) for x in floats]
-        int_shapes = tuple(x.shape for x in ints)
-        float_shapes = tuple(x.shape for x in floats)
-        key = (key, int_shapes, float_shapes)
-        prog = self.programs.get(key)
+        with annotate("libsbn.graphs.pack"):
+            ints = [np.asarray(x) for x in ints]
+            floats = [np.asarray(x, np.float64) for x in floats]
+            int_shapes = tuple(x.shape for x in ints)
+            float_shapes = tuple(x.shape for x in floats)
+            key = (key, int_shapes, float_shapes)
+            prog = self.programs.get(key)
+            copy_ints = (prog is None or source is None or prog.source is None
+                         or prog.source() is not source)
+            flat_ints = _flat(ints, np.int32) if copy_ints else None
+            flat_floats = _flat(floats, np.float64)
         if prog is not None:
-            if source is None or prog.source is None or (
-                    prog.source() is not source):
-                prog.ints.copy_(torch.from_numpy(_flat(ints, np.int32)))
+            if copy_ints:
+                with annotate("libsbn.graphs.upload_ints"):
+                    prog.ints.copy_(torch.from_numpy(flat_ints))
                 prog.source = _ref(source)
                 self.uploads["ints"] += 1
-            prog.floats.copy_(torch.from_numpy(_flat(floats, np.float64)))
+            with annotate("libsbn.graphs.upload_floats"):
+                prog.floats.copy_(torch.from_numpy(flat_floats))
             self.uploads["floats"] += 1
             return prog.graph()
-        ints_t = torch.tensor(_flat(ints, np.int32), device=self.device)
-        floats_t = torch.tensor(_flat(floats, np.float64), device=self.device)
+        with annotate("libsbn.graphs.upload_ints"):
+            ints_t = torch.tensor(flat_ints, device=self.device)
+        with annotate("libsbn.graphs.upload_floats"):
+            floats_t = torch.tensor(flat_floats, device=self.device)
         self.uploads["ints"] += 1
         self.uploads["floats"] += 1
         fn = make(_views(ints_t, int_shapes), _views(floats_t, float_shapes))
         state = self.seen.get(key)
         if state is None:  # the first call
             slabs = slab_launches(self.counters)
-            out = fn()
+            with annotate("libsbn.graphs.eager"):
+                out = fn()
             self.seen[key] = ("eager" if slab_launches(self.counters) != slabs
                               else "seen")
             if len(self.seen) > SEEN_CAP:
                 self.seen.popitem(last=False)
             return out
         if state == "eager":
-            return fn()
+            with annotate("libsbn.graphs.eager"):
+                return fn()
         del self.seen[key]
         prog = Packed(Graph(fn, self.device, self.counters, self.counts,
                             pool=self.pool), ints_t, floats_t, _ref(source))
@@ -281,7 +305,8 @@ class LazyGraph:
     def __call__(self):
         if self.graph is None and (self.calls == 0 or self.slab):
             before = slab_launches(self.counters)
-            self.commit(self.compute())
+            with annotate("libsbn.graphs.eager"):
+                self.commit(self.compute())
             self.slab = self.slab or slab_launches(self.counters) != before
             self.counts["eager"] += 1
         else:

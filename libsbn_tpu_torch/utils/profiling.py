@@ -6,7 +6,8 @@ The counterpart of libsbn_tpu/utils/profiling.py, with the same names:
     card is present, its CUDA activity) and writes a Chrome trace into a
     directory, so a block's kernels can be read by name and time;
   * ``annotate``: a named ``torch.profiler.record_function`` span that
-    shows up inside the trace;
+    shows up inside the trace, and costs nearly nothing while no profiler
+    records; the program's spans (named ``libsbn.<layer>.<what>``) use it;
   * ``PhaseTimer``: accumulates host wall time per named phase. With
     ``sync`` it synchronises the devices of the tensors it is handed before
     it stops the clock, since a CUDA call returns before its kernels have
@@ -170,11 +171,21 @@ def device_trace(logdir: str):
         os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
+# What annotate returns while no profiler records: one shared context that
+# does nothing (a nullcontext can be entered again and again).
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named span inside a device trace (torch.profiler.record_function)."""
-    with torch.profiler.record_function(name):
-        yield
+    """A named span on torch.profiler's timeline, the program's one span
+    call: ``torch.profiler.record_function(name)`` while a torch.profiler
+    session records (``device_trace``, or any other), so the span shares
+    the device events' clock; otherwise a shared context that does nothing,
+    which costs a check of the profiler's state and no more. The hot path
+    opens it; nothing a CUDA graph captures does."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 class PhaseTimer:

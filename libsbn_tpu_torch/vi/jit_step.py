@@ -33,6 +33,16 @@ the dp devices of a local mesh through K1's sharded wrapper, and over the
 ranks of a torch.distributed job with a global mesh
 (parallel/distributed.py), where the step makes explicit the collectives
 that XLA inserts into the JAX package's step.
+
+JitVBPI's host work opens spans (utils/profiling.py ``annotate``, recorded
+only under torch.profiler; none inside a captured step):
+``libsbn.vbpi.wait_params`` (the wait for the last window's parameters),
+``libsbn.vbpi.sample`` (the sampler's refresh and draws),
+``libsbn.vbpi.lower`` (the topologies' lowering, cached by key), with one
+``libsbn.vbpi.lower_miss`` a cache miss (``ARTIFACTS`` counts hits and
+misses), ``libsbn.vbpi.pack`` (the window's host arrays) and
+``libsbn.vbpi.params_copy`` (the start of the parameters' copy to the
+host); vi/step_graph.py's copies and replay open utils/graphs.py's.
 """
 
 from __future__ import annotations
@@ -53,9 +63,19 @@ from ..parallel.sharding import check_mesh
 from ..sbn import gradients as sbn_gradients
 from ..sbn import probability as sbn_probability
 from ..sbn.sampling import NativeSBNSampler
+from ..utils.profiling import annotate
 from . import step_graph
 
 PRIOR_RATE = 10.0
+
+# Lookups of JitVBPI's per-topology artifact cache (_topology_artifacts):
+# its hit rate without a profiler. reset_counters() sets them to 0.
+ARTIFACTS = {"hits": 0, "misses": 0}
+
+
+def reset_counters():
+    for name in ARTIFACTS:
+        ARTIFACTS[name] = 0
 
 
 class AdamState(NamedTuple):
@@ -553,7 +573,16 @@ class JitVBPI:
         split-index column by construction, psp_indexer.cpp:31-48)."""
         cached = self._artifact_cache.get(key)
         if cached is not None:
+            ARTIFACTS["hits"] += 1
             return cached
+        ARTIFACTS["misses"] += 1
+        with annotate("libsbn.vbpi.lower_miss"):
+            artifacts = self._lower_topology(key, top)
+        self._artifact_cache[key] = artifacts
+        return artifacts
+
+    def _lower_topology(self, key, top):
+        """_topology_artifacts' miss: the lowering of one topology."""
         support = self.inst.sbn_support
         psp = self.statics.psp
         rep = None
@@ -593,10 +622,8 @@ class JitVBPI:
         touched = sbn_gradients.touched_segments_of(
             support, rep[None], pad_to=4 * L
         )[0]
-        artifacts = (np.asarray(post_children, np.int32), branch_rep, rep,
-                     touched)
-        self._artifact_cache[key] = artifacts
-        return artifacts
+        return (np.asarray(post_children, np.int32), branch_rep, rep,
+                touched)
 
     def _get_native_sampler(self):
         if not hasattr(self, "_native_sampler"):
@@ -611,21 +638,26 @@ class JitVBPI:
         and lower them: a list of per-topology artifact tuples."""
         # Refresh the sampler. Prefer the native bulk sampler: it emits
         # canonical parent-id vectors that key the artifact cache directly.
-        self.inst.sbn_parameters = np.array(sbn_params_np)
-        native_sampler = self._get_native_sampler()
-        native_sampler.refresh_parameters(self.inst.sbn_parameters)
-        pvs = native_sampler.sample_parent_vectors(count, rooted=False)
-        if pvs is not None:
-            self.last_sampler = "native"
-            return [self._topology_artifacts(tuple(map(int, row)))
-                    for row in pvs]
-        # The reference's host algorithm, when the native library is
-        # unavailable (not a device fallback).
-        self.last_sampler = "python"
-        self.inst._sampler = None
-        sampler = self.inst._get_sampler()
-        return [self._topology_artifacts(sampler.sample_topology(rooted=False))
-                for _ in range(count)]
+        with annotate("libsbn.vbpi.sample"):
+            self.inst.sbn_parameters = np.array(sbn_params_np)
+            native_sampler = self._get_native_sampler()
+            native_sampler.refresh_parameters(self.inst.sbn_parameters)
+            pvs = native_sampler.sample_parent_vectors(count, rooted=False)
+            if pvs is not None:
+                self.last_sampler = "native"
+            else:
+                # The reference's host algorithm, when the native library
+                # is unavailable (not a device fallback); its draws do not
+                # depend on the lowering, so they are all made first.
+                self.last_sampler = "python"
+                self.inst._sampler = None
+                sampler = self.inst._get_sampler()
+                tops = [sampler.sample_topology(rooted=False)
+                        for _ in range(count)]
+        with annotate("libsbn.vbpi.lower"):
+            keys = tops if pvs is None else (tuple(map(int, row))
+                                             for row in pvs)
+            return [self._topology_artifacts(key) for key in keys]
 
     def _host_sample_from(self, sbn_params_np, count=None):
         """Sample topologies from an explicit host-side SBN parameter vector
@@ -647,14 +679,15 @@ class JitVBPI:
         pinned memory without blocking on a card, so a later step's sampler
         finds it there; after a graph's replay, in order on the same stream.
         One copy per version of the state."""
-        p = self.state.sbn_params
-        if p.device.type == "cuda":
-            buf = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
-            buf.copy_(p, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(p.device))
-        else:
-            buf, event = p.clone(), None
+        with annotate("libsbn.vbpi.params_copy"):
+            p = self.state.sbn_params
+            if p.device.type == "cuda":
+                buf = torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
+                buf.copy_(p, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(p.device))
+            else:
+                buf, event = p.clone(), None
         self._params_copy = (self._version, buf, event)
 
     def _current_params_copy(self):
@@ -668,7 +701,8 @@ class JitVBPI:
     def _wait(params_copy) -> np.ndarray:
         _, buf, event = params_copy
         if event is not None:
-            event.synchronize()
+            with annotate("libsbn.vbpi.wait_params"):
+                event.synchronize()
         return buf.numpy()
 
     def _host_params(self) -> np.ndarray:
@@ -707,9 +741,10 @@ class JitVBPI:
         to the device in one copy, eps and betas in one more; then one
         replay of the window's graph on the graph route, else
         vbpi_train_steps_packed eagerly. Returns metrics stacked to (K,)."""
-        packed, shapes = pack_ints(ints_k)
-        floats = np.concatenate([np.ravel(eps_k), np.ravel(betas)]).astype(
-            _numpy_dtype(self.dtype))
+        with annotate("libsbn.vbpi.pack"):
+            packed, shapes = pack_ints(ints_k)
+            floats = np.concatenate([np.ravel(eps_k), np.ravel(betas)]
+                                    ).astype(_numpy_dtype(self.dtype))
         if self.graphs is not None:
             metrics = self.graphs.run(packed, floats, shapes, eps_k.shape)
         else:
@@ -751,10 +786,11 @@ class JitVBPI:
         self._pending_sample = None
         K, P = int(n_steps), self.particle_count
         artifacts = self._sample_artifacts(self._host_params(), K * P)
-        ints = tuple(np.stack(column).reshape((K, P) + column[0].shape)
-                     for column in zip(*artifacts))
-        eps_k = self.rng.standard_normal((K, P, ints[1].shape[-1]))
-        betas = np.broadcast_to(np.asarray(beta, dtype=np.float64), (K,))
+        with annotate("libsbn.vbpi.pack"):
+            ints = tuple(np.stack(column).reshape((K, P) + column[0].shape)
+                         for column in zip(*artifacts))
+            eps_k = self.rng.standard_normal((K, P, ints[1].shape[-1]))
+            betas = np.broadcast_to(np.asarray(beta, dtype=np.float64), (K,))
         return self._window(ints, eps_k, betas)
 
     def step_overlapped(self, beta: float = 1.0):

@@ -15,7 +15,8 @@ length K and replays it:
   its end, and ``assign`` copies a state into them between windows;
 * the window's inputs are two static buffers, the packed ints (K, P, W)
   and the floats (eps (K, P, B), then betas (K,)), each filled by one
-  host-to-device copy before the replay;
+  host-to-device copy before the replay (spans ``libsbn.graphs.upload_ints``
+  and ``libsbn.graphs.upload_floats``, as utils/graphs.py's);
 * before a capture, one step of the window runs on a side stream and its
   result is dropped, its launches counted as any launch is;
 * each graph has its own memory pool; the metrics are copied out of it
@@ -36,6 +37,7 @@ import torch
 
 from ..ops import pruning, pruning_jc
 from ..utils.graphs import Graph
+from ..utils.profiling import annotate
 
 # Captures and replays of window graphs, so a run can show that a window
 # was one replay. reset_counters() sets them to 0.
@@ -112,15 +114,19 @@ class StepGraphs:
             out = window.graph()
             self.windows[K] = window
         else:
-            window.packed.copy_(torch.from_numpy(packed))
-            window.floats.copy_(torch.from_numpy(floats))
+            with annotate("libsbn.graphs.upload_ints"):
+                window.packed.copy_(torch.from_numpy(packed))
+            with annotate("libsbn.graphs.upload_floats"):
+                window.floats.copy_(torch.from_numpy(floats))
             out = window.graph()
         return dict(zip(window.names, out.clone()))
 
     def _new_window(self, packed, floats, shapes, eps_shape):
         dev = self.device
-        packed_t = torch.from_numpy(packed).to(dev)
-        floats_t = torch.from_numpy(floats).to(dev)
+        with annotate("libsbn.graphs.upload_ints"):
+            packed_t = torch.from_numpy(packed).to(dev)
+        with annotate("libsbn.graphs.upload_floats"):
+            floats_t = torch.from_numpy(floats).to(dev)
         n = math.prod(eps_shape)
         eps_t, betas_t = floats_t[:n].view(eps_shape), floats_t[n:]
         names = []
