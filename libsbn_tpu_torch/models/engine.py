@@ -81,6 +81,7 @@ from ..ops import substitution as subst_ops
 from ..ops import transforms
 from ..ops.schedule import BatchedSchedule
 from ..utils.device import DEFAULT_DEVICE, compute_device
+from ..utils.graphs import host_f64
 from . import rooted_graph, unrooted_graph
 
 HEIGHTS_METHODS = ("sweeps", "squaring")
@@ -213,7 +214,7 @@ class LikelihoodEngine:
         """Node transition matrices (B, N1, K, 4, 4) in the working dtype.
         Q: (4, 4) or per tree (B, 4, 4); freqs likewise; rates: (K,) or
         (B, K); bl_padded: (B, N1); eigen: GTR's eigensystem of Q in the
-        working dtype (``_gtr_eigen``), solved ahead, or None.
+        working dtype (``_shared_eigen``), solved ahead, or None.
 
         GTR exponentiates through ``expm_transition`` with times bl x rate
         formed in the working dtype (as the JAX engine, engine.py:112-116);
@@ -231,23 +232,22 @@ class LikelihoodEngine:
             rates.to(dt),
         )
 
-    def _gtr_eigen(self, Q, freqs):
-        """The f64 eigensystem of a shared GTR Q as ``_node_P`` solves it
-        (of Q and freqs in the working dtype), on the host."""
-        return subst_ops.eigen_f64(Q.to(self.dtype), freqs.to(self.dtype))
-
     def _shared_eigen(self, params):
         """GTR's eigensystem of the shared parameters' Q, (evals (1, 4),
-        V (1, 4, 4), V^-1 (1, 4, 4)) float64 on the host: one LAPACK solve
-        of Q built on the host. Every GTR call solves it ahead so (the
-        graphs pack it into their buffers, the eager calls copy it to the
-        device), and the per-tree copies of the model gradients share it.
-        None for JC69 and for per-tree rows, whose Qs are solved where they
-        are used."""
+        V (1, 4, 4), V^-1 (1, 4, 4)) float64 on the host, as ``_node_P``
+        solves it (of Q and freqs in the working dtype): one NumPy pass from
+        the parameters' float64 host copies (``subst_ops.gtr_eigen_f64``).
+        Every GTR call solves it ahead so (the graphs pack it into their
+        buffers, the eager calls copy it to the device), and the per-tree
+        copies of the model gradients share it. None for JC69 and for
+        per-tree rows, whose Qs are solved where they are used."""
         if self.spec.substitution != "GTR":
             return None
-        freqs, Q = substitution_tensors(self.spec, params)
-        return self._gtr_eigen(Q, freqs) if Q.dim() == 2 else None
+        p = params["substitution"]
+        rates, freqs = host_f64(p["rates"]), host_f64(p["frequencies"])
+        if rates.ndim != 1 or freqs.ndim != 1:
+            return None
+        return subst_ops.gtr_eigen_f64(rates, freqs, self.dtype)
 
     def _eigen(self, params):
         """``_shared_eigen`` on the engine's device, or None."""

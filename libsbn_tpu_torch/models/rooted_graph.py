@@ -22,8 +22,8 @@ route stays eager), and replays it:
   the schedule object repeats), and float64 values (bounds, ratios, clock
   rates, then the model's parameters: the Weibull shape, GTR's rates and
   frequencies and the eigensystem of its Q, which the host solves ahead
-  (``engine._shared_eigen``, as the eager calls do), since a graph cannot
-  read the device from the host);
+  in one NumPy pass (``engine._shared_eigen``, as the eager calls do),
+  since a graph cannot read the device from the host);
 * the captured function unpacks them, casting to the working dtype as the
   eager call's uploads do, and runs the engine's own code
   (``_rooted_hand``, ``_rooted_autograd``, ``_rooted_lls``), so a replay
@@ -47,7 +47,6 @@ against the eager one.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from ..ops import pruning_jc, pruning_vjp
 from ..utils.graphs import PackedPrograms, host_f64
@@ -81,13 +80,14 @@ def model_leaves(spec, params):
 def model_inputs(engine, params):
     """(the parameter leaves, GTR's eigensystem as host arrays or ()) that
     a graph of ``engine`` packs for ``params``; the eigensystem is solved
-    from the leaves' host copies, so the card is read once a leaf. Span
+    from the leaves' float64 host copies, in one NumPy pass
+    (``engine._shared_eigen``), so the card is read once a leaf. Span
     ``libsbn.engine.model_inputs``."""
     with annotate("libsbn.engine.model_inputs"):
         leaves = model_leaves(engine.spec, params)
         host = {}
         for (group, name), x in leaves:
-            host.setdefault(group, {})[name] = torch.from_numpy(x)
+            host.setdefault(group, {})[name] = x
         eigen = engine._shared_eigen(host)
         return leaves, () if eigen is None else tuple(x.numpy()
                                                       for x in eigen)

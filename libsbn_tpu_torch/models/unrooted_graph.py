@@ -24,8 +24,8 @@ utils/graphs.py), and replays it:
   copy a call: the schedule's child table as int32 (not copied again while
   the schedule object repeats), and float64 values
   (the branch lengths, the model's parameters, and GTR's eigensystem of
-  its shared Q, which the host solves ahead as the eager call does,
-  ``engine._shared_eigen``);
+  its shared Q, which the host solves ahead in one NumPy pass as the eager
+  call does, ``engine._shared_eigen``);
 * the captured function unpacks them, casting to the working dtype as the
   eager call's uploads do, and runs the engine's own code (``_lls``,
   ``_branch_gradients``, ``_phylo_gradients``), so a replay equals the
@@ -40,7 +40,7 @@ A call's spans (utils/profiling.py ``annotate``, recorded only under
 torch.profiler; none inside the captured function): ``libsbn.engine.call``
 around the whole call (its time outside the others is the host's own
 dispatch), and inside it, in order, ``libsbn.engine.model_inputs`` (the
-parameters to the host, GTR's eigen solve), utils/graphs.py's
+parameters to the host, GTR's NumPy eigen solve), utils/graphs.py's
 ``libsbn.graphs.pack``, ``upload_ints`` (when the schedule object differs
 from the key's last call's), ``upload_floats`` and ``replay`` (``eager``
 or ``capture`` on a key's first calls), then ``libsbn.engine.clone``.

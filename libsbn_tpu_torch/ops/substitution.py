@@ -7,6 +7,12 @@ P(t) = expm(Q t). JC69's eigensystem and Q are constants. GTR's Q is built
 from six exchangeabilities and four frequencies (``gtr_q``), batched over
 leading axes; ``expm_transition`` exponentiates it with a Daleckii-Krein
 backward that stays defined at repeated eigenvalues.
+
+The eigensystems solved on the host ahead of a call (``eigen_f64``,
+``gtr_eigen_f64``) take one NumPy pass in float64: a 4x4 Q's solve is then
+a few array operations and one ``np.linalg.eigh``, where the same steps in
+torch are tens of small dispatches. ``gtr_q`` and ``_eigen_of_q`` stay in
+torch for the device and autograd paths.
 """
 
 from __future__ import annotations
@@ -104,8 +110,8 @@ def q_from_eigen(evec, ivec, evals):
 
 
 def _eigen_f64_host(Q, freqs):
-    """The eigensystem of Q (nQ, 4, 4) in f64, solved on a CPU copy (one
-    LAPACK call; on a card, eigh of a few 4x4s would launch a solver and
+    """The eigensystem of Q (nQ, 4, 4) in f64, solved on a CPU copy by
+    ``eigen_f64`` (on a card, eigh of a few 4x4s would launch a solver and
     synchronise anyway), returned on Q's device."""
     return tuple(x.to(Q.device) for x in eigen_f64(Q, freqs))
 
@@ -159,18 +165,62 @@ class _ExpmTransition(torch.autograd.Function):
         return dQ, None, dts, None
 
 
+_IU = np.triu_indices(4, 1)
+_HOST_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def _gtr_q_host(rates, freqs):
+    """``gtr_q`` of float64 host arrays rates (6,) and freqs (4,), in NumPy
+    and in gtr_q's order of operations: the symmetric exchangeabilities
+    from the upper triangle, times the frequencies, minus the row sums on
+    the diagonal, over the total rate. Its four-term sums run in order, as
+    torch's do on the CPU, so it gives gtr_q's bits."""
+    S = np.zeros((4, 4))
+    S[_IU] = rates
+    S = S + S.T
+    Q = S * freqs
+    rowsum = Q.sum(axis=-1)
+    Q.flat[::5] = -rowsum  # Q's diagonal is 0: Q - diag(rowsum)
+    return Q / (rowsum * freqs).sum()
+
+
+def _eigen_host(Q, freqs):
+    """``_eigen_of_q`` in NumPy float64 on Qs (nQ, 4, 4) and freqs (nQ, 4):
+    (evals, V, V^-1), row-major (LAPACK's eigenvectors are column-major),
+    as a graph's packed copy of them is: the products over them then take
+    the same path, and round alike, whichever copy they read."""
+    sqrt_f = np.sqrt(freqs)
+    S = sqrt_f[:, :, None] * Q / sqrt_f[:, None, :]
+    S = 0.5 * (S + S.transpose(0, 2, 1))
+    lam, U = np.linalg.eigh(S)
+    return (lam, np.ascontiguousarray(U / sqrt_f[:, :, None]),
+            np.ascontiguousarray(U.transpose(0, 2, 1) * sqrt_f[:, None, :]))
+
+
 def eigen_f64(Q, freqs):
     """The f64 eigensystem (evals (nQ, 4), V (nQ, 4, 4), V^-1 (nQ, 4, 4)) of
     Qs (*batch, 4, 4) on the host, as expm_transition solves it: for a
     caller that solves it ahead of a CUDA graph, which cannot synchronise.
-    Row-major, as a graph's packed copy of it is (LAPACK's eigenvectors
-    are column-major): the products over it then take the same path, and
-    round alike, whichever copy they read."""
+    CPU tensors over NumPy's arrays (``_eigen_host``)."""
     nQ = int(np.prod(Q.shape[:-2], dtype=np.int64))
-    return tuple(x.contiguous() for x in _eigen_of_q(
-        Q.detach().reshape(nQ, 4, 4).to("cpu", torch.float64),
+    eigen = _eigen_host(
+        Q.detach().reshape(nQ, 4, 4).to("cpu", torch.float64).numpy(),
         freqs.detach().expand(Q.shape[:-2] + (4,)).reshape(nQ, 4).to(
-            "cpu", torch.float64)))
+            "cpu", torch.float64).numpy())
+    return tuple(torch.from_numpy(x) for x in eigen)
+
+
+def gtr_eigen_f64(rates, freqs, dtype=torch.float64):
+    """``eigen_f64`` of ``gtr_q(rates, freqs)`` in one NumPy pass, from
+    float64 host arrays rates (6,) and freqs (4,): Q (``_gtr_q_host``) and
+    freqs rounded to ``dtype`` (float32 or float64) and back, as a caller
+    that casts them to its working dtype, then the solve. Evals (1, 4),
+    V (1, 4, 4) and V^-1 (1, 4, 4), CPU float64 tensors."""
+    working = _HOST_DTYPES[dtype]
+    Q = _gtr_q_host(rates, freqs).astype(working).astype(np.float64)
+    freqs = freqs.astype(working).astype(np.float64)
+    return tuple(torch.from_numpy(x)
+                 for x in _eigen_host(Q[None], freqs[None]))
 
 
 def _expand_eigen(eigen, nQ):
