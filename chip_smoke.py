@@ -583,7 +583,7 @@ def load_ds1(dtype):
 
 
 def kernel_inputs(d, dtype, K, shape=0.1):
-    """(ea, rates, props) in ``dtype`` on the card: one rate category, or K
+    """(em, rates, props) in ``dtype`` on the card: one rate category, or K
     Weibull categories at ``shape``."""
     if K == 1:
         rates = torch.ones(1, dtype=torch.float64, device=DEV)
@@ -591,8 +591,8 @@ def kernel_inputs(d, dtype, K, shape=0.1):
     else:
         rates, props = weibull_rates(shape, K, device=DEV)
     rates, props = rates.to(dtype), props.to(dtype)
-    ea = pruning_jc.exp_factors(d["bl"], rates, dtype)
-    return ea, rates, props
+    em = pruning_jc.exp_complements(d["bl"], rates, dtype)
+    return em, rates, props
 
 
 def jc69_vs_twins(d, dtype, K, tag):
@@ -605,9 +605,9 @@ def jc69_vs_twins(d, dtype, K, tag):
     route = "onchip" if pruning_jc.onchip_plan(dtype, K, S, L) else "slab"
     if (pruning_jc.onchip_plan(dtype, K, S, L, "ll") is None) != (route == "slab"):
         raise AssertionError(f"K2's plan and K1's disagree at {dtype} K = {K}")
-    ea, rates, props = kernel_inputs(d, dtype, K)
-    args = (d["pc"], ea, rates, props, d["tips"], d["w"])
-    args2 = (d["pc"], ea, props, d["tips"], d["w"])
+    em, rates, props = kernel_inputs(d, dtype, K)
+    args = (d["pc"], em, rates, props, d["tips"], d["w"])
+    args2 = (d["pc"], em, props, d["tips"], d["w"])
     pruning_jc.reset_counters()
     k_ll, k_g = pruning_jc.ll_grad_jc69_cuda(*args, root_id=r)
     k_dea, k_dp = pruning_jc.ll_dea_jc69_cuda(*args2, root_id=r)
@@ -1398,9 +1398,9 @@ def phase_timing(smi):
     lib = _kernels.load("pruning_jc")
     out, bounds = {}, {}
     for K in (1, 4):
-        ea, rates, props = kernel_inputs(d, torch.float32, K)
-        a1 = (d["pc"], ea, rates, props, d["tips"], d["w"])
-        a2 = (d["pc"], ea, props, d["tips"], d["w"])
+        em, rates, props = kernel_inputs(d, torch.float32, K)
+        a1 = (d["pc"], em, rates, props, d["tips"], d["w"])
+        a2 = (d["pc"], em, props, d["tips"], d["w"])
         dims = (B, L, S, r + 2, K, P)
         kern = {
             "ll_grad_jc69": lambda: pruning_jc.ll_grad_jc69_cuda(*a1, root_id=r),
@@ -2022,7 +2022,8 @@ def rooted_kernel_inputs(eng, sched, bounds, ratios, rates):
     and ones slots, in the engine's dtype (no kernel launches)."""
     a = eng._rooted_inputs(sched, bounds, ratios, rates)
     _, bl = eng._rooted_branch_lengths(a, a["ratios"])
-    return {"pc": a["pc"], "bl": eng._bl_padded2(bl * a["rates"]),
+    return {"pc": a["pc"], "bl": eng._bl_padded2((bl * a["rates"]).to(
+                eng.dtype)),
             "tips": eng.tips, "w": eng.weights, "root_id": a["root_id"]}
 
 
@@ -2202,8 +2203,8 @@ def phase_rooted_timing(smi, calls=10):
                            cuda_graphs=False)
     # K1 on the rooted batch's rate-scaled branch lengths.
     d = rooted_kernel_inputs(eng, *args[:4])
-    ea, one, _ = kernel_inputs(d, torch.float32, 1)
-    a1 = (d["pc"], ea, one, one, d["tips"], d["w"])
+    em, one, _ = kernel_inputs(d, torch.float32, 1)
+    a1 = (d["pc"], em, one, one, d["tips"], d["w"])
     r = d["root_id"]
     k_out = pruning_jc.ll_grad_jc69_cuda(*a1, root_id=r)
     key = "ll_grad_jc69 (rooted fluA)"
@@ -2548,10 +2549,10 @@ def phase_vip(smi):
     elbo10k_s = time.perf_counter() - t0
     d, eng, _ = burrito_kernel_inputs(jc_burro)
     b10k, r = d["pc"].shape[0], d["root_id"]
-    ea, _, one = kernel_inputs(d, dt, 1)
-    a2 = (d["pc"], ea, one, d["tips"], d["w"])
+    em, _, one = kernel_inputs(d, dt, 1)
+    a2 = (d["pc"], em, one, d["tips"], d["w"])
     n = K2_TWIN_ROWS
-    rows = (d["pc"][:n].contiguous(), ea[:n].contiguous(), one, d["tips"],
+    rows = (d["pc"][:n].contiguous(), em[:n].contiguous(), one, d["tips"],
             d["w"])
     full = pruning_jc.ll_jc69_cuda(*a2, root_id=r)
     part = pruning_jc.ll_jc69_cuda(*rows, root_id=r)
@@ -2992,7 +2993,7 @@ def trace_one_k1():
     trace's file name, the kernel names in it that contain
     jc69_ll_grad_kernel, and whether it holds the annotated span."""
     d = load_ds1(torch.float32)
-    args = (d["pc"], pruning_jc.exp_factors(
+    args = (d["pc"], pruning_jc.exp_complements(
         d["bl"], torch.ones(1, device=DEV), torch.float32),
         torch.ones(1, device=DEV), torch.ones(1, device=DEV), d["tips"],
         d["w"])
@@ -3104,7 +3105,7 @@ def phase_parallel(smi):
                              "or lacks the annotated span")
     print(f"  ok  device_trace (a process of its own): {trace} names "
           f"{kernel_names[0][:60]} and the annotated span")
-    k1_args = (d32["pc"], pruning_jc.exp_factors(
+    k1_args = (d32["pc"], pruning_jc.exp_complements(
         d32["bl"], torch.ones(1, device=DEV), torch.float32),
         torch.ones(1, device=DEV), torch.ones(1, device=DEV), d32["tips"],
         d32["w"])
@@ -3246,10 +3247,10 @@ def twin_mean_lls(jv, state, window):
     for k in range(packed.shape[0]):
         pc, branch_rep, _, _ = unpack_ints(packed[k], shapes)
         _, _, theta = _branch_lengths(state.q_params, branch_rep, eps[k])
-        ea = pruning_jc.exp_factors(torch.nn.functional.pad(theta, (0, 2)),
-                                    ones, jv.dtype)
+        em = pruning_jc.exp_complements(
+            torch.nn.functional.pad(theta, (0, 2)), ones, jv.dtype)
         ll, _ = pruning_jc.ll_grad_jc69_plain(
-            pc, ea, ones, ones, jv.tips, jv.weights,
+            pc, em, ones, ones, jv.tips, jv.weights,
             root_id=jv.statics.root_id)
         out.append(ll.mean())
         state, _ = vbpi_train_step_packed(
@@ -3508,9 +3509,9 @@ def rooted_graph_checks(dtype, eng, args, got_hand, got_ll):
     args2 = (sched, bounds, ratios, rates, params)
     replayed = rooted_graph_call(eng, args2, True)
     d = rooted_kernel_inputs(eng, *args2[:4])
-    ea, one, _ = kernel_inputs(d, dtype, 1)
+    em, one, _ = kernel_inputs(d, dtype, 1)
     twin, _ = pruning_jc.ll_grad_jc69_plain(
-        d["pc"], ea, one, one, d["tips"], d["w"], root_id=d["root_id"])
+        d["pc"], em, one, one, d["tips"], d["w"], root_id=d["root_id"])
     if torch.equal(replayed[0], got_hand["graph"][0]):
         raise AssertionError(f"{tag}: new ratios gave the old LLs")
     return close(f"{tag} replay at new ratios, LLs vs K1's twin",
@@ -4301,11 +4302,11 @@ def k1_routes_at_scale(taxa):
     f32 = torch.float32
     one = torch.ones(1, dtype=f32, device=DEV)
     pc = torch.as_tensor(inp["pc"], device=DEV)
-    ea = pruning_jc.exp_factors(torch.as_tensor(inp["bl"], device=DEV), one,
-                                f32)
+    em = pruning_jc.exp_complements(torch.as_tensor(inp["bl"], device=DEV),
+                                    one, f32)
     tips, w = (torch.as_tensor(inp[k], device=DEV) for k in ("tips", "w"))
     r = inp["sched"].root_id
-    args = (pc, ea, one, one, tips, w)
+    args = (pc, em, one, one, tips, w)
     dims = (SCALE_BATCH, taxa, pc.shape[1], r + 2, 1, SCALE_PATTERNS)
     lib = _kernels.load("pruning_jc")
 

@@ -13,8 +13,9 @@
 // touch neighbouring addresses):
 //   post_children (B, S, 3) int32   child ids of internal node L + s,
 //                                   padded with the ones slot N1 - 1
-//   ea            (B, N1, K)        e = exp(-4 b r_k / 3) per node and rate
-//                                   category, computed in f64 by the caller
+//   em            (B, N1, K)        m = 1 - e, e = exp(-4 b r_k / 3), per
+//                                   node and rate category, computed in f64
+//                                   (expm1) by the caller
 //   rates, props  (K,)              site-rate categories
 //   tips          (L, 4, P)         tip partials
 //   weights       (P,)              pattern multiplicities
@@ -27,7 +28,7 @@
 //   ll_part       (B, T)            per (tree, pattern tile) LL partials
 //   grad_part     (B, T, N1)        per (tree, pattern tile) edge gradients
 //   dprops_part   (B, T, K)         per (tree, pattern tile) d ll / d props
-//   dea_part      (B, T, N1 * K)    per (tree, pattern tile) d ll / d ea
+//   dea_part      (B, T, N1 * K)    per (tree, pattern tile) d ll / d e
 // with T = ceil(P / tile); the caller sums the partials over T. K1, K2 and
 // K3 keep their whole pruning state in shared memory, a tile of kOnchipTile
 // (32) patterns a block (ops/pruning_jc.py onchip_plan checks that it
@@ -39,7 +40,12 @@
 // the matrix-free apply P v = e v + (1 - e)/4 sum(v), row-sum rescaling on
 // alternate combine steps (with the scale > 0 guard), the 1e-30 clamps, U
 // rows normalised by their own row sum, and for K = 1 the scalar-1 row sum
-// of U in the upward apply.
+// of U in the upward apply. One departure: the kernels read m = 1 - e and
+// form e = 1 - m, where the Pallas kernels read e and form 1 - e. On a
+// short branch (e near 1) 1 - e is a difference of nearly equal numbers:
+// in f32, at 4 b r / 3 = 2e-5, it keeps 3 of its digits, and the site
+// likelihood of a column that changes on the branch, which it sets, loses
+// the rest; 1 - m keeps e to the type's precision.
 
 #include <cuda_runtime.h>
 
@@ -86,7 +92,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // d ll / d e per category, G = K).
 template <typename T>
 struct Shared {
-  T* ea;     // N1 * K
+  T* em;     // N1 * K
   T* rates;  // K
   T* props;  // K
   T* gsum;   // kWarps * N1 * G
@@ -103,12 +109,12 @@ __host__ __device__ size_t shared_bytes(int S, int N1, int K, int G) {
 
 template <typename T>
 __device__ Shared<T> load_shared(unsigned char* raw, const int* post_children,
-                                 const T* ea, const T* rates, const T* props,
+                                 const T* em, const T* rates, const T* props,
                                  int b, int S, int N1, int K, int G) {
   Shared<T> sh;
   T* f = reinterpret_cast<T*>(raw);
-  sh.ea = f;
-  sh.rates = sh.ea + N1 * K;
+  sh.em = f;
+  sh.rates = sh.em + N1 * K;
   sh.props = sh.rates + K;
   sh.gsum = sh.props + K;
   sh.lsum = sh.gsum + kWarps * N1 * G;
@@ -118,7 +124,7 @@ __device__ Shared<T> load_shared(unsigned char* raw, const int* post_children,
     sh.pc[i] = post_children[size_t(b) * 3 * S + i];
   }
   for (int i = tid; i < N1 * K; i += kThreads) {
-    sh.ea[i] = ea[size_t(b) * N1 * K + i];
+    sh.em[i] = em[size_t(b) * N1 * K + i];
   }
   for (int i = tid; i < K; i += kThreads) {
     sh.rates[i] = rates == nullptr ? T(0) : rates[i];
@@ -152,8 +158,9 @@ __device__ T forward_pass(const Shared<T>& sh, const T* tips, T* Eb, T* ESb,
     for (int i = 0; i < 4; ++i) tip[i] = tips[(size_t(l) * 4 + i) * sP];
     const T rt = ((tip[0] + tip[1]) + tip[2]) + tip[3];
     for (int k = 0; k < K; ++k) {
-      const T e = sh.ea[l * K + k];
-      const T c = ((T(1) - e) * quarter) * rt;
+      const T m = sh.em[l * K + k];
+      const T e = T(1) - m;
+      const T c = (m * quarter) * rt;
       for (int i = 0; i < 4; ++i) E_AT(l, 4 * k + i) = e * tip[i] + c;
       ES_AT(l, k) = rt;
     }
@@ -181,8 +188,9 @@ __device__ T forward_pass(const Shared<T>& sh, const T* tips, T* Eb, T* ESb,
       logscale += log_t(scale);
     }
     for (int k = 0; k < K; ++k) {
-      const T e = sh.ea[node * K + k];
-      const T c = ((T(1) - e) * quarter) * rs[k];
+      const T m = sh.em[node * K + k];
+      const T e = T(1) - m;
+      const T c = (m * quarter) * rs[k];
       for (int i = 0; i < 4; ++i) {
         const T v = e * prod[4 * k + i] + c;
         E_AT(node, 4 * k + i) = do_scale ? v * inv : v;
@@ -233,7 +241,7 @@ __device__ void write_ll_partial(Shared<T>& sh, T ll, T* ll_part, int b) {
 // ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-jc69_ll_slab_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+jc69_ll_slab_kernel(const int* __restrict__ post_children, const T* __restrict__ em,
                     const T* __restrict__ props, const T* __restrict__ tips,
                     const T* __restrict__ weights, T* __restrict__ E,
                     T* __restrict__ ES, T* __restrict__ ll_part, int L, int S,
@@ -241,7 +249,7 @@ jc69_ll_slab_kernel(const int* __restrict__ post_children, const T* __restrict__
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.y;
   const int p = blockIdx.x * kThreads + threadIdx.x;
-  Shared<T> sh = load_shared<T>(smem, post_children, ea, nullptr, props, b, S,
+  Shared<T> sh = load_shared<T>(smem, post_children, em, nullptr, props, b, S,
                                 N1, K, 1);
   T ll = T(0);
   if (p < P) {
@@ -275,7 +283,7 @@ jc69_ll_slab_kernel(const int* __restrict__ post_children, const T* __restrict__
 // ---------------------------------------------------------------------------
 template <typename T, int K, bool kDea>
 __device__ __forceinline__ void forward_and_upper(
-    unsigned char* smem, const int* __restrict__ post_children, const T* __restrict__ ea,
+    unsigned char* smem, const int* __restrict__ post_children, const T* __restrict__ em,
     const T* __restrict__ rates, const T* __restrict__ props,
     const T* __restrict__ tips, const T* __restrict__ weights, T* __restrict__ E,
     T* __restrict__ ES, T* __restrict__ M, T* __restrict__ U,
@@ -295,7 +303,7 @@ __device__ __forceinline__ void forward_and_upper(
   const T tiny = T(1e-30);
   const T third = T(1.0 / 3.0);
   const T four_thirds = T(4.0 / 3.0);
-  Shared<T> sh = load_shared<T>(smem, post_children, ea, rates, props, b, S,
+  Shared<T> sh = load_shared<T>(smem, post_children, em, rates, props, b, S,
                                 N1, K, G);
 
   T* Eb = E + size_t(b) * N1 * R * sP + p;
@@ -344,9 +352,10 @@ __device__ __forceinline__ void forward_and_upper(
       for (int k = 0; k < K; ++k) {
         T un[4];
         for (int i = 0; i < 4; ++i) un[i] = U_AT(node, 4 * k + i);
-        const T e = sh.ea[node * K + k];
+        const T m = sh.em[node * K + k];
+        const T e = T(1) - m;
         const T rsu = K == 1 ? T(1) : ((un[0] + un[1]) + un[2]) + un[3];
-        const T c = ((T(1) - e) * quarter) * rsu;
+        const T c = (m * quarter) * rsu;
         for (int i = 0; i < 4; ++i) ev[4 * k + i] = e * un[i] + c;
       }
       T e0[R], e1[R], e2[R];
@@ -449,27 +458,27 @@ __device__ __forceinline__ void forward_and_upper(
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
 jc69_ll_grad_slab_kernel(const int* __restrict__ post_children,
-                         const T* __restrict__ ea, const T* __restrict__ rates,
+                         const T* __restrict__ em, const T* __restrict__ rates,
                          const T* __restrict__ props, const T* __restrict__ tips,
                          const T* __restrict__ weights, T* __restrict__ E,
                          T* __restrict__ ES, T* __restrict__ U,
                          T* __restrict__ ll_part, T* __restrict__ grad_part, int L,
                          int S, int N1, int P) {
   extern __shared__ __align__(16) unsigned char smem[];
-  forward_and_upper<T, K, false>(smem, post_children, ea, rates, props, tips, weights, E, ES,
+  forward_and_upper<T, K, false>(smem, post_children, em, rates, props, tips, weights, E, ES,
                                  nullptr, U, ll_part, grad_part, L, S, N1, P);
 }
 
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-jc69_dea_slab_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+jc69_dea_slab_kernel(const int* __restrict__ post_children, const T* __restrict__ em,
                      const T* __restrict__ props, const T* __restrict__ tips,
                      const T* __restrict__ weights, T* __restrict__ E,
                      T* __restrict__ ES, T* __restrict__ M, T* __restrict__ U,
                      T* __restrict__ dprops_part, T* __restrict__ dea_part, int L,
                      int S, int N1, int P) {
   extern __shared__ __align__(16) unsigned char smem[];
-  forward_and_upper<T, K, true>(smem, post_children, ea, nullptr, props, tips, weights, E, ES, M,
+  forward_and_upper<T, K, true>(smem, post_children, em, nullptr, props, tips, weights, E, ES, M,
                                 U, dprops_part, dea_part, L, S, N1, P);
 }
 
@@ -488,7 +497,7 @@ jc69_dea_slab_kernel(const int* __restrict__ post_children, const T* __restrict_
 // cp.async at block start.
 // What is recomputed where it is used, with the same operations in the same
 // order as the slab route stores it, so with the same values:
-//   * a leaf's E, from its tip and ea (e tip_i + ((1 - e)/4) rowsum(tip)),
+//   * a leaf's E, from its tip and em (e tip_i + (m/4) rowsum(tip)),
 //     and its row sum S_E, the tip's row sum. The tips are read from device
 //     memory through the read-only cache, not staged: a staged tips tile
 //     (4L values per pattern) more than doubled the state at DS1 K = 1 and
@@ -543,7 +552,7 @@ __host__ __device__ size_t onchip_bytes(int S, int N1, int K, int G, int TP) {
 // in device memory (rows P apart, read through the read-only cache).
 template <typename T, int K>
 struct OnChip {
-  const T* ea;     // N1 * K
+  const T* em;     // N1 * K
   const T* props;  // K
   T* slot;         // (S - 1) * 4K rows: E, then U, of internal node L + s
   const T* tip;    // L * 4 rows
@@ -576,8 +585,9 @@ struct OnChip {
     const T rt = ((t[0] + t[1]) + t[2]) + t[3];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const T e = ea[c * K + k];
-      const T cl = ((T(1) - e) * T(0.25)) * rt;
+      const T m = em[c * K + k];
+      const T e = T(1) - m;
+      const T cl = (m * T(0.25)) * rt;
 #pragma unroll
       for (int i = 0; i < 4; ++i) out[4 * k + i] = e * t[i] + cl;
     }
@@ -630,8 +640,9 @@ __device__ __forceinline__ T forward_onchip(const OnChip<T, K>& o, T* es_root) {
     const int node = o.L + s;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const T e = o.ea[node * K + k];
-      const T c = ((T(1) - e) * T(0.25)) * rs[k];
+      const T m = o.em[node * K + k];
+      const T e = T(1) - m;
+      const T c = (m * T(0.25)) * rs[k];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const T v = e * prod[4 * k + i] + c;
@@ -647,7 +658,7 @@ __device__ __forceinline__ T forward_onchip(const OnChip<T, K>& o, T* es_root) {
 // the root, the E/U slot rows, and the schedule row.
 template <typename T>
 struct OnChipShared {
-  T* ea;     // N1 * K
+  T* em;     // N1 * K
   T* rates;  // K
   T* props;  // K
   T* gsum;   // W * N1 * G
@@ -660,14 +671,14 @@ struct OnChipShared {
 // cp.async, set the category tables and zero the edge sums.
 template <typename T, int K, int G>
 __device__ __forceinline__ OnChipShared<T> stage_onchip(
-    unsigned char* smem, const int* __restrict__ post_children, const T* __restrict__ ea,
+    unsigned char* smem, const int* __restrict__ post_children, const T* __restrict__ em,
     const T* __restrict__ rates, const T* __restrict__ props, int b, int S, int N1) {
   constexpr int TP = kOnchipTile;
   constexpr int W = TP / 32;
   const int tid = threadIdx.x;
   OnChipShared<T> sh;
-  sh.ea = reinterpret_cast<T*>(smem);
-  sh.rates = sh.ea + N1 * K;
+  sh.em = reinterpret_cast<T*>(smem);
+  sh.rates = sh.em + N1 * K;
   sh.props = sh.rates + K;
   sh.gsum = sh.props + K;
   sh.lsum = sh.gsum + W * N1 * G;
@@ -677,7 +688,7 @@ __device__ __forceinline__ OnChipShared<T> stage_onchip(
     cp_async<sizeof(int)>(sh.pc + i, post_children + size_t(b) * 3 * S + i);
   }
   for (int i = tid; i < N1 * K; i += TP) {
-    cp_async<sizeof(T)>(sh.ea + i, ea + size_t(b) * N1 * K + i);
+    cp_async<sizeof(T)>(sh.em + i, em + size_t(b) * N1 * K + i);
   }
   for (int i = tid; i < K; i += TP) {
     sh.rates[i] = rates == nullptr ? T(0) : rates[i];
@@ -693,7 +704,7 @@ __device__ __forceinline__ OnChipShared<T> stage_onchip(
 // forward_and_upper computes, value for value, with the state on chip.
 template <typename T, int K, bool kDea>
 __device__ __forceinline__ void forward_and_upper_onchip(
-    unsigned char* smem, const int* __restrict__ post_children, const T* __restrict__ ea,
+    unsigned char* smem, const int* __restrict__ post_children, const T* __restrict__ em,
     const T* __restrict__ rates, const T* __restrict__ props, const T* __restrict__ tips,
     const T* __restrict__ weights, T* __restrict__ root_part, T* __restrict__ edge_part,
     int L, int S, int N1, int P) {
@@ -717,14 +728,14 @@ __device__ __forceinline__ void forward_and_upper_onchip(
   const T four_thirds = T(4.0 / 3.0);
 
   const OnChipShared<T> sh =
-      stage_onchip<T, K, G>(smem, post_children, ea, rates, props, b, S, N1);
-  const T* s_ea = sh.ea;
+      stage_onchip<T, K, G>(smem, post_children, em, rates, props, b, S, N1);
+  const T* s_em = sh.em;
   const T* s_rates = sh.rates;
   const T* s_props = sh.props;
   T* gsum = sh.gsum;
   T* lsum = sh.lsum;
   const int* s_pc = sh.pc;
-  const OnChip<T, K> o{s_ea, s_props, sh.slot + tid, tips + p, s_pc, L, S, N1, P};
+  const OnChip<T, K> o{s_em, s_props, sh.slot + tid, tips + p, s_pc, L, S, N1, P};
 
   T hv[H];
 #pragma unroll
@@ -775,9 +786,10 @@ __device__ __forceinline__ void forward_and_upper_onchip(
 #pragma unroll
           for (int i = 0; i < 4; ++i) un[i] = o.at(node, 4 * k + i);
         }
-        const T e = s_ea[node * K + k];
+        const T m = s_em[node * K + k];
+        const T e = T(1) - m;
         const T rsu = K == 1 ? T(1) : ((un[0] + un[1]) + un[2]) + un[3];
-        const T c = ((T(1) - e) * quarter) * rsu;
+        const T c = (m * quarter) * rsu;
 #pragma unroll
         for (int i = 0; i < 4; ++i) ev[4 * k + i] = e * un[i] + c;
       }
@@ -920,7 +932,7 @@ __device__ __forceinline__ void forward_and_upper_onchip(
 // ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kOnchipTile)
-jc69_ll_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+jc69_ll_kernel(const int* __restrict__ post_children, const T* __restrict__ em,
                const T* __restrict__ props, const T* __restrict__ tips,
                const T* __restrict__ weights, T* __restrict__ ll_part, int L, int S, int N1,
                int P) {
@@ -929,10 +941,10 @@ jc69_ll_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
   const int b = blockIdx.x;  // the tree is the fast grid index, as in K1
   const int p = blockIdx.y * kOnchipTile + tid;
   const OnChipShared<T> sh =
-      stage_onchip<T, K, 0>(smem, post_children, ea, nullptr, props, b, S, N1);
+      stage_onchip<T, K, 0>(smem, post_children, em, nullptr, props, b, S, N1);
   T ll = T(0);
   if (p < P) {
-    const OnChip<T, K> o{sh.ea, sh.props, sh.slot + tid, tips + p, sh.pc, L, S, N1, P};
+    const OnChip<T, K> o{sh.em, sh.props, sh.slot + tid, tips + p, sh.pc, L, S, N1, P};
     T es_root[K] = {};
     const T logscale = forward_onchip<T, K>(o, es_root);
     T site = T(0);
@@ -957,13 +969,13 @@ jc69_ll_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
 // ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kOnchipTile)
-jc69_ll_grad_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+jc69_ll_grad_kernel(const int* __restrict__ post_children, const T* __restrict__ em,
                     const T* __restrict__ rates, const T* __restrict__ props,
                     const T* __restrict__ tips, const T* __restrict__ weights,
                     T* __restrict__ ll_part, T* __restrict__ grad_part, int L, int S,
                     int N1, int P) {
   extern __shared__ __align__(16) unsigned char smem[];
-  forward_and_upper_onchip<T, K, false>(smem, post_children, ea, rates, props, tips, weights,
+  forward_and_upper_onchip<T, K, false>(smem, post_children, em, rates, props, tips, weights,
                                         ll_part, grad_part, L, S, N1, P);
 }
 
@@ -980,12 +992,12 @@ jc69_ll_grad_kernel(const int* __restrict__ post_children, const T* __restrict__
 // ---------------------------------------------------------------------------
 template <typename T, int K>
 __global__ void __launch_bounds__(kOnchipTile)
-jc69_dea_kernel(const int* __restrict__ post_children, const T* __restrict__ ea,
+jc69_dea_kernel(const int* __restrict__ post_children, const T* __restrict__ em,
                 const T* __restrict__ props, const T* __restrict__ tips,
                 const T* __restrict__ weights, T* __restrict__ dprops_part,
                 T* __restrict__ dea_part, int L, int S, int N1, int P) {
   extern __shared__ __align__(16) unsigned char smem[];
-  forward_and_upper_onchip<T, K, true>(smem, post_children, ea, nullptr, props, tips, weights,
+  forward_and_upper_onchip<T, K, true>(smem, post_children, em, nullptr, props, tips, weights,
                                        dprops_part, dea_part, L, S, N1, P);
 }
 
@@ -999,19 +1011,19 @@ cudaError_t prepare(Kern kernel, size_t smem) {
 }
 
 template <typename T, int K>
-int launch_ll_slab(const int* pc, const T* ea, const T* props, const T* tips, const T* w, T* E,
+int launch_ll_slab(const int* pc, const T* em, const T* props, const T* tips, const T* w, T* E,
                    T* ES, T* ll_part, int B, int L, int S, int N1, int P, cudaStream_t st) {
   const size_t smem = shared_bytes<T>(S, N1, K, 1);
   cudaError_t err = prepare(jc69_ll_slab_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
-  jc69_ll_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, ea, props, tips, w, E, ES, ll_part,
+  jc69_ll_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, em, props, tips, w, E, ES, ll_part,
                                                           L, S, N1, P);
   return int(cudaGetLastError());
 }
 
 template <typename T, int K>
-int launch_ll_grad_slab(const int* pc, const T* ea, const T* rates, const T* props,
+int launch_ll_grad_slab(const int* pc, const T* em, const T* rates, const T* props,
                         const T* tips, const T* w, T* E, T* ES, T* U, T* ll_part, T* grad_part,
                         int B, int L, int S, int N1, int P, cudaStream_t st) {
   const size_t smem = shared_bytes<T>(S, N1, K, 1);
@@ -1019,19 +1031,19 @@ int launch_ll_grad_slab(const int* pc, const T* ea, const T* rates, const T* pro
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
   jc69_ll_grad_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(
-      pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part, L, S, N1, P);
+      pc, em, rates, props, tips, w, E, ES, U, ll_part, grad_part, L, S, N1, P);
   return int(cudaGetLastError());
 }
 
 template <typename T, int K>
-int launch_dea_slab(const int* pc, const T* ea, const T* props, const T* tips, const T* w,
+int launch_dea_slab(const int* pc, const T* em, const T* props, const T* tips, const T* w,
                     T* E, T* ES, T* M, T* U, T* dprops_part, T* dea_part, int B, int L, int S,
                     int N1, int P, cudaStream_t st) {
   const size_t smem = shared_bytes<T>(S, N1, K, K);
   cudaError_t err = prepare(jc69_dea_slab_kernel<T, K>, smem);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((P + kThreads - 1) / kThreads, B);
-  jc69_dea_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, ea, props, tips, w, E, ES, M, U,
+  jc69_dea_slab_kernel<T, K><<<grid, kThreads, smem, st>>>(pc, em, props, tips, w, E, ES, M, U,
                                                            dprops_part, dea_part, L, S, N1, P);
   return int(cudaGetLastError());
 }
@@ -1043,7 +1055,7 @@ inline bool plan_ok(int TP, size_t smem, size_t need) {
 }
 
 template <typename T, int K>
-int launch_ll(const int* pc, const T* ea, const T* props, const T* tips, const T* w, T* ll_part,
+int launch_ll(const int* pc, const T* em, const T* props, const T* tips, const T* w, T* ll_part,
               int B, int L, int S, int N1, int P, int TP, int smem, cudaStream_t st) {
   if (!plan_ok(TP, size_t(smem), onchip_bytes<T>(S, N1, K, 0, TP))) {
     return int(cudaErrorInvalidValue);
@@ -1051,12 +1063,12 @@ int launch_ll(const int* pc, const T* ea, const T* props, const T* tips, const T
   cudaError_t err = prepare(jc69_ll_kernel<T, K>, size_t(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid(B, (P + TP - 1) / TP);
-  jc69_ll_kernel<T, K><<<grid, TP, smem, st>>>(pc, ea, props, tips, w, ll_part, L, S, N1, P);
+  jc69_ll_kernel<T, K><<<grid, TP, smem, st>>>(pc, em, props, tips, w, ll_part, L, S, N1, P);
   return int(cudaGetLastError());
 }
 
 template <typename T, int K>
-int launch_ll_grad(const int* pc, const T* ea, const T* rates, const T* props, const T* tips,
+int launch_ll_grad(const int* pc, const T* em, const T* rates, const T* props, const T* tips,
                    const T* w, T* ll_part, T* grad_part, int B, int L, int S, int N1, int P,
                    int TP, int smem, cudaStream_t st) {
   if (!plan_ok(TP, size_t(smem), onchip_bytes<T>(S, N1, K, 1, TP))) {
@@ -1065,13 +1077,13 @@ int launch_ll_grad(const int* pc, const T* ea, const T* rates, const T* props, c
   cudaError_t err = prepare(jc69_ll_grad_kernel<T, K>, size_t(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid(B, (P + TP - 1) / TP);
-  jc69_ll_grad_kernel<T, K><<<grid, TP, smem, st>>>(pc, ea, rates, props, tips, w, ll_part,
+  jc69_ll_grad_kernel<T, K><<<grid, TP, smem, st>>>(pc, em, rates, props, tips, w, ll_part,
                                                     grad_part, L, S, N1, P);
   return int(cudaGetLastError());
 }
 
 template <typename T, int K>
-int launch_dea(const int* pc, const T* ea, const T* props, const T* tips, const T* w,
+int launch_dea(const int* pc, const T* em, const T* props, const T* tips, const T* w,
                T* dprops_part, T* dea_part, int B, int L, int S, int N1, int P, int TP, int smem,
                cudaStream_t st) {
   if (!plan_ok(TP, size_t(smem), onchip_bytes<T>(S, N1, K, K, TP))) {
@@ -1080,7 +1092,7 @@ int launch_dea(const int* pc, const T* ea, const T* props, const T* tips, const 
   cudaError_t err = prepare(jc69_dea_kernel<T, K>, size_t(smem));
   if (err != cudaSuccess) return int(err);
   const dim3 grid(B, (P + TP - 1) / TP);
-  jc69_dea_kernel<T, K><<<grid, TP, smem, st>>>(pc, ea, props, tips, w, dprops_part, dea_part, L,
+  jc69_dea_kernel<T, K><<<grid, TP, smem, st>>>(pc, em, props, tips, w, dprops_part, dea_part, L,
                                                 S, N1, P);
   return int(cudaGetLastError());
 }
@@ -1100,12 +1112,12 @@ int launch_dea(const int* pc, const T* ea, const T* props, const T* tips, const 
   }
 
 template <typename T>
-int ll_entry(const void* pc, const void* ea, const void* props, const void* tips, const void* w,
+int ll_entry(const void* pc, const void* em, const void* props, const void* tips, const void* w,
              void* ll_part, int B, int L, int S, int N1, int K, int P, int TP, int smem,
              void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define LSBN_CALL(KK)                                                                      \
-  launch_ll<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),                \
+  launch_ll<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(em),                \
                    static_cast<const T*>(props), static_cast<const T*>(tips),              \
                    static_cast<const T*>(w), static_cast<T*>(ll_part), B, L, S, N1, P, TP, \
                    smem, st)
@@ -1114,12 +1126,12 @@ int ll_entry(const void* pc, const void* ea, const void* props, const void* tips
 }
 
 template <typename T>
-int ll_slab_entry(const void* pc, const void* ea, const void* props, const void* tips,
+int ll_slab_entry(const void* pc, const void* em, const void* props, const void* tips,
                   const void* w, void* E, void* ES, void* ll_part, int B, int L, int S, int N1,
                   int K, int P, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define LSBN_CALL(KK)                                                                       \
-  launch_ll_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),            \
+  launch_ll_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(em),            \
                         static_cast<const T*>(props), static_cast<const T*>(tips),          \
                         static_cast<const T*>(w), static_cast<T*>(E), static_cast<T*>(ES),  \
                         static_cast<T*>(ll_part), B, L, S, N1, P, st)
@@ -1128,12 +1140,12 @@ int ll_slab_entry(const void* pc, const void* ea, const void* props, const void*
 }
 
 template <typename T>
-int ll_grad_entry(const void* pc, const void* ea, const void* rates, const void* props,
+int ll_grad_entry(const void* pc, const void* em, const void* rates, const void* props,
                   const void* tips, const void* w, void* ll_part, void* grad_part, int B, int L,
                   int S, int N1, int K, int P, int TP, int smem, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define LSBN_CALL(KK)                                                                       \
-  launch_ll_grad<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),            \
+  launch_ll_grad<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(em),            \
                         static_cast<const T*>(rates), static_cast<const T*>(props),         \
                         static_cast<const T*>(tips), static_cast<const T*>(w),              \
                         static_cast<T*>(ll_part), static_cast<T*>(grad_part), B, L, S, N1, \
@@ -1143,12 +1155,12 @@ int ll_grad_entry(const void* pc, const void* ea, const void* rates, const void*
 }
 
 template <typename T>
-int dea_entry(const void* pc, const void* ea, const void* props, const void* tips, const void* w,
+int dea_entry(const void* pc, const void* em, const void* props, const void* tips, const void* w,
               void* dprops_part, void* dea_part, int B, int L, int S, int N1, int K, int P,
               int TP, int smem, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define LSBN_CALL(KK)                                                                   \
-  launch_dea<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),            \
+  launch_dea<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(em),            \
                     static_cast<const T*>(props), static_cast<const T*>(tips),          \
                     static_cast<const T*>(w), static_cast<T*>(dprops_part),             \
                     static_cast<T*>(dea_part), B, L, S, N1, P, TP, smem, st)
@@ -1157,13 +1169,13 @@ int dea_entry(const void* pc, const void* ea, const void* props, const void* tip
 }
 
 template <typename T>
-int ll_grad_slab_entry(const void* pc, const void* ea, const void* rates, const void* props,
+int ll_grad_slab_entry(const void* pc, const void* em, const void* rates, const void* props,
                        const void* tips, const void* w, void* E, void* ES, void* U,
                        void* ll_part, void* grad_part, int B, int L, int S, int N1, int K, int P,
                        void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define LSBN_CALL(KK)                                                                         \
-  launch_ll_grad_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),         \
+  launch_ll_grad_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(em),         \
                              static_cast<const T*>(rates), static_cast<const T*>(props),      \
                              static_cast<const T*>(tips), static_cast<const T*>(w),           \
                              static_cast<T*>(E), static_cast<T*>(ES), static_cast<T*>(U),     \
@@ -1174,12 +1186,12 @@ int ll_grad_slab_entry(const void* pc, const void* ea, const void* rates, const 
 }
 
 template <typename T>
-int dea_slab_entry(const void* pc, const void* ea, const void* props, const void* tips,
+int dea_slab_entry(const void* pc, const void* em, const void* props, const void* tips,
                    const void* w, void* E, void* ES, void* M, void* U, void* dprops_part,
                    void* dea_part, int B, int L, int S, int N1, int K, int P, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
 #define LSBN_CALL(KK)                                                                        \
-  launch_dea_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(ea),            \
+  launch_dea_slab<T, KK>(static_cast<const int*>(pc), static_cast<const T*>(em),            \
                          static_cast<const T*>(props), static_cast<const T*>(tips),          \
                          static_cast<const T*>(w), static_cast<T*>(E), static_cast<T*>(ES),  \
                          static_cast<T*>(M), static_cast<T*>(U),                              \
@@ -1202,95 +1214,95 @@ const char* lsbn_cuda_error_string(int err) {
 
 // K2 on chip: the plan's tile TP and shared-memory bytes come from the
 // caller (ops/pruning_jc.py onchip_plan, kind "ll").
-int lsbn_jc69_ll_f32(const void* pc, const void* ea, const void* props, const void* tips,
+int lsbn_jc69_ll_f32(const void* pc, const void* em, const void* props, const void* tips,
                      const void* w, void* ll_part, int B, int L, int S, int N1, int K, int P,
                      int TP, int smem, void* stream) {
-  return ll_entry<float>(pc, ea, props, tips, w, ll_part, B, L, S, N1, K, P, TP, smem, stream);
+  return ll_entry<float>(pc, em, props, tips, w, ll_part, B, L, S, N1, K, P, TP, smem, stream);
 }
 
-int lsbn_jc69_ll_f64(const void* pc, const void* ea, const void* props, const void* tips,
+int lsbn_jc69_ll_f64(const void* pc, const void* em, const void* props, const void* tips,
                      const void* w, void* ll_part, int B, int L, int S, int N1, int K, int P,
                      int TP, int smem, void* stream) {
-  return ll_entry<double>(pc, ea, props, tips, w, ll_part, B, L, S, N1, K, P, TP, smem, stream);
+  return ll_entry<double>(pc, em, props, tips, w, ll_part, B, L, S, N1, K, P, TP, smem, stream);
 }
 
 // K1 on chip: the plan's tile TP and shared-memory bytes come from the
 // caller (ops/pruning_jc.py onchip_plan).
-int lsbn_jc69_ll_grad_f32(const void* pc, const void* ea, const void* rates, const void* props,
+int lsbn_jc69_ll_grad_f32(const void* pc, const void* em, const void* rates, const void* props,
                           const void* tips, const void* w, void* ll_part, void* grad_part,
                           int B, int L, int S, int N1, int K, int P, int TP, int smem,
                           void* stream) {
-  return ll_grad_entry<float>(pc, ea, rates, props, tips, w, ll_part, grad_part, B, L, S, N1, K,
+  return ll_grad_entry<float>(pc, em, rates, props, tips, w, ll_part, grad_part, B, L, S, N1, K,
                               P, TP, smem, stream);
 }
 
-int lsbn_jc69_ll_grad_f64(const void* pc, const void* ea, const void* rates, const void* props,
+int lsbn_jc69_ll_grad_f64(const void* pc, const void* em, const void* rates, const void* props,
                           const void* tips, const void* w, void* ll_part, void* grad_part,
                           int B, int L, int S, int N1, int K, int P, int TP, int smem,
                           void* stream) {
-  return ll_grad_entry<double>(pc, ea, rates, props, tips, w, ll_part, grad_part, B, L, S, N1,
+  return ll_grad_entry<double>(pc, em, rates, props, tips, w, ll_part, grad_part, B, L, S, N1,
                                K, P, TP, smem, stream);
 }
 
 // K3 on chip.
-int lsbn_jc69_dea_f32(const void* pc, const void* ea, const void* props, const void* tips,
+int lsbn_jc69_dea_f32(const void* pc, const void* em, const void* props, const void* tips,
                       const void* w, void* dprops_part, void* dea_part, int B, int L, int S,
                       int N1, int K, int P, int TP, int smem, void* stream) {
-  return dea_entry<float>(pc, ea, props, tips, w, dprops_part, dea_part, B, L, S, N1, K, P, TP,
+  return dea_entry<float>(pc, em, props, tips, w, dprops_part, dea_part, B, L, S, N1, K, P, TP,
                           smem, stream);
 }
 
-int lsbn_jc69_dea_f64(const void* pc, const void* ea, const void* props, const void* tips,
+int lsbn_jc69_dea_f64(const void* pc, const void* em, const void* props, const void* tips,
                       const void* w, void* dprops_part, void* dea_part, int B, int L, int S,
                       int N1, int K, int P, int TP, int smem, void* stream) {
-  return dea_entry<double>(pc, ea, props, tips, w, dprops_part, dea_part, B, L, S, N1, K, P, TP,
+  return dea_entry<double>(pc, em, props, tips, w, dprops_part, dea_part, B, L, S, N1, K, P, TP,
                            smem, stream);
 }
 
 // The slab route of K2, K1 and K3 (tile kThreads), for trees beyond the
 // plan.
-int lsbn_jc69_ll_slab_f32(const void* pc, const void* ea, const void* props, const void* tips,
+int lsbn_jc69_ll_slab_f32(const void* pc, const void* em, const void* props, const void* tips,
                           const void* w, void* E, void* ES, void* ll_part, int B, int L, int S,
                           int N1, int K, int P, void* stream) {
-  return ll_slab_entry<float>(pc, ea, props, tips, w, E, ES, ll_part, B, L, S, N1, K, P, stream);
+  return ll_slab_entry<float>(pc, em, props, tips, w, E, ES, ll_part, B, L, S, N1, K, P, stream);
 }
 
-int lsbn_jc69_ll_slab_f64(const void* pc, const void* ea, const void* props, const void* tips,
+int lsbn_jc69_ll_slab_f64(const void* pc, const void* em, const void* props, const void* tips,
                           const void* w, void* E, void* ES, void* ll_part, int B, int L, int S,
                           int N1, int K, int P, void* stream) {
-  return ll_slab_entry<double>(pc, ea, props, tips, w, E, ES, ll_part, B, L, S, N1, K, P,
+  return ll_slab_entry<double>(pc, em, props, tips, w, E, ES, ll_part, B, L, S, N1, K, P,
                                stream);
 }
 
-int lsbn_jc69_ll_grad_slab_f32(const void* pc, const void* ea, const void* rates,
+int lsbn_jc69_ll_grad_slab_f32(const void* pc, const void* em, const void* rates,
                                const void* props, const void* tips, const void* w, void* E,
                                void* ES, void* U, void* ll_part, void* grad_part, int B, int L,
                                int S, int N1, int K, int P, void* stream) {
-  return ll_grad_slab_entry<float>(pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part,
+  return ll_grad_slab_entry<float>(pc, em, rates, props, tips, w, E, ES, U, ll_part, grad_part,
                                    B, L, S, N1, K, P, stream);
 }
 
-int lsbn_jc69_ll_grad_slab_f64(const void* pc, const void* ea, const void* rates,
+int lsbn_jc69_ll_grad_slab_f64(const void* pc, const void* em, const void* rates,
                                const void* props, const void* tips, const void* w, void* E,
                                void* ES, void* U, void* ll_part, void* grad_part, int B, int L,
                                int S, int N1, int K, int P, void* stream) {
-  return ll_grad_slab_entry<double>(pc, ea, rates, props, tips, w, E, ES, U, ll_part, grad_part,
+  return ll_grad_slab_entry<double>(pc, em, rates, props, tips, w, E, ES, U, ll_part, grad_part,
                                     B, L, S, N1, K, P, stream);
 }
 
-int lsbn_jc69_dea_slab_f32(const void* pc, const void* ea, const void* props, const void* tips,
+int lsbn_jc69_dea_slab_f32(const void* pc, const void* em, const void* props, const void* tips,
                            const void* w, void* E, void* ES, void* M, void* U, void* dprops_part,
                            void* dea_part, int B, int L, int S, int N1, int K, int P,
                            void* stream) {
-  return dea_slab_entry<float>(pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part, B, L,
+  return dea_slab_entry<float>(pc, em, props, tips, w, E, ES, M, U, dprops_part, dea_part, B, L,
                                S, N1, K, P, stream);
 }
 
-int lsbn_jc69_dea_slab_f64(const void* pc, const void* ea, const void* props, const void* tips,
+int lsbn_jc69_dea_slab_f64(const void* pc, const void* em, const void* props, const void* tips,
                            const void* w, void* E, void* ES, void* M, void* U, void* dprops_part,
                            void* dea_part, int B, int L, int S, int N1, int K, int P,
                            void* stream) {
-  return dea_slab_entry<double>(pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part, B, L,
+  return dea_slab_entry<double>(pc, em, props, tips, w, E, ES, M, U, dprops_part, dea_part, B, L,
                                 S, N1, K, P, stream);
 }
 

@@ -24,6 +24,14 @@ PyTorch twins; float32 or float64 either way):
     hand``); every other model takes autograd of the summed LL and
     log-det-Jacobian through the sweeps and K5 + K6 or the scan engine
     (``_rooted_phylo_gradients_autograd``, which also runs JC69 on K2 + K3).
+    The time-tree arithmetic (heights, branch lengths, the log-det-Jacobian
+    and the hand adjoint) runs in float64 whatever the working dtype; only
+    the pruning takes the working dtype, from the rate-scaled branch
+    lengths rounded to it, and the outputs are returned in it. A node just
+    below its parent (ratio near 1) has a branch that is a small difference
+    of two heights, which heights rounded to float32 move by up to 1e-4 of
+    itself: on fluA under a 0.001 clock the f32 ratio gradient was then
+    1.3e-5 of its largest entry off its float64 value, against 1e-7 so.
 
 On a card (``cuda_graphs=True``, the default), with rescaling and shared
 parameters, each of ``log_likelihoods``, ``branch_gradients`` and
@@ -471,9 +479,9 @@ class LikelihoodEngine:
 
     def _rooted_inputs(self, sched, bounds, ratios, rates):
         """The schedule's index arrays (cached on it, _sched_dev) and the
-        time-tree arrays on the device, the arrays in the working dtype."""
+        time-tree arrays on the device, the arrays in float64."""
         def upload(x):
-            return torch.as_tensor(x, device=self.device).to(self.dtype)
+            return torch.as_tensor(x, device=self.device).to(torch.float64)
 
         return {
             "pc": self._post_children(sched),
@@ -489,19 +497,21 @@ class LikelihoodEngine:
         }
 
     def _rooted_branch_lengths(self, a, ratios, method="sweeps"):
-        """(heights (B, N), branch lengths (B, N-1)) of the time trees."""
+        """(heights (B, N), branch lengths (B, N-1)) of the time trees, in
+        the ratios' dtype (float64 from _rooted_inputs)."""
         h = heights_ops.node_heights_from_ratios(
             ratios, a["bounds"], a["leaf_count"], a["pre_node"],
             a["pre_parent"], n_iters=a["n_iters"], method=method)
         return h, heights_ops.branch_lengths_from_heights(h, a["parent"])
 
     def _rooted_parts(self, a, ratios, rates, model, eigen=None):
-        """((B,) LLs, (B,) log-det-Jacobians, (B, N-1) rate-scaled branch
-        lengths), differentiable in ratios, rates and the model tensors."""
+        """((B,) LLs in the working dtype, (B,) log-det-Jacobians and (B,
+        N-1) rate-scaled branch lengths in the ratios' dtype),
+        differentiable in ratios, rates and the model tensors."""
         h, bl = self._rooted_branch_lengths(a, ratios)
         bl_scaled = bl * rates
-        lls = self._lls(a["pc"], self._bl_padded2(bl_scaled), model,
-                        a["root_id"], eigen)
+        lls = self._lls(a["pc"], self._bl_padded2(bl_scaled.to(self.dtype)),
+                        model, a["root_id"], eigen)
         ldjs = heights_ops.log_det_jacobian(h, a["bounds"], a["parent"],
                                             a["leaf_count"])
         return lls, ldjs, bl_scaled
@@ -536,10 +546,11 @@ class LikelihoodEngine:
         return lls + ldjs
 
     def _rooted_lls(self, a, params, eigen=None):
-        """((B,) LLs, (B,) log-det-Jacobians) of the inputs ``a``."""
+        """((B,) LLs, (B,) log-det-Jacobians) of the inputs ``a``, in the
+        working dtype."""
         lls, ldjs, _ = self._rooted_parts(a, a["ratios"], a["rates"],
                                           self._model(params), eigen)
-        return lls, ldjs
+        return lls, ldjs.to(self.dtype)
 
     def rooted_phylo_gradients(
         self, sched: BatchedSchedule, bounds, ratios, rates, params,
@@ -567,17 +578,20 @@ class LikelihoodEngine:
 
     def _rooted_gradient_dict(self, a, lls, dratios, drates, bl_scaled,
                               params, strict_clock, eigen=None):
+        """The gradient dict, the float64 ratio and clock gradients summed
+        (a strict clock) and rounded to the working dtype."""
+        dt = self.dtype
         out = {
             "log_likelihood": lls,
-            "ratios_root_height": dratios,
+            "ratios_root_height": dratios.to(dt),
             "clock_model": (drates.sum(-1, keepdim=True) if strict_clock
-                            else drates),
+                            else drates).to(dt),
         }
         # The Jacobian does not depend on the model: its gradients are the
         # LL's at the rate-scaled branch lengths.
         out.update(self._model_param_gradients(
-            a["pc"], a["root_id"], self._bl_padded2(bl_scaled), params,
-            eigen))
+            a["pc"], a["root_id"], self._bl_padded2(bl_scaled.to(dt)),
+            params, eigen))
         return out
 
     def _rooted_phylo_gradients_hand(
@@ -594,7 +608,8 @@ class LikelihoodEngine:
         rate-scaled branch lengths gives the LL and its branch gradient,
         then ops/heights.py's adjoint of the heights (the BEAST recursions
         of rooted_gradient_transforms.cpp:17-162, as sweeps, or squarings
-        by heights_method) gives the ratio and clock gradients."""
+        by heights_method) gives the ratio and clock gradients, in float64
+        from the branch gradient."""
         method = self.heights_method
         if method not in HEIGHTS_METHODS:
             raise ValueError(f"heights_method must be one of "
@@ -603,12 +618,12 @@ class LikelihoodEngine:
         bl_scaled = bl * a["rates"]
         _, _, site_rates, props = self._model(params)
         lls, g_scaled = pruning_jc.log_likelihood_and_branch_gradient_jc69(
-            a["pc"], self._bl_padded2(bl_scaled), self.tips, self.weights,
-            root_id=a["root_id"], rates=site_rates, props=props,
+            a["pc"], self._bl_padded2(bl_scaled.to(self.dtype)), self.tips,
+            self.weights, root_id=a["root_id"], rates=site_rates, props=props,
         )
         dratios, drates, _ = (
             heights_ops.ratio_and_rate_gradients_from_branch_gradient(
-                g_scaled, a["ratios"], a["bounds"], a["rates"],
+                g_scaled.to(h.dtype), a["ratios"], a["bounds"], a["rates"],
                 a["leaf_count"], a["pre_node"], a["pre_parent"], a["parent"],
                 a["n_iters"], heights=h, method=method,
                 post_children=a["pc"],

@@ -24,8 +24,10 @@ route stays eager), and replays it:
   frequencies and the eigensystem of its Q, which the host solves ahead
   in one NumPy pass (``engine._shared_eigen``, as the eager calls do),
   since a graph cannot read the device from the host);
-* the captured function unpacks them, casting to the working dtype as the
-  eager call's uploads do, and runs the engine's own code
+* the captured function unpacks them, as the eager call's uploads make
+  them (the time-tree arrays stay float64: the engine's time-tree
+  arithmetic is float64 whatever the working dtype), and runs the engine's
+  own code
   (``_rooted_hand``, ``_rooted_autograd``, ``_rooted_lls``), so a replay
   equals the eager call bit for bit where its sums have a fixed order (K1,
   K2, K3, K5, K6 and the heights' gathers do); the autograd route runs
@@ -36,7 +38,11 @@ route stays eager), and replays it:
   graphs share one pool.
 
 A call opens the spans of an unrooted call (models/unrooted_graph.py), in
-the same order.
+the same order, and before ``libsbn.engine.model_inputs`` its own:
+``libsbn.rooted.arrays``, the time-tree arrays' host copies and the sweep
+count (``engine._height_iters``, cached on the schedule). A replay adds
+its capture's heights sweeps to ``ops/heights.py SWEEPS``, as it adds its
+kernel launches.
 
 utils/graphs.py's ``PackedPrograms`` does the packing and the capture
 policy, and ``Graph`` the capture (warm-up, pool, launch counts). On the
@@ -48,15 +54,16 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..ops import pruning_jc, pruning_vjp
+from ..ops import heights, pruning_jc, pruning_vjp
 from ..utils.graphs import PackedPrograms, host_f64
 from ..utils.profiling import annotate
 
 # Captures and replays of the rooted programs; reset_counters() sets them
 # to 0.
 COUNTS = {"captures": 0, "replays": 0}
-# What a rooted program launches: K1-K3, and K5 + K6 for GTR.
-_COUNTERS = (pruning_jc.LAUNCHES, pruning_vjp.LAUNCHES)
+# What a rooted program launches (K1-K3, and K5 + K6 for GTR) and the
+# heights sweeps it runs.
+_COUNTERS = (pruning_jc.LAUNCHES, pruning_vjp.LAUNCHES, heights.SWEEPS)
 _INT_NAMES = ("post_children", "pre_internal_node", "pre_internal_parent",
               "parent")
 
@@ -137,11 +144,13 @@ class RootedGraphs:
         new) and replay it once; returns its outputs, in its pool."""
         eng = self.engine
         eng._sched_cache(sched)  # checks the schedule once per object
-        arrays = [host_f64(x) for x in arrays]
+        with annotate("libsbn.rooted.arrays"):
+            arrays = [host_f64(x) for x in arrays]
+            n_iters = eng._height_iters(sched)
         leaves, eigen = model_inputs(eng, params)
         names = [n for n, _ in leaves]
         B, S, _ = np.shape(sched.post_children)
-        n_iters, method = eng._height_iters(sched), eng.heights_method
+        method = eng.heights_method
         key = (route, B, S, sched.node_count, sched.leaf_count, sched.root_id,
                n_iters, method, eng.spec.site_category_count(), eng.dtype,
                tuple(names))
@@ -152,15 +161,15 @@ class RootedGraphs:
             pc, pre_node, pre_parent, parent = ints
             bounds, ratios, rates = floats[:3]
             params, eigen_v = unpack_model(names, floats[3:])
-            dt = eng.dtype
 
             def program():
                 # The eager call's uploads: index arrays as int64 (the
-                # child table int32), time-tree arrays in the working dtype.
+                # child table int32), time-tree arrays in float64 (the
+                # buffer's own).
                 a = {"pc": pc, "pre_node": pre_node.long(),
                      "pre_parent": pre_parent.long(), "parent": parent.long(),
-                     "bounds": bounds.to(dt), "ratios": ratios.to(dt),
-                     "rates": rates.to(dt), **statics}
+                     "bounds": bounds, "ratios": ratios, "rates": rates,
+                     **statics}
                 if route == "ll":
                     return eng._rooted_lls(a, params, eigen_v)
                 if route[0] == "autograd":

@@ -46,22 +46,22 @@ def _bind_jc(lib):
     lib.lsbn_jc69_max_k.restype = _I32
     lib.lsbn_jc69_max_k.argtypes = []
     for dt in ("f32", "f64"):
-        # pc, ea, props, tips, w, ll_part; B, L, S, N1, K, P, tile, shared
+        # pc, em, props, tips, w, ll_part; B, L, S, N1, K, P, tile, shared
         # bytes; stream
         _sig(lib, f"lsbn_jc69_ll_{dt}", 6, 8)
-        # pc, ea, rates, props, tips, w, ll_part, grad_part;
+        # pc, em, rates, props, tips, w, ll_part, grad_part;
         # B, L, S, N1, K, P, tile, shared bytes; stream
         _sig(lib, f"lsbn_jc69_ll_grad_{dt}", 8, 8)
-        # pc, ea, props, tips, w, dprops_part, dea_part;
+        # pc, em, props, tips, w, dprops_part, dea_part;
         # B, L, S, N1, K, P, tile, shared bytes; stream
         _sig(lib, f"lsbn_jc69_dea_{dt}", 7, 8)
-        # The slab routes: pc, ea, props, tips, w, E, ES, ll_part;
+        # The slab routes: pc, em, props, tips, w, E, ES, ll_part;
         # B, L, S, N1, K, P; stream
         _sig(lib, f"lsbn_jc69_ll_slab_{dt}", 8, 6)
-        # pc, ea, rates, props, tips, w, E, ES, U, ll_part,
+        # pc, em, rates, props, tips, w, E, ES, U, ll_part,
         # grad_part; B, L, S, N1, K, P; stream
         _sig(lib, f"lsbn_jc69_ll_grad_slab_{dt}", 11, 6)
-        # pc, ea, props, tips, w, E, ES, M, U, dprops_part, dea_part;
+        # pc, em, props, tips, w, E, ES, M, U, dprops_part, dea_part;
         # B, L, S, N1, K, P; stream
         _sig(lib, f"lsbn_jc69_dea_slab_{dt}", 11, 6)
 

@@ -22,6 +22,13 @@ gathers over the children table (the schedule's ``post_children``, row s
 holding internal node leaf_count + s's children, padded with the ones slot
 N), never scatter-adds, whose float atomics on a card add in no fixed
 order. So two runs on a card agree bit for bit.
+
+``SWEEPS`` counts the fixed point's steps as they are built: "forward"
+(``node_heights_from_ratios``) and "adjoint" (the hand adjoint of
+``ratio_and_rate_gradients_from_branch_gradient``), one a sweep, or one a
+squaring under ``method="squaring"``. Counted in Python, so a captured
+graph's replay adds its capture's counts (models/rooted_graph.py), as the
+kernels' launch counters do.
 """
 
 from __future__ import annotations
@@ -29,6 +36,15 @@ from __future__ import annotations
 import math
 
 import torch
+
+# The heights fixed point's steps built, by direction; reset_counters()
+# sets them to 0.
+SWEEPS = {"forward": 0, "adjoint": 0}
+
+
+def reset_counters():
+    for name in SWEEPS:
+        SWEEPS[name] = 0
 
 
 def _sweep_operands(ratios, node_bounds, leaf_count, pre_internal_node,
@@ -113,6 +129,7 @@ def node_heights_from_ratios(ratios, node_bounds, leaf_count,
         # (A^2, A c + c) doubles the sweeps each time.
         A = r_full[:, :, None] * _one_hot(parent_full, n, ratios.dtype)
         c = b - r_full * b
+        SWEEPS["forward"] += _squarings(n_iters)
         for _ in range(_squarings(n_iters)):
             c = torch.matmul(A, c[:, :, None])[:, :, 0] + c
             A = torch.matmul(A, A)
@@ -131,6 +148,7 @@ def node_heights_from_ratios(ratios, node_bounds, leaf_count,
     p1 = torch.cat([parent_full[:, :n - 1], parent_full.new_full((B, 2), n)],
                    dim=1)
     h = torch.cat([h, ratios[:, -1:]], dim=1)
+    SWEEPS["forward"] += n_iters
     for _ in range(n_iters):
         h = b1 + r1 * (torch.gather(h, 1, p1) - b1)
     return h[:, :n]
@@ -197,6 +215,7 @@ def ratio_and_rate_gradients_from_branch_gradient(
               * _one_hot(parent_full, n, dtype)).transpose(1, 2)
         S = torch.eye(n, dtype=dtype, device=h.device).expand(B, n, n)
         M = At
+        SWEEPS["adjoint"] += _squarings(n_iters)
         for _ in range(_squarings(n_iters)):
             S = S + torch.matmul(M, S)
             M = torch.matmul(M, M)
@@ -209,6 +228,7 @@ def ratio_and_rate_gradients_from_branch_gradient(
         up = _children_index(post_children, leaf_count, root_self=True)
         r_pad = torch.nn.functional.pad(r_full, (0, 1))
         w, W = g_h, g_h
+        SWEEPS["adjoint"] += n_iters
         for _ in range(n_iters):
             w = _sum_over_children(r_pad * w, up)
             W = W + w

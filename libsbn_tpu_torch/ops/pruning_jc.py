@@ -21,12 +21,18 @@ and order of operations:
     uw = u w / denom, M the pre-apply partials at E's scale.
 K2 and K3 are the two halves of one ``torch.autograd.Function``
 (``log_likelihoods_jc69``), so branch-length, rate and Weibull-shape
-gradients chain through ``exp_factors`` by autograd, as the JAX package's
-custom VJP ``_ll_jc`` does.
-The public functions take branch lengths, build the exp factors in f64
-(``exp_factors``), and route by device: a CPU tensor goes to the twin, a
-CUDA tensor to the kernel (csrc/pruning_jc.cu), which raises on anything it
-cannot take. Nothing falls back.
+gradients chain through ``exp_complements`` by autograd, as the JAX
+package's custom VJP ``_ll_jc`` does through its exp factors.
+The public functions take branch lengths, build m = 1 - e in f64
+(``exp_complements``), and route by device: a CPU tensor goes to the twin,
+a CUDA tensor to the kernel (csrc/pruning_jc.cu), which raises on anything
+it cannot take. Nothing falls back. The kernels and twins read m and form
+e = 1 - m, where the JAX package's read e and form 1 - e: on a short branch
+1 - e is a difference of nearly equal numbers, which in f32 keeps few of
+its digits (at 4t/3 = 2e-5, three), and the site likelihood of a column
+that changes on that branch, which it sets, loses the rest. Rooted time
+trees under a clock have such branches: fluA's rate-scaled lengths reach
+1e-5, where the f32 ratio gradient was 0.3-0.6% off its float64 value.
 
 The CUDA kernels mask the ragged pattern edge themselves, so patterns are
 not padded (the TPU kernels' pad_patterns is a lane rule of that chip).
@@ -84,16 +90,18 @@ def check_schedule(post_node, post_children, leaf_count, root_id):
         raise ValueError("child ids out of range of the schedule")
 
 
-def exp_factors(bl_padded, rates, dtype):
-    """e = exp(-4 b r / 3) per (tree, node, category), the exp in f64 (the
-    BASELINE.md precision policy), then cast to ``dtype``; differentiable.
-    bl_padded: (B, N1); rates: (K,), or (B, K) per tree. Returns
-    (B, N1, K)."""
+def exp_complements(bl_padded, rates, dtype):
+    """m = 1 - e, e = exp(-4 b r / 3), per (tree, node, category), by expm1
+    in f64 (the BASELINE.md precision policy), then cast to ``dtype``;
+    differentiable. The kernels read m and form e = 1 - m: m keeps its
+    precision where e is near 1 (a short branch), where 1 - e from a
+    rounded e would not. bl_padded: (B, N1); rates: (K,), or (B, K) per
+    tree. Returns (B, N1, K)."""
     r = rates.to(torch.float64)
     if r.dim() == 2:
         r = r[:, None, :]
     t = bl_padded.to(torch.float64)[:, :, None] * r
-    return torch.exp(-4.0 / 3.0 * t).to(dtype)
+    return (-torch.expm1(-4.0 / 3.0 * t)).to(dtype)
 
 
 def _default_rates_props(rates, props, like):
@@ -117,12 +125,12 @@ def log_likelihood_and_branch_gradient_jc69(
     (default: one category). All on one device, in the working dtype of
     ``tips``. Returns (ll (B,), grad (B, root_id))."""
     rates, props = _default_rates_props(rates, props, tips)
-    ea = exp_factors(bl_padded, rates, tips.dtype)
+    em = exp_complements(bl_padded, rates, tips.dtype)
     if tips.device.type == "cpu":
         fn = ll_grad_jc69_plain
     else:
         fn = ll_grad_jc69_cuda
-    ll, grad = fn(post_children, ea, rates, props, tips, weights,
+    ll, grad = fn(post_children, em, rates, props, tips, weights,
                   root_id=root_id)
     return ll, grad[:, :root_id]
 
@@ -144,26 +152,26 @@ def log_likelihood_and_branch_gradient_jc69_sharded(
 
 
 class _LogLikelihoodsJC69(torch.autograd.Function):
-    """(B,) LLs from the exp factors ea (B, N1, K) and props (K,): K2
-    forward, K3 backward (their twins for CPU tensors). Like the JAX custom
-    VJP ``_ll_jc``, it saves only its inputs, never E or M: the backward
-    recomputes the forward pass."""
+    """(B,) LLs from em = 1 - e (B, N1, K) and props (K,): K2 forward, K3
+    backward (their twins for CPU tensors), whose d ll / d e is d ll / d em
+    with its sign turned. Like the JAX custom VJP ``_ll_jc``, it saves only
+    its inputs, never E or M: the backward recomputes the forward pass."""
 
     @staticmethod
-    def forward(ctx, ea, props, post_children, tips, weights, root_id):
-        ctx.save_for_backward(ea, props, post_children, tips, weights)
+    def forward(ctx, em, props, post_children, tips, weights, root_id):
+        ctx.save_for_backward(em, props, post_children, tips, weights)
         ctx.root_id = root_id
         fn = ll_jc69_plain if tips.device.type == "cpu" else ll_jc69_cuda
-        return fn(post_children, ea, props, tips, weights, root_id=root_id)
+        return fn(post_children, em, props, tips, weights, root_id=root_id)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        ea, props, post_children, tips, weights = ctx.saved_tensors
+        em, props, post_children, tips, weights = ctx.saved_tensors
         fn = ll_dea_jc69_plain if tips.device.type == "cpu" else ll_dea_jc69_cuda
-        dea, dprops = fn(post_children, ea, props, tips, weights,
+        dea, dprops = fn(post_children, em, props, tips, weights,
                          root_id=ctx.root_id)
-        return (dea * g[:, None, None], (dprops * g[:, None]).sum(dim=0),
+        return (-dea * g[:, None, None], (dprops * g[:, None]).sum(dim=0),
                 None, None, None, None)
 
 
@@ -172,12 +180,12 @@ def log_likelihoods_jc69(
     props=None,
 ):
     """(B,) JC69 log likelihoods from branch lengths (K2), differentiable in
-    bl_padded, rates and props by autograd through ``exp_factors`` and the
-    K3 backward. Arguments as in log_likelihood_and_branch_gradient_jc69,
+    bl_padded, rates and props by autograd through ``exp_complements`` and
+    the K3 backward. Arguments as in log_likelihood_and_branch_gradient_jc69,
     except that rates may also be (B, K), one row per tree."""
     rates, props = _default_rates_props(rates, props, tips)
-    ea = exp_factors(bl_padded, rates, tips.dtype)
-    return _LogLikelihoodsJC69.apply(ea, props, post_children, tips, weights,
+    em = exp_complements(bl_padded, rates, tips.dtype)
+    return _LogLikelihoodsJC69.apply(em, props, post_children, tips, weights,
                                      root_id)
 
 
@@ -185,14 +193,15 @@ def log_likelihoods_jc69(
 # E: (B, N1, K, 4, P), the kernel's (B, N1, 4K, P) layout; ES: (B, N1, K, P).
 
 
-def _apply(e, slab, rsums):
-    """P_node(slab) per category: e (B, K), slab (B, K, 4, P), rsums
-    (B, K, P) -> e slab + ((1 - e)/4) rowsum."""
-    c = (1.0 - e) * 0.25
+def _apply(m, slab, rsums):
+    """P_node(slab) per category: m = 1 - e (B, K), slab (B, K, 4, P), rsums
+    (B, K, P) -> e slab + (m/4) rowsum."""
+    e = 1.0 - m
+    c = m * 0.25
     return e[:, :, None, None] * slab + c[:, :, None, None] * rsums[:, :, None, :]
 
 
-def _forward_plain(post_children, ea, tips, root_id, keep_m=False):
+def _forward_plain(post_children, em, tips, root_id, keep_m=False):
     """Forward pass: ones slot, leaves, then the combine steps with
     row-sum rescaling on odd steps and the last one. Returns (E, ES,
     logscale (B, P), M): M (B, N1, K, 4, P) holds the pre-apply partials at
@@ -200,7 +209,7 @@ def _forward_plain(post_children, ea, tips, root_id, keep_m=False):
     slot), else None."""
     B, S, _ = post_children.shape
     L, _, P = tips.shape
-    K = ea.shape[2]
+    K = em.shape[2]
     N1 = root_id + 2
     dt, dev = tips.dtype, tips.device
     pc = post_children.long()
@@ -214,7 +223,7 @@ def _forward_plain(post_children, ea, tips, root_id, keep_m=False):
     for leaf in range(L):
         slab = tips[leaf].expand(B, K, 4, P)
         rs = rt[leaf].expand(B, K, P)
-        E[:, leaf] = _apply(ea[:, leaf], slab, rs)
+        E[:, leaf] = _apply(em[:, leaf], slab, rs)
         ES[:, leaf] = rs
     if keep_m:
         M[:, :L] = tips[None, :, None]
@@ -225,7 +234,7 @@ def _forward_plain(post_children, ea, tips, root_id, keep_m=False):
         c = pc[:, s]
         prod = (E[rows, c[:, 0]] * E[rows, c[:, 1]]) * E[rows, c[:, 2]]
         rs = ((prod[:, :, 0] + prod[:, :, 1]) + prod[:, :, 2]) + prod[:, :, 3]
-        out = _apply(ea[:, node], prod, rs)
+        out = _apply(em[:, node], prod, rs)
         if s % 2 == 1 or s == S - 1:
             scale = rs[:, 0]
             for k in range(1, K):
@@ -265,7 +274,7 @@ def _rowsum4(x):
     return ((x[:, :, 0] + x[:, :, 1]) + x[:, :, 2]) + x[:, :, 3]
 
 
-def _upper_plain(post_children, ea, props, E, weights, root_id, L, emit):
+def _upper_plain(post_children, em, props, E, weights, root_id, L, emit):
     """The upper pass shared by the K1 and K3 twins: U[root] = props / 4,
     then, from the root down, U[node] evolved up through its edge, each
     child's upper partial u from it and the siblings' E, and U[kid] = u
@@ -273,7 +282,7 @@ def _upper_plain(post_children, ea, props, E, weights, root_id, L, emit):
     ``emit(kid, u, d, winv)`` with kid (B,) child ids, u (B, K, 4, P), d
     (B, K, P) the per-category denominators and winv (B, P) = w / denom."""
     B, S, _ = post_children.shape
-    K = ea.shape[2]
+    K = em.shape[2]
     dev = E.device
     pc = post_children.long()
     rows = torch.arange(B, device=dev)
@@ -283,12 +292,12 @@ def _upper_plain(post_children, ea, props, E, weights, root_id, L, emit):
         node = root_id - t
         c = pc[:, node - L]
         un = U[:, node]  # (B, K, 4, P)
-        e = ea[:, node]
+        m = em[:, node]
         if K == 1:
             # U rows sum to exactly 1 here: the row-sum operand is 1.
-            ev = e[:, :, None, None] * un + ((1.0 - e) * 0.25)[:, :, None, None]
+            ev = (1.0 - m)[:, :, None, None] * un + (m * 0.25)[:, :, None, None]
         else:
-            ev = _apply(e, un, _rowsum4(un))
+            ev = _apply(m, un, _rowsum4(un))
         e0, e1, e2 = E[rows, c[:, 0]], E[rows, c[:, 1]], E[rows, c[:, 2]]
         m01, m02, m12 = e0 * e1, e0 * e2, e1 * e2
         d = _rowsum4(ev * (m01 * e2))  # (B, K, P)
@@ -308,20 +317,20 @@ def _upper_plain(post_children, ea, props, E, weights, root_id, L, emit):
             U[rows, kid] = u / sc[:, None, None, :]
 
 
-def ll_jc69_plain(post_children, ea, props, tips, weights, *, root_id):
-    """Plain PyTorch twin of K2. ea: (B, N1, K). Returns ll (B,)."""
+def ll_jc69_plain(post_children, em, props, tips, weights, *, root_id):
+    """Plain PyTorch twin of K2. em: (B, N1, K). Returns ll (B,)."""
     TWIN_CALLS["ll_jc69"] += 1
-    _, ES, logscale, _ = _forward_plain(post_children, ea, tips, root_id)
+    _, ES, logscale, _ = _forward_plain(post_children, em, tips, root_id)
     return _ll_plain(ES, props, weights, logscale, root_id)
 
 
-def ll_grad_jc69_plain(post_children, ea, rates, props, tips, weights, *,
+def ll_grad_jc69_plain(post_children, em, rates, props, tips, weights, *,
                        root_id):
-    """Plain PyTorch twin of K1. ea: (B, N1, K). Returns (ll (B,),
+    """Plain PyTorch twin of K1. em: (B, N1, K). Returns (ll (B,),
     grad (B, N1)); grad[:, :root_id] are the edge derivatives, the root and
     ones-slot entries are zero."""
     TWIN_CALLS["ll_grad_jc69"] += 1
-    E, ES, logscale, _ = _forward_plain(post_children, ea, tips, root_id)
+    E, ES, logscale, _ = _forward_plain(post_children, em, tips, root_id)
     ll = _ll_plain(ES, props, weights, logscale, root_id)
     B = post_children.shape[0]
     K = rates.shape[0]
@@ -342,19 +351,19 @@ def ll_grad_jc69_plain(post_children, ea, rates, props, tips, weights, *,
             )
         G[rows, kid] = winv * num
 
-    _upper_plain(post_children, ea, props, E, weights, root_id, tips.shape[0],
+    _upper_plain(post_children, em, props, E, weights, root_id, tips.shape[0],
                  emit)
     G[:, N1 - 1] = 0.0
     return ll, G.sum(dim=2)
 
 
-def ll_dea_jc69_plain(post_children, ea, props, tips, weights, *, root_id):
-    """Plain PyTorch twin of K3. ea: (B, N1, K). Returns (dea (B, N1, K)
-    = d ll / d ea, dprops (B, K) = d ll / d props), per tree; the root and
+def ll_dea_jc69_plain(post_children, em, props, tips, weights, *, root_id):
+    """Plain PyTorch twin of K3. em: (B, N1, K). Returns (dea (B, N1, K)
+    = d ll / d e, dprops (B, K) = d ll / d props), per tree; the root and
     ones-slot rows of dea are zero."""
     TWIN_CALLS["ll_dea_jc69"] += 1
-    E, ES, _, M = _forward_plain(post_children, ea, tips, root_id, keep_m=True)
-    B, N1, K = ea.shape
+    E, ES, _, M = _forward_plain(post_children, em, tips, root_id, keep_m=True)
+    B, N1, K = em.shape
     rows = torch.arange(B, device=tips.device)
     # dprops_k = sum_p (w / site) (1/4) S_E,k[root].
     w_over_site = weights / _root_site_plain(ES, props, root_id)
@@ -366,7 +375,7 @@ def ll_dea_jc69_plain(post_children, ea, props, tips, weights, *, root_id):
         val = _rowsum4(uw * M[rows, kid]) - 0.25 * (_rowsum4(uw) * ES[rows, kid])
         dea[rows, kid] = val.sum(dim=2)
 
-    _upper_plain(post_children, ea, props, E, weights, root_id, tips.shape[0],
+    _upper_plain(post_children, em, props, E, weights, root_id, tips.shape[0],
                  emit)
     dea[:, root_id] = 0.0
     dea[:, N1 - 1] = 0.0
@@ -398,7 +407,7 @@ def onchip_plan(dtype, K, S, L, kernel="ll_grad"):
     return (ONCHIP_TILE, need) if need <= SHARED_LIMIT else None
 
 
-def _check_inputs(post_children, ea, tips, weights, cats, root_id):
+def _check_inputs(post_children, em, tips, weights, cats, root_id):
     """Device, dtype, shape and contiguity checks shared by K1, K2 and K3.
     Returns (B, L, S, N1, K, P)."""
     dev = tips.device
@@ -409,7 +418,7 @@ def _check_inputs(post_children, ea, tips, weights, cats, root_id):
         raise TypeError(f"working dtype must be float32 or float64, got {dt}")
     if post_children.dtype != torch.int32:
         raise TypeError("post_children must be int32")
-    for name, x in [("post_children", post_children), ("ea", ea),
+    for name, x in [("post_children", post_children), ("em", em),
                     ("tips", tips), ("weights", weights)] + cats:
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, tips on {dev}")
@@ -427,8 +436,8 @@ def _check_inputs(post_children, ea, tips, weights, cats, root_id):
     if root_id != L + S - 1:
         raise ValueError(f"root_id {root_id} != L + S - 1 = {L + S - 1}")
     K = cats[0][1].shape[0]
-    if ea.shape != (B, N1, K):
-        raise ValueError(f"ea must be {(B, N1, K)}, got {tuple(ea.shape)}")
+    if em.shape != (B, N1, K):
+        raise ValueError(f"em must be {(B, N1, K)}, got {tuple(em.shape)}")
     if weights.shape != (P,):
         raise ValueError(f"weights must be ({P},), got {tuple(weights.shape)}")
     for name, x in cats:
@@ -447,10 +456,10 @@ def _check_k(lib, K):
         )
 
 
-def ll_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
-    """K2 on the card: (B,) log likelihoods. ea: (B, N1, K). On chip when
+def ll_jc69_cuda(post_children, em, props, tips, weights, *, root_id):
+    """K2 on the card: (B,) log likelihoods. em: (B, N1, K). On chip when
     the plan fits, else the slab route."""
-    dims = _check_inputs(post_children, ea, tips, weights, [("props", props)],
+    dims = _check_inputs(post_children, em, tips, weights, [("props", props)],
                          root_id)
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
@@ -458,14 +467,14 @@ def ll_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
     _check_k(lib, K)
     plan = onchip_plan(dt, K, S, L, "ll")
     if plan is None or -(-P // ONCHIP_TILE) > MAX_TILES:
-        return _ll_jc69_slab(lib, dims, post_children, ea, props, tips,
+        return _ll_jc69_slab(lib, dims, post_children, em, props, tips,
                              weights)
     tile, smem = plan
     ll_part = torch.empty((B, -(-P // tile)), dtype=dt, device=dev)
     fn = lib.lsbn_jc69_ll_f32 if dt == torch.float32 else lib.lsbn_jc69_ll_f64
     with torch.cuda.device(dev):
         rc = fn(
-            post_children.data_ptr(), ea.data_ptr(), props.data_ptr(),
+            post_children.data_ptr(), em.data_ptr(), props.data_ptr(),
             tips.data_ptr(), weights.data_ptr(), ll_part.data_ptr(), *dims,
             tile, smem, torch.cuda.current_stream().cuda_stream,
         )
@@ -474,7 +483,7 @@ def ll_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
     return ll_part.sum(dim=1)
 
 
-def _ll_jc69_slab(lib, dims, post_children, ea, props, tips, weights):
+def _ll_jc69_slab(lib, dims, post_children, em, props, tips, weights):
     """K2's slab route (inputs checked by the caller)."""
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
@@ -486,7 +495,7 @@ def _ll_jc69_slab(lib, dims, post_children, ea, props, tips, weights):
           else lib.lsbn_jc69_ll_slab_f64)
     with torch.cuda.device(dev):
         rc = fn(
-            post_children.data_ptr(), ea.data_ptr(), props.data_ptr(),
+            post_children.data_ptr(), em.data_ptr(), props.data_ptr(),
             tips.data_ptr(), weights.data_ptr(), E.data_ptr(), ES.data_ptr(),
             ll_part.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream,
         )
@@ -495,11 +504,11 @@ def _ll_jc69_slab(lib, dims, post_children, ea, props, tips, weights):
     return ll_part.sum(dim=1)
 
 
-def ll_grad_jc69_cuda(post_children, ea, rates, props, tips, weights, *,
+def ll_grad_jc69_cuda(post_children, em, rates, props, tips, weights, *,
                       root_id):
-    """K1 on the card: (ll (B,), grad (B, N1)). ea: (B, N1, K). On chip
+    """K1 on the card: (ll (B,), grad (B, N1)). em: (B, N1, K). On chip
     when the plan fits, else the slab route."""
-    dims = _check_inputs(post_children, ea, tips, weights,
+    dims = _check_inputs(post_children, em, tips, weights,
                          [("rates", rates), ("props", props)], root_id)
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
@@ -507,7 +516,7 @@ def ll_grad_jc69_cuda(post_children, ea, rates, props, tips, weights, *,
     _check_k(lib, K)
     plan = onchip_plan(dt, K, S, L, "ll_grad")
     if plan is None or -(-P // ONCHIP_TILE) > MAX_TILES:
-        return _ll_grad_jc69_slab(lib, dims, post_children, ea, rates, props,
+        return _ll_grad_jc69_slab(lib, dims, post_children, em, rates, props,
                                   tips, weights)
     tile, smem = plan
     tiles = -(-P // tile)
@@ -517,7 +526,7 @@ def ll_grad_jc69_cuda(post_children, ea, rates, props, tips, weights, *,
           else lib.lsbn_jc69_ll_grad_f64)
     with torch.cuda.device(dev):
         rc = fn(
-            post_children.data_ptr(), ea.data_ptr(), rates.data_ptr(),
+            post_children.data_ptr(), em.data_ptr(), rates.data_ptr(),
             props.data_ptr(), tips.data_ptr(), weights.data_ptr(),
             ll_part.data_ptr(), grad_part.data_ptr(), *dims, tile, smem,
             torch.cuda.current_stream().cuda_stream,
@@ -527,7 +536,7 @@ def ll_grad_jc69_cuda(post_children, ea, rates, props, tips, weights, *,
     return ll_part.sum(dim=1), grad_part.sum(dim=1)
 
 
-def _ll_grad_jc69_slab(lib, dims, post_children, ea, rates, props, tips,
+def _ll_grad_jc69_slab(lib, dims, post_children, em, rates, props, tips,
                        weights):
     """K1's slab route (inputs checked by the caller)."""
     B, L, S, N1, K, P = dims
@@ -542,7 +551,7 @@ def _ll_grad_jc69_slab(lib, dims, post_children, ea, rates, props, tips,
           else lib.lsbn_jc69_ll_grad_slab_f64)
     with torch.cuda.device(dev):
         rc = fn(
-            post_children.data_ptr(), ea.data_ptr(), rates.data_ptr(),
+            post_children.data_ptr(), em.data_ptr(), rates.data_ptr(),
             props.data_ptr(), tips.data_ptr(), weights.data_ptr(),
             E.data_ptr(), ES.data_ptr(), U.data_ptr(), ll_part.data_ptr(),
             grad_part.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream,
@@ -552,10 +561,10 @@ def _ll_grad_jc69_slab(lib, dims, post_children, ea, rates, props, tips,
     return ll_part.sum(dim=1), grad_part.sum(dim=1)
 
 
-def ll_dea_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
-    """K3 on the card: (dea (B, N1, K), dprops (B, K)). ea: (B, N1, K). On
+def ll_dea_jc69_cuda(post_children, em, props, tips, weights, *, root_id):
+    """K3 on the card: (dea (B, N1, K), dprops (B, K)). em: (B, N1, K). On
     chip when the plan fits, else the slab route."""
-    dims = _check_inputs(post_children, ea, tips, weights, [("props", props)],
+    dims = _check_inputs(post_children, em, tips, weights, [("props", props)],
                          root_id)
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
@@ -563,7 +572,7 @@ def ll_dea_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
     _check_k(lib, K)
     plan = onchip_plan(dt, K, S, L, "dea")
     if plan is None or -(-P // ONCHIP_TILE) > MAX_TILES:
-        return _ll_dea_jc69_slab(lib, dims, post_children, ea, props, tips,
+        return _ll_dea_jc69_slab(lib, dims, post_children, em, props, tips,
                                  weights)
     tile, smem = plan
     tiles = -(-P // tile)
@@ -572,17 +581,17 @@ def ll_dea_jc69_cuda(post_children, ea, props, tips, weights, *, root_id):
     fn = lib.lsbn_jc69_dea_f32 if dt == torch.float32 else lib.lsbn_jc69_dea_f64
     with torch.cuda.device(dev):
         rc = fn(
-            post_children.data_ptr(), ea.data_ptr(), props.data_ptr(),
+            post_children.data_ptr(), em.data_ptr(), props.data_ptr(),
             tips.data_ptr(), weights.data_ptr(), dprops_part.data_ptr(),
             dea_part.data_ptr(), *dims, tile, smem,
             torch.cuda.current_stream().cuda_stream,
         )
-    _kernels.check(lib, rc, "jc69 d ll / d ea kernel")
+    _kernels.check(lib, rc, "jc69 d ll / d em kernel")
     LAUNCHES["ll_dea_jc69"] += 1
     return dea_part.sum(dim=1).reshape(B, N1, K), dprops_part.sum(dim=1)
 
 
-def _ll_dea_jc69_slab(lib, dims, post_children, ea, props, tips, weights):
+def _ll_dea_jc69_slab(lib, dims, post_children, em, props, tips, weights):
     """K3's slab route (inputs checked by the caller)."""
     B, L, S, N1, K, P = dims
     dt, dev = tips.dtype, tips.device
@@ -597,11 +606,11 @@ def _ll_dea_jc69_slab(lib, dims, post_children, ea, props, tips, weights):
           else lib.lsbn_jc69_dea_slab_f64)
     with torch.cuda.device(dev):
         rc = fn(
-            post_children.data_ptr(), ea.data_ptr(), props.data_ptr(),
+            post_children.data_ptr(), em.data_ptr(), props.data_ptr(),
             tips.data_ptr(), weights.data_ptr(), E.data_ptr(), ES.data_ptr(),
             M.data_ptr(), U.data_ptr(), dprops_part.data_ptr(),
             dea_part.data_ptr(), *dims, torch.cuda.current_stream().cuda_stream,
         )
-    _kernels.check(lib, rc, "jc69 d ll / d ea kernel (slab route)")
+    _kernels.check(lib, rc, "jc69 d ll / d em kernel (slab route)")
     LAUNCHES["ll_dea_jc69_slab"] += 1
     return dea_part.sum(dim=1).reshape(B, N1, K), dprops_part.sum(dim=1)

@@ -95,7 +95,7 @@ def _inputs(data, dtype, K):
     patterns (_synthetic: beyond shared memory, so on the slab route,
     except at float32 K = 1, where a tile of 32 fits); DS1 branch
     lengths perturbed by a seeded U(0.8, 1.2), one or K Weibull rate
-    categories: (post_children, ea, rates, props, tips, weights, root_id)."""
+    categories: (post_children, em, rates, props, tips, weights, root_id)."""
     if data == "big":
         pc, bl, tips, w, root_id = _synthetic(2, 200)
     else:
@@ -122,8 +122,8 @@ def _inputs(data, dtype, K):
         rates = props = dev(np.ones(1))
     else:
         rates, props = (dev(x) for x in weibull_rates(0.3, K))
-    ea = pruning_jc.exp_factors(dev(bl), rates, dtype)
-    return (dev(pc, torch.int32), ea, rates, props, dev(tips), dev(w),
+    em = pruning_jc.exp_complements(dev(bl), rates, dtype)
+    return (dev(pc, torch.int32), em, rates, props, dev(tips), dev(w),
             root_id)
 
 
@@ -143,8 +143,8 @@ def test_kernels_match_twins_on_card(data, K, dtype):
     beyond it (on the 256-taxon tree, all but float32 K = 1)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    pc, ea, rates, props, tips, w, r = _inputs(data, dtype, K)
-    args = (pc, ea, rates, props, tips, w)
+    pc, em, rates, props, tips, w, r = _inputs(data, dtype, K)
+    args = (pc, em, rates, props, tips, w)
     pruning_jc.reset_counters()
     k_ll, k_g = pruning_jc.ll_grad_jc69_cuda(*args, root_id=r)
     plan = pruning_jc.onchip_plan(dtype, K, pc.shape[1], tips.shape[0])
@@ -152,7 +152,7 @@ def test_kernels_match_twins_on_card(data, K, dtype):
     route = "ll_grad_jc69" if plan else "ll_grad_jc69_slab"
     assert pruning_jc.LAUNCHES[route] == 1
     t_ll, t_g = pruning_jc.ll_grad_jc69_plain(*args, root_id=r)
-    k2 = pruning_jc.ll_jc69_cuda(pc, ea, props, tips, w, root_id=r)
+    k2 = pruning_jc.ll_jc69_cuda(pc, em, props, tips, w, root_id=r)
     torch.cuda.synchronize()
     plan2 = pruning_jc.onchip_plan(dtype, K, pc.shape[1], tips.shape[0], "ll")
     assert (plan2 is None) == (plan is None)
@@ -172,16 +172,16 @@ def test_kernels_match_twins_on_card(data, K, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("data,K", K1_K3_CASES)
 def test_k3_matches_twin_on_card(data, K, dtype):
-    """K3 (d ll / d ea, d ll / d props) against its twin on one card, at
+    """K3 (d ll / d e, d ll / d props) against its twin on one card, at
     the gradient tolerance of TOL; the root and ones-slot rows are zero;
     on chip where onchip_plan fits, the slab route beyond it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    pc, ea, _, props, tips, w, r = _inputs(data, dtype, K)
+    pc, em, _, props, tips, w, r = _inputs(data, dtype, K)
     pruning_jc.reset_counters()
-    k_dea, k_dp = pruning_jc.ll_dea_jc69_cuda(pc, ea, props, tips, w,
+    k_dea, k_dp = pruning_jc.ll_dea_jc69_cuda(pc, em, props, tips, w,
                                               root_id=r)
-    t_dea, t_dp = pruning_jc.ll_dea_jc69_plain(pc, ea, props, tips, w,
+    t_dea, t_dp = pruning_jc.ll_dea_jc69_plain(pc, em, props, tips, w,
                                                root_id=r)
     torch.cuda.synchronize()
     plan = pruning_jc.onchip_plan(dtype, K, pc.shape[1], tips.shape[0], "dea")
@@ -214,10 +214,10 @@ def test_onchip_k1_adds_only_tile_partials():
     where the slab route adds its (B, N1, 4K, P) scratch (about 0.9 GB)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    pc, ea, rates, props, tips, w, r = _inputs("ds1", torch.float32, 1)
+    pc, em, rates, props, tips, w, r = _inputs("ds1", torch.float32, 1)
     reps = 512 // pc.shape[0] + 1
-    pc, ea = pc.repeat(reps, 1, 1)[:512].contiguous(), ea.repeat(reps, 1, 1)[:512].contiguous()
-    args = (pc, ea, rates, props, tips, w)
+    pc, em = pc.repeat(reps, 1, 1)[:512].contiguous(), em.repeat(reps, 1, 1)[:512].contiguous()
+    args = (pc, em, rates, props, tips, w)
     onchip = _added(lambda: pruning_jc.ll_grad_jc69_cuda(*args, root_id=r))
     dims = (512, tips.shape[0], pc.shape[1], r + 2, 1, tips.shape[2])
     lib = pruning_jc._kernels.load("pruning_jc")
@@ -232,10 +232,10 @@ def test_onchip_k2_adds_only_tile_partials():
     route adds its E and ES scratch (about 0.5 GB)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    pc, ea, _, props, tips, w, r = _inputs("ds1", torch.float32, 1)
+    pc, em, _, props, tips, w, r = _inputs("ds1", torch.float32, 1)
     reps = 512 // pc.shape[0] + 1
-    pc, ea = pc.repeat(reps, 1, 1)[:512].contiguous(), ea.repeat(reps, 1, 1)[:512].contiguous()
-    args = (pc, ea, props, tips, w)
+    pc, em = pc.repeat(reps, 1, 1)[:512].contiguous(), em.repeat(reps, 1, 1)[:512].contiguous()
+    args = (pc, em, props, tips, w)
     pruning_jc.reset_counters()
     onchip = _added(lambda: pruning_jc.ll_jc69_cuda(*args, root_id=r))
     assert pruning_jc.LAUNCHES["ll_jc69"] == 1
@@ -1174,12 +1174,13 @@ def test_k2_at_ten_thousand_trees(dtype):
     bl = np.tile(np.stack(bls), (1000, 1))
     bl = np.pad(bl * rng.uniform(0.8, 1.2, bl.shape), ((0, 0), (0, 1)))
     pc = torch.as_tensor(sched.post_children, dtype=torch.int32).cuda()
-    ea = pruning_jc.exp_factors(torch.as_tensor(bl).cuda(), rates, dtype)
+    em = pruning_jc.exp_complements(torch.as_tensor(bl).cuda(), rates,
+                                    dtype)
     pruning_jc.reset_counters()
-    full = pruning_jc.ll_jc69_cuda(pc, ea, props, tips, w, root_id=r)
+    full = pruning_jc.ll_jc69_cuda(pc, em, props, tips, w, root_id=r)
     parts = torch.cat([
         pruning_jc.ll_jc69_cuda(pc[i:i + 1000].contiguous(),
-                                ea[i:i + 1000].contiguous(), props, tips, w,
+                                em[i:i + 1000].contiguous(), props, tips, w,
                                 root_id=r)
         for i in range(0, 10_000, 1000)])
     torch.cuda.synchronize()
@@ -1189,7 +1190,7 @@ def test_k2_at_ten_thousand_trees(dtype):
     np.testing.assert_allclose(full.cpu().numpy(), parts.cpu().numpy(),
                                rtol=rtol, atol=atol)
     twin = pruning_jc.ll_jc69_plain(pc[:1000].contiguous(),
-                                    ea[:1000].contiguous(), props, tips, w,
+                                    em[:1000].contiguous(), props, tips, w,
                                     root_id=r)
     np.testing.assert_allclose(full[:1000].cpu().numpy(), twin.cpu().numpy(),
                                rtol=rtol, atol=atol)
@@ -1359,7 +1360,7 @@ def test_sharded_k1_k4_match_local_on_card(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     (ll_tol, g_tol) = TOL[dtype]
-    pc, ea, rates, props, tips, w, r = _inputs("ds1", dtype, 1)
+    pc, em, rates, props, tips, w, r = _inputs("ds1", dtype, 1)
     tops, bls, _ = newick.parse_nexus_file(f"{DATA}/DS1.subsampled_10.t")
     bl = torch.as_tensor(np.pad(np.stack(bls), ((0, 0), (0, 1)))).to(
         dtype).cuda()
@@ -1710,10 +1711,10 @@ def test_graph_replay_reads_new_inputs_on_card(dtype):
             pc, branch_rep, _, _ = jit_step.unpack_ints(packed[k], shapes)
             _, _, theta = jit_step._branch_lengths(state.q_params, branch_rep,
                                                    eps[k])
-            ea = pruning_jc.exp_factors(
+            em = pruning_jc.exp_complements(
                 torch.nn.functional.pad(theta, (0, 2)), ones, dtype)
             ll, _ = pruning_jc.ll_grad_jc69_plain(
-                pc, ea, ones, ones, jv.tips, jv.weights,
+                pc, em, ones, ones, jv.tips, jv.weights,
                 root_id=jv.statics.root_id)
             want.append(float(ll.mean()))
             state, _ = jit_step.vbpi_train_step_packed(

@@ -65,7 +65,8 @@ def _t(a, dtype=torch.float64):
 @pytest.mark.parametrize("site", SITES)
 def test_k3_twin_matches_jax_interpret(ds1, site):
     """The f32 K3 twin vs the JAX K3 (_bwd_dea_call, interpret=True, on
-    pattern-padded tips) on three DS1 trees, from the same f32 exp factors.
+    pattern-padded tips) on three DS1 trees, from the same f32 exp factors
+    (the twin reads their complements 1 - e, exact in f32 for e >= 1/2).
     Gates: dea within 1e-5 relative to the largest |dea| of its tree,
     dprops within rtol 1e-5. Observed: dea 9.8e-4 of 1487 (constant) / 3.1e-4
     of 756 (Weibull+4), 6.6e-7 relative; dprops 6.1e-4 of 1995 at most."""
@@ -86,7 +87,8 @@ def test_k3_twin_matches_jax_interpret(ds1, site):
     jdea = np.asarray(jdea).reshape(B, -1, K)
     pruning_jc.reset_counters()
     dea, dprops = pruning_jc.ll_dea_jc69_plain(
-        _t(ds1["pc"], torch.int32), _t(ea, torch.float32).reshape(B, -1, K),
+        _t(ds1["pc"], torch.int32),
+        (1.0 - _t(ea, torch.float32)).reshape(B, -1, K),
         _t(props, torch.float32), _t(tips, torch.float32),
         _t(w, torch.float32), root_id=ds1["root_id"],
     )
@@ -192,16 +194,18 @@ def test_shape_gradient_matches_finite_difference(data_dir):
 
 def test_weibull_rates_per_tree(ds1):
     """weibull_rates of a (B,) shape gives (B, K) rates, each row equal to
-    the scalar-shape rates, and props (K,); exp_factors takes either."""
+    the scalar-shape rates, and props (K,); exp_complements takes
+    either."""
     shapes = torch.tensor([0.3, 0.5, 2.0], dtype=torch.float64)
     rates, props = weibull_rates(shapes, 4)
     assert rates.shape == (3, 4) and props.shape == (4,)
     bl = _t(ds1["bl_p"])
-    ea = pruning_jc.exp_factors(bl, rates, torch.float64)
+    em = pruning_jc.exp_complements(bl, rates, torch.float64)
     for b, s in enumerate(shapes):
         r1, _ = weibull_rates(float(s), 4)
         np.testing.assert_array_equal(rates[b].numpy(), r1.numpy())
         np.testing.assert_array_equal(
-            ea[b].numpy(),
-            pruning_jc.exp_factors(bl[b:b + 1], r1, torch.float64)[0].numpy(),
+            em[b].numpy(),
+            pruning_jc.exp_complements(bl[b:b + 1], r1,
+                                       torch.float64)[0].numpy(),
         )

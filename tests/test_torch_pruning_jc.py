@@ -215,14 +215,26 @@ def test_goldens(ds1, data_dir, golden):
 
 
 def test_exp_factors_match_jax(ds1):
-    """e = exp(-4br/3) in f64, then cast: bit-identical to the JAX
-    package's exp_factors in f32."""
+    """The kernels' m = 1 - e, e = exp(-4br/3), by expm1 in f64: 1 - m
+    rounded to f32 is the JAX package's f32 exp_factors to within one f32
+    rounding (1 - m and exp differ by an f64 rounding, which can move a
+    value across an f32 rounding boundary); and m in f32 keeps its
+    precision on a short branch, where 1 - e rounded to f32 does not."""
     rates = np.asarray(weibull_rates(0.5, 4)[0], np.float32)
     want = np.asarray(pruning_pallas_jc.exp_factors(ds1["bl_p"], rates))
-    got = pruning_jc.exp_factors(
-        torch.as_tensor(ds1["bl_p"]), torch.as_tensor(rates), torch.float32
+    m = pruning_jc.exp_complements(
+        torch.as_tensor(ds1["bl_p"]), torch.as_tensor(rates), torch.float64
     )
-    np.testing.assert_array_equal(got.reshape(got.shape[0], -1).numpy(), want)
+    got = (1.0 - m).to(torch.float32)
+    np.testing.assert_allclose(got.reshape(got.shape[0], -1).numpy(), want,
+                               rtol=2.0 ** -23, atol=0)
+    t = torch.tensor([[1e-6, 1e-5, 0.0]], dtype=torch.float64)
+    exact = -torch.expm1(-4.0 / 3.0 * t[:, :2])
+    m32 = pruning_jc.exp_complements(t, torch.ones(1), torch.float32)
+    assert m32.shape == (1, 3, 1) and m32[0, 2, 0] == 0
+    np.testing.assert_allclose(m32[0, :2, 0].double(), exact[0], rtol=1e-7)
+    rounded = 1.0 - torch.exp(-4.0 / 3.0 * t[:, :2]).to(torch.float32)
+    assert ((rounded.double() - exact).abs() / exact).max() > 1e-3
 
 
 def test_cpu_tensors_route_to_twins_and_never_reach_kernels(ds1):
@@ -248,14 +260,14 @@ def test_cpu_tensors_route_to_twins_and_never_reach_kernels(ds1):
                                      "ll_dea_jc69": 1}
     assert not any(pruning_jc.LAUNCHES.values())
     one = torch.ones(1)
-    ea = pruning_jc.exp_factors(bl, one, torch.float32)
+    em = pruning_jc.exp_complements(bl, one, torch.float32)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        pruning_jc.ll_jc69_cuda(pc, ea, one, tips, w, root_id=sched.root_id)
+        pruning_jc.ll_jc69_cuda(pc, em, one, tips, w, root_id=sched.root_id)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        pruning_jc.ll_grad_jc69_cuda(pc, ea, one, one, tips, w,
+        pruning_jc.ll_grad_jc69_cuda(pc, em, one, one, tips, w,
                                      root_id=sched.root_id)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        pruning_jc.ll_dea_jc69_cuda(pc, ea, one, tips, w,
+        pruning_jc.ll_dea_jc69_cuda(pc, em, one, tips, w,
                                     root_id=sched.root_id)
     assert not any(pruning_jc.LAUNCHES.values())
 
@@ -328,7 +340,7 @@ def test_k2_cpu_tensors_reach_only_the_twin(ds1, dtype, K):
     assert ll.dtype == dtype and torch.isfinite(bl.grad).all()
     assert pruning_jc.TWIN_CALLS == {"ll_grad_jc69": 0, "ll_jc69": 1,
                                      "ll_dea_jc69": 1}
-    ea = pruning_jc.exp_factors(bl.detach(), rates, dtype)
+    em = pruning_jc.exp_complements(bl.detach(), rates, dtype)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        pruning_jc.ll_jc69_cuda(pc, ea, props, tips, w, root_id=sched.root_id)
+        pruning_jc.ll_jc69_cuda(pc, em, props, tips, w, root_id=sched.root_id)
     assert not any(pruning_jc.LAUNCHES.values())
