@@ -101,7 +101,8 @@ Phases, each of which raises on failure:
      made twice, eagerly and by one replay of its captured graph (the hand
      route, the LLs, GTR's autograd route; the Weibull+4 keys run K1-K3's
      slab routes at f64 and stay eager), with
-     the counters showing K1 (the hand route), K2, K3, K5 and K6 launched
+     the counters showing K1 and the heights kernels H1 and H2 (the hand
+     route), K2, K3, K5 and K6 launched
      and no twin called, on a run that ends with the JAX bench's flua_rooted_gradients
      (fluA tiled to 256, ratios perturbed by U(0.95, 1.05) from
      default_rng(0), JC69, float32): the hand route (K1) against the
@@ -109,8 +110,11 @@ Phases, each of which raises on failure:
      counters are read, every kernel of the path against its twin on the
      path's own inputs: K1, K2 and K3 on the f64 instance (on chip), on the
      f64 Weibull+4 instance (the slab route) and on the batch at f32 and
-     f64, K5 and K6 on the f64 GTR instance; then, after phase 9's
-     timings, K1 timed beside its twin on the f32 batch with its bound,
+     f64, K5 and K6 on the f64 GTR instance; H1 and H2 (csrc/heights.cu)
+     on the batch's inputs at f32 and f64 against their twins bit for bit,
+     each launched once a call with the counters at 0; then, after phase
+     9's timings, K1, H1 and H2 timed beside their twins on the f32 batch
+     with their bounds,
      and rooted_phylo_gradients (both routes) and rooted_log_likelihoods
      from host arrays with device time, idle share, peak memory and
      gradient evaluations per second;
@@ -212,7 +216,8 @@ Phases, each of which raises on failure:
      graphed ascent whose every K7 and K8 launch is a replay's and as many
      as the eager loop's, the float64 (1e-6, 100) fit within 1e-7 of
      libsbn_tpu's optimum; each rooted call against the eager call bit for
-     bit, twice each, a call one replay with K1 (K2 for the LLs) once, and
+     bit, twice each, a call one replay with K1, H1 and H2 (K2 for the
+     LLs) once, and
      a replay at new ratios whose LLs match K1's twin on the eager route's
      inputs; then host-clock ms a call by route (graph, eager, in turns;
      the GP ascent on the kernel and the level route at float32), and each
@@ -300,7 +305,9 @@ for a float64 launch, float32's otherwise) and its inputs and outputs at
 the HBM rate; K1 has two entries, the first counting the unrooted, vip,
 parallel, soak, engine-graph, parity and scale-tool paths (the ranks'
 launches of [13] included), the second the
-rooted batch and path ([10] and [15]); K2 has two,
+rooted batch and path ([10] and [15]); H1 and H2, the heights kernels,
+count the rooted paths' launches ([10] and [15]) and are timed on the
+rooted batch; K2 has two,
 the first counting every path but the vip path, the second the vip path's
 launches with the B = 10,000 launch's time and bound), the card's
 `nvidia-smi` name and power limit, and {"ok": true, "device": {...}}.
@@ -338,7 +345,8 @@ from libsbn_tpu_torch.models import unrooted_graph as lt_unrooted_graph  # noqa:
 from libsbn_tpu_torch.models.engine import LikelihoodEngine  # noqa: E402
 from libsbn_tpu_torch.models.phylo_model import default_parameters  # noqa: E402
 from libsbn_tpu_torch.ops import (  # noqa: E402
-    _kernels, pruning, pruning_generic, pruning_jc, pruning_vjp, schedule,
+    _kernels, heights, pruning, pruning_generic, pruning_jc, pruning_vjp,
+    schedule,
 )
 from libsbn_tpu_torch.ops import forest, forest_graph  # noqa: E402
 from libsbn_tpu_torch.ops import substitution, transforms  # noqa: E402
@@ -414,6 +422,7 @@ DEV = "cuda"
 JC_SOURCE = "libsbn_tpu_torch/csrc/pruning_jc.cu"
 GENERIC_SOURCE = "libsbn_tpu_torch/csrc/pruning_generic.cu"
 GP_SOURCE = "libsbn_tpu_torch/csrc/gp_engine.cu"
+HEIGHTS_SOURCE = "libsbn_tpu_torch/csrc/heights.cu"
 KERNELS = [
     {"name": "jc69_ll_grad (K1)", "key": "ll_grad_jc69", "source": JC_SOURCE,
      "replaces": "libsbn_tpu/ops/pruning_pallas_jc.py:214"},
@@ -435,7 +444,7 @@ KERNELS = [
      "source": GP_SOURCE, "replaces": "libsbn_tpu/gp/engine_pallas.py:361"},
 ]
 # The modules whose wrappers count kernel launches and twin calls.
-COUNTED = (pruning_jc, pruning_generic, pruning_vjp, engine_kernels)
+COUNTED = (pruning_jc, pruning_generic, pruning_vjp, engine_kernels, heights)
 PARTICLES = 10  # the JAX bench's config 5
 # Generalized pruning: the reference's goldens (gp_doctest.cpp, as
 # tests/test_gp.py pins them) and the fluA optimum of run_branch_ascent(1e-6,
@@ -1281,12 +1290,14 @@ def nbytes(*items):
     return sum(x.numel() * x.element_size() for x in tensors(*items))
 
 
-def bound(ops, inputs, outputs):
+def bound(ops, inputs, outputs, f64=None):
     """(ms, "operations" or "bytes"): the least time of the work on this
     card, the larger of its operations at the peak of the type it computes
-    in (float64's when an output is float64, else float32's) and its inputs
-    read once and outputs written once at the HBM rate."""
-    f64 = any(x.dtype == torch.float64 for x in tensors(outputs))
+    in (f64; by default float64's when an output is float64, else
+    float32's) and its inputs read once and outputs written once at the
+    HBM rate."""
+    if f64 is None:
+        f64 = any(x.dtype == torch.float64 for x in tensors(outputs))
     t_ops = ops / (PEAK_F64 if f64 else PEAK_F32) * 1e3
     t_bytes = nbytes(inputs, outputs) / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -2137,8 +2148,13 @@ def phase_rooted_path():
     jc_cases += rooted_routes_f32()
     launches = launch_counts("rooted path", ["ll_grad_jc69", "ll_jc69",
                                              "ll_dea_jc69", "ll_generic",
-                                             "ll_dp_generic"])
-    return launches, rooted_kernels_vs_twins(jc_cases, gtr_d)
+                                             "ll_dp_generic", "forward",
+                                             "adjoint"],
+                             ["forward_slab", "adjoint_slab"])
+    errs = rooted_kernels_vs_twins(jc_cases, gtr_d)
+    for dtype in (torch.float64, torch.float32):  # the f32 errors kept
+        errs.update(heights_vs_twins(dtype))
+    return launches, errs
 
 
 def rooted_routes_f32():
@@ -2166,6 +2182,69 @@ def rooted_routes_f32():
             for e in (eng, ref_eng)]
 
 
+def rooted_heights_inputs():
+    """H1's and H2's inputs on flua_rooted_gradients' batch, as the hand
+    route passes them: (ratios, bounds, rates) float64, parent and
+    post_children int32 on the card, the leaf count and the engine's
+    sweep count; and K1's branch gradient stand-in, (B, N + 1) normal
+    values from default_rng(5), of which H2 reads the first N - 1
+    columns as it reads K1's output."""
+    _, sched, bounds, ratios, rates = rooted_batch()
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x), device=DEV)
+
+    tree = (dev(ratios), dev(bounds), dev(rates))
+    parent, pc = (dev(getattr(sched, k)).to(torch.int32) for k in (
+        "parent", "post_children"))
+    n_iters = LikelihoodEngine._height_iters(None, sched)
+    g = np.random.default_rng(5).normal(size=(B_ROOTED, sched.node_count + 1))
+    return tree, parent, pc, sched.leaf_count, n_iters, dev(g)
+
+
+def heights_vs_twins(dtype):
+    """H1 (forward_cuda) and H2 (adjoint_cuda, strict clock) on
+    flua_rooted_gradients' inputs at dtype against their twins
+    (forward_plain, adjoint_plain) on the card, bit for bit, each launched
+    once on its shared-memory route with the counters at 0 just before.
+    Returns {"forward": max abs error, "adjoint": max abs error}."""
+    tree, parent, pc, L, n_iters, g = rooted_heights_inputs()
+    n = tree[1].shape[1]
+    grad = g.to(dtype)[:, :n - 1]
+    reset_counters()
+    h, op = heights.forward_cuda(*tree, parent, L, n_iters, dtype)
+    got = heights.adjoint_cuda(grad, h, *tree, pc, parent, L, n_iters, True)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in heights.LAUNCHES.items() if v}
+    if launched != {"forward": 1, "adjoint": 1}:
+        raise AssertionError(f"H1/H2 launches {launched}, not one each")
+    want_h, want_op = heights.forward_plain(*tree, parent, L, n_iters, dtype)
+    want = heights.adjoint_plain(grad, h, *tree, pc, parent, L, n_iters,
+                                 True)
+    tag = f"rooted fluA x {B_ROOTED}, {str(dtype)[6:]}"
+    bit_for_bit(f"H1 vs its twin, {tag} (heights, K1's operand)",
+                [h, op], [want_h, want_op])
+    bit_for_bit(f"H2 vs its twin, {tag} (ratio and clock gradients)",
+                list(got), list(want))
+    reset_counters()
+    return {"forward": 0.0, "adjoint": 0.0}
+
+
+def heights_ops(kernel, B, L, N, n_iters):
+    """float64 operations of H1 ("forward") or H2 ("adjoint", strict
+    clock) on B trees, counted from csrc/heights.cu: one per add,
+    subtract, multiply or divide. H1: three a sweep at each internal node
+    and the root, two a branch for K1's operand. H2: a branch's g rates
+    and g (h[p] - h), two a Jacobian term, six a slot for g_h, six a slot
+    each adjoint sweep, two a ratio gradient, one add a branch for the
+    clock's sum."""
+    n1, R = N + 1, N - L
+    if kernel == "forward":
+        return B * (3 * n_iters * R + 2 * (N - 1))
+    return B * (3 * (N - 1) + 2 * (R - 1) + 6 * n1 + 6 * n_iters * n1
+                + 2 * (R - 1) + (N - 1))
+
+
 def rooted_batch():
     """The JAX bench's flua_rooted_gradients inputs: fluA tiled to B_ROOTED
     trees, ratios perturbed by U(0.95, 1.05) from default_rng(0) and
@@ -2189,10 +2268,11 @@ def rooted_batch():
 
 
 def phase_rooted_timing(smi, calls=10):
-    """flua_rooted_gradients at float32: K1 timed beside its twin on the
-    rooted batch (phase 10 held the two to each other), with its bound; the
-    entry points from host arrays. Returns ((ms, twin ms), (bound ms,
-    bound_by)) of K1 on this batch."""
+    """flua_rooted_gradients at float32: K1, H1 and H2 timed beside their
+    twins on the rooted batch (phase 10 held each to its twin), with their
+    bounds; the entry points from host arrays. Returns {key: ((ms, twin
+    ms), (bound ms, bound_by))} of K1 ("ll_grad_jc69"), H1 ("forward") and
+    H2 ("adjoint") on this batch."""
     print(f"  flua_rooted_gradients timing: fluA x {B_ROOTED}, JC69, float32 "
           f"({smi})")
     sp, sched, bounds, ratios, rates = rooted_batch()
@@ -2217,8 +2297,37 @@ def phase_rooted_timing(smi, calls=10):
               k_out)
     print(f"  K1, rooted fluA batch: bound {b[0]:.5f} ms ({b[1]}), "
           f"{b[0] / times[0]:.2%} of it")
+    out = {"ll_grad_jc69": (times, b)}
+    # H1 and H2 on the batch's inputs, H2 from a strict clock; both
+    # compute in float64 whatever the working dtype.
+    tree, parent, pc, L, n_iters, g = rooted_heights_inputs()
+    f32, N = torch.float32, tree[1].shape[1]
+    grad = g.to(f32)[:, :N - 1]
+    fwd = (*tree, parent, L, n_iters, f32)
+    h, op = heights.forward_cuda(*fwd)
+    adj = (grad, h, *tree, pc, parent, L, n_iters, True)
+    got = heights.adjoint_cuda(*adj)
+    h_times = time_pairs({
+        "heights_forward (H1, rooted fluA)": (
+            lambda: heights.forward_cuda(*fwd),
+            lambda: heights.forward_plain(*fwd)),
+        "heights_adjoint (H2, rooted fluA)": (
+            lambda: heights.adjoint_cuda(*adj),
+            lambda: heights.adjoint_plain(*adj))}, B_ROOTED,
+        plain_reps=(5, 5))
+    for kernel, ms, inputs, outputs in (
+            ("forward", h_times["heights_forward (H1, rooted fluA)"],
+             (tree, parent), (h, op)),
+            ("adjoint", h_times["heights_adjoint (H2, rooted fluA)"],
+             (grad, h, tree, pc, parent), got)):
+        hb = bound(heights_ops(kernel, B_ROOTED, L, N, n_iters), inputs,
+                   outputs, f64=True)
+        print(f"  H{1 + (kernel == 'adjoint')} ({kernel}), rooted fluA "
+              f"batch: bound {hb[0]:.5f} ms ({hb[1]}), {hb[0] / ms[0]:.2%} "
+              "of it")
+        out[kernel] = (ms, hb)
     entries = (
-        ("rooted_phylo_gradients (hand route: K1 + the heights adjoint)",
+        ("rooted_phylo_gradients (hand route: H1, K1, H2)",
          lambda: eng.rooted_phylo_gradients(*args)),
         ("_rooted_phylo_gradients_autograd (K2 + K3 through the sweeps)",
          lambda: eng._rooted_phylo_gradients_autograd(*args, True)),
@@ -2235,7 +2344,7 @@ def phase_rooted_timing(smi, calls=10):
         print(f"  {what}, B = {B_ROOTED} from host arrays: {line}; peak "
               f"{peak:.3f} GiB; {B_ROOTED / med * 1e3:.0f} evals/s; kernel "
               f"launches per call {per_call}")
-    return times, b
+    return out
 
 
 # The vip path of [11]: the Burrito at the JAX bench's config 5 size (DS1,
@@ -3495,10 +3604,12 @@ def rooted_graph_checks(dtype, eng, args, got_hand, got_ll):
         rooted_graph.reset_counters()
         second = rooted_graph_call(eng, args, hand)
         torch.cuda.synchronize()
-        k = "ll_grad_jc69" if hand else "ll_jc69"
+        k = ({"ll_grad_jc69": 1, "forward": 1, "adjoint": 1} if hand
+             else {"ll_jc69": 1})
         counts = (dict(rooted_graph.COUNTS),
-                  {n: v for n, v in pruning_jc.LAUNCHES.items() if v})
-        if counts != ({"captures": 0, "replays": 1}, {k: 1}):
+                  {n: v for m in (pruning_jc, heights)
+                   for n, v in m.LAUNCHES.items() if v})
+        if counts != ({"captures": 0, "replays": 1}, k):
             raise AssertionError(f"{what}: {counts}, not one replay")
         bit_for_bit(f"{what}, graph vs eager", got, want)
         bit_for_bit(f"{what}, graph twice", second, got)
@@ -3612,7 +3723,8 @@ def phase_graph_paths(smi):
             both_calls(lambda h=hand: rooted_graph_call(eng, args, h))
             for hand in (True, False)))
     launches = launch_counts("graph paths", ["populate_plvs", "golden_sweep",
-                                             "ll_grad_jc69", "ll_jc69"])
+                                             "ll_grad_jc69", "ll_jc69",
+                                             "forward", "adjoint"])
     graphs = (dict(ascent_graph.COUNTS), dict(rooted_graph.COUNTS))
     print(f"  graph paths: GP phases {graphs[0]}, rooted programs {graphs[1]}")
     if graphs[0]["replays"] < 1 or graphs[1] != {
@@ -4695,7 +4807,8 @@ def main():
         t, b = phase(smi)
         times.update(t)
         bounds.update(b)
-    rooted_times, rooted_bound = phase_rooted_timing(smi)
+    rooted_timed = phase_rooted_timing(smi)
+    rooted_times, rooted_bound = rooted_timed["ll_grad_jc69"]
     # No single PyTorch call computes any of these functions (each is a
     # pruning recursion or a golden-section search): library_ms is null.
     report = [
@@ -4728,6 +4841,21 @@ def main():
         "max_abs_err": vip_errs["ll_jc69"], "ms": vip_k2[0],
         "plain_ms": vip_k2[1], "bound_ms": vip_k2[2][0],
         "bound_by": vip_k2[2][1], "library_ms": None})
+    # H1 and H2, the heights kernels: the rooted paths' launches ([10] and
+    # [15]), their errors against the twins on the f32 batch, their times
+    # and bounds on it. libsbn_tpu computes the heights with array ops
+    # that XLA fuses into the rooted program, no Pallas kernel.
+    for kernel, label, line in (("forward", "heights_forward (H1)", 16),
+                                ("adjoint", "heights_adjoint (H2)", 88)):
+        (ms, plain_ms), (b_ms, b_by) = rooted_timed[kernel]
+        report.append({
+            "name": f"{label}, rooted fluA B = {B_ROOTED}", "route": "cuda",
+            "source": HEIGHTS_SOURCE,
+            "replaces": f"libsbn_tpu/ops/heights.py:{line}",
+            "launches": launches[kernel] + launches[kernel + "_slab"],
+            "max_abs_err": rooted_errs[kernel], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           "included")
     print(json.dumps({"kernels": report}))

@@ -21,7 +21,9 @@ PyTorch twins; float32 or float64 either way):
     lengths. ``rooted_log_likelihoods``: K2 (JC69), K5 (GTR) or the scan
     engine. ``rooted_phylo_gradients``: JC69 with rescaling takes one K1
     launch and the hand adjoint of the heights (``_rooted_phylo_gradients_
-    hand``); every other model takes autograd of the summed LL and
+    hand``; with the sweeps, the heights and their adjoint are two
+    kernels of csrc/heights.cu around K1 on a card, their twins on the
+    CPU); every other model takes autograd of the summed LL and
     log-det-Jacobian through the sweeps and K5 + K6 or the scan engine
     (``_rooted_phylo_gradients_autograd``, which also runs JC69 on K2 + K3).
     The time-tree arithmetic (heights, branch lengths, the log-det-Jacobian
@@ -478,16 +480,20 @@ class LikelihoodEngine:
         return torch.nn.functional.pad(bl, (0, 2))
 
     def _rooted_inputs(self, sched, bounds, ratios, rates):
-        """The schedule's index arrays (cached on it, _sched_dev) and the
-        time-tree arrays on the device, the arrays in float64."""
+        """The schedule's index arrays as int32 (cached on it, _sched_dev;
+        the kernels' type, the packed graphs' too) and the time-tree arrays
+        on the device, the arrays in float64."""
         def upload(x):
             return torch.as_tensor(x, device=self.device).to(torch.float64)
 
+        def ints(name):
+            return self._sched_dev(sched, name, torch.int32)
+
         return {
             "pc": self._post_children(sched),
-            "pre_node": self._sched_dev(sched, "pre_internal_node"),
-            "pre_parent": self._sched_dev(sched, "pre_internal_parent"),
-            "parent": self._sched_dev(sched, "parent"),
+            "pre_node": ints("pre_internal_node"),
+            "pre_parent": ints("pre_internal_parent"),
+            "parent": ints("parent"),
             "bounds": upload(bounds),
             "ratios": upload(ratios),
             "rates": upload(rates),
@@ -576,22 +582,25 @@ class LikelihoodEngine:
         return self._rooted_phylo_gradients_hand(
             sched, bounds, ratios, rates, params, strict_clock)
 
-    def _rooted_gradient_dict(self, a, lls, dratios, drates, bl_scaled,
-                              params, strict_clock, eigen=None):
-        """The gradient dict, the float64 ratio and clock gradients summed
-        (a strict clock) and rounded to the working dtype."""
+    def _rounded(self, dratios, drates, strict_clock):
+        """The float64 ratio and clock gradients of the torch adjoint or
+        autograd, the clock's summed under a strict clock, rounded to the
+        working dtype."""
         dt = self.dtype
-        out = {
-            "log_likelihood": lls,
-            "ratios_root_height": dratios.to(dt),
-            "clock_model": (drates.sum(-1, keepdim=True) if strict_clock
-                            else drates).to(dt),
-        }
+        return dratios.to(dt), (drates.sum(-1, keepdim=True) if strict_clock
+                                else drates).to(dt)
+
+    def _rooted_gradient_dict(self, a, lls, ratio_grad, clock_grad,
+                              bl_operand, params, eigen=None):
+        """The gradient dict from the LLs and the ratio and clock gradients
+        in the working dtype; bl_operand: the rate-scaled branch lengths
+        as the pruning reads them (B, N + 1)."""
+        out = {"log_likelihood": lls, "ratios_root_height": ratio_grad,
+               "clock_model": clock_grad}
         # The Jacobian does not depend on the model: its gradients are the
         # LL's at the rate-scaled branch lengths.
-        out.update(self._model_param_gradients(
-            a["pc"], a["root_id"], self._bl_padded2(bl_scaled.to(dt)),
-            params, eigen))
+        out.update(self._model_param_gradients(a["pc"], a["root_id"],
+                                               bl_operand, params, eigen))
         return out
 
     def _rooted_phylo_gradients_hand(
@@ -604,32 +613,46 @@ class LikelihoodEngine:
             strict_clock)
 
     def _rooted_hand(self, a, params, strict_clock):
-        """The hand route on the inputs ``a``: one K1 launch on the
-        rate-scaled branch lengths gives the LL and its branch gradient,
-        then ops/heights.py's adjoint of the heights (the BEAST recursions
-        of rooted_gradient_transforms.cpp:17-162, as sweeps, or squarings
-        by heights_method) gives the ratio and clock gradients, in float64
-        from the branch gradient."""
+        """The hand route on the inputs ``a``: the heights and the
+        rate-scaled branch lengths, one K1 launch on those for the LL and
+        its branch gradient, then the adjoint of the heights (the BEAST
+        recursions of rooted_gradient_transforms.cpp:17-162) for the ratio
+        and clock gradients, in float64 from the branch gradient. With
+        heights_method "sweeps", the heights and their adjoint are one
+        kernel each on a card and their twins on the CPU (ops/heights.py
+        forward, adjoint); with "squaring", ops/heights.py's torch
+        functions."""
         method = self.heights_method
         if method not in HEIGHTS_METHODS:
             raise ValueError(f"heights_method must be one of "
                              f"{HEIGHTS_METHODS}, got {method!r}")
-        h, bl = self._rooted_branch_lengths(a, a["ratios"], method)
-        bl_scaled = bl * a["rates"]
+        sweeps = method == "sweeps"
+        tree = (a["ratios"], a["bounds"], a["rates"])
+        if sweeps:
+            h, operand = heights_ops.forward(
+                *tree, a["parent"], a["leaf_count"], a["n_iters"], self.dtype)
+        else:
+            h, bl = self._rooted_branch_lengths(a, a["ratios"], method)
+            operand = self._bl_padded2((bl * a["rates"]).to(self.dtype))
         _, _, site_rates, props = self._model(params)
         lls, g_scaled = pruning_jc.log_likelihood_and_branch_gradient_jc69(
-            a["pc"], self._bl_padded2(bl_scaled.to(self.dtype)), self.tips,
-            self.weights, root_id=a["root_id"], rates=site_rates, props=props,
+            a["pc"], operand, self.tips, self.weights, root_id=a["root_id"],
+            rates=site_rates, props=props,
         )
-        dratios, drates, _ = (
-            heights_ops.ratio_and_rate_gradients_from_branch_gradient(
-                g_scaled.to(h.dtype), a["ratios"], a["bounds"], a["rates"],
-                a["leaf_count"], a["pre_node"], a["pre_parent"], a["parent"],
-                a["n_iters"], heights=h, method=method,
-                post_children=a["pc"],
-            ))
-        return self._rooted_gradient_dict(a, lls, dratios, drates,
-                                          bl_scaled, params, strict_clock)
+        if sweeps:
+            grads = heights_ops.adjoint(
+                g_scaled, h, *tree, a["pc"], a["parent"], a["leaf_count"],
+                a["n_iters"], strict_clock)
+        else:
+            dratios, drates, _ = (
+                heights_ops.ratio_and_rate_gradients_from_branch_gradient(
+                    g_scaled.to(h.dtype), *tree, a["leaf_count"],
+                    a["pre_node"], a["pre_parent"], a["parent"],
+                    a["n_iters"], heights=h, method=method,
+                    post_children=a["pc"],
+                ))
+            grads = self._rounded(dratios, drates, strict_clock)
+        return self._rooted_gradient_dict(a, lls, *grads, operand, params)
 
     def _rooted_phylo_gradients_autograd(
         self, sched, bounds, ratios, rates, params, strict_clock
@@ -653,5 +676,6 @@ class LikelihoodEngine:
             lls, ldjs, bl_scaled = self._rooted_parts(a, r, k, model, eigen)
             dratios, drates = torch.autograd.grad((lls + ldjs).sum(), (r, k))
         return self._rooted_gradient_dict(
-            a, lls.detach(), dratios, drates, bl_scaled.detach(), params,
-            strict_clock, eigen)
+            a, lls.detach(), *self._rounded(dratios, drates, strict_clock),
+            self._bl_padded2(bl_scaled.detach().to(self.dtype)), params,
+            eigen)

@@ -4,13 +4,16 @@ The JAX engine jits its rooted hand route (libsbn_tpu/models/engine.py
 ``_rooted_phylo_gradients_hand``, cached by ("rooted_grad_hand", root_id,
 n_height_iters, heights_method)), its autograd route (("rooted_grad_pallas",
 ...)) and its rooted LLs (``_rooted_core``), so a call is one dispatch.
-Eagerly, the port's hand route is a few hundred small launches (64 heights
-sweeps of fluA and their adjoint around one K1 launch), and the autograd
-route that many again for the backward of the sweeps, whose enqueue takes
-the host longer than the card takes to run them. ``RootedGraphs`` captures
-each of the three programs once per key, on the key's second call (its
-first runs the same function eagerly; a key that runs a kernel's slab
-route stays eager), and replays it:
+Eagerly, the port's autograd route and rooted LLs are a few hundred small
+launches (the heights sweeps of ops/heights.py, 32 for fluA, and for the
+autograd route their backward), whose enqueue takes the host longer than
+the card takes to run them; the hand route is two heights kernels (the
+sweeps and their adjoint, csrc/heights.cu) around one K1 launch and a few
+small ops, or, with ``heights_method="squaring"``, as many launches as the
+others.
+``RootedGraphs`` captures each of the three programs once per key, on the
+key's second call (its first runs the same function eagerly; a key that
+runs a kernel's slab route stays eager), and replays it:
 
 * the key holds what the JAX cache keys hold, the shapes and the model's
   layout: (route, B, S, N, leaf_count, root_id, n_height_iters,
@@ -30,9 +33,9 @@ route stays eager), and replays it:
   own code
   (``_rooted_hand``, ``_rooted_autograd``, ``_rooted_lls``), so a replay
   equals the eager call bit for bit where its sums have a fixed order (K1,
-  K2, K3, K5, K6 and the heights' gathers do); the autograd route runs
-  its backward (the custom Functions of K2/K3, K5/K6 and expm_transition)
-  inside the capture;
+  K2, K3, K5, K6, the heights kernels and the heights' gathers do); the
+  autograd route runs its backward (the custom Functions of K2/K3, K5/K6
+  and expm_transition) inside the capture;
 * outputs are cloned out of the graph's pool as soon as the replay is
   enqueued, before any other replay: the engine's rooted and unrooted
   graphs share one pool.
@@ -41,8 +44,8 @@ A call opens the spans of an unrooted call (models/unrooted_graph.py), in
 the same order, and before ``libsbn.engine.model_inputs`` its own:
 ``libsbn.rooted.arrays``, the time-tree arrays' host copies and the sweep
 count (``engine._height_iters``, cached on the schedule). A replay adds
-its capture's heights sweeps to ``ops/heights.py SWEEPS``, as it adds its
-kernel launches.
+its capture's heights sweeps and heights kernels to ``ops/heights.py
+SWEEPS`` and ``LAUNCHES``, as it adds its pruning kernels' launches.
 
 utils/graphs.py's ``PackedPrograms`` does the packing and the capture
 policy, and ``Graph`` the capture (warm-up, pool, launch counts). On the
@@ -61,9 +64,10 @@ from ..utils.profiling import annotate
 # Captures and replays of the rooted programs; reset_counters() sets them
 # to 0.
 COUNTS = {"captures": 0, "replays": 0}
-# What a rooted program launches (K1-K3, and K5 + K6 for GTR) and the
-# heights sweeps it runs.
-_COUNTERS = (pruning_jc.LAUNCHES, pruning_vjp.LAUNCHES, heights.SWEEPS)
+# What a rooted program launches (K1-K3, K5 + K6 for GTR, the heights
+# kernels) and the heights sweeps it runs.
+_COUNTERS = (pruning_jc.LAUNCHES, pruning_vjp.LAUNCHES, heights.LAUNCHES,
+             heights.SWEEPS)
 _INT_NAMES = ("post_children", "pre_internal_node", "pre_internal_parent",
               "parent")
 
@@ -163,13 +167,11 @@ class RootedGraphs:
             params, eigen_v = unpack_model(names, floats[3:])
 
             def program():
-                # The eager call's uploads: index arrays as int64 (the
-                # child table int32), time-tree arrays in float64 (the
-                # buffer's own).
-                a = {"pc": pc, "pre_node": pre_node.long(),
-                     "pre_parent": pre_parent.long(), "parent": parent.long(),
-                     "bounds": bounds, "ratios": ratios, "rates": rates,
-                     **statics}
+                # The eager call's uploads: index arrays int32 and
+                # time-tree arrays float64, the buffers' own types.
+                a = {"pc": pc, "pre_node": pre_node, "pre_parent": pre_parent,
+                     "parent": parent, "bounds": bounds, "ratios": ratios,
+                     "rates": rates, **statics}
                 if route == "ll":
                     return eng._rooted_lls(a, params, eigen_v)
                 if route[0] == "autograd":

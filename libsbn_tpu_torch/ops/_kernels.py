@@ -108,9 +108,20 @@ def _bind_gp(lib):
         _sig(lib, f"lsbn_gp_golden_sweep_slab_{dt}", 5, 2)
 
 
+def _bind_heights(lib):
+    for dt in ("f32", "f64"):
+        # ratios, bounds, rates, parent, heights, operand, slab (null on
+        # the shared route); a tree's bytes, B, L, N, sweeps; stream
+        _sig(lib, f"lsbn_heights_forward_{dt}", 7, 5)
+        # grad, heights, bounds, ratios, rates, post_children, parent,
+        # dratios, clock, slab; a tree's bytes, grad's row stride, B, L, N,
+        # sweeps, strict clock; stream
+        _sig(lib, f"lsbn_heights_adjoint_{dt}", 10, 7)
+
+
 # One library per source, csrc/<name>.cu, with its C signatures.
 _BINDERS = {"pruning_jc": _bind_jc, "pruning_generic": _bind_generic,
-            "gp_engine": _bind_gp}
+            "gp_engine": _bind_gp, "heights": _bind_heights}
 SOURCES = tuple(_BINDERS)
 
 

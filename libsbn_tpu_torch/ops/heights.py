@@ -23,12 +23,31 @@ holding internal node leaf_count + s's children, padded with the ones slot
 N), never scatter-adds, whose float atomics on a card add in no fixed
 order. So two runs on a card agree bit for bit.
 
+Which path runs where. The engine's rooted hand route (models/engine.py
+``_rooted_hand``, JC69 with rescaling) with ``heights_method="sweeps"``
+runs the sweeps and their adjoint through ``forward`` and ``adjoint``: on
+a card two hand-written kernels (csrc/heights.cu), one block a tree,
+``forward_cuda`` (the heights and K1's operand, the rate-scaled branch
+lengths in the working dtype) before K1 and ``adjoint_cuda`` (the ratio
+and clock gradients in the working dtype) after it; on the CPU their
+twins ``forward_plain`` and ``adjoint_plain``, in the kernels' order of
+operations. A tree's per-node values sit in the block's shared memory,
+or, past ``SHARED_LIMIT`` (``tree_bytes``), in a slab of device memory
+per tree: the slab route, the same kernels' code and bits. Every other
+caller runs the plain PyTorch functions above them, which share no code
+with the kernels: ``method="squaring"``, the autograd route (which
+differentiates through ``node_heights_from_ratios``) and
+``rooted_log_likelihoods``.
+
 ``SWEEPS`` counts the fixed point's steps as they are built: "forward"
-(``node_heights_from_ratios``) and "adjoint" (the hand adjoint of
-``ratio_and_rate_gradients_from_branch_gradient``), one a sweep, or one a
-squaring under ``method="squaring"``. Counted in Python, so a captured
-graph's replay adds its capture's counts (models/rooted_graph.py), as the
-kernels' launch counters do.
+(``node_heights_from_ratios``, the forward kernel) and "adjoint" (the hand
+adjoint of ``ratio_and_rate_gradients_from_branch_gradient``, the adjoint
+kernel), one a sweep, or one a squaring under ``method="squaring"``;
+``LAUNCHES`` the kernels enqueued ("forward", "adjoint", and
+"forward_slab", "adjoint_slab" on the slab route) and ``TWIN_CALLS`` the
+twins' calls.
+Counted in Python, so a captured graph's replay adds its capture's counts
+(models/rooted_graph.py), as the pruning kernels' launch counters do.
 """
 
 from __future__ import annotations
@@ -37,14 +56,20 @@ import math
 
 import torch
 
-# The heights fixed point's steps built, by direction; reset_counters()
-# sets them to 0.
+from . import _kernels
+from .pruning_jc import SHARED_LIMIT
+
+# The heights fixed point's steps built, the kernels launched and their
+# twins' calls, by direction; reset_counters() sets them to 0.
 SWEEPS = {"forward": 0, "adjoint": 0}
+LAUNCHES = {"forward": 0, "adjoint": 0, "forward_slab": 0, "adjoint_slab": 0}
+TWIN_CALLS = {"forward": 0, "adjoint": 0}
 
 
 def reset_counters():
-    for name in SWEEPS:
-        SWEEPS[name] = 0
+    for counts in (SWEEPS, LAUNCHES, TWIN_CALLS):
+        for name in counts:
+            counts[name] = 0
 
 
 def _sweep_operands(ratios, node_bounds, leaf_count, pre_internal_node,
@@ -252,3 +277,227 @@ def log_det_jacobian(heights, node_bounds, parent, leaf_count):
     return torch.sum(torch.log(
         torch.gather(heights, 1, par)
         - node_bounds[:, leaf_count:n - 1].to(heights.dtype)), dim=1)
+
+
+# -- the kernels (csrc/heights.cu) and their twins ------------------------
+
+def tree_bytes(kernel, node_count):
+    """Bytes of a tree's per-node values in csrc/heights.cu's ``kernel``
+    ("forward" or "adjoint"), rounded up to 16: N + 1 slots of four
+    float64 (two height buffers, bounds, ratios) and one int32 (the
+    parent) in the forward kernel; nine float64 (heights, bounds, ratios,
+    the clock terms, g_bl, the Jacobian's terms, two w buffers, W) and
+    four int32 (the parent, three children) in the adjoint. A block's
+    shared memory up to SHARED_LIMIT, else the slab route's stride."""
+    f64s, i32s = (4, 1) if kernel == "forward" else (9, 4)
+    return -(-(node_count + 1) * (8 * f64s + 4 * i32s) // 16) * 16
+
+
+def forward(ratios, node_bounds, rates, parent, leaf_count, n_iters, dtype):
+    """The heights (B, N) float64 and K1's operand (B, N + 1) in dtype by
+    the sweeps: forward_cuda on a card, its twin forward_plain on the
+    CPU."""
+    fn = forward_plain if node_bounds.device.type == "cpu" else forward_cuda
+    return fn(ratios, node_bounds, rates, parent, leaf_count, n_iters, dtype)
+
+
+def adjoint(grad, heights, ratios, node_bounds, rates, post_children, parent,
+            leaf_count, n_iters, strict_clock):
+    """The ratio and clock gradients in grad's dtype from K1's branch
+    gradient grad: adjoint_cuda on a card, its twin adjoint_plain on the
+    CPU."""
+    fn = adjoint_plain if node_bounds.device.type == "cpu" else adjoint_cuda
+    return fn(grad, heights, ratios, node_bounds, rates, post_children, parent,
+              leaf_count, n_iters, strict_clock)
+
+
+def forward_plain(ratios, node_bounds, rates, parent, leaf_count, n_iters,
+                  dtype):
+    """The forward kernel's twin, in its order of operations: (heights
+    (B, N) float64, K1's operand (B, N + 1) in ``dtype``: the rate-scaled
+    branch lengths (h[parent] - h) rates rounded to dtype, then the root's
+    and the ones slot's zeros). ratios (B, N - L), node_bounds (B, N) and
+    rates (B, N - 1) float64; parent (B, N - 1). The sweeps update the
+    internal nodes and the root over N + 1 slots; the leaves keep their
+    bounds, and the ones slot, the root's parent, the root height."""
+    TWIN_CALLS["forward"] += 1
+    SWEEPS["forward"] += n_iters
+    B, n = node_bounds.shape
+    L = leaf_count
+    b = node_bounds[:, L:]
+    r = torch.cat([ratios[:, :-1], ratios.new_ones((B, 1))], dim=1)
+    p = torch.nn.functional.pad(parent.long(), (0, 2), value=n)
+    h = torch.cat([node_bounds[:, :n - 1], ratios[:, -1:], ratios[:, -1:]],
+                  dim=1)
+    for _ in range(n_iters):
+        inner = b + r * (torch.gather(h, 1, p[:, L:n]) - b)
+        h = torch.cat([h[:, :L], inner, h[:, n:]], dim=1)
+    bl = (torch.gather(h, 1, p[:, :n - 1]) - h[:, :n - 1]) * rates
+    return h[:, :n], torch.nn.functional.pad(bl.to(dtype), (0, 2))
+
+
+def adjoint_plain(grad, heights, ratios, node_bounds, rates, post_children,
+                  parent, leaf_count, n_iters, strict_clock):
+    """The adjoint kernel's twin, in its order of operations: (d (LL +
+    log-det-Jacobian) / d ratios (B, N - L), d LL / d rates: (B, 1) summed
+    under a strict clock, else (B, N - 1)), both in grad's dtype, from
+    K1's branch gradient grad (B, N - 1) and the forward's heights.
+    Everything between is float64: ratio_and_rate_gradients_from_branch_
+    gradient's sweeps with the Jacobian, each node's three children summed
+    left to right, and the strict clock's sum as the kernel's warp takes
+    it (lane l adds branches l, l + 32, ... in order; the lanes then fold
+    by halves)."""
+    TWIN_CALLS["adjoint"] += 1
+    SWEEPS["adjoint"] += n_iters
+    B, n = node_bounds.shape
+    L = leaf_count
+    g = grad.to(torch.float64)
+    pad = torch.nn.functional.pad
+    hp = torch.gather(heights, 1, parent.long())
+    c = g * (hp - heights[:, :n - 1])
+    x = pad(g * rates, (0, 2))
+    y = pad(1.0 / (hp[:, L:] - node_bounds[:, L:n - 1]), (L, 2))
+    r = torch.cat([ratios.new_zeros((B, L)), ratios[:, :-1],
+                   ratios.new_ones((B, 1)), ratios.new_zeros((B, 1))], dim=1)
+    slot = post_children.new_full((B, 1, 3), n).long()
+    kids = torch.cat([slot.expand(B, L, 3), post_children.long(), slot],
+                     dim=1)
+    up = kids.clone()
+    up[:, n - 1, 2] = n - 1  # the root passes its own w to itself
+
+    def over_kids(z, k):
+        t = torch.gather(z, 1, k.reshape(B, -1)).view(B, -1, 3)
+        return t[..., 0] + t[..., 1] + t[..., 2]
+
+    w = (over_kids(x, kids) - x) + over_kids(y, kids)
+    W = w
+    for _ in range(n_iters):
+        w = over_kids(r * w, up)
+        W = W + w
+    d = W[:, L:n - 1] * (hp[:, L:] - node_bounds[:, L:n - 1])
+    dratios = torch.cat([d, w[:, n - 1:n]], dim=1).to(grad.dtype)
+    if not strict_clock:
+        return dratios, c.to(grad.dtype)
+    chunks = -(-(n - 1) // 32)
+    lanes = pad(c, (0, 32 * chunks - (n - 1))).view(B, chunks, 32)
+    s = torch.zeros((B, 32), dtype=torch.float64, device=c.device)
+    for j in range(chunks):
+        s = s + lanes[:, j]
+    for off in (16, 8, 4, 2, 1):
+        s = s[:, :off] + s[:, off:2 * off]
+    return dratios, s.to(grad.dtype)
+
+
+def _check_kernel_inputs(dev, arrays):
+    """Raise unless each (name, tensor, dtype, shape) lies on the card dev
+    with that dtype and shape, contiguous."""
+    if dev.type != "cuda":
+        raise ValueError(f"the heights kernels take CUDA tensors, got {dev}")
+    for name, x, dtype, shape in arrays:
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, not {dev}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _tree_dims(node_bounds, leaf_count, n_iters):
+    B, n = node_bounds.shape
+    if (not 1 <= B <= 2**31 - 1 or tree_bytes("adjoint", n) > 2**31 - 1
+            or n_iters < 0):
+        raise ValueError(f"the heights kernels take 1 <= B < 2**31 trees of "
+                         f"fewer than 2**31 bytes each and n_iters >= 0, got "
+                         f"{B}, {n} nodes, {n_iters}")
+    if not 0 < leaf_count < n:
+        raise ValueError(f"leaf_count {leaf_count} out of range for {n} "
+                         f"nodes")
+    return B, n, n - leaf_count
+
+
+def _scratch(kernel, B, n, dev):
+    """(route key, slab, a tree's bytes): the shared route (slab None)
+    when a tree's values fit a block's shared memory, else a uint8 slab of
+    B trees' values in device memory (the "_slab" route key)."""
+    nbytes = tree_bytes(kernel, n)
+    if nbytes <= SHARED_LIMIT:
+        return kernel, None, nbytes
+    slab = torch.empty(B * nbytes, dtype=torch.uint8, device=dev)
+    return kernel + "_slab", slab, nbytes
+
+
+def forward_cuda(ratios, node_bounds, rates, parent, leaf_count, n_iters,
+                 dtype):
+    """The forward kernel (csrc/heights.cu heights_forward_kernel), one
+    block a tree, on the shared or the slab route (_scratch): as
+    forward_plain, bit for bit. parent: int32."""
+    B, n, R = _tree_dims(node_bounds, leaf_count, n_iters)
+    f64, dev = torch.float64, node_bounds.device
+    _check_kernel_inputs(dev, [
+        ("ratios", ratios, f64, (B, R)), ("node_bounds", node_bounds, f64,
+                                          (B, n)),
+        ("rates", rates, f64, (B, n - 1)), ("parent", parent, torch.int32,
+                                            (B, n - 1))])
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"working dtype must be float32 or float64, got "
+                        f"{dtype}")
+    lib = _kernels.load("heights")
+    heights = torch.empty((B, n), dtype=f64, device=dev)
+    operand = torch.empty((B, n + 1), dtype=dtype, device=dev)
+    route, slab, nbytes = _scratch("forward", B, n, dev)
+    fn = (lib.lsbn_heights_forward_f32 if dtype == torch.float32
+          else lib.lsbn_heights_forward_f64)
+    with torch.cuda.device(dev):
+        rc = fn(ratios.data_ptr(), node_bounds.data_ptr(), rates.data_ptr(),
+                parent.data_ptr(), heights.data_ptr(), operand.data_ptr(),
+                None if slab is None else slab.data_ptr(), nbytes, B,
+                leaf_count, n, n_iters,
+                torch.cuda.current_stream().cuda_stream)
+    _kernels.check(lib, rc, "heights forward kernel")
+    LAUNCHES[route] += 1
+    SWEEPS["forward"] += n_iters
+    return heights, operand
+
+
+def adjoint_cuda(grad, heights, ratios, node_bounds, rates, post_children,
+                 parent, leaf_count, n_iters, strict_clock):
+    """The adjoint kernel (csrc/heights.cu heights_adjoint_kernel), one
+    block a tree, on the shared or the slab route (_scratch): as
+    adjoint_plain, bit for bit. grad: K1's gradient, rows
+    of unit stride (a slice of K1's output); post_children and parent:
+    int32."""
+    B, n, R = _tree_dims(node_bounds, leaf_count, n_iters)
+    f64, i32, dev = torch.float64, torch.int32, node_bounds.device
+    dtype = grad.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"grad must be float32 or float64, got {dtype}")
+    if (grad.device != dev or tuple(grad.shape) != (B, n - 1)
+            or grad.stride(1) != 1):
+        raise ValueError(f"grad must be ({B}, {n - 1}) on {dev} with rows "
+                         f"of unit stride")
+    _check_kernel_inputs(dev, [
+        ("heights", heights, f64, (B, n)), ("ratios", ratios, f64, (B, R)),
+        ("node_bounds", node_bounds, f64, (B, n)),
+        ("rates", rates, f64, (B, n - 1)),
+        ("post_children", post_children, i32, (B, R, 3)),
+        ("parent", parent, i32, (B, n - 1))])
+    lib = _kernels.load("heights")
+    dratios = torch.empty((B, R), dtype=dtype, device=dev)
+    clock = torch.empty((B, 1 if strict_clock else n - 1), dtype=dtype,
+                        device=dev)
+    route, slab, nbytes = _scratch("adjoint", B, n, dev)
+    fn = (lib.lsbn_heights_adjoint_f32 if dtype == torch.float32
+          else lib.lsbn_heights_adjoint_f64)
+    with torch.cuda.device(dev):
+        rc = fn(grad.data_ptr(), heights.data_ptr(), node_bounds.data_ptr(),
+                ratios.data_ptr(), rates.data_ptr(), post_children.data_ptr(),
+                parent.data_ptr(), dratios.data_ptr(), clock.data_ptr(),
+                None if slab is None else slab.data_ptr(), nbytes,
+                grad.stride(0), B, leaf_count, n, n_iters, int(strict_clock),
+                torch.cuda.current_stream().cuda_stream)
+    _kernels.check(lib, rc, "heights adjoint kernel")
+    LAUNCHES[route] += 1
+    SWEEPS["adjoint"] += n_iters
+    return dratios, clock

@@ -40,8 +40,8 @@ from libsbn_tpu_torch.io import newick
 from libsbn_tpu_torch.io.fasta import Alignment
 from libsbn_tpu_torch.models import rooted_graph, unrooted_graph
 from libsbn_tpu_torch.ops import (
-    forest, forest_graph, pruning_generic, pruning_jc, pruning_vjp, schedule,
-    substitution,
+    forest, forest_graph, heights, pruning_generic, pruning_jc, pruning_vjp,
+    schedule, substitution,
 )
 from libsbn_tpu_torch.ops.site_model import weibull_rates
 from libsbn_tpu_torch.parallel.sharding import make_mesh
@@ -957,11 +957,13 @@ def _rooted_instance(device, dtype, sub, site, batch=4):
 
 
 # route -> (substitution, the engine method, {kernel: launches per call} at
-# K = 1 and at K = 4 (Weibull+4 adds the shape gradient's K2 + K3)).
+# K = 1 and at K = 4 (Weibull+4 adds the shape gradient's K2 + K3)); the
+# hand route's heights kernels are "forward" and "adjoint".
 ROOTED_ROUTES = {
     "hand": ("JC69", "rooted_phylo_gradients",
-             ({"ll_grad_jc69": 1}, {"ll_grad_jc69": 1, "ll_jc69": 1,
-                                     "ll_dea_jc69": 1})),
+             ({"ll_grad_jc69": 1, "forward": 1, "adjoint": 1},
+              {"ll_grad_jc69": 1, "ll_jc69": 1, "ll_dea_jc69": 1,
+               "forward": 1, "adjoint": 1})),
     "autograd_jc69": ("JC69", "_rooted_phylo_gradients_autograd",
                       ({"ll_jc69": 1, "ll_dea_jc69": 1},
                        {"ll_jc69": 2, "ll_dea_jc69": 2})),
@@ -976,12 +978,13 @@ ROOTED_ROUTES = {
 @pytest.mark.parametrize("route", sorted(ROOTED_ROUTES))
 def test_rooted_engine_on_card_matches_cpu(route, dtype, K):
     """The rooted engine on fluA x 4 perturbed trees on the card against the
-    same on the CPU (the kernels' twins), at the kernels' tolerances: the
-    LLs + ldjs of rooted_log_likelihoods and every gradient of each route.
-    The route is read from the launch counters of a third call (the
-    first runs eagerly and the second captures a graph route's key): its
-    kernels, on chip or on their slab routes (f64 K = 4 exceeds K1-K3's
-    plan, and such a key stays eager), and no twin."""
+    same on the CPU (the kernels' twins, the heights kernels' too), at the
+    kernels' tolerances: the LLs + ldjs of
+    rooted_log_likelihoods and every gradient of each route. The route is
+    read from the launch counters of a third call (the first runs eagerly
+    and the second captures a graph route's key): its kernels, on chip or
+    on their slab routes (f64 K = 4 exceeds K1-K3's plan, and such a key
+    stays eager), the heights kernels on the hand route, and no twin."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     sub, method, launches = ROOTED_ROUTES[route]
@@ -991,14 +994,14 @@ def test_rooted_engine_on_card_matches_cpu(route, dtype, K):
     extra = () if method == "rooted_phylo_gradients" else (True,)
     want = getattr(cpu.engine, method)(*cpu_args, *extra)
     want_ll = cpu.engine.rooted_log_likelihoods(*cpu_args)
+    kernels = (pruning_jc, pruning_generic, pruning_vjp, heights)
     for _ in range(2):
         getattr(card.engine, method)(*card_args, *extra)
-    for m in (pruning_jc, pruning_generic, pruning_vjp):
+    for m in kernels:
         m.reset_counters()
     got = getattr(card.engine, method)(*card_args, *extra)
     torch.cuda.synchronize()
-    counts = {k: v for m in (pruning_jc, pruning_generic, pruning_vjp)
-              for k, v in m.LAUNCHES.items()}
+    counts = {k: v for m in kernels for k, v in m.LAUNCHES.items()}
     onchip = pruning_jc.onchip_plan(dtype, K, 68, 69) is not None
     took = {}
     for key, count in counts.items():
@@ -1008,7 +1011,7 @@ def test_rooted_engine_on_card_matches_cpu(route, dtype, K):
             if key.endswith("_slab"):
                 assert not onchip and sub == "JC69", key
     assert took == launches[K > 1], counts
-    for m in (pruning_jc, pruning_generic, pruning_vjp):
+    for m in kernels:
         assert not any(m.TWIN_CALLS.values())
     got_ll = card.engine.rooted_log_likelihoods(*card_args)
     ll_tol, grad_tol = TOL[dtype]
@@ -1506,12 +1509,13 @@ def test_gp_ascent_graph_equals_eager(use_kernels, dtype, case):
 def _rooted_call(eng, args, hand, eager=False):
     """rooted_phylo_gradients (hand) or rooted_log_likelihoods' parts, with
     the counters at 0 first; eager turns the engine's graphs off for the
-    call. Returns (outputs as a flat list, K1-K3 launches on either route,
-    graph counts)."""
+    call. Returns (outputs as a flat list, K1-K3 launches on either route
+    and the heights kernels', graph counts)."""
     graphs = eng.graphs
     if eager:
         eng.graphs = None
     pruning_jc.reset_counters()
+    heights.reset_counters()
     rooted_graph.reset_counters()
     try:
         if hand:
@@ -1527,6 +1531,8 @@ def _rooted_call(eng, args, hand, eager=False):
         if v:
             launches[k.replace("_slab", "")] = launches.get(
                 k.replace("_slab", ""), 0) + v
+    launches.update({f"heights_{k}": v for k, v in heights.LAUNCHES.items()
+                     if v})
     return out, launches, dict(rooted_graph.COUNTS)
 
 
@@ -1542,19 +1548,21 @@ def test_rooted_graph_equals_eager(dtype, K):
     """The rooted hand route and rooted_log_likelihoods on fluA x 4 perturbed
     trees, by their graphs and eagerly on the card: bit for bit; a key's
     first call runs eagerly, its second captures, its third is one replay
-    (K1 once, and K2 + K3 once for Weibull+4's shape gradient; K2 once for
-    the LLs), except at f64 K = 4, whose keys run K1-K3's slab routes and
-    stay eager; two calls of each route with the same inputs equal bit for
-    bit (the heights adjoint has no atomics), new ratios read on the next
-    replay, and a new batch size a new key."""
+    (K1 and the two heights kernels once, and K2 + K3 once for Weibull+4's
+    shape gradient; K2 once for the LLs), except at f64 K = 4, whose keys
+    run K1-K3's slab routes and stay eager; two calls of each route with
+    the same inputs equal bit for bit (the heights kernels have no
+    atomics), new ratios read on the next replay, and a new batch size a
+    new key."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     site = "constant" if K == 1 else "weibull+4"
     card, args = _rooted_instance("cuda", dtype, "JC69", site)
     eng = card.engine
     slab = pruning_jc.onchip_plan(dtype, K, 68, 69, "ll") is None
-    per_call = {"hand": {"ll_grad_jc69": 1} if K == 1 else
-                {"ll_grad_jc69": 1, "ll_jc69": 1, "ll_dea_jc69": 1},
+    hand = {"ll_grad_jc69": 1, "heights_forward": 1, "heights_adjoint": 1}
+    per_call = {"hand": hand if K == 1 else
+                {**hand, "ll_jc69": 1, "ll_dea_jc69": 1},
                 "ll": {"ll_jc69": 1}}
     captured = {"captures": 0 if slab else 1, "replays": 0 if slab else 1}
     for hand in (True, False):
@@ -1611,6 +1619,201 @@ def test_rooted_gtr_ll_graph_equals_eager(dtype):
     want = eng.rooted_log_likelihoods(*args, return_parts=True)
     eng.graphs = graphs
     _equal(got, want)
+
+
+# -- the heights kernels (csrc/heights.cu) ------------------------------------
+
+
+def _random_time_trees(taxa, trees, seed):
+    """``trees`` random rooted trees of ``taxa`` leaves t0, t1, ... (joins
+    from default_rng(seed)), as (topologies, their taxon map, schedule,
+    bounds, ratios, rates): tip dates U(0, 20), each internal node's bound
+    the largest below it, ratios U(0.2, 0.8), the root height 5 above its
+    bound, clock rates 0.001 x U(0.5, 2)."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for _ in range(trees):
+        pool = [f"t{i}:0.1" for i in range(taxa)]
+        while len(pool) > 1:
+            i, j = sorted(rng.choice(len(pool), 2, replace=False))
+            a, b = pool.pop(j), pool.pop(i)
+            pool.append(f"({b},{a}):0.1")
+        lines.append(pool[0][:-4] + ";")
+    tops, _, ttm = newick.parse_newick_string("\n".join(lines))
+    sched = schedule.schedules_of_topologies(tops)
+    B, n, L = trees, sched.node_count, sched.leaf_count
+    bounds = np.zeros((B, n))
+    bounds[:, :L] = rng.uniform(0.0, 20.0, (B, L))
+    pc = np.asarray(sched.post_children)
+    rows = np.arange(B)
+    for step in range(pc.shape[1]):
+        kids = np.where(pc[:, step] < n, pc[:, step], 0)
+        bounds[:, L + step] = bounds[rows[:, None], kids].max(axis=1)
+    ratios = rng.uniform(0.2, 0.8, (B, L - 1))
+    ratios[:, -1] = bounds[:, -1] + 5.0
+    rates = 0.001 * rng.uniform(0.5, 2.0, (B, n - 1))
+    return tops, ttm, sched, bounds, ratios, rates
+
+
+def _heights_case(case):
+    """(schedule, bounds, ratios, rates) on the card's inputs: fluA x 256
+    with perturbed ratios (the rooted cell's shape), or 16 random rooted
+    trees of 69 taxa."""
+    if case == "flua":
+        sched, bounds, ratios, rates, _ = _rooted_instance(
+            "cpu", torch.float64, "JC69", "constant", batch=256)[1]
+        return sched, bounds, ratios, rates
+    return _random_time_trees(69, 16, seed=3)[2:]
+
+
+def _heights_grads_close(got, want):
+    """The kernels' ratio or clock gradient (working dtype) against the
+    torch adjoint's float64 one: in f32 within one unit in the last place
+    of want rounded; in f64 at rel 1e-12, as on the CPU (torch's reduction
+    on the card adds the root's three children in another order than the
+    kernel, and the sweeps carry the last bits on: up to a few f64 ulps)."""
+    if got.dtype == torch.float64:
+        _rel_close(got.cpu().numpy(), want.cpu().numpy(), 1e-12)
+        return
+    want = want.to(got.dtype).cpu().numpy()
+    gap = np.abs(got.cpu().numpy().astype(np.float64) - want)
+    assert np.all(gap <= np.spacing(np.abs(want))), gap.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["shared", "slab"])
+@pytest.mark.parametrize("case", ["flua", "random"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_heights_kernels_match_twins_on_card(dtype, case, route,
+                                             monkeypatch):
+    """forward_cuda and adjoint_cuda against their twins (forward_plain,
+    adjoint_plain, run on the card) bit for bit; against the torch
+    sweeps (node_heights_from_ratios, then the operand as the torch hand
+    route makes it) the heights and K1's operand bit for bit, and against
+    ratio_and_rate_gradients_from_branch_gradient with the engine's
+    rounding the ratio and clock gradients (_heights_grads_close: one f32
+    rounding, rel 1e-12 in f64); a strict and a relaxed clock; two runs
+    bit for bit; one launch each, n_iters sweeps each. The slab route:
+    the same trees with heights.SHARED_LIMIT at 0, so that both kernels
+    keep their per-node values in device memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if route == "slab":
+        monkeypatch.setattr(heights, "SHARED_LIMIT", 0)
+    fwd, adj = (("forward", "adjoint") if route == "shared"
+                else ("forward_slab", "adjoint_slab"))
+    sched, bounds, ratios, rates = _heights_case(case)
+    t = lambda x: torch.as_tensor(np.asarray(x), device="cuda")  # noqa: E731
+    bounds, ratios, rates = t(bounds), t(ratios), t(rates)
+    pn, pp, parent, pc = (t(getattr(sched, k)).to(torch.int32) for k in (
+        "pre_internal_node", "pre_internal_parent", "parent",
+        "post_children"))
+    L, n = sched.leaf_count, sched.node_count
+    B = bounds.shape[0]
+    n_iters = n - L - 1  # I: always enough
+    tree = (ratios, bounds, rates)
+    heights.reset_counters()
+    h, op = heights.forward_cuda(*tree, parent, L, n_iters, dtype)
+    h2, op2 = heights.forward_cuda(*tree, parent, L, n_iters, dtype)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in heights.LAUNCHES.items() if v} == {fwd: 2}
+    assert heights.SWEEPS == {"forward": 2 * n_iters, "adjoint": 0}
+    h_twin, op_twin = heights.forward_plain(*tree, parent, L, n_iters, dtype)
+    h_want = heights.node_heights_from_ratios(ratios, bounds, L, pn, pp,
+                                              n_iters=n_iters)
+    op_want = torch.nn.functional.pad(
+        (heights.branch_lengths_from_heights(h_want, parent) * rates).to(
+            dtype), (0, 2))
+    for got in ((h, op), (h2, op2), (h_twin, op_twin)):
+        assert torch.equal(got[0], h_want) and torch.equal(got[1], op_want)
+    # K1's gradient as K1 leaves it: the first N - 1 columns of (B, N + 1).
+    g = torch.as_tensor(np.random.default_rng(5).normal(size=(B, n + 1)),
+                        device="cuda").to(dtype)[:, :n - 1]
+    dratios, drates, _ = heights.ratio_and_rate_gradients_from_branch_gradient(
+        g.to(torch.float64), *tree, L, pn, pp, parent, n_iters, heights=h,
+        post_children=pc)
+    for strict in (True, False):
+        heights.reset_counters()
+        got = heights.adjoint_cuda(g, h, *tree, pc, parent, L, n_iters,
+                                   strict)
+        again = heights.adjoint_cuda(g, h, *tree, pc, parent, L, n_iters,
+                                     strict)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in heights.LAUNCHES.items() if v} == {adj: 2}
+        assert heights.SWEEPS == {"forward": 0, "adjoint": 2 * n_iters}
+        twin = heights.adjoint_plain(g, h, *tree, pc, parent, L, n_iters,
+                                     strict)
+        clock = drates.sum(-1, keepdim=True) if strict else drates
+        for a, b, c, want in zip(got, again, twin, (dratios, clock)):
+            assert a.dtype == dtype and a.shape == want.shape
+            assert torch.equal(a, b) and torch.equal(a, c)
+            _heights_grads_close(a, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taxa, routes", [
+    (1100, {"forward": 1, "adjoint": 1}),
+    (1400, {"forward": 1, "adjoint_slab": 1}),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_heights_past_48kb_on_card(dtype, taxa, routes):
+    """Two random rooted trees of 1,100 taxa (2,199 nodes: both kernels
+    above 48 KB of shared memory, which a launch must opt into) or 1,400
+    (2,799 nodes: the forward kernel opts in, the adjoint's values pass
+    SHARED_LIMIT and take the slab route) and 40 random sites: the card's
+    hand route launches the heights kernels on those routes (K1 on its
+    slab route, so the key stays eager) and agrees with the CPU's (the
+    twins) at the kernels' tolerances, by the engine's graphs and without
+    them; the kernels against the twins on the card bit for bit at the
+    engine's sweep count."""
+    from libsbn_tpu_torch.models.engine import LikelihoodEngine
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, ttm, sched, bounds, ratios, rates = _random_time_trees(taxa, 2, 9)
+    n, L = sched.node_count, sched.leaf_count
+    assert heights.tree_bytes("adjoint", n) > 48 * 1024
+    rng = np.random.default_rng(9)
+    aln = Alignment({f"t{i}": "".join(row) for i, row in enumerate(
+        rng.choice(list("ACGT"), size=(taxa, 40)))})
+    sp = SitePattern(aln, ttm)
+    spec = libsbn_tpu_torch.PhyloModelSpec("JC69", "constant", "strict")
+    params = {"clock": {"rate": torch.tensor(1.0, dtype=torch.float64)}}
+    args = (sched, bounds, ratios, rates, params)
+    cpu = LikelihoodEngine(sp, spec, dtype=dtype, device="cpu")
+    want = cpu.rooted_phylo_gradients(*args)
+    card = LikelihoodEngine(sp, spec, dtype=dtype, device="cuda")
+    ll_tol, grad_tol = TOL[dtype]
+    for graphs in (card.graphs, None):
+        card.graphs = graphs
+        heights.reset_counters()
+        got = card.rooted_phylo_gradients(*args)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in heights.LAUNCHES.items() if v} == routes
+        assert heights.TWIN_CALLS == {"forward": 0, "adjoint": 0}
+        assert set(got) == set(want)
+        for key in want:
+            tol = ll_tol if key == "log_likelihood" else grad_tol
+            np.testing.assert_allclose(got[key].cpu().numpy(),
+                                       want[key].numpy(), rtol=tol[0],
+                                       atol=tol[1], err_msg=key)
+    t = lambda x: torch.as_tensor(np.asarray(x), device="cuda")  # noqa: E731
+    tree = (t(ratios), t(bounds), t(rates))
+    parent, pc = (t(getattr(sched, k)).to(torch.int32) for k in (
+        "parent", "post_children"))
+    n_iters = card._height_iters(sched)
+    h, op = heights.forward_cuda(*tree, parent, L, n_iters, dtype)
+    h_twin, op_twin = heights.forward_plain(*tree, parent, L, n_iters, dtype)
+    assert torch.equal(h, h_twin) and torch.equal(op, op_twin)
+    g = torch.as_tensor(np.random.default_rng(5).normal(size=(2, n - 1)),
+                        device="cuda").to(dtype)
+    for strict in (True, False):
+        got = heights.adjoint_cuda(g, h, *tree, pc, parent, L, n_iters,
+                                   strict)
+        twin = heights.adjoint_plain(g, h, *tree, pc, parent, L, n_iters,
+                                     strict)
+        for a, b in zip(got, twin):
+            assert torch.equal(a, b)
 
 
 # -- the VBPI graph route (vi/step_graph.py) ----------------------------------

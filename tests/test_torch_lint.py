@@ -34,7 +34,7 @@ def test_chip_smoke_is_clean():
 
 def test_port_cuda_sources_are_clean():
     paths = sorted((ROOT / "libsbn_tpu_torch" / "csrc").glob("*.cu"))
-    assert len(paths) == 3
+    assert len(paths) == 4
     errors = []
     for path in paths:
         lint.check_text(path, path.read_text(), lint.MAX_CPP, errors)

@@ -251,8 +251,7 @@ def test_schedule_cache_once_per_schedule_object(data_dir, monkeypatch):
         "parent"}
     assert all(k[1] == torch.device("cpu") for k in cached
                if isinstance(k, tuple))
-    assert cached[("post_children", torch.device("cpu"), torch.int32)].dtype \
-        == torch.int32
+    assert all(x.dtype == torch.int32 for x in cached.values())
     eng.rooted_log_likelihoods(sched, bounds, ratios, rates, params)
     eng.log_likelihoods(sched, np.zeros((3, sched.node_count - 1)), params)
     assert len(checks) == 1
@@ -260,11 +259,11 @@ def test_schedule_cache_once_per_schedule_object(data_dir, monkeypatch):
     again = _port_parts(pi, batch=3)[0]
     second = eng.rooted_phylo_gradients(again, bounds, ratios, rates, params)
     assert len(checks) == 2
-    assert again._dev_cache[("parent", torch.device("cpu"), torch.int64)] \
-        is not cached[("parent", torch.device("cpu"), torch.int64)]
+    assert again._dev_cache[("parent", torch.device("cpu"), torch.int32)] \
+        is not cached[("parent", torch.device("cpu"), torch.int32)]
     for k in first:
         assert torch.equal(first[k], second[k])
-    gone = weakref.ref(cached[("parent", torch.device("cpu"), torch.int64)])
+    gone = weakref.ref(cached[("parent", torch.device("cpu"), torch.int32)])
     del sched, cached, again
     gc.collect()
     assert gone() is None
