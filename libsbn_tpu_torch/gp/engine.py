@@ -894,18 +894,18 @@ class GPEngine:
         last chunk is padded with rows of zeros, whose values are dropped.
 
         On a CUDA device with cuda_graphs the program is a captured graph
-        kept on the engine (``hybrid_graphs``), as the JAX engine keeps its
-        jit: a shape's first call runs eagerly, its second captures, later
-        calls replay it over copies of the PLVs made once a call;
-        cuda_graphs=False runs it eagerly."""
+        kept on the engine (``hybrid_graphs``, under utils/graphs.py's
+        capture policy), as the JAX engine keeps its jit, replayed over
+        copies of the PLVs made once a call; cuda_graphs=False runs it
+        eagerly."""
         self._process_hybrid(
             requests, chunk,
             graphed=self.cuda_graphs and self.device.type == "cuda")
 
     def _process_hybrid(self, requests, chunk, graphed):
         """process_quartet_hybrid_requests with its program eager or, with
-        ``graphed``, by hybrid_graph's policy (on the CPU: the same function
-        over the same buffers, called as it is)."""
+        ``graphed``, by hybrid_graph's HybridGraphs (on the CPU: the same
+        function over the same buffers, called as it is)."""
         from scipy.special import logsumexp
 
         reqs = [r for r in requests if r.is_fully_formed()]
@@ -932,21 +932,12 @@ class GPEngine:
                             segs.append(seg)
         idx = np.asarray(rows, np.int64)
         segs = np.asarray(segs, np.int64)
-        C = idx.shape[0]
-        width = chunk if C > chunk else C  # the rows of one program call
         if not graphed:
-            run = hybrid_graph.HybridEager(self, width)
+            vals = hybrid_graph.HybridEager(self)(idx, chunk)
         else:
             if self.hybrid_graphs is None:
                 self.hybrid_graphs = hybrid_graph.HybridGraphs(self)
-            run = self.hybrid_graphs.program(width)
-        vals = np.empty(C)
-        for start in range(0, C, chunk):
-            ix = idx[start:start + chunk]
-            pad = width - ix.shape[0]
-            if pad:
-                ix = np.pad(ix, ((0, pad), (0, 0)))
-            vals[start:start + chunk] = run(ix)[:width - pad]
+            vals = self.hybrid_graphs.run(idx, chunk)
         for seg, central in enumerate(centrals):
             self.hybrid_marginal_log_likelihoods[central] = logsumexp(
                 vals[segs == seg]

@@ -13,16 +13,16 @@ takes a logsumexp per central edge.
 ``HybridEager`` runs the program as torch ops over the engine's PLVs
 (``GPEngine(cuda_graphs=False)``, and the route the graphs are held to).
 ``HybridGraphs`` keeps the engine's programs by shape, as the JAX engine
-keeps its jit, under the capture policy of utils/graphs.py
-PackedPrograms: a shape's first engine call runs eagerly; its second makes a
-``HybridProgram``, whose static buffers hold copies of the six PLVs the
+keeps its jit, under utils/graphs.py's capture policy (``KeyedPrograms``),
+with HybridEager as a shape's eager call and a ``HybridProgram`` as its
+program. A HybridProgram's static buffers hold copies of the six PLVs the
 program reads (``populate_plvs`` replaces the engine's PLV tensors, so a
 graph cannot read them where it found them), the branch lengths, SBN
 parameters, inverted prior and node probabilities (float64, one
-host-to-device copy a call) and the pattern weights, and captures the
-program at its first chunk; later calls copy the PLVs on the device once a
-call, then replay once a chunk after one copy of the chunk's index rows,
-and read the chunk's values back, as JAX's ``np.asarray`` does. The graph
+host-to-device copy a call) and the pattern weights, and it captures the
+program at its first chunk; a call copies the PLVs on the device once,
+then replays once a chunk after one copy of the chunk's index rows, and
+reads the chunk's values back, as JAX's ``np.asarray`` does. The graph
 and its buffers stay with the engine (``held_mb``).
 
 The program has the same operands, shapes and order on both routes, so the
@@ -36,9 +36,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.graphs import Graph, pool_mb
+from ..utils.graphs import Graph, KeyedPrograms, pool_mb
 
-# Captures and replays of the hybrid programs, and chunks run eagerly;
+# Captures, replays and eager calls of the hybrid programs;
 # reset_counters() sets them to 0.
 COUNTS = {"captures": 0, "replays": 0, "eager": 0}
 # The PLVs the program reads.
@@ -85,11 +85,28 @@ def _host_params(engine):
             engine.unconditional_node_probabilities)
 
 
+def chunk_values(run, idx, chunk):
+    """(C,) values of the quartet index rows idx (C, 10), ``chunk`` rows a
+    call of ``run`` (a chunk's rows to their values); when the rows
+    outnumber ``chunk`` the last chunk is padded with rows of zeros, whose
+    values are dropped."""
+    C = idx.shape[0]
+    width = min(chunk, C)
+    vals = np.empty(C)
+    for start in range(0, C, chunk):
+        ix = idx[start:start + chunk]
+        pad = width - ix.shape[0]
+        if pad:
+            ix = np.pad(ix, ((0, pad), (0, 0)))
+        vals[start:start + chunk] = run(ix)[:width - pad]
+    return vals
+
+
 class HybridEager:
     """The program as torch ops over the engine's PLVs, for one call: a
-    callable from a chunk of index rows (numpy) to its values."""
+    callable from the index rows (numpy) and the chunk to their values."""
 
-    def __init__(self, engine, width):
+    def __init__(self, engine):
         self.plvs = engine.plvs
         dt = self.plvs["p"].dtype
         bl, q, inv, node = (engine._tensor(x).to(dt)
@@ -98,17 +115,19 @@ class HybridEager:
                        engine._w.to(dt))
         self.device = engine.device
 
-    def __call__(self, ix):
-        COUNTS["eager"] += 1
+    def __call__(self, idx, chunk):
+        return chunk_values(self._chunk, idx, chunk)
+
+    def _chunk(self, ix):
         return hybrid_chunk(self.plvs, *self.inputs,
                             torch.as_tensor(ix, device=self.device)
                             ).cpu().numpy()
 
 
 class HybridProgram:
-    """The program of one shape over static buffers, a Graph: ``load()``
-    copies the call's inputs in, then each call copies a chunk's index
-    rows, replays and reads the values back."""
+    """The program of one chunk width over static buffers, a Graph: a call
+    copies its inputs in, then each chunk copies its index rows, replays
+    and reads the values back."""
 
     def __init__(self, engine, width, pool=None):
         self.engine = e = engine
@@ -127,9 +146,6 @@ class HybridProgram:
         self.out_host = torch.zeros(width, dtype=dt, pin_memory=cuda)
         self.graph = Graph(lambda: self.out.copy_(self._compute()), dev, (),
                            COUNTS, warmup=self._compute, pool=pool)
-        # (HybridGraphs, key) until the first replay: a program is kept only
-        # once its capture has worked.
-        self.pending = None
 
     def buffers_mb(self):
         return sum(x.numel() * x.element_size() for x in
@@ -153,58 +169,45 @@ class HybridProgram:
         self.w.copy_(e._w)
         self.params.copy_(torch.from_numpy(np.concatenate(
             [np.asarray(x, np.float64).ravel() for x in _host_params(e)])))
-        return self
 
-    def __call__(self, ix):
+    def __call__(self, idx, chunk):
+        self.load()
+        return chunk_values(self._chunk, idx, chunk)
+
+    def _chunk(self, ix):
         self.ix.copy_(torch.from_numpy(np.ascontiguousarray(ix)))
         self.graph()
-        if self.pending is not None:
-            graphs, key = self.pending
-            graphs.keep(key, self)
-            self.pending = None
         self.out_host.copy_(self.out)
         return self.out_host.numpy()
 
 
 class HybridGraphs:
     """One engine's hybrid programs by key (the chunk's rows, the PLVs'
-    shapes and dtype), sharing one memory pool: a key's first call runs
-    eagerly (HybridEager) and leaves a record that it was seen; its second
-    makes its HybridProgram, kept once its capture has worked; later calls
-    use it."""
+    shapes and dtype), sharing one memory pool."""
 
     def __init__(self, engine):
         self.engine = engine
-        self.pool = (torch.cuda.graph_pool_handle()
-                     if engine.device.type == "cuda" else None)
-        self.programs = {}
-        self.seen = set()
+        self.programs = KeyedPrograms(
+            engine.device, (), COUNTS,
+            torch.cuda.graph_pool_handle()
+            if engine.device.type == "cuda" else None)
 
     def _key(self, width):
         plvs = self.engine.plvs
         return (width,) + tuple((tuple(plvs[k].shape), plvs[k].dtype)
                                 for k in PLV_KEYS)
 
-    def program(self, width):
-        """The callable for this call's chunks of ``width`` rows."""
-        key = self._key(width)
-        prog = self.programs.get(key)
-        if prog is None:
-            if key not in self.seen:
-                self.seen.add(key)
-                return HybridEager(self.engine, width)
-            prog = HybridProgram(self.engine, width, self.pool)
-            prog.pending = (self, key)
-        return prog.load()
-
-    def keep(self, key, prog):
-        """Keep ``prog`` for ``key`` once its graph has been captured and
-        replayed (a capture that raises leaves nothing behind)."""
-        self.programs[key] = prog
-        self.seen.discard(key)
+    def run(self, idx, chunk):
+        """(C,) values of the index rows idx (C, 10), ``chunk`` rows a
+        program call."""
+        width = min(chunk, idx.shape[0])
+        return self.programs.call(
+            self._key(width), lambda *a: HybridEager(self.engine)(*a),
+            lambda: HybridProgram(self.engine, width, self.programs.pool),
+            idx, chunk)
 
     def held_mb(self):
         """MB of device memory the engine's hybrid programs hold: their
         static buffers and their pool."""
-        return (sum(p.buffers_mb() for p in self.programs.values())
-                + pool_mb(self.pool))
+        return (sum(p.buffers_mb() for p in self.programs.programs.values())
+                + pool_mb(self.programs.pool))

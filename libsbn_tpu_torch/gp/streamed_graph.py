@@ -16,22 +16,23 @@ chunk by chunk between the host's Newton steps (its fourth,
 
 ``StreamedEager`` runs them as torch ops (``GPEngine(cuda_graphs=False)``,
 and the route the graphs are held to). ``StreamedGraphs`` runs the same
-functions over static buffers on the engine's device, each a
-``utils/graphs.py LazyGraph`` (its first call eager, its second a capture;
-a first populate that ran K7's slab route keeps the statistics program
-eager). A chunk call copies the chunk's inputs into the program's buffers
-by one host-to-device copy, as JAX's ``jnp.asarray`` uploads them at every
-call: the branch lengths and SBN parameters once a statistics refresh,
-then the chunk's tips and weights; or u (with the accumulators' zeros)
-once a derivative or objective pass, then the chunk's A, B and weights,
-gathered from AB through a pinned staging buffer (AB[k, :, chunk] is a
-strided view). The derivative and objective programs add into device
-accumulators in chunk order, as the eager route does, and the host reads
-them once a pass; the statistics program writes A, B and the marginal into
-one buffer that the host reads once a chunk. A and B never move to the
-device beyond one chunk: that is the path's capacity contract. The graphs
-and their shared memory pool, O(DAG nodes x chunk), go at the end of the
-call, as JAX's per-call jits do.
+functions over static buffers on the engine's device, each a key of one
+``utils/graphs.py KeyedPrograms`` under its capture policy (a first
+populate that ran K7's slab route keeps the statistics program eager); a
+program captures ``commit(compute())`` with ``compute`` alone as the
+warm-up, so the warm-up writes no buffer. A chunk call copies the chunk's
+inputs into the program's buffers by one host-to-device copy, as JAX's
+``jnp.asarray`` uploads them at every call: the branch lengths and SBN
+parameters once a statistics refresh, then the chunk's tips and weights; or
+u (with the accumulators' zeros) once a derivative or objective pass, then
+the chunk's A, B and weights, gathered from AB through a pinned staging
+buffer (AB[k, :, chunk] is a strided view). The derivative and objective
+programs add into device accumulators in chunk order, as the eager route
+does, and the host reads them once a pass; the statistics program writes A,
+B and the marginal into one buffer that the host reads once a chunk. A and
+B never move to the device beyond one chunk: that is the path's capacity
+contract. The graphs and their shared memory pool, O(DAG nodes x chunk), go
+at the end of the call, as JAX's per-call jits do.
 
 Every sum has the same operands, shapes and order on both routes, so on
 the kernel route the graphs equal the eager route bit for bit. On the CPU
@@ -44,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..utils.graphs import LazyGraph, pool_mb
+from ..utils.graphs import KeyedPrograms, pool_mb
 from . import engine_kernels
 
 # Captures, replays and eager calls of the chunk programs; reset_counters()
@@ -160,11 +161,11 @@ class StreamedEager(_Chunks):
 
 
 class StreamedGraphs(_Chunks):
-    """The chunk programs over static buffers, each a LazyGraph, for one
-    call of the streamed ascent; ``close()`` drops them and records
-    ``pool_mb`` (their shared pool's MB at the end of the call) and
-    ``buffers_mb`` (the static buffers' and staging buffers' MB on the
-    device)."""
+    """The chunk programs over static buffers, each a key of one
+    KeyedPrograms, for one call of the streamed ascent; ``close()`` drops
+    them and records ``pool_mb`` (their shared pool's MB at the end of the
+    call) and ``buffers_mb`` (the static buffers' and staging buffers' MB
+    on the device)."""
 
     def __init__(self, engine, AB, tips_c, w_c):
         super().__init__(engine, AB, tips_c, w_c)
@@ -203,15 +204,19 @@ class StreamedGraphs(_Chunks):
             x.numel() * x.element_size() for x in
             (self.blq, self.tw, self.stats_out, self.ab, self.u_phi,
              self.u_obj)) / 2**20
-        counters = (engine_kernels.LAUNCHES,)
+        self.programs = KeyedPrograms(dev, (engine_kernels.LAUNCHES,), COUNTS,
+                                      self.pool)
 
-        def program(compute, commit):
-            return LazyGraph(compute, commit, dev, counters, COUNTS,
-                             pool=self.pool)
+        def program(key, compute, commit):
+            def run():
+                commit(compute())
 
-        self.stats = program(self._stats, self._commit_stats)
-        self.phi_program = program(self._phi, self._commit_phi)
-        self.obj_program = program(self._obj, self._commit_obj)
+            return lambda: self.programs.call(
+                key, run, lambda: self.programs.graph(run, warmup=compute))
+
+        self.stats = program("stats", self._stats, self._commit_stats)
+        self.phi_program = program("phi", self._phi, self._commit_phi)
+        self.obj_program = program("obj", self._obj, self._commit_obj)
         self.pool_mb = 0.0
 
     # -- the programs: compute reads the buffers, commit writes them ------
@@ -301,6 +306,5 @@ class StreamedGraphs(_Chunks):
         if self.pool is not None:
             torch.cuda.synchronize(self.engine.device)
             self.pool_mb = pool_mb(self.pool)
-        for program in (self.stats, self.phi_program, self.obj_program):
-            program.graph = None  # its capture refers back to it
-        self.stats = self.phi_program = self.obj_program = None
+        # The graphs' captures refer back to this object.
+        self.programs = self.stats = self.phi_program = self.obj_program = None

@@ -40,9 +40,8 @@ parameters, each of ``log_likelihoods``, ``branch_gradients`` and
 ``phylo_gradients`` (models/unrooted_graph.py) and of
 ``rooted_log_likelihoods`` and ``rooted_phylo_gradients`` (the hand route
 for JC69, the autograd route for GTR; models/rooted_graph.py) is one
-replay of a captured CUDA graph from a key's second call on (the first
-runs eagerly, and a key that runs a kernel's slab route stays eager: see
-utils/graphs.py), the counterpart of the JAX engine's jitted programs;
+replay of a captured CUDA graph under utils/graphs.py's capture policy,
+the counterpart of the JAX engine's jitted programs;
 ``cuda_graphs=False`` runs them eagerly, launch by launch, and per-tree
 parameters and rescale=False always do. GTR's
 eigensystem is solved once a call on the host, from the shared parameters,

@@ -11,9 +11,8 @@ the card takes to run them; the hand route is two heights kernels (the
 sweeps and their adjoint, csrc/heights.cu) around one K1 launch and a few
 small ops, or, with ``heights_method="squaring"``, as many launches as the
 others.
-``RootedGraphs`` captures each of the three programs once per key, on the
-key's second call (its first runs the same function eagerly; a key that
-runs a kernel's slab route stays eager), and replays it:
+``RootedGraphs`` keeps each of the three programs by key, under
+utils/graphs.py's capture policy, and replays it:
 
 * the key holds what the JAX cache keys hold, the shapes and the model's
   layout: (route, B, S, N, leaf_count, root_id, n_height_iters,
@@ -47,8 +46,8 @@ count (``engine._height_iters``, cached on the schedule). A replay adds
 its capture's heights sweeps and heights kernels to ``ops/heights.py
 SWEEPS`` and ``LAUNCHES``, as it adds its pruning kernels' launches.
 
-utils/graphs.py's ``PackedPrograms`` does the packing and the capture
-policy, and ``Graph`` the capture (warm-up, pool, launch counts). On the
+utils/graphs.py's ``PackedPrograms`` does the packing and keeps the
+programs, and ``Graph`` the capture (warm-up, pool, launch counts). On the
 CPU a Graph calls its function as is: the CPU tests run the packed path
 against the eager one.
 """
@@ -61,9 +60,9 @@ from ..ops import heights, pruning_jc, pruning_vjp
 from ..utils.graphs import PackedPrograms, host_f64
 from ..utils.profiling import annotate
 
-# Captures and replays of the rooted programs; reset_counters() sets them
-# to 0.
-COUNTS = {"captures": 0, "replays": 0}
+# Captures, replays and eager calls of the rooted programs;
+# reset_counters() sets them to 0.
+COUNTS = {"captures": 0, "replays": 0, "eager": 0}
 # What a rooted program launches (K1-K3, K5 + K6 for GTR, the heights
 # kernels) and the heights sweeps it runs.
 _COUNTERS = (pruning_jc.LAUNCHES, pruning_vjp.LAUNCHES, heights.LAUNCHES,

@@ -6,10 +6,8 @@ model-parameter gradients), so a call is one dispatch. Eagerly, the port's
 calls are tens of small launches around their kernels (the padding and
 casts of the branch lengths, the model's tensors, GTR's transition
 matrices, the model gradients' autograd), whose enqueue takes the host
-longer than the card takes to run them. ``UnrootedGraphs`` captures each
-route once per key, on the key's second call (its first runs the same
-function eagerly; a key that runs a kernel's slab route stays eager;
-utils/graphs.py), and replays it:
+longer than the card takes to run them. ``UnrootedGraphs`` keeps each
+route by key, under utils/graphs.py's capture policy, and replays it:
 
 * routes: "ll" (``log_likelihoods``: K2, or K5 for GTR), "bgrad"
   (``branch_gradients``: K1, or K4 for GTR) and "phylo"
@@ -59,9 +57,9 @@ from ..utils.graphs import PackedPrograms, host_f64
 from ..utils.profiling import annotate
 from .rooted_graph import model_inputs, unpack_model
 
-# Captures and replays of the unrooted programs; reset_counters() sets
-# them to 0.
-COUNTS = {"captures": 0, "replays": 0}
+# Captures, replays and eager calls of the unrooted programs;
+# reset_counters() sets them to 0.
+COUNTS = {"captures": 0, "replays": 0, "eager": 0}
 # What an unrooted program launches: K1-K3, K4, K5 + K6.
 _COUNTERS = (pruning_jc.LAUNCHES, pruning_generic.LAUNCHES,
              pruning_vjp.LAUNCHES)

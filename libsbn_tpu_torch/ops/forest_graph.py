@@ -16,11 +16,10 @@ each surface once per key and replays it:
 * the key is (surface, forest schedule, the lengths' shape and dtype, the
   working dtype, the gather dtype). A ForestGraphs holds one alignment's
   tips and weights, uploaded once a working dtype, and every forest
-  schedule a key names (so that an id in a key is never reused while the
-  key exists);
-* capture policy (utils/graphs.py ``PackedPrograms``): a key's first call
-  runs the eager function, its second captures it, later calls replay it;
-  the keys share one memory pool, and outputs are cloned out of it as soon
+  schedule a kept key names (so that an id in a kept key is never
+  reused);
+* the keys follow utils/graphs.py's capture policy (``KeyedPrograms``),
+  share one memory pool, and have their outputs cloned out of it as soon
   as the replay is enqueued;
 * the lengths are copied into the key's static buffer on each replay (a
   device-to-device copy when they lie on the card); the forest's index
@@ -31,21 +30,20 @@ A replay runs the eager function's own ops over the same inputs, so it
 equals the eager call bit for bit: the gradient of the split surface is
 the backward of forest's gathers, an ``index_put_`` with accumulation that
 sums each index's terms in a fixed order. On a device that is not CUDA
-(the CPU tests) every call runs the eager function.
+(the CPU tests) a kept key's program is the eager function over the static
+buffer.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
-
 import torch
 
-from ..utils.graphs import SEEN_CAP, Graph
+from ..utils.graphs import KeyedPrograms
 from . import forest
 
-# Captures and replays of the forest programs; reset_counters() sets them
-# to 0.
-COUNTS = {"captures": 0, "replays": 0}
+# Captures, replays and eager calls of the forest programs;
+# reset_counters() sets them to 0.
+COUNTS = {"captures": 0, "replays": 0, "eager": 0}
 SURFACES = ("ll", "grad", "split")
 
 
@@ -72,11 +70,15 @@ def eager(surface, fs, bl_splits, tips, weights, dtype=torch.float32,
 
 
 class _Key:
-    """A captured key: its graph and the static buffer of its lengths."""
+    """A kept key: its graph and the static buffer of its lengths."""
 
     def __init__(self, graph, bl):
         self.graph = graph
         self.bl = bl
+
+    def __call__(self, bl):
+        self.bl.copy_(bl)
+        return self.graph()
 
 
 class ForestGraphs:
@@ -88,11 +90,11 @@ class ForestGraphs:
         self.device = forest._target_device(device, tips, weights)
         self.tips, self.weights = tips, weights
         self._inputs = {}  # working dtype -> (tips, weights) on the device
-        self.forests = {}  # id -> every forest schedule a key names
-        self.programs = {}
-        self.seen = OrderedDict()
-        self.pool = (torch.cuda.graph_pool_handle()
-                     if self.device.type == "cuda" else None)
+        self.forests = {}  # id -> every forest schedule a kept key names
+        self.programs = KeyedPrograms(
+            self.device, (), COUNTS,
+            torch.cuda.graph_pool_handle()
+            if self.device.type == "cuda" else None)
 
     def __len__(self):
         return len(self.programs)
@@ -123,9 +125,8 @@ class ForestGraphs:
 
     def run(self, surface, fs, bl_splits, dtype=torch.float32,
             gather_dtype=None):
-        """Fill the key's lengths (capturing it first on its second call)
-        and replay it once; returns its outputs, in the pool on a
-        replay."""
+        """Run the key once on these lengths (by utils/graphs.py's policy);
+        returns its outputs, in the pool on a replay."""
         if surface not in SURFACES:
             raise ValueError(f"surface must be one of {SURFACES}, "
                              f"got {surface!r}")
@@ -134,26 +135,17 @@ class ForestGraphs:
             gather_dtype = None
         key = (surface, id(fs), tuple(bl.shape), bl.dtype, dtype, gather_dtype)
         tips, weights = self.inputs(dtype)
-        prog = self.programs.get(key)
-        if prog is not None:
-            prog.bl.copy_(bl)
-            return prog.graph()
-        bl = bl.to(self.device)
-        if self.device.type != "cuda" or key not in self.seen:
-            # The first call (or any call off the card) runs eagerly.
-            self.seen[key] = fs
-            if len(self.seen) > SEEN_CAP:
-                self.seen.popitem(last=False)
-            return eager(surface, fs, bl, tips, weights, dtype, gather_dtype)
-        del self.seen[key]
-        static = bl.clone()
-        graph = Graph(lambda: eager(surface, fs, static, tips, weights, dtype,
-                                    gather_dtype),
-                      self.device, (), COUNTS, pool=self.pool)
-        self.forests[id(fs)] = fs
-        out = graph()
-        self.programs[key] = _Key(graph, static)
-        return out
+
+        def run(b):
+            return eager(surface, fs, b, tips, weights, dtype, gather_dtype)
+
+        def build():
+            static = torch.empty(bl.shape, dtype=bl.dtype, device=self.device)
+            self.forests[id(fs)] = fs
+            return _Key(self.programs.graph(lambda: run(static)), static)
+
+        return self.programs.call(key, lambda b: run(b.to(self.device)), build,
+                                  bl)
 
 
 def to_numpy(out):

@@ -87,7 +87,7 @@ def run(n_trees=1000, device=DEFAULT_DEVICE, dtype=torch.float32,
     numpy, cast to ``dtype``), each surface's ``outputs`` (the graph
     route's second call, float64 numpy) and ``bit_for_bit`` (on the card
     its first, eager, call against its second, a capture and replay; None
-    elsewhere, where there is no graph), and with ``timing`` each
+    elsewhere, where nothing is captured), and with ``timing`` each
     surface's ``evals_per_s`` by route and ``times``
     (profiling.host_and_device's dict) by route."""
     device = compute_device(device)
@@ -117,7 +117,7 @@ def run(n_trees=1000, device=DEFAULT_DEVICE, dtype=torch.float32,
         first = graph()  # eager: the key's first call
         second = graph()  # on the card a capture and its replay
         out["outputs"][name] = forest_graph.to_numpy(second)
-        # Off the card both calls are eager calls: nothing to compare.
+        # Off the card nothing is captured: nothing to compare.
         out["bit_for_bit"][name] = (
             forest_graph.bit_for_bit(first, second)
             if device.type == "cuda" else None)

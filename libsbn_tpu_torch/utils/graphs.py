@@ -35,20 +35,38 @@ replays them in one call. ``Graph`` holds one such function:
 On a device that is not CUDA a Graph calls ``fn`` as it is, so the CPU
 tests run the same functions over the same buffers.
 
-``PackedPrograms`` keeps such Graphs by key over two static buffers each,
-one int32 and one float64, for one engine (models/rooted_graph.py and
-models/unrooted_graph.py). It holds what the JAX engine's compiled
-programs hold, and no more:
+``KeyedPrograms`` is the one capture policy of every cache of programs by
+key: the engines' graphs (``PackedPrograms``, models/rooted_graph.py and
+models/unrooted_graph.py), the forest surfaces (ops/forest_graph.py), the
+hybrid marginals' program (gp/hybrid_graph.py) and the streamed GP
+ascent's chunk programs (gp/streamed_graph.py). The caller gives a key's
+eager callable and a way to build its program:
 
-* a key's first call runs eagerly: the function it would capture, over
-  freshly uploaded buffers, so it equals the graph bit for bit and leaves
-  nothing behind but a record that the key was seen; its second call
-  captures, and every later call is one replay. A one-off key (a final
-  ELBO over 10,000 particles) never makes a graph or a pool;
-* a key whose first call launched a kernel's slab route (counted as
-  ``*_slab`` in the launch counters; its scratch is a slab per tree) stays
+* a key's first call runs the eager callable, uncaptured (the function the
+  program would capture, so the graph equals it bit for bit), and leaves
+  nothing behind but a record that the key was seen. A one-off key (a
+  final ELBO over 10,000 particles) never makes a graph or a pool;
+* a key whose first call launched a kernel's slab route (a ``*_slab``
+  launch count in the counters; its scratch is a slab per tree) stays
   eager, so that scratch goes back to the caching allocator after each
   call instead of staying in a pool;
+* its second call builds the program (a Graph, or an object around one)
+  and runs it: on a card a capture and one replay, elsewhere a plain call.
+  The program is kept only once that run has returned, so a capture that
+  raises leaves nothing kept and the key starts over;
+* every later call runs the kept program;
+* the record of keys seen once holds ``SEEN_CAP`` keys and forgets the
+  oldest first; a forgotten key starts over;
+* ``counts`` (the owner's COUNTS) holds "captures", "replays" and "eager",
+  the calls run eagerly.
+
+StepGraphs, AscentGraphs and EMStepGraph capture at their first call
+instead: each holds one long-lived program, replayed many times a call.
+
+``PackedPrograms`` is KeyedPrograms over two static buffers a key, one
+int32 and one float64, for one engine. It holds what the JAX engine's
+compiled programs hold, and no more:
+
 * the engine's graphs share one memory pool (``pool``), which then holds
   about the largest key's temporaries plus every key's outputs, not the
   sum of all keys' temporaries. Two rules make that safe: no two of the
@@ -61,10 +79,8 @@ programs hold, and no more:
   weak reference (an address can be recycled, an object cannot), as the
   JAX engine's ``_sched_dev`` uploads a schedule once.
 
-``LazyGraph`` applies the same first-call, slab and capture rules to one
-function over buffers its owner keeps (the streamed GP ascent's chunk
-programs, gp/streamed_graph.py), and ``pool_mb`` reads what a memory pool
-holds from the caching allocator's segments.
+``pool_mb`` reads what a memory pool holds from the caching allocator's
+segments.
 
 Spans (utils/profiling.py ``annotate``, recorded only while torch.profiler
 records; none inside a captured function): ``libsbn.graphs.pack`` (a
@@ -178,6 +194,67 @@ def host_f64(x):
     return np.asarray(x, np.float64)
 
 
+# Keys seen once and not kept that a KeyedPrograms remembers; the oldest is
+# forgotten first, and a forgotten key's next call is a first call again.
+SEEN_CAP = 256
+
+
+class KeyedPrograms:
+    """Programs by key under the capture policy of the module docstring, on
+    ``device``; counters as Graph takes them; counts a dict with
+    "captures", "replays" and "eager"; ``pool`` the memory pool every
+    capture shares (None: a pool each)."""
+
+    def __init__(self, device, counters, counts, pool=None):
+        self.device = torch.device(device)
+        self.counters = tuple(counters)
+        self.counts = counts
+        self.pool = pool
+        self.programs = {}
+        # key -> whether its first call launched a slab route (it then stays
+        # eager): the keys called once and not kept.
+        self.seen = OrderedDict()
+
+    def __len__(self):
+        return len(self.programs)
+
+    def graph(self, fn, warmup=None):
+        """A Graph of ``fn`` on this policy's device, counters, counts and
+        pool."""
+        return Graph(fn, self.device, self.counters, self.counts,
+                     warmup=warmup, pool=self.pool)
+
+    def call(self, key, eager, build, *args):
+        """Run ``key`` once on ``args``: by ``eager(*args)`` on its first
+        call (and every call of a slab key), by ``build()``'s program
+        ``prog(*args)`` from its second. Returns what that call returns."""
+        prog = self.programs.get(key)
+        if prog is not None:
+            return prog(*args)
+        slab = self.seen.get(key)
+        if slab is None or slab:
+            before = slab_launches(self.counters)
+            self.counts["eager"] += 1
+            with annotate("libsbn.graphs.eager"):
+                out = eager(*args)
+            if slab is None:
+                self.seen[key] = slab_launches(self.counters) != before
+                if len(self.seen) > SEEN_CAP:
+                    self.seen.popitem(last=False)
+            return out
+        del self.seen[key]
+        prog = build()
+        out = prog(*args)
+        self.programs[key] = prog
+        return out
+
+
+def slab_launches(counters):
+    """The slab-route launches so far in ``counters`` (dicts of launch
+    counts), by name."""
+    return [c[k] for c in counters for k in c if k.endswith("_slab")]
+
+
 class Packed:
     """A captured key: its graph, its static buffers and the schedule object
     whose int arrays its int32 buffer holds (a weak reference, or None)."""
@@ -188,44 +265,28 @@ class Packed:
         self.floats = floats  # float64, the packed float arrays
         self.source = source
 
-
-# Keys seen once and not captured that a PackedPrograms (one an engine and
-# route family) remembers; the oldest is forgotten first, and a forgotten
-# key's next call runs eagerly again.
-SEEN_CAP = 256
+    def __call__(self):
+        return self.graph()
 
 
-class PackedPrograms:
-    """Graphs by key, each over one int32 and one float64 static buffer
-    on ``device``; counters and counts as Graph takes them; ``pool`` the
-    memory pool every capture shares (None: a pool each)."""
+class PackedPrograms(KeyedPrograms):
+    """KeyedPrograms whose keys each run over one int32 and one float64
+    static buffer on ``device``."""
 
     def __init__(self, device, counters, counts, pool=None):
-        self.device = torch.device(device)
-        self.counters = tuple(counters)
-        self.counts = counts
-        self.pool = pool
-        self.programs = {}
-        # key -> "eager" for a key whose first call launched a slab route,
-        # else "seen": called once and not yet captured.
-        self.seen = OrderedDict()
+        super().__init__(device, counters, counts, pool)
         # Host-to-device copies of the packed arrays, by buffer.
         self.uploads = {"ints": 0, "floats": 0}
-
-    def __len__(self):
-        return len(self.programs)
 
     def run(self, key, ints, floats, make, source=None):
         """Run the program of ``key`` once on ``ints`` (host int arrays,
         packed as int32) and ``floats`` (host float64 arrays):
         ``make(int_views, float_views)`` returns the function, which reads
         the buffers' views of the arrays' shapes, in order. The key is
-        extended by the arrays' shapes. Its first call runs the function
-        eagerly, its second captures it, later calls replay it (see the
-        module docstring). ``source``: the object the int arrays come from
-        (the schedule); on a replay, the same object as the last call's
-        skips their copy. Returns the function's outputs (in the pool on
-        a replay)."""
+        extended by the arrays' shapes. ``source``: the object the int
+        arrays come from (the schedule); on a replay, the same object as
+        the last call's skips their copy. Returns the function's outputs
+        (in the pool on a replay)."""
         with annotate("libsbn.graphs.pack"):
             ints = [np.asarray(x) for x in ints]
             floats = [np.asarray(x, np.float64) for x in floats]
@@ -254,68 +315,8 @@ class PackedPrograms:
         self.uploads["ints"] += 1
         self.uploads["floats"] += 1
         fn = make(_views(ints_t, int_shapes), _views(floats_t, float_shapes))
-        state = self.seen.get(key)
-        if state is None:  # the first call
-            slabs = slab_launches(self.counters)
-            with annotate("libsbn.graphs.eager"):
-                out = fn()
-            self.seen[key] = ("eager" if slab_launches(self.counters) != slabs
-                              else "seen")
-            if len(self.seen) > SEEN_CAP:
-                self.seen.popitem(last=False)
-            return out
-        if state == "eager":
-            with annotate("libsbn.graphs.eager"):
-                return fn()
-        del self.seen[key]
-        prog = Packed(Graph(fn, self.device, self.counters, self.counts,
-                            pool=self.pool), ints_t, floats_t, _ref(source))
-        out = prog.graph()
-        # Kept only once its graph has been captured and replayed.
-        self.programs[key] = prog
-        return out
-
-
-def slab_launches(counters):
-    """The slab-route launches so far in ``counters`` (dicts of launch
-    counts), by name."""
-    return [c[k] for c in counters for k in c if k.endswith("_slab")]
-
-
-class LazyGraph:
-    """``commit(compute())`` over static buffers, captured from its second
-    call, as PackedPrograms captures a key: the first call runs it eagerly
-    (what the capture records, so the graph equals it bit for bit); a first
-    call that launched a kernel's slab route keeps every later call eager;
-    the second call captures it and replays it, with ``compute`` alone as
-    the warm-up (so the warm-up writes no buffer); later calls replay it.
-    ``counts`` holds "captures", "replays" and "eager" (the calls run
-    eagerly)."""
-
-    def __init__(self, compute, commit, device, counters, counts, pool=None):
-        self.compute, self.commit = compute, commit
-        self.device = torch.device(device)
-        self.counters = tuple(counters)
-        self.counts = counts
-        self.pool = pool
-        self.graph = None
-        self.calls = 0
-        self.slab = False
-
-    def __call__(self):
-        if self.graph is None and (self.calls == 0 or self.slab):
-            before = slab_launches(self.counters)
-            with annotate("libsbn.graphs.eager"):
-                self.commit(self.compute())
-            self.slab = self.slab or slab_launches(self.counters) != before
-            self.counts["eager"] += 1
-        else:
-            if self.graph is None:
-                self.graph = Graph(lambda: self.commit(self.compute()),
-                                   self.device, self.counters, self.counts,
-                                   warmup=self.compute, pool=self.pool)
-            self.graph()
-        self.calls += 1
+        return self.call(key, fn, lambda: Packed(
+            self.graph(fn), ints_t, floats_t, _ref(source)))
 
 
 def pool_mb(pool):

@@ -1076,7 +1076,8 @@ def test_burrito_on_card_matches_cpu(data, branch_model):
     torch.cuda.synchronize()
     assert pruning_jc.LAUNCHES["ll_grad_jc69"] == 5 + 1
     assert pruning_jc.LAUNCHES["ll_jc69"] == 5 + 1
-    assert unrooted_graph.COUNTS == {"captures": 2, "replays": 8}
+    assert unrooted_graph.COUNTS == {"captures": 2, "replays": 8,
+                                     "eager": 2}
     assert not any(pruning_jc.TWIN_CALLS.values())
     _rel_close(card.elbo_trace, cpu.elbo_trace, 1e-9)
     _rel_close(card.scalar_model.q_params, cpu.scalar_model.q_params, 1e-9)
@@ -1564,11 +1565,15 @@ def test_rooted_graph_equals_eager(dtype, K):
     per_call = {"hand": hand if K == 1 else
                 {**hand, "ll_jc69": 1, "ll_dea_jc69": 1},
                 "ll": {"ll_jc69": 1}}
-    captured = {"captures": 0 if slab else 1, "replays": 0 if slab else 1}
+    eager_first = {"captures": 0, "replays": 0, "eager": 1}
+    captured = ({"captures": 0, "replays": 0, "eager": 1} if slab else
+                {"captures": 1, "replays": 1, "eager": 0})
+    replay = {"captures": 0, "replays": 0 if slab else 1,
+              "eager": 1 if slab else 0}
     for hand in (True, False):
         route = "hand" if hand else "ll"
         first = _rooted_call(eng, args, hand)
-        assert first[2] == {"captures": 0, "replays": 0}, first[2]
+        assert first[2] == eager_first, first[2]
         assert first[1] == per_call[route], first[1]
         second = _rooted_call(eng, args, hand)
         assert second[2] == captured, second[2]
@@ -1579,7 +1584,7 @@ def test_rooted_graph_equals_eager(dtype, K):
         _equal(first[0], got[0])
         _equal(second[0], got[0])
         _equal(again[0], want[0])
-        assert got[2] == {"captures": 0, "replays": 0 if slab else 1}, got[2]
+        assert got[2] == replay, got[2]
         assert got[1] == per_call[route], got[1]
         assert want[1] == per_call[route] and want[2]["replays"] == 0
         sched, bounds, ratios, rates, params = args
@@ -1591,7 +1596,7 @@ def test_rooted_graph_equals_eager(dtype, K):
         assert not torch.equal(got2[0][0], got[0][0])
         small = _rooted_instance("cuda", dtype, "JC69", site, batch=2)[1]
         want3 = _rooted_call(eng, small, hand, eager=True)[0]
-        for counts in ({"captures": 0, "replays": 0}, captured):
+        for counts in (eager_first, captured):
             got3 = _rooted_call(eng, small, hand)
             assert got3[2] == counts, got3[2]
             _equal(got3[0], want3)
@@ -1613,7 +1618,7 @@ def test_rooted_gtr_ll_graph_equals_eager(dtype):
     rooted_graph.reset_counters()
     got = eng.rooted_log_likelihoods(*args, return_parts=True)
     torch.cuda.synchronize()
-    assert rooted_graph.COUNTS == {"captures": 0, "replays": 1}
+    assert rooted_graph.COUNTS == {"captures": 0, "replays": 1, "eager": 0}
     assert pruning_vjp.LAUNCHES["ll_generic"] == 1
     eng.graphs, graphs = None, eng.graphs
     want = eng.rooted_log_likelihoods(*args, return_parts=True)
@@ -2136,22 +2141,25 @@ def test_unrooted_graph_equals_eager(model, dtype):
     for route, method in ENGINE_METHODS.items():
         call_g, call_e = getattr(graph, method), getattr(eager, method)
         first = _counted(lambda: call_g(sched, bl, params))
-        assert first[2][0] == {"captures": 0, "replays": 0}, first[2]
+        assert first[2][0] == {"captures": 0, "replays": 0, "eager": 1}, \
+            first[2]
         assert first[1] == per_call[route], first[1]
         second = _counted(lambda: call_g(sched, bl, params))
-        assert second[2][0] == {"captures": 1, "replays": 1}, second[2]
+        assert second[2][0] == {"captures": 1, "replays": 1, "eager": 0}, \
+            second[2]
         assert second[1] == {k: 2 * v for k, v in per_call[route].items()}
         got = _counted(lambda: call_g(sched, bl, params))
         want = _counted(lambda: call_e(sched, bl, params))
         _equal(got[0], want[0])
         _equal(first[0], got[0])
         _equal(second[0], got[0])
-        assert got[2][0] == {"captures": 0, "replays": 1}, got[2]
+        assert got[2][0] == {"captures": 0, "replays": 1, "eager": 0}, got[2]
         assert got[1] == want[1] == per_call[route], (got[1], want[1])
         bl2, params2 = _unrooted_inputs(model, sched, 1)
         again = schedule.schedules_of_topologies(_topologies(sched))
         got2 = _counted(lambda: call_g(again, bl2, params2))
-        assert got2[2][0] == {"captures": 0, "replays": 1}, got2[2]
+        assert got2[2][0] == {"captures": 0, "replays": 1, "eager": 0}, \
+            got2[2]
         _equal(got2[0], _counted(lambda: call_e(again, bl2, params2))[0])
         assert not torch.equal(got2[0][0], got[0][0])
 
@@ -2182,7 +2190,8 @@ def test_rooted_autograd_graph_equals_eager(model, dtype):
     eng = card.engine
     slab = model[0] == "JC69" and pruning_jc.onchip_plan(
         dtype, 4, 68, 69, "ll") is None
-    replay = {"captures": 0, "replays": 0 if slab else 1}
+    replay = {"captures": 0, "replays": 0 if slab else 1,
+              "eager": 1 if slab else 0}
 
     def graph(a):
         if model[0] == "GTR":
@@ -2190,10 +2199,12 @@ def test_rooted_autograd_graph_equals_eager(model, dtype):
         return eng.graphs.phylo_gradients(*a, True, "autograd")
 
     first = _counted(lambda: graph(args))
-    assert first[2][1] == {"captures": 0, "replays": 0}, first[2]
+    assert first[2][1] == {"captures": 0, "replays": 0, "eager": 1}, first[2]
     second = _counted(lambda: graph(args))
-    assert second[2][1] == ({"captures": 0, "replays": 0} if slab else
-                            {"captures": 1, "replays": 1}), second[2]
+    assert second[2][1] == ({"captures": 0, "replays": 0, "eager": 1}
+                            if slab else
+                            {"captures": 1, "replays": 1, "eager": 0}), \
+        second[2]
     got = _counted(lambda: graph(args))
     want = _counted(lambda: eng._rooted_phylo_gradients_autograd(*args, True))
     again = _counted(lambda: eng._rooted_phylo_gradients_autograd(*args, True))
@@ -2265,7 +2276,7 @@ def test_unrooted_capture_reading_the_host_raises():
     assert out.returncode == 0, out.stderr[-4000:]
     got = json.loads(out.stdout.splitlines()[-1])
     assert got["error"] and not got["out"], got
-    assert got["counts"] == {"captures": 0, "replays": 0}
+    assert got["counts"] == {"captures": 0, "replays": 0, "eager": 0}
     assert got["programs"] == 0 and got["want_finite"] and got["first_close"]
 
 
@@ -2338,7 +2349,8 @@ def test_interleaved_keys_equal_eager_on_card(dtype):
             want = _counted(lambda: getattr(eager, method)(s, bl, params))
             _equal(got[0], want[0])
             if turn == 2:
-                assert got[2][0] == {"captures": 0, "replays": 1}, got[2]
+                assert got[2][0] == {"captures": 0, "replays": 1,
+                                     "eager": 0}, got[2]
     assert len(graph.unrooted_graphs.programs) == 3
 
 
@@ -2397,11 +2409,11 @@ def test_forest_graph_equals_eager_on_card(surface, gather, dtype):
         assert forest_graph.bit_for_bit(
             graphs.run(surface, fs, bl_c, dtype, gather), want)
         assert forest_graph.COUNTS == {"captures": captures,
-                                       "replays": replays}
+                                       "replays": replays, "eager": 1}
     bl_new = bl_c.flip(0).contiguous()
     assert forest_graph.bit_for_bit(
         graphs.run(surface, fs, bl_new, dtype, gather), eager(bl_new))
-    assert forest_graph.COUNTS == {"captures": 1, "replays": 3}
+    assert forest_graph.COUNTS == {"captures": 1, "replays": 3, "eager": 1}
     assert len(graphs) == 1
 
 

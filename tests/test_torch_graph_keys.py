@@ -1,5 +1,6 @@
-"""What the engine's captured keys keep (utils/graphs.py PackedPrograms), on
-the CPU, where a Graph calls its function as is over the same buffers:
+"""What the captured keys keep (utils/graphs.py KeyedPrograms and
+PackedPrograms), on the CPU, where a Graph calls its function as is over
+the same buffers:
 
 * a key's first call keeps no program and its second keeps one, for every
   unrooted route (models/unrooted_graph.py) and rooted route
@@ -9,11 +10,15 @@ the CPU, where a Graph calls its function as is over the same buffers:
 * a replay's int32 copy is skipped for the schedule object of the key's
   last call and taken for a new object with equal arrays, and for a new
   object (other trees) at the address of a freed one;
-* a key whose first call launched a slab route stays eager; the record of
-  keys seen once is capped at SEEN_CAP, oldest first.
+* the capture policy's rules through each keyed cache (the engines'
+  PackedPrograms, a streamed chunk program, ForestGraphs and
+  HybridGraphs), over a fake counted function: first call eager and kept
+  from the second; a slab key stays eager; the record of keys seen once
+  capped at SEEN_CAP, oldest first; a program that raises kept by no key.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -21,7 +26,9 @@ import torch
 
 import libsbn_tpu_torch
 from libsbn_tpu_torch.core.site_pattern import SitePattern
+from libsbn_tpu_torch.gp import engine_kernels, hybrid_graph, streamed_graph
 from libsbn_tpu_torch.models import rooted_graph, unrooted_graph
+from libsbn_tpu_torch.ops import forest_graph
 from libsbn_tpu_torch.models.engine import LikelihoodEngine
 from libsbn_tpu_torch.utils import graphs as graphs_mod
 
@@ -175,46 +182,147 @@ def test_recycled_address_copies_anew(ds1):
     assert uploads["ints"] == ints + 1
 
 
-def _counted_programs(slab):
-    """A PackedPrograms on the CPU whose function adds one to the "k" or
-    the "k_slab" launch count, as a kernel wrapper does on a card."""
-    launches = {"k": 0, "k_slab": 0}
-    counts = {"captures": 0, "replays": 0}
-    progs = graphs_mod.PackedPrograms("cpu", [launches], counts)
+class _Owner:
+    """One keyed cache of the port on the CPU, driven through its own entry
+    point over a fake counted function f(x) = 2 x, which adds one to the
+    "k" or (``slab``) the "k_slab" launch count of the cache's counters, as
+    a kernel wrapper does on a card, and raises while ``fail`` is set.
+    ``call(i, x)`` runs key i at x and returns f's value there; ``policy``
+    is the cache's KeyedPrograms; ``launched()`` f's launches so far."""
 
-    def make(ints, floats):
-        def fn():
-            launches["k_slab" if slab else "k"] += 1
-            return floats[0] * 2
-        return fn
+    def __init__(self, which, monkeypatch, slab=False):
+        self.fail = False
+        self.launches = {"k": 0, "k_slab": 0}
+        self.name = "k_slab" if slab else "k"
 
-    return progs, make, launches
+        def counted(x):
+            if self.fail:
+                raise RuntimeError("capture failed")
+            self.launches[self.name] += 1
+            return x * 2
+
+        if which == "packed":
+            counts = {"captures": 0, "replays": 0, "eager": 0}
+            self.policy = progs = graphs_mod.PackedPrograms(
+                "cpu", [self.launches], counts)
+
+            def make(ints, floats):
+                return lambda: counted(floats[0])
+
+            self.call = lambda i, x: float(progs.run(
+                ("key", i), [np.zeros(2, np.int64)], [np.full(3, x)],
+                make)[0])
+        elif which == "streamed":
+            engine_kernels.reset_counters()
+            streamed_graph.reset_counters()
+            self.launches = engine_kernels.LAUNCHES
+            self.name = "populate_plvs" + ("_slab" if slab else "")
+            monkeypatch.setattr(streamed_graph, "chunk_obj",
+                                lambda u, A, B, w: counted(u))
+            eng = SimpleNamespace(device=torch.device("cpu"),
+                                  dtype=torch.float64, q=np.ones(3),
+                                  branch_lengths=np.ones(3))
+            sg = streamed_graph.StreamedGraphs(
+                eng, np.zeros((2, 3, 2)), np.zeros((1, 2, 4, 2)),
+                np.ones((1, 2)))
+            self.policy = sg.programs
+            # One chunk: one call of the objective program a pass.
+            self.call = lambda i, x: float(sg.obj(np.full(3, x))[0])
+        elif which == "forest":
+            forest_graph.reset_counters()
+            monkeypatch.setattr(forest_graph, "eager",
+                                lambda surface, fs, b, *rest: counted(b))
+            graphs = forest_graph.ForestGraphs(
+                torch.zeros(4, 4, 2), torch.ones(2), device="cpu")
+            self.policy = graphs.programs
+            fs = object()
+            # The key holds the lengths' shape: one shape a key.
+            self.call = lambda i, x: float(graphs.run(
+                "ll", fs, torch.full((i + 1,), x))[0])
+        else:
+            hybrid_graph.reset_counters()
+            monkeypatch.setattr(hybrid_graph, "hybrid_chunk",
+                                lambda *a: counted(a[-1][:, 0].double()))
+            f64 = dict(dtype=torch.float64)
+            eng = SimpleNamespace(
+                device=torch.device("cpu"), dtype=torch.float64,
+                plvs={key: torch.zeros((3,) if key.startswith("ls_")
+                                       else (3, 4, 2), **f64)
+                      for key in hybrid_graph.PLV_KEYS},
+                branch_lengths=np.ones(2), q=np.ones(2),
+                inverted_sbn_prior=np.ones(2),
+                unconditional_node_probabilities=np.ones(3),
+                _w=torch.ones(2, **f64), _tensor=torch.as_tensor)
+            graphs = hybrid_graph.HybridGraphs(eng)
+            self.policy = graphs.programs
+            # The key holds the chunk's rows: i + 1 rows, one chunk.
+            self.call = lambda i, x: graphs.run(
+                np.full((i + 1, 10), int(x), np.int64), 4096)[0]
+
+    def launched(self):
+        return self.launches[self.name]
 
 
-@pytest.mark.parametrize("slab", [False, True], ids=["on_chip", "slab"])
-def test_slab_key_stays_eager(slab):
-    """A key whose first call launched a slab route is never kept; any other
-    is kept from its second call. Every call returns the function's value."""
-    progs, make, launches = _counted_programs(slab)
-    for n in range(3):
-        x = np.full(3, float(n))
-        out = progs.run("key", [np.zeros(2, np.int64)], [x], make)
-        assert torch.equal(out, torch.as_tensor(2 * x))
-        assert len(progs) == (0 if slab else min(n, 1))
-    assert sum(launches.values()) == 3
-    assert dict(progs.seen) == ({(("key"), ((2,),), ((3,),)): "eager"}
-                                if slab else {})
+POLICY_CASES = [
+    ("packed", "kept"), ("streamed", "kept"), ("forest", "kept"),
+    ("hybrid", "kept"),
+    # Only the engines' and the streamed programs' functions launch counted
+    # kernels with a slab route; the forest and hybrid programs are torch
+    # ops and count none.
+    ("packed", "slab"), ("streamed", "slab"),
+    # The streamed programs are three fixed keys, too few to reach the cap.
+    ("packed", "capped"), ("forest", "capped"), ("hybrid", "capped"),
+    ("packed", "raises"), ("streamed", "raises"), ("forest", "raises"),
+    ("hybrid", "raises"),
+]
 
 
-def test_seen_record_is_capped():
-    """SEEN_CAP keys called once are remembered, the oldest forgotten first:
-    a forgotten key's next call is a first call again (not kept)."""
-    progs, make, _ = _counted_programs(False)
-    cap = graphs_mod.SEEN_CAP
-    for i in range(cap + 1):
-        progs.run(("key", i), [], [np.zeros(1)], make)
-    assert len(progs.seen) == cap and len(progs) == 0
-    progs.run(("key", 0), [], [np.zeros(1)], make)  # forgotten: seen again
-    assert len(progs) == 0
-    progs.run(("key", cap), [], [np.zeros(1)], make)  # remembered: kept
-    assert len(progs) == 1
+@pytest.mark.parametrize("owner,rule", POLICY_CASES)
+def test_capture_policy(owner, rule, monkeypatch):
+    """utils/graphs.py KeyedPrograms' rules through each keyed cache, on the
+    CPU, where a kept program is a plain call:
+
+    * kept: a key's first call runs eagerly and keeps nothing; its second
+      keeps the program, which its third reuses;
+    * slab: a key whose first call launched a slab route is never kept;
+    * capped: SEEN_CAP keys called once are remembered, the oldest
+      forgotten first: a forgotten key's next call is a first call again
+      (not kept), a remembered key's keeps its program;
+    * raises: a second call whose program raises keeps nothing, and the key
+      starts over: its next call is eager again, the one after kept.
+
+    Every call that returns gives the function's value and counts one
+    launch."""
+    o = _Owner(owner, monkeypatch, slab=rule == "slab")
+    policy = o.policy
+    if rule in ("kept", "slab"):
+        for n in range(3):
+            assert o.call(0, float(n)) == 2 * n
+            assert len(policy) == (0 if rule == "slab" else min(n, 1))
+        assert o.launched() == 3
+        assert policy.counts == {"captures": 0, "replays": 0,
+                                 "eager": 3 if rule == "slab" else 1}
+        assert list(policy.seen.values()) == ([True] if rule == "slab"
+                                              else [])
+    elif rule == "capped":
+        cap = graphs_mod.SEEN_CAP
+        for i in range(cap + 1):
+            assert o.call(i, 1.0) == 2
+        assert len(policy.seen) == cap and len(policy) == 0
+        o.call(0, 1.0)  # forgotten: seen again
+        assert len(policy) == 0
+        o.call(cap, 1.0)  # remembered: kept
+        assert len(policy) == 1
+        assert policy.counts["eager"] == cap + 2
+        assert o.launched() == cap + 3
+    else:
+        o.call(0, 1.0)
+        o.fail = True
+        with pytest.raises(RuntimeError, match="capture failed"):
+            o.call(0, 1.0)
+        assert len(policy) == 0 and not policy.seen
+        o.fail = False
+        for n, kept in ((2, 0), (3, 1)):
+            assert o.call(0, float(n)) == 2 * n
+            assert len(policy) == kept
+        assert policy.counts["eager"] == 2 and o.launched() == 3

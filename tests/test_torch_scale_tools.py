@@ -289,9 +289,9 @@ def test_forest_scale_matches_libsbn_tpu(data_dir):
 
 
 def test_forest_graphs_on_the_cpu_equal_the_eager_functions(data_dir):
-    """Each surface through ForestGraphs (three calls of one key, so that
-    a card would run it eagerly, capture it and replay it) returns exactly
-    what the eager function returns."""
+    """Each surface through ForestGraphs (three calls of one key: eager,
+    then its program kept and called again, a plain call over the static
+    buffer off the card) returns exactly what the eager function returns."""
     from libsbn_tpu_torch.core.site_pattern import SitePattern
     from libsbn_tpu_torch.io import newick
     from libsbn_tpu_torch.io.fasta import Alignment
@@ -315,7 +315,7 @@ def test_forest_graphs_on_the_cpu_equal_the_eager_functions(data_dir):
                                   gather_dtype=torch.bfloat16)
         for _ in range(3):
             assert forest_graph.bit_for_bit(call(), want), surface
-    assert len(graphs) == 0  # nothing is captured off the card
+    assert len(graphs) == 3  # a program kept a surface
     with pytest.raises(ValueError):
         graphs.run("nope", fs, bl)
 
